@@ -1,0 +1,609 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one
+NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, one JSON line each (also appended to chiprun_out/chip_smoke/
+lines.jsonl):
+
+1. ``build``: compiles every CUDA kernel from ``src/repro_torch/kernels/csrc``
+   (nvcc, sm_90a) and reports the build time and ptxas register/spill lines.
+2. ``kernel``: each kernel against its plain PyTorch version at the serving
+   path's shapes (B=8, Hq=9, Hkv=3, D=64, L=2048, page 16; prefill S up to
+   2048): fp32, bf16, int8 KV, window, an idle slot, ragged L and S. Error
+   against the stated tolerance, kernel / plain-version / bound times, and
+   the time of one PyTorch library call computing the same function where
+   there is one (``scaled_dot_product_attention``, a yardstick only).
+3. ``model``: full-width smollm-135m prefill + decode logits, kernel path
+   against the plain path, fp32.
+4. ``dense_engine`` / ``paged_engine``: full-width 30-layer smollm-135m in
+   bfloat16 (seeded torch init) served by ``BatchingEngine`` with 8 slots,
+   max_len 2048, 16 requests of 64-1024 prompt tokens (pairs sharing a
+   256-token prefix), 32 new tokens each. Launch counts must equal what the
+   path needs (layers x decode calls, layers x prefill calls); token streams
+   must equal the same engine forced onto the plain versions
+   (``kernel_force="ref"``), except from a step where the kernel path's
+   token has a plain-path logit within the bf16 tolerance of the plain
+   path's top logit (counted).
+5. ``profile_*``: device busy time and idle share of decode steps.
+6. ``fp32_*_engine``: the same two engines in float32, where the streams
+   are held to the fp32 logit tolerance; ``int8_*_engine``: both layouts
+   with ``kv_quant`` at 4 layers.
+7. the ``kernels`` summary line, the GPU's name and power limit, and
+   ``{"ok": true, ...}`` last. Any failed check exits non-zero.
+"""
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+OUT = ROOT / "chiprun_out" / "chip_smoke"
+MEM_BYTES_S = 3.35e12                              # H100 SXM HBM3
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+TOL = {torch.float32: dict(atol=2e-5, rtol=2e-4),
+       torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+B, HQ, HKV, D, L, PS = 8, 9, 3, 64, 2048, 16
+SEED = 0
+DEV = "cuda"
+
+
+class SmokeFailure(Exception):
+    pass
+
+
+def emit(obj):
+    line = json.dumps(obj)
+    print(line, flush=True)
+    with open(OUT / "lines.jsonl", "a") as f:
+        f.write(line + "\n")
+
+
+def require(cond, what):
+    if not cond:
+        raise SmokeFailure(what)
+
+
+def gpu_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# Timing
+# ---------------------------------------------------------------------------
+
+_flush = None
+
+
+def time_ms(fn, iters=20):
+    """Mean device time of ``fn`` per call, CUDA events around each call,
+    with a 256 MB write between calls so every call finds L2 cold (as a
+    layer does in the engine: the other layers' caches evict it)."""
+    global _flush
+    if _flush is None:
+        _flush = torch.empty(64 << 20, dtype=torch.float32, device=DEV)
+    for _ in range(3):
+        fn()
+    total = 0.0
+    for _ in range(iters):
+        _flush.zero_()
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        fn()
+        e.record()
+        e.synchronize()
+        total += s.elapsed_time(e)
+    return total / iters
+
+
+def bound(nbytes, flops, dtype):
+    t_b = nbytes / MEM_BYTES_S * 1e3
+    t_o = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+# ---------------------------------------------------------------------------
+# Kernel phase
+# ---------------------------------------------------------------------------
+
+def _quant(x):
+    amax = x.abs().amax(-1)
+    s = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    return torch.clamp(torch.round(x / s[..., None]), -127, 127) \
+        .to(torch.int8), s.float()
+
+
+def decode_inputs(gen, dtype, quant, cur, fill, Lc=L):
+    """Dense-cache inputs: row b holds positions 0..fill[b]-1 (entries past
+    ``cur`` are stale and masked), the rest empty (-1)."""
+    dev = DEV
+    q = torch.randn((B, HQ, D), generator=gen, device=dev).to(dtype)
+    k = torch.randn((B, HKV, Lc, D), generator=gen, device=dev)
+    v = torch.randn((B, HKV, Lc, D), generator=gen, device=dev)
+    ks = vs = None
+    if quant:
+        k, ks = _quant(k)
+        v, vs = _quant(v)
+    else:
+        k, v = k.to(dtype), v.to(dtype)
+    ar = torch.arange(Lc, device=dev, dtype=torch.int32)[None]
+    fill_t = torch.tensor(fill, device=dev, dtype=torch.int32)[:, None]
+    kpos = torch.where(ar < fill_t, ar, torch.full_like(ar, -1))
+    cur_t = torch.tensor(cur, device=dev, dtype=torch.int32)
+    return q, k, v, kpos.contiguous(), cur_t, ks, vs
+
+
+def to_pool(gen, k, v, kpos, ks, vs):
+    """Scatter a dense cache into a shuffled (P, Hkv, ps, D) page pool with
+    page 0 left as the null page; returns pool tensors and block tables."""
+    nb = k.shape[2] // PS
+    P = B * nb + 1
+    perm = torch.randperm(P - 1, generator=gen, device=DEV) + 1
+    bt = perm[:B * nb].reshape(B, nb).to(torch.int32)
+
+    def scatter(x):
+        shp = (P,) + (x.shape[1], PS) + tuple(x.shape[3:]) \
+            if x.dim() >= 3 else (P, PS)
+        pool = torch.zeros(shp, dtype=x.dtype, device=DEV)
+        if x.dim() == 2:                     # kpos (B, L)
+            pool.fill_(-1)
+            pool[bt.long()] = x.reshape(B, nb, PS)
+        else:                                # (B, Hkv, L, ...)
+            pool[bt.long()] = x.reshape(
+                (B, x.shape[1], nb, PS) + tuple(x.shape[3:])).movedim(2, 1)
+        return pool
+
+    return (scatter(k), scatter(v), scatter(kpos),
+            None if ks is None else scatter(ks),
+            None if vs is None else scatter(vs), bt)
+
+
+def sdpa_decode(q, k, v, kpos, cur, window):
+    """One library call computing dense decode (timing yardstick)."""
+    F = torch.nn.functional
+    mask = (kpos >= 0) & (kpos <= cur[:, None])
+    if window:
+        mask &= (cur[:, None] - kpos) < window
+    mask = mask[:, None, None, :]
+    return lambda: F.scaled_dot_product_attention(
+        q[:, :, None], k, v, attn_mask=mask, enable_gqa=True)
+
+
+def decode_cost(q, kpos, cur, window, kvbytes, paged_nb=0):
+    valid = (kpos >= 0) & (kpos <= cur[:, None])
+    if window:
+        valid &= (cur[:, None] - kpos) < window
+    n_valid = int(valid.sum())
+    qb = q.element_size()
+    nbytes = (2 * q.numel() * qb + kpos.numel() * 4 + cur.numel() * 4
+              + n_valid * HKV * D * kvbytes * 2)
+    if kvbytes == 1:
+        nbytes += n_valid * HKV * 4 * 2                # row scales
+    if paged_nb:
+        nbytes += B * paged_nb * 4                     # block table
+    return nbytes, 4 * D * HQ * n_valid
+
+
+def kernel_phase(results):
+    from repro_torch.kernels import decode_attention as da
+    from repro_torch.kernels import flash_attention as fa
+
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(64, 2047, size=B)
+    cur = [int(n) for n in lens]
+    fill = [min(L, int(n) + 1 + int(rng.integers(0, 64))) for n in lens]
+    cases = [("fp32", torch.float32, False, 0, cur, L),
+             ("bf16", torch.bfloat16, False, 0, cur, L),
+             ("int8", torch.bfloat16, True, 0, cur, L),
+             ("window256", torch.bfloat16, False, 256, cur, L),
+             ("idle_slot", torch.float32, False, 0, [-1] + cur[1:], L),
+             ("ragged_L2000", torch.float32, False, 0,
+              [min(c, 1990) for c in cur], 2000)]
+    for name, dtype, quant, window, cur_c, Lc in cases:
+        q, k, v, kpos, cur_t, ks, vs = decode_inputs(
+            gen, dtype, quant, cur_c, [min(f, Lc) for f in fill], Lc)
+        active = cur_t >= 0
+        tol = TOL[dtype]
+        kvbytes = k.element_size()
+        # dense
+        got = da.decode_attention_cuda(q, k, v, kpos, cur_t, window=window,
+                                       k_scale=ks, v_scale=vs)
+        ref = da.decode_attention_ref(q, k, v, kpos, cur_t, window=window,
+                                      k_scale=ks, v_scale=vs)
+        torch.cuda.synchronize()
+        err = float((got.float() - ref.float())[active].abs().max())
+        require(torch.allclose(got.float(), ref.float(), **tol),
+                f"decode_attention {name}: max err {err}")
+        require(not got[~active].float().abs().any(),
+                f"decode_attention {name}: idle row not 0")
+        nbytes, flops = decode_cost(q, kpos, cur_t, window, kvbytes)
+        b_ms, b_by = bound(nbytes, flops, dtype)
+        lib = None if quant else time_ms(sdpa_decode(q, k, v, kpos, cur_t,
+                                                      window))
+        rec = dict(phase="kernel", name="decode_attention", case=name,
+                   shape=dict(B=B, Hq=HQ, Hkv=HKV, D=D, L=Lc),
+                   max_abs_err=err, tol=tol,
+                   ms=time_ms(lambda: da.decode_attention_cuda(
+                       q, k, v, kpos, cur_t, window=window, k_scale=ks,
+                       v_scale=vs)),
+                   plain_ms=time_ms(lambda: da.decode_attention_ref(
+                       q, k, v, kpos, cur_t, window=window, k_scale=ks,
+                       v_scale=vs)),
+                   bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+        emit(rec)
+        results.setdefault("decode_attention", []).append(rec)
+        if Lc % PS:
+            continue
+        # paged: the same logical cache scattered over a shuffled pool
+        kp, vp, kpp, ksp, vsp, bt = to_pool(gen, k, v, kpos, ks, vs)
+        got = da.paged_decode_attention_cuda(q, kp, vp, kpp, bt, cur_t,
+                                             window=window, k_scale=ksp,
+                                             v_scale=vsp)
+        torch.cuda.synchronize()
+        err = float((got.float() - ref.float())[active].abs().max())
+        require(torch.allclose(got.float(), ref.float(), **tol),
+                f"paged_decode_attention {name}: max err {err}")
+        nbytes, flops = decode_cost(q, kpos, cur_t, window, kvbytes,
+                                    paged_nb=bt.shape[1])
+        b_ms, b_by = bound(nbytes, flops, dtype)
+        rec = dict(phase="kernel", name="paged_decode_attention", case=name,
+                   shape=dict(B=B, Hq=HQ, Hkv=HKV, D=D, L=Lc, ps=PS),
+                   max_abs_err=err, tol=tol,
+                   ms=time_ms(lambda: da.paged_decode_attention_cuda(
+                       q, kp, vp, kpp, bt, cur_t, window=window,
+                       k_scale=ksp, v_scale=vsp)),
+                   plain_ms=time_ms(lambda: da.paged_decode_attention_ref(
+                       q, kp, vp, kpp, bt, cur_t, window=window,
+                       k_scale=ksp, v_scale=vsp)),
+                   bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        emit(rec)
+        results.setdefault("paged_decode_attention", []).append(rec)
+
+    F = torch.nn.functional
+    for name, dtype, S, window, cap in (
+            ("fp32/S512", torch.float32, 512, 0, 0.0),
+            ("fp32/S2048", torch.float32, 2048, 0, 0.0),
+            ("fp32/S1500", torch.float32, 1500, 0, 0.0),
+            ("bf16/S1024", torch.bfloat16, 1024, 0, 0.0),
+            ("bf16/S2048", torch.bfloat16, 2048, 0, 0.0),
+            ("window256/S2048", torch.float32, 2048, 256, 0.0),
+            ("softcap50/S2048", torch.float32, 2048, 0, 50.0)):
+        q = torch.randn((1, HQ, S, D), generator=gen, device=DEV).to(dtype)
+        k = torch.randn((1, HKV, S, D), generator=gen,
+                        device=DEV).to(dtype)
+        v = torch.randn((1, HKV, S, D), generator=gen,
+                        device=DEV).to(dtype)
+        tol = TOL[dtype]
+        got = fa.flash_attention_cuda(q, k, v, window=window, softcap=cap)
+        ref = fa.flash_attention_ref(q, k, v, window=window, softcap=cap)
+        torch.cuda.synchronize()
+        err = float((got.float() - ref.float()).abs().max())
+        require(torch.allclose(got.float(), ref.float(), **tol),
+                f"flash_attention {name}: max err {err}")
+        pairs = sum(min(i + 1, window) if window else i + 1
+                    for i in range(S))
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+        b_ms, b_by = bound(nbytes, 4 * D * HQ * pairs, dtype)
+        lib = None
+        if not cap:
+            if window:
+                i = torch.arange(S, device=DEV)
+                wmask = (i[None] <= i[:, None]) & (i[:, None] - i[None]
+                                                   < window)
+                lib = time_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=wmask, enable_gqa=True))
+            else:
+                lib = time_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True))
+        rec = dict(phase="kernel", name="flash_attention", case=name,
+                   shape=dict(B=1, Hq=HQ, Hkv=HKV, D=D, S=S),
+                   max_abs_err=err, tol=tol,
+                   ms=time_ms(lambda: fa.flash_attention_cuda(
+                       q, k, v, window=window, softcap=cap)),
+                   plain_ms=time_ms(lambda: fa.flash_attention_ref(
+                       q, k, v, window=window, softcap=cap)),
+                   bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+        emit(rec)
+        results.setdefault("flash_attention", []).append(rec)
+
+
+# ---------------------------------------------------------------------------
+# Model and engine phases
+# ---------------------------------------------------------------------------
+
+def plain_cfg(cfg):
+    return cfg.replace(geometry=dataclasses.replace(cfg.geometry,
+                                                    kernel_force="ref"))
+
+
+def model_phase(cfg, params):
+    """Full-width prefill + 4 decode steps, kernel path against the plain
+    path, in fp32 (summation order is the only difference)."""
+    from repro_torch.models import Model
+    tol = dict(atol=1e-3, rtol=1e-3)
+    cfg32 = cfg.replace(dtype="float32")
+    out = {}
+    for tag, c in (("kernel", cfg32), ("plain", plain_cfg(cfg32))):
+        m = Model(c, device=DEV)
+        gen = np.random.default_rng(SEED)
+        toks = torch.from_numpy(gen.integers(0, c.vocab_size, (2, 100))
+                                .astype(np.int32)).to(DEV)
+        h, caches = m.prefill(params, {"tokens": toks}, 256)
+        logs = [m.logits(params, h)[:, -1]]
+        nxt = logs[0].argmax(-1).to(torch.int32)
+        pos = torch.full((2,), 100, dtype=torch.int32, device=DEV)
+        for _ in range(4):
+            lg, caches = m.decode(params, caches, nxt[:, None], pos)
+            logs.append(lg[:, 0])
+            nxt, pos = lg[:, 0].argmax(-1).to(torch.int32), pos + 1
+        out[tag] = torch.stack(logs)
+    a, b = out["kernel"], out["plain"]
+    err = float((a - b).abs().max())
+    require(bool(torch.isfinite(a).all()), "model: non-finite logits")
+    require(tuple(a.shape) == (5, 2, cfg.vocab_size), "model: logits shape")
+    require(torch.allclose(a, b, **tol), f"model: max err {err}")
+    emit(dict(phase="model", layers=cfg.n_layers, dtype="float32",
+              shape=list(a.shape), max_abs_err=err, tol=tol))
+
+
+def workload(vocab, n=16):
+    """16 prompts of 64-1024 tokens; requests 4k and 4k+1 share a 256-token
+    prefix (same tenant); two tenants."""
+    rng = np.random.default_rng(SEED + 1)
+    lens = rng.integers(64, 1025, size=n)
+    out = []
+    for i, n_tok in enumerate(lens):
+        toks = rng.integers(0, vocab, size=int(n_tok)).astype(np.int32)
+        if i % 4 == 1 and n_tok > 256 and len(out[-1][0]) > 256:
+            toks[:256] = out[-1][0][:256]
+        out.append((toks, "ab"[(i // 2) % 2]))
+    return out
+
+
+def serve(model, params, prompts, paged, new_tokens=32, top8=None):
+    """Serve ``prompts`` to completion; returns (streams, metrics)."""
+    from repro_torch.runtime import BatchingEngine
+    eng = BatchingEngine(model, params, n_slots=8, max_len=2048, paged=paged,
+                         page_size=16)
+    calls = {"decode": 0, "prefill": 0}
+    dec, pre = eng._decode_fn, eng._prefill_fn
+
+    def decode_fn(*a):
+        calls["decode"] += 1
+        logits, caches = dec(*a)
+        if top8 is not None:           # plain path: record its top 8
+            top = logits[:, 0].float().topk(8, dim=-1)
+            val, idx = top.values.cpu().numpy(), top.indices.cpu().numpy()
+            for i, r in enumerate(eng._slots):
+                if r is not None and i not in eng._prefilling:
+                    top8[(r.request_id, len(r.out_tokens))] = dict(
+                        zip(idx[i].tolist(), val[i].tolist()))
+        return logits, caches
+
+    def prefill_fn(*a, **kw):
+        calls["prefill"] += 1
+        return pre(*a, **kw)
+
+    eng._decode_fn, eng._prefill_fn = decode_fn, prefill_fn
+    step_ms = []
+    eng.on_step = lambda active, ms: step_ms.append(ms)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    reqs = [eng.submit(p, max_new_tokens=new_tokens, tenant=t)
+            for p, t in prompts]
+    drained = eng.run_until_idle()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    require(drained, "engine did not drain")
+    ttft = sorted((r.first_token_at - r.submitted_at) * 1e3 for r in reqs)
+    n_tok = sum(len(r.out_tokens) for r in reqs)
+    require(n_tok == new_tokens * len(reqs), "engine: short streams")
+    metrics = dict(requests=len(reqs), tokens=n_tok, wall_s=wall,
+                   tokens_per_s=n_tok / wall,
+                   decode_steps=eng.steps,
+                   step_ms_p50=float(np.percentile(step_ms, 50)),
+                   step_ms_p95=float(np.percentile(step_ms, 95)),
+                   ttft_ms_p50=float(np.percentile(ttft, 50)),
+                   ttft_ms_max=ttft[-1],
+                   peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   decode_calls=calls["decode"],
+                   prefill_calls=calls["prefill"])
+    if paged:
+        metrics["page_stats"] = eng.page_stats()
+    return [r.out_tokens for r in reqs], metrics
+
+
+def compare_streams(kern, plain, top8, tol):
+    """Streams must be equal, except from a step where the token the kernel
+    path took has a plain-path logit within the logit tolerance
+    (atol + rtol |top|) of the plain path's top logit (a near-tie; bf16
+    logits tie exactly at times); the rest of such a stream is not
+    compared. Returns the counts."""
+    flips = compared = 0
+    for rid, (a, b) in enumerate(zip(kern, plain)):
+        for i, (x, y) in enumerate(zip(a, b)):
+            compared += 1
+            if x != y:
+                cand = top8[(rid, i)]
+                best = max(cand.values())
+                require(x in cand and best - cand[x] <=
+                        tol["atol"] + tol["rtol"] * abs(best),
+                        f"request {rid} token {i}: {x} != {y}, plain "
+                        f"logits {cand.get(x)} vs {best}")
+                flips += 1
+                break
+    gaps = [sorted(c.values())[-1] - sorted(c.values())[-2]
+            for c in top8.values()]
+    return dict(streams_equal=flips == 0, divergent_steps_within_tol=flips,
+                tokens_compared=compared, min_plain_margin=min(gaps),
+                plain_steps_with_tie=sum(g == 0 for g in gaps))
+
+
+def engine_phase(phase, cfg, params, prompts, paged, counts):
+    """Serve ``prompts`` on the kernel path and on the plain path; check the
+    launches and compare the streams at the logit tolerance of the
+    config's dtype."""
+    from repro_torch.kernels import launches
+    from repro_torch.models import Model
+    before = dict(launches)
+    kern, km = serve(Model(cfg, device=DEV), params, prompts, paged)
+    got = {k: launches[k] - before[k] for k in launches}
+    top8 = {}
+    plain, pm = serve(Model(plain_cfg(cfg), device=DEV), params, prompts,
+                      paged, top8=top8)
+    require(all(launches[k] - before[k] == got[k] for k in launches),
+            "plain path launched a kernel")
+    dec = "paged_decode_attention" if paged else "decode_attention"
+    need = {dec: km["decode_calls"] * cfg.n_layers,
+            "flash_attention": km["prefill_calls"] * cfg.n_layers}
+    require(all(got[k] == need[k] for k in need)
+            and sum(got.values()) == sum(need.values()),
+            f"{phase}: launches {got} != needed {need}")
+    tol = TOL[getattr(torch, cfg.dtype)]
+    streams = compare_streams(kern, plain, top8, tol)
+    for k, n in got.items():
+        counts[k] = counts.get(k, 0) + n
+    emit(dict(phase=phase, layers=cfg.n_layers, dtype=cfg.dtype,
+              kv_quant=cfg.kv_quant, paged=paged, launches=got,
+              launches_needed=need, logit_tol=tol, **streams,
+              kernel_path=km, plain_path=pm))
+
+
+def profile_phase(phase, cfg, params, prompts, paged):
+    """Device busy time over 10 steady decode steps under the profiler;
+    the idle share is taken against the wall time of 10 unprofiled steps
+    just before (the profiler itself slows the host)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import Model
+    from repro_torch.runtime import BatchingEngine
+    eng = BatchingEngine(Model(cfg, device=DEV), params, n_slots=8,
+                         max_len=2048, paged=paged, page_size=16)
+    for p, t in prompts[:8]:
+        eng.submit(p, max_new_tokens=64, tenant=t)     # 3 + 20 steps
+    for _ in range(3):
+        eng.step()                      # admit + warm up
+    steps = 10
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for _ in range(steps):
+        eng.step()
+    torch.cuda.synchronize()
+    wall_ms = (time.monotonic() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+        prof_wall_ms = (time.monotonic() - t0) * 1e3 / steps
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in dev) / 1e3 / steps
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
+    emit(dict(phase=phase, steps=steps, wall_ms_per_step=wall_ms,
+              profiled_wall_ms_per_step=prof_wall_ms,
+              device_busy_ms_per_step=busy,
+              device_idle_share=1.0 - busy / wall_ms if busy else None,
+              device_ops_per_step=sum(e.count for e in dev) / steps,
+              top_kernels_ms_per_step={
+                  e.key[:80]: e.self_device_time_total / 1e3 / steps
+                  for e in top}))
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    if not (ROOT / "src" / "repro_torch" / "kernels" / "csrc").is_dir():
+        print("chip_smoke: src/repro_torch is missing beside this script",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _lib
+    from repro_torch.models import Model
+
+    OUT.mkdir(parents=True, exist_ok=True)
+    (OUT / "lines.jsonl").write_text("")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gpu = gpu_line()
+    t0 = time.monotonic()
+    built = _lib.build()
+    emit(dict(phase="build", gpu=gpu, torch=torch.__version__,
+              cuda=torch.version.cuda, build_s=built["build_s"],
+              wall_s=time.monotonic() - t0,
+              ptxas={n: _lib.ptxas_lines(n) for n in _lib.SOURCES}))
+
+    results = {}
+    kernel_phase(results)
+
+    cfg = get_config("smollm-135m")
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    params = Model(cfg, device=DEV).init(gen)
+    model_phase(cfg, params)
+
+    prompts = workload(cfg.vocab_size)
+    _lib.launches.reset()                   # the main path starts here
+    counts = {}
+    engine_phase("dense_engine", cfg, params, prompts, False, counts)
+    engine_phase("paged_engine", cfg, params, prompts, True, counts)
+    main_path = dict(_lib.launches)
+    require(all(main_path[k] > 0 for k in main_path),
+            f"a kernel of the main path never launched: {main_path}")
+    cfg32 = cfg.replace(dtype="float32")
+    engine_phase("fp32_dense_engine", cfg32, params, prompts, False, {})
+    engine_phase("fp32_paged_engine", cfg32, params, prompts, True, {})
+    profile_phase("profile_dense_decode", cfg, params, prompts, False)
+    profile_phase("profile_paged_decode", cfg, params, prompts, True)
+
+    qcfg = cfg.replace(kv_quant=True, n_layers=4)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 2)
+    qparams = Model(qcfg, device=DEV).init(gen)
+    engine_phase("int8_dense_engine", qcfg, qparams, prompts, False, {})
+    engine_phase("int8_paged_engine", qcfg, qparams, prompts, True, {})
+
+    main_case = {"decode_attention": "bf16", "paged_decode_attention": "bf16",
+                 "flash_attention": "bf16/S1024"}
+    sources = {"decode_attention": ("decode_attention", 133),
+               "paged_decode_attention": ("decode_attention", 235),
+               "flash_attention": ("flash_attention", 100)}
+    rows = []
+    for name, recs in results.items():
+        m = next(r for r in recs if r["case"] == main_case[name])
+        src, line = sources[name]
+        rows.append(dict(
+            name=name, route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{src}.cu",
+            replaces=f"src/repro/kernels/{src}.py:{line}",
+            launches=main_path[name],
+            max_abs_err=max(r["max_abs_err"] for r in recs),
+            ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
+            bound_by=m["bound_by"], library_ms=m["library_ms"]))
+    emit({"kernels": rows})
+    print(gpu, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        sys.exit(1)

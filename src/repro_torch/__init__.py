@@ -1,0 +1,8 @@
+"""PyTorch/CUDA port of the ``repro`` package for NVIDIA Hopper (H100).
+
+The JAX package ``repro`` is the reference; this package mirrors its module
+layout and imports nothing of it (nor of JAX). Pure-Python modules
+(``configs``, ``analysis.lifecycle``, ``runtime.paged``) are copies; the
+serving path's attention kernels are hand-written CUDA C++ under
+``kernels/csrc`` (see ``kernels/ops.py`` for dispatch).
+"""

@@ -1,0 +1,125 @@
+"""Build, load and count the hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface and loaded through ``ctypes``. The
+build happens at first use, all sources at once (one ``nvcc`` process each,
+started together), into ``kernels/_build/<hash of the sources and flags>/``
+(listed in ``.gitignore``), so a fresh checkout builds everything it needs
+and an edited source gets a fresh build directory. ``nvcc``'s own output,
+including ``ptxas -v``'s register and spill lines, is kept beside each
+library as ``<name>.log``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, List
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_ROOT = Path(__file__).resolve().parent / "_build"
+SOURCES = ("decode_attention", "flash_attention")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+class LaunchCounts(dict):
+    """Kernel launches per wrapper. A wrapper adds one where it launches its
+    kernel and nowhere else; a caller zeroes the counts with ``reset()``
+    before a run and reads them after it."""
+
+    def reset(self) -> None:
+        for name in self:
+            self[name] = 0
+
+
+launches = LaunchCounts(decode_attention=0, paged_decode_attention=0,
+                        flash_attention=0)
+
+
+def build_dir() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sorted(CSRC.iterdir()):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    return BUILD_ROOT / h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    cand = os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else None
+    if cand and os.path.exists(cand):
+        return cand
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
+                           "machine with the CUDA toolkit")
+    return found
+
+
+def build() -> Dict[str, float]:
+    """Compile every source missing from the build directory, all in
+    parallel. Returns {"build_s": seconds spent, "built": count}."""
+    out = build_dir()
+    todo = [n for n in SOURCES if not (out / f"lib{n}.so").exists()]
+    if not todo:
+        return {"build_s": 0.0, "built": 0}
+    out.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    t0 = time.monotonic()
+    procs = []
+    for name in todo:
+        tmp = out / f"lib{name}.so.{os.getpid()}.tmp"
+        log = out / f"{name}.log.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        with open(log, "w") as f:
+            procs.append((name, tmp, log,
+                          subprocess.Popen(cmd, stdout=f,
+                                           stderr=subprocess.STDOUT)))
+    failed = []
+    for name, tmp, log, proc in procs:
+        rc = proc.wait()
+        os.replace(log, out / f"{name}.log")
+        if rc != 0:
+            failed.append(name)
+            continue
+        os.replace(tmp, out / f"lib{name}.so")   # atomic: racing builds agree
+    if failed:
+        logs = "\n".join((out / f"{n}.log").read_text() for n in failed)
+        raise RuntimeError(f"nvcc failed for {failed}:\n{logs}")
+    return {"build_s": time.monotonic() - t0, "built": len(todo)}
+
+
+def ptxas_lines(name: str) -> List[str]:
+    """The register, shared-memory and spill lines ``ptxas -v`` printed."""
+    text = (build_dir() / f"{name}.log").read_text()
+    return [ln.strip() for ln in text.splitlines()
+            if "registers" in ln or "spill" in ln]
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build()
+            lib = ctypes.CDLL(str(build_dir() / f"lib{name}.so"))
+            lib.rt_error_string.argtypes = [ctypes.c_int]
+            lib.rt_error_string.restype = ctypes.c_char_p
+            _libs[name] = lib
+        return lib
+
+
+def check(rc: int, lib: ctypes.CDLL, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error code."""
+    if rc != 0:
+        msg = lib.rt_error_string(rc).decode()
+        raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")

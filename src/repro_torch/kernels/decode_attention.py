@@ -1,0 +1,238 @@
+"""Decode attention: one new query token per sequence against a dense
+(ring-buffered) KV cache or a block-table-paged pool, GQA, online softmax.
+
+Replaces the Pallas kernels ``repro.kernels.decode_attention.decode_attention``
+and ``paged_decode_attention`` with one hand-written CUDA kernel
+(``csrc/decode_attention.cu``); a dense cache is the paged case with one
+"page" per sequence. Beside it, the plain PyTorch versions
+(``decode_attention_ref``, ``paged_decode_attention_ref``, ported from
+``repro.kernels.ref``) serve CPU tensors and are what the kernel is held
+against.
+
+Layouts are the reference's: q (B, Hq, D); dense k/v (B, Hkv, L, D), kpos
+(B, L), scales (B, Hkv, L); pools (P, Hkv, ps, D), kpos_pool (P, ps), scales
+(P, Hkv, ps); block_tables (B, nb); cur (B,). Any of k, v, the scales and
+kpos may be strided views (the serving caches are (B, L, Hkv, D) and
+(P, ps, Hkv, D) rows, passed transposed without a copy); the last dim of
+q/k/v must be contiguous.
+
+Masking: a key counts when ``kpos >= 0 & kpos <= cur`` (and
+``cur - kpos < window``). A row with no such key returns 0. The Pallas
+kernel and ``repro.kernels.ref`` return the mean of the swept V rows there
+instead; the serving engines discard such rows (inactive paged slots).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _lib
+
+MAX_GROUP = 8                  # query heads per kv head the kernel holds
+HEAD_DIMS = (32, 64, 128)      # one lane per 1, 2 or 4 head-dim elements
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions
+# ---------------------------------------------------------------------------
+
+def decode_attention_ref(q, k, v, kpos, cur, *, window: int = 0,
+                         scale: float = 0.0, k_scale=None, v_scale=None):
+    """q (B, Hq, D); k/v (B, Hkv, L, D) (int8 with ``k_scale``/``v_scale``
+    (B, Hkv, L)); kpos (B, L); cur (B,). Returns (B, Hq, D) in q's dtype."""
+    B, Hq, D = q.shape
+    Hkv = k.shape[1]
+    g = Hq // Hkv
+    scale = scale or D ** -0.5
+    k = k.float()
+    v = v.float()
+    if k_scale is not None:
+        k = k * k_scale[..., None]
+        v = v * v_scale[..., None]
+    kk = k.repeat_interleave(g, dim=1)
+    vv = v.repeat_interleave(g, dim=1)
+    s = torch.einsum("bhd,bhld->bhl", q.float() * scale, kk)
+    cur = cur[:, None]
+    mask = (kpos >= 0) & (kpos <= cur)
+    if window:
+        mask &= (cur - kpos) < window
+    s = s.masked_fill(~mask[:, None, :], -1e30)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhl,bhld->bhd", p, vv)
+    out = out.masked_fill(~mask.any(dim=-1)[:, None, None], 0.0)
+    return out.to(q.dtype)
+
+
+def paged_decode_attention_ref(q, k_pool, v_pool, kpos_pool, block_tables,
+                               cur, *, window: int = 0, scale: float = 0.0,
+                               k_scale=None, v_scale=None):
+    """Paged-cache version: gather pages through the block table into the
+    dense layout, then defer to ``decode_attention_ref``.
+
+    q (B, Hq, D); k/v pools (P, Hkv, ps, D); kpos_pool (P, ps); block_tables
+    (B, nb) page ids; cur (B,). Unused block-table entries must reference
+    pages whose kpos entries are -1 (the engine reserves page 0 for this).
+    ``k_scale``/``v_scale`` (P, Hkv, ps) enable the int8-pool path."""
+    B, nb = block_tables.shape
+    Hkv, ps = k_pool.shape[1], k_pool.shape[2]
+    L = nb * ps
+    bt = block_tables.long()
+
+    def gather(pool):          # (P, Hkv, ps, ...) -> (B, Hkv, L, ...)
+        g = pool[bt]           # (B, nb, Hkv, ps, ...)
+        return g.movedim(2, 1).reshape((B, Hkv, L) + tuple(pool.shape[3:]))
+
+    kpos = kpos_pool[bt].reshape(B, L)
+    return decode_attention_ref(
+        q, gather(k_pool), gather(v_pool), kpos, cur, window=window,
+        scale=scale,
+        k_scale=None if k_scale is None else gather(k_scale),
+        v_scale=None if v_scale is None else gather(v_scale))
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernel wrappers
+# ---------------------------------------------------------------------------
+
+class _Args(ctypes.Structure):
+    """Mirror of ``DecodeArgs`` in csrc/decode_attention.cu."""
+    _fields_ = [(n, ctypes.c_void_p) for n in (
+        "q", "k", "v", "k_scale", "v_scale", "kpos", "cur", "block_tables",
+        "out")] + [(n, ctypes.c_longlong) for n in (
+        "q_sb", "q_sh", "k_sp", "k_sh", "k_sl", "v_sp", "v_sh", "v_sl",
+        "ks_sp", "ks_sh", "ks_sl", "vs_sp", "vs_sh", "vs_sl", "kp_sp",
+        "kp_sl", "bt_sb", "o_sb", "o_sh")] + [(n, ctypes.c_int) for n in (
+        "B", "Hq", "Hkv", "D", "nb", "ps", "window")] + [
+        ("scale", ctypes.c_float), ("dtype", ctypes.c_int),
+        ("quant", ctypes.c_int)]
+
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _entry():
+    lib = _lib.library("decode_attention")
+    fn = lib.rt_decode_attention
+    fn.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def _check_common(name, q, k, v, kpos, cur, k_scale, v_scale):
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: the CUDA kernel takes CUDA tensors, got "
+                         f"{q.device}")
+    tensors = [q, k, v, kpos, cur] + [t for t in (k_scale, v_scale)
+                                      if t is not None]
+    for t in tensors:
+        if t.device != q.device:
+            raise ValueError(f"{name}: all tensors must be on {q.device}, "
+                             f"got one on {t.device}")
+        if t.requires_grad:
+            raise ValueError(f"{name}: inference kernel, no backward")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"{name}: q dtype {q.dtype} (float32 or bfloat16)")
+    quant = k_scale is not None
+    if quant != (v_scale is not None):
+        raise ValueError(f"{name}: pass both k_scale and v_scale or neither")
+    want = torch.int8 if quant else q.dtype
+    if k.dtype != want or v.dtype != want:
+        raise TypeError(f"{name}: k/v dtype {k.dtype}/{v.dtype}, "
+                        f"expected {want}")
+    if quant and (k_scale.dtype != torch.float32
+                  or v_scale.dtype != torch.float32):
+        raise TypeError(f"{name}: scales must be float32")
+    if kpos.dtype != torch.int32 or cur.dtype != torch.int32:
+        raise TypeError(f"{name}: kpos and cur must be int32")
+    B, Hq, D = q.shape
+    Hkv = k.shape[1]
+    if D not in HEAD_DIMS or k.shape[-1] != D or v.shape[-1] != D:
+        raise ValueError(f"{name}: head dim {D} (kernel takes {HEAD_DIMS})")
+    if Hq % Hkv or Hq // Hkv > MAX_GROUP:
+        raise ValueError(f"{name}: Hq={Hq} Hkv={Hkv}: need Hq % Hkv == 0 and "
+                         f"at most {MAX_GROUP} query heads per kv head")
+    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
+        raise ValueError(f"{name}: the head dim of q/k/v must be contiguous")
+    if cur.shape != (B,):
+        raise ValueError(f"{name}: cur shape {tuple(cur.shape)} != ({B},)")
+    return quant
+
+
+def _launch(name, q, k, v, kpos, cur, bt, k_scale, v_scale, window, scale,
+            nb, ps):
+    quant = k_scale is not None
+    B, Hq, D = q.shape
+    out = torch.empty((B, Hq, D), dtype=q.dtype, device=q.device)
+    if B == 0:
+        return out
+    cur = cur.contiguous()
+    ks = k_scale.stride() if quant else (0, 0, 0)
+    vs = v_scale.stride() if quant else (0, 0, 0)
+    a = _Args(
+        q=q.data_ptr(), k=k.data_ptr(), v=v.data_ptr(),
+        k_scale=k_scale.data_ptr() if quant else None,
+        v_scale=v_scale.data_ptr() if quant else None,
+        kpos=kpos.data_ptr(), cur=cur.data_ptr(),
+        block_tables=bt.data_ptr() if bt is not None else None,
+        out=out.data_ptr(),
+        q_sb=q.stride(0), q_sh=q.stride(1),
+        k_sp=k.stride(0), k_sh=k.stride(1), k_sl=k.stride(2),
+        v_sp=v.stride(0), v_sh=v.stride(1), v_sl=v.stride(2),
+        ks_sp=ks[0], ks_sh=ks[1], ks_sl=ks[2],
+        vs_sp=vs[0], vs_sh=vs[1], vs_sl=vs[2],
+        kp_sp=kpos.stride(0), kp_sl=kpos.stride(1),
+        bt_sb=bt.stride(0) if bt is not None else 0,
+        o_sb=out.stride(0), o_sh=out.stride(1),
+        B=B, Hq=Hq, Hkv=k.shape[1], D=D, nb=nb, ps=ps, window=int(window),
+        scale=float(scale or D ** -0.5), dtype=_DTYPES[q.dtype],
+        quant=int(quant))
+    lib, fn = _entry()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = fn(ctypes.byref(a), stream)
+    _lib.check(rc, lib, name)
+    _lib.launches[name] += 1
+    return out
+
+
+def decode_attention_cuda(q, k, v, kpos, cur, *, window: int = 0,
+                          scale: float = 0.0, k_scale=None, v_scale=None):
+    """The CUDA kernel on a dense cache; arguments as ``decode_attention_ref``."""
+    name = "decode_attention"
+    quant = _check_common(name, q, k, v, kpos, cur, k_scale, v_scale)
+    B, _, D = q.shape
+    Hkv, L = k.shape[1], k.shape[2]
+    for t, shp in ((k, (B, Hkv, L, D)), (v, (B, Hkv, L, D)), (kpos, (B, L))):
+        if tuple(t.shape) != shp:
+            raise ValueError(f"{name}: shape {tuple(t.shape)} != {shp}")
+    if quant and (tuple(k_scale.shape) != (B, Hkv, L)
+                  or tuple(v_scale.shape) != (B, Hkv, L)):
+        raise ValueError(f"{name}: scales must be (B, Hkv, L)")
+    return _launch(name, q, k, v, kpos, cur, None, k_scale, v_scale, window,
+                   scale, nb=1, ps=L)
+
+
+def paged_decode_attention_cuda(q, k_pool, v_pool, kpos_pool, block_tables,
+                                cur, *, window: int = 0, scale: float = 0.0,
+                                k_scale=None, v_scale=None):
+    """The CUDA kernel on a paged pool; arguments as
+    ``paged_decode_attention_ref``."""
+    name = "paged_decode_attention"
+    quant = _check_common(name, q, k_pool, v_pool, kpos_pool, cur, k_scale,
+                          v_scale)
+    B, _, D = q.shape
+    P, Hkv, ps = k_pool.shape[:3]
+    for t, shp in ((v_pool, (P, Hkv, ps, D)), (kpos_pool, (P, ps))):
+        if tuple(t.shape) != shp:
+            raise ValueError(f"{name}: shape {tuple(t.shape)} != {shp}")
+    if quant and (tuple(k_scale.shape) != (P, Hkv, ps)
+                  or tuple(v_scale.shape) != (P, Hkv, ps)):
+        raise ValueError(f"{name}: scales must be (P, Hkv, ps)")
+    if block_tables.dtype != torch.int32 or block_tables.dim() != 2 \
+            or block_tables.shape[0] != B or block_tables.stride(1) != 1 \
+            or block_tables.device != q.device:
+        raise ValueError(f"{name}: block_tables must be ({B}, nb) int32 "
+                         f"with contiguous rows on {q.device}")
+    return _launch(name, q, k_pool, v_pool, kpos_pool, cur, block_tables,
+                   k_scale, v_scale, window, scale,
+                   nb=block_tables.shape[1], ps=ps)

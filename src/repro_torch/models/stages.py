@@ -1,0 +1,269 @@
+"""Stage planner and stage execution for the dense attention families.
+
+``plan_stages`` is the reference's planner, copied: a *site* is one layer's
+static description (mixer kind, mlp kind, rope theta, window); consecutive
+identical sites form a "run" stage (weights stacked over the run) and a
+repeating multi-site pattern (gemma2/3 local/global alternation) forms a
+"pattern" stage (each period position stacked over the repeats). The
+reference scans over the stacked weights with ``lax.scan``; here a Python
+loop indexes them layer by layer. Parameters and caches keep the
+reference's stacked layout, so the JAX parameter pytree maps onto them
+one to one (``repro_torch.interop``). Caches are updated in place: layer
+``i`` works on views ``leaf[i]`` of the stacked cache tensors.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+import torch
+
+from repro_torch.configs.base import (ATTN_LOCAL, MIXER_SHARED_ATTN,
+                                      MIXER_SSM, ModelConfig)
+from repro_torch.layers.attention import (AttnOpts, attn_decode,
+                                          attn_decode_paged, attn_forward,
+                                          fill_kv_cache, init_attention,
+                                          init_kv_cache, init_paged_kv_pool)
+from repro_torch.layers.mlp import init_mlp, mlp_forward
+from repro_torch.layers.norms import rms_norm
+
+
+# ---------------------------------------------------------------------------
+# Static plan (copied from the reference)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class LayerSite:
+    mixer: str                  # global | local | ssm | shared_attn
+    mlp: str                    # dense | moe | none
+    d_ff: int = 0
+    rope_theta: float = 10000.0
+    window: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class Stage:
+    kind: str                   # run | pattern
+    sites: Tuple[LayerSite, ...]
+    repeats: int
+
+
+def _make_site(cfg: ModelConfig, i: int) -> LayerSite:
+    mixer = cfg.layer_kinds()[i]
+    if mixer == MIXER_SSM:
+        return LayerSite(mixer=mixer, mlp="none")
+    theta = cfg.rope_theta
+    window = 0
+    if mixer == ATTN_LOCAL:
+        window = cfg.window
+        if cfg.rope_local_theta:
+            theta = cfg.rope_local_theta
+    if mixer == MIXER_SHARED_ATTN:
+        return LayerSite(mixer=mixer, mlp="dense", d_ff=cfg.d_ff,
+                         rope_theta=theta)
+    if cfg.moe is not None:
+        if i < cfg.moe.first_k_dense:
+            return LayerSite(mixer, "dense", cfg.moe.dense_d_ff or cfg.d_ff,
+                             theta, window)
+        return LayerSite(mixer, "moe", 0, theta, window)
+    return LayerSite(mixer, "dense", cfg.d_ff, theta, window)
+
+
+def plan_stages(cfg: ModelConfig) -> Tuple[Stage, ...]:
+    sites = [_make_site(cfg, i) for i in range(cfg.n_layers)]
+    stages = []
+    i = 0
+    # prefix exceptions (e.g. deepseek first_k_dense) peel off as run stages
+    k_dense = cfg.moe.first_k_dense if cfg.moe is not None else 0
+    while i < k_dense:
+        j = i
+        while j < k_dense and sites[j] == sites[i]:
+            j += 1
+        stages.append(Stage("run", (sites[i],), j - i))
+        i = j
+    rest = sites[i:]
+    p = len(cfg.pattern)
+    reps, rem = divmod(len(rest), p)
+    body = rest[: reps * p]
+    if reps:
+        period = tuple(rest[:p])
+        assert body == list(period) * reps, "pattern does not tile layer list"
+        if p == 1:
+            stages.append(Stage("run", period, reps))
+        else:
+            stages.append(Stage("pattern", period, reps))
+    j = i + reps * p
+    while j < cfg.n_layers:
+        k = j
+        while k < cfg.n_layers and sites[k] == sites[j]:
+            k += 1
+        stages.append(Stage("run", (sites[j],), k - j))
+        j = k
+    return tuple(stages)
+
+
+def attn_opts(cfg: ModelConfig, site: LayerSite) -> AttnOpts:
+    return AttnOpts(
+        n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.resolved_head_dim, window=site.window, causal=cfg.causal,
+        rope_theta=site.rope_theta, use_rope=cfg.use_rope,
+        softcap=cfg.attn_softcap, qk_norm=cfg.qk_norm,
+        query_scale=cfg.query_scale,
+        kernel_force=cfg.geometry.kernel_force)
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def _init_site(cfg: ModelConfig, site: LayerSite, gen, dtype, device):
+    z = lambda: torch.zeros((cfg.d_model,), dtype=dtype, device=device)
+    p = {"norm1": z(), "norm2": z()}
+    if cfg.post_norm:
+        p["norm1_post"] = z()
+        p["norm2_post"] = z()
+    p["attn"] = init_attention(gen, cfg.d_model, attn_opts(cfg, site), dtype,
+                               device)
+    p["mlp"] = init_mlp(gen, cfg.d_model, site.d_ff, dtype, device)
+    return p
+
+
+def _stack(trees):
+    """Stack a list of identically structured dicts leaf-wise on axis 0."""
+    return {k: _stack([t[k] for t in trees]) if isinstance(v, dict)
+            else torch.stack([t[k] for t in trees]) for k, v in trees[0].items()}
+
+
+def init_stage(cfg: ModelConfig, stage: Stage, gen, dtype, device):
+    def stacked(site):
+        return _stack([_init_site(cfg, site, gen, dtype, device)
+                       for _ in range(stage.repeats)])
+
+    if stage.kind == "run":
+        return stacked(stage.sites[0])
+    return tuple(stacked(s) for s in stage.sites)
+
+
+# ---------------------------------------------------------------------------
+# Caches
+# ---------------------------------------------------------------------------
+
+def _site_cache_len(site: LayerSite, max_len: int) -> int:
+    if site.window:
+        return min(site.window, max_len)
+    return max_len
+
+
+def _stacked_caches(cfg: ModelConfig, make_one):
+    """A cache tree mirroring the stage structure: ``make_one(site)`` gives
+    one layer's cache dict, stacked here over the stage's repeats."""
+    def stacked(site, n):
+        return {k: v[None].repeat((n,) + (1,) * v.dim())
+                for k, v in make_one(site).items()}
+
+    out = []
+    for st in plan_stages(cfg):
+        if st.kind == "run":
+            out.append(stacked(st.sites[0], st.repeats))
+        else:
+            out.append(tuple(stacked(s, st.repeats) for s in st.sites))
+    return tuple(out)
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device,
+               clamp_window: bool = True):
+    """Empty cache tree mirroring the stage structure. ``clamp_window=False``
+    sizes windowed sites at ``max_len`` too (no ring)."""
+    return _stacked_caches(cfg, lambda site: init_kv_cache(
+        batch, _site_cache_len(site, max_len) if clamp_window else max_len,
+        attn_opts(cfg, site), dtype, quant=cfg.kv_quant, device=device))
+
+
+def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int, dtype,
+                     device):
+    """Empty paged KV pool tree mirroring the stage structure: every
+    attention site gets (n_pages, page_size, kv, hd) pool tensors. One
+    logical page allocates the same physical row in every layer's pool, so
+    a single block table per sequence addresses the whole stack."""
+    return _stacked_caches(cfg, lambda site: init_paged_kv_pool(
+        n_pages, page_size, attn_opts(cfg, site), dtype, quant=cfg.kv_quant,
+        device=device))
+
+
+# ---------------------------------------------------------------------------
+# Site application
+# ---------------------------------------------------------------------------
+
+def _mlp_block(cfg, p, x):
+    h = rms_norm(x, p["norm2"])
+    y = mlp_forward(p["mlp"], h, cfg.act)
+    if cfg.post_norm:
+        y = rms_norm(y, p["norm2_post"])
+    return x + y
+
+
+def _apply_site_full(cfg, site, p, x, positions, cache):
+    """Full-sequence site application; fills ``cache`` (a layer's view of
+    the stacked prefill cache) in place when one is given."""
+    h = rms_norm(x, p["norm1"])
+    y, (k, v) = attn_forward(p["attn"], h, positions, attn_opts(cfg, site))
+    if cfg.post_norm:
+        y = rms_norm(y, p["norm1_post"])
+    x = _mlp_block(cfg, p, x + y)
+    if cache is not None:
+        fill_kv_cache(cache, k, v, positions)
+    return x
+
+
+def _apply_site_decode(cfg, site, p, x, positions, cache, block_tables):
+    h = rms_norm(x, p["norm1"])
+    if block_tables is not None:
+        y, _ = attn_decode_paged(p["attn"], h, positions, cache,
+                                 block_tables, attn_opts(cfg, site))
+    else:
+        y, _ = attn_decode(p["attn"], h, positions, cache,
+                           attn_opts(cfg, site))
+    if cfg.post_norm:
+        y = rms_norm(y, p["norm1_post"])
+    return _mlp_block(cfg, p, x + y)
+
+
+# ---------------------------------------------------------------------------
+# Stage execution
+# ---------------------------------------------------------------------------
+
+def _index(tree, i: int):
+    """Layer ``i`` of a stacked dict: views, so cache writes land in the
+    stacked tensors."""
+    return {k: _index(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+def _layers(stage: Stage, sp, sc):
+    """Yield (site, params, cache) per layer of a stage in execution order
+    (``sc`` None: no cache)."""
+    if stage.kind == "run":
+        sp, sc = (sp,), (None if sc is None else (sc,))
+    for r in range(stage.repeats):
+        for pos, site in enumerate(stage.sites):
+            yield (site, _index(sp[pos], r),
+                   None if sc is None else _index(sc[pos], r))
+
+
+def apply_stages(cfg: ModelConfig, params, x, positions, *,
+                 mode: str, caches=None, block_tables=None):
+    """Run all stages. mode: prefill | decode.
+
+    prefill: ``caches`` (from ``init_cache``, batch and length of the
+    prompt's cache) are filled in place. decode: ``caches`` are updated in
+    place; ``block_tables`` (B, nb) switches to the paged-pool path (caches
+    from ``init_paged_cache``). Returns x."""
+    for si, st in enumerate(plan_stages(cfg)):
+        sc = caches[si] if caches is not None else None
+        for site, p_i, c_i in _layers(st, params["stages"][si], sc):
+            if mode == "decode":
+                x = _apply_site_decode(cfg, site, p_i, x, positions, c_i,
+                                       block_tables)
+            else:
+                x = _apply_site_full(cfg, site, p_i, x, positions, c_i)
+    return x

@@ -1,0 +1,844 @@
+"""Continuous-batching serving engine (the reference's ``BatchingEngine``)
+on PyTorch: dense per-slot KV rows or a paged KV pool, DRR fair-share
+admission, lockstep ``step`` and event-driven ``step_async``, preemption,
+copy-on-write prefix sharing, zero-on-free scrubbing and page hand-off.
+
+Greedy decoding (argmax on the device). Decode runs eagerly, one call per
+step; its attention goes through the hand-written CUDA kernels on a CUDA
+model (``repro_torch.kernels``).
+
+The reference's jitted pool operations with buffer donation become the
+in-place index operations below: the cache tensors are mutated where they
+lie and nothing is copied beyond the touched rows and pages.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import itertools
+import threading
+import time
+from typing import Any, Callable, Deque, Dict, Iterator, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.analysis.lifecycle import sanitizer
+from repro_torch.models.api import Model
+from repro_torch.runtime.paged import PagePoolManager, default_pool_pages
+
+
+# ---------------------------------------------------------------------------
+# In-place cache/pool operations
+# ---------------------------------------------------------------------------
+
+def _site_caches(caches):
+    """Yield every site's cache dict of a stage-structured cache tree."""
+    for st in caches:
+        if isinstance(st, dict):
+            yield st
+        else:
+            yield from st
+
+
+def _splice_slot(full, one, slot: int) -> None:
+    """Write a batch-1 prefill cache into row ``slot`` of the shared caches,
+    in place. Leaves are (L, n_slots, ...) and (L, 1, ...)."""
+    for f, o in zip(_site_caches(full), _site_caches(one)):
+        for name, leaf in f.items():
+            leaf[:, slot] = o[name][:, 0].to(leaf.dtype)
+
+
+def _splice_pages(pool, one, pages: torch.Tensor, start: int) -> None:
+    """Scatter a batch-1 full-length prefill cache into pool pages, in
+    place: block ``start + i`` of the context lands in page ``pages[i]``.
+    Pool leaves are (L, P, ps, ...), prefill leaves (L, 1, max_len, ...)."""
+    nb = pages.shape[0]
+    for f, o in zip(_site_caches(pool), _site_caches(one)):
+        for name, leaf in f.items():
+            ps = leaf.shape[2]
+            seg = o[name][:, 0, start * ps:(start + nb) * ps]
+            seg = seg.reshape((seg.shape[0], nb, ps) + tuple(seg.shape[2:]))
+            leaf[:, pages] = seg.to(leaf.dtype)
+
+
+def _invalidate_pool_pages(pool, pages: torch.Tensor) -> None:
+    """Reset the ``pos`` metadata of ``pages`` to -1 across every layer's
+    pool, in place. A recycled page still carries its previous occupant's
+    positions; for the new owner those can look like valid causal history,
+    so every allocation that does not overwrite the whole page must
+    invalidate it first. Only the positions change — k/v content is dead
+    weight once pos is -1."""
+    for f in _site_caches(pool):
+        f["pos"][:, pages] = -1
+
+
+def _scrub_pool_pages(pool, pages: torch.Tensor) -> None:
+    """Zero-on-free, in place: restore ``pages`` to their init state across
+    every layer's pool — k/v content to 0, ``pos`` to -1, quantization
+    scales to 1 — so ``export_request_pages`` can never hand a previous
+    tenant's residual K/V to a migration target."""
+    for f in _site_caches(pool):
+        for name, leaf in f.items():
+            fill = -1 if name == "pos" else \
+                1 if name in ("k_scale", "v_scale") else 0
+            leaf[:, pages] = fill
+
+
+def _copy_page(pool, src: int, dst: int) -> None:
+    """Copy-on-write detach: duplicate page ``src`` into ``dst`` across
+    every layer's pool, in place (leaves are (L, P, ps, ...))."""
+    for f in _site_caches(pool):
+        for leaf in f.values():
+            leaf[:, dst] = leaf[:, src]
+
+
+def _import_pages(pool, payload, pages: torch.Tensor) -> None:
+    """Scatter a migrated request's page payload (leaves (L, nb, ps, ...))
+    into freshly allocated pages of this engine's pool, in place."""
+    for f, o in zip(_site_caches(pool), _site_caches(payload)):
+        for name, leaf in f.items():
+            leaf[:, pages] = o[name].to(device=leaf.device, dtype=leaf.dtype)
+
+
+def _argmax_tokens(logits: torch.Tensor) -> torch.Tensor:
+    """Greedy sampling on the device: (n_slots, 1, vocab) logits ->
+    (n_slots,) int32 ids, so only 4 bytes per slot cross to the host."""
+    return torch.argmax(logits[:, 0, :], dim=-1).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Requests
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Request:
+    request_id: int
+    prompt: np.ndarray                 # (S,) int32
+    max_new_tokens: int = 16
+    tenant: str = "default"
+    out_tokens: List[int] = dataclasses.field(default_factory=list)
+    done: threading.Event = dataclasses.field(default_factory=threading.Event)
+    submitted_at: float = dataclasses.field(default_factory=time.monotonic)
+    first_token_at: Optional[float] = None
+    finished_at: Optional[float] = None
+    finish_reason: Optional[str] = None   # "eos" | "length" | "cancelled"
+
+
+@dataclasses.dataclass
+class _PendingPrefill:
+    """A slot admitted by the event-driven loop whose prompt prefill has
+    not yet been spliced into the shared caches. The batched prefill is
+    computed once at admission but only buffered here; the slot is
+    accounted ``prefill_chunk`` context tokens per engine event and joins
+    decode when the accounted chunks cover the context."""
+    chunks_left: int
+    buf: Any                    # batch-1 prefill caches (None: nothing to splice)
+    plan: Any                   # paged AdmitPlan (None on dense engines)
+    ctx_len: int                # len(prompt + replayed tokens)
+    last_token: int             # final context token -> first decode input
+
+
+def _req_event(req: Request, event: str) -> None:
+    """Drive the request lifecycle machine (RC3E_SANITIZE=1)."""
+    tok = getattr(req, "_san", None)
+    if tok is not None:
+        sanitizer.emit("request", tok, event)
+
+
+class BatchingEngine:
+    """Slot-based continuous batching: up to ``n_slots`` concurrent requests
+    share one decode step; prefill happens per request into its slot.
+
+    Requests are tenant-tagged: each tenant has its own FIFO queue, and
+    admission runs weighted deficit round-robin across tenants
+    (``_pop_next_request``). A tenant's share caps its concurrent slots.
+
+    Two cache layouts:
+
+    * dense (default): per-slot (n_slots, max_len) KV rows;
+    * ``paged=True``: one shared page pool (``cache_pages`` pages of
+      ``page_size`` positions) virtualized across slots by block tables,
+      with queue-on-exhaustion admission, page-by-page growth, tenant-scoped
+      copy-on-write prefix sharing and preemption back to the queue head.
+
+    The engine runs on ``model.device`` (CUDA unless the model was built
+    for the CPU).
+    """
+
+    # contexts shorter than this prefill through the decode step; longer
+    # ones get the batched prefill call
+    PREFILL_MIN_TOKENS = 4
+
+    def __init__(self, model: Model, params, n_slots: int = 4,
+                 max_len: int = 256, eos_id: Optional[int] = None,
+                 prefill_mode: str = "batched",
+                 id_counter: Optional[Iterator[int]] = None,
+                 paged: bool = False, page_size: int = 16,
+                 cache_pages: Optional[int] = None,
+                 scrub_on_free: bool = True):
+        if prefill_mode not in ("batched", "legacy"):
+            raise ValueError(f"unknown prefill_mode {prefill_mode!r}")
+        self.model = model
+        self.device = model.dev
+        self.params = params
+        self.n_slots = n_slots
+        self.max_len = max_len
+        self.eos_id = eos_id
+        self.prefill_mode = prefill_mode
+        self.paged = paged
+        self._queues: "Dict[str, Deque[Request]]" = {}
+        self._qlock = threading.Lock()
+        self._tenant_share: Dict[str, int] = {}      # max concurrent slots
+        self._tenant_pages: Dict[str, int] = {}      # max pool pages held
+        self._tenant_weight: Dict[str, float] = {}   # fair-share weight
+        self._deficit: Dict[str, float] = {}         # DRR credit per tenant
+        self._rr_offset = 0                          # DRR tie-break cursor
+        self._ids = id_counter if id_counter is not None \
+            else itertools.count()
+        self._slots: List[Optional[Request]] = [None] * n_slots
+        self._prefilling: Dict[int, _PendingPrefill] = {}
+        self.steps = 0
+        self.preemptions = 0
+        self.scrub_ms = 0.0        # cumulative zero-on-free dispatch cost
+        self._scope = sanitizer.scope()      # slot-machine key namespace
+        # device block-table cache, keyed on the pool's version counter
+        self._bt_cache = None
+        self._bt_version = -1
+        if paged:
+            if max_len % page_size:
+                raise ValueError(f"max_len {max_len} must be a multiple of "
+                                 f"page_size {page_size}")
+            self.page_size = page_size
+            max_blocks = max_len // page_size
+            if cache_pages is None:
+                cache_pages = default_pool_pages(n_slots, max_blocks)
+            self.cache_pages = cache_pages
+            self.pool = PagePoolManager(cache_pages, page_size, n_slots,
+                                        max_blocks,
+                                        scrub_on_free=scrub_on_free)
+            self.caches = model.make_paged_caches(cache_pages, page_size)
+            self._pos = np.full((n_slots,), -1, np.int32)
+            self._min_cache_len = max_len      # full-length pools, no ring
+        else:
+            self.page_size = 0
+            self.cache_pages = 0
+            self.pool = None
+            self.caches = model.make_caches(n_slots, max_len)
+            self._pos = np.zeros((n_slots,), np.int32)
+            # padding a prefill past the shortest layer cache (a local-
+            # attention window) would evict real in-window history
+            self._min_cache_len = min(f["k"].shape[2]
+                                      for f in _site_caches(self.caches))
+        # the model's decode and prefill entry points for this layout
+        self._decode_fn = model.decode_paged if paged else model.decode
+        self._prefill_fn = model.prefill
+        # hooks: called after every decode step / on every completion
+        self.on_step: Optional[Callable[[Dict[str, int], float], None]] = None
+        self.on_finish: Optional[Callable[[Request], None]] = None
+
+    def _decode(self, tokens: np.ndarray, pos: np.ndarray):
+        """One decode step over all slots; the caches update in place.
+        The two small per-step uploads ((n_slots, 1) tokens and (n_slots,)
+        positions) are the step's inputs."""
+        tok = torch.from_numpy(tokens).to(self.device)
+        posd = torch.from_numpy(pos.copy()).to(self.device)
+        extra = (self._block_tables_dev(),) if self.paged else ()
+        logits, _ = self._decode_fn(self.params, self.caches, tok, posd,
+                                    *extra)
+        return logits
+
+    def _prefill(self, toks: torch.Tensor):
+        """Batch-1 prefill of a padded context -> its caches (full length,
+        no ring, on a paged engine)."""
+        _, caches = self._prefill_fn(self.params, {"tokens": toks},
+                                     self.max_len,
+                                     clamp_window=not self.paged)
+        return caches
+
+    def set_tenant_share(self, tenant: str, max_slots: Optional[int]) -> None:
+        """Cap a tenant's concurrent engine slots (None removes the cap)."""
+        if max_slots is None:
+            self._tenant_share.pop(tenant, None)
+        else:
+            self._tenant_share[tenant] = max(1, int(max_slots))
+
+    def set_tenant_weight(self, tenant: str,
+                          weight: Optional[float]) -> None:
+        """Fair-share weight for the deficit round-robin admission policy
+        (None resets to the default 1.0)."""
+        if weight is None:
+            self._tenant_weight.pop(tenant, None)
+        else:
+            self._tenant_weight[tenant] = max(1e-3, float(weight))
+
+    def set_tenant_pages(self, tenant: str,
+                         max_pages: Optional[int]) -> None:
+        """Cap a tenant's pool pages (paged mode; None removes the cap)."""
+        if max_pages is None:
+            self._tenant_pages.pop(tenant, None)
+        else:
+            self._tenant_pages[tenant] = max(1, int(max_pages))
+
+    def submit(self, prompt, max_new_tokens: int = 16,
+               tenant: str = "default") -> Request:
+        prompt = np.asarray(prompt, np.int32)
+        if prompt.size == 0:
+            raise ValueError("empty prompt: a request needs at least one "
+                             "prompt token to seed decoding")
+        if self.paged:
+            worst = (len(prompt) + max_new_tokens - 1) // self.page_size + 1
+            if worst > self.pool.max_blocks:
+                raise ValueError(
+                    f"request may need {worst} blocks, block table has "
+                    f"{self.pool.max_blocks} (max_len {self.max_len}) — "
+                    "it could never be admitted")
+            if worst > self.pool.total_pages:
+                raise ValueError(
+                    f"request may need {worst} pages, pool has only "
+                    f"{self.pool.total_pages} — it could never be admitted")
+        req = Request(next(self._ids), prompt, max_new_tokens, tenant=tenant)
+        if sanitizer.enabled:
+            req._san = sanitizer.scope()
+            _req_event(req, "submit")
+        with self._qlock:
+            self._queues.setdefault(tenant,
+                                    collections.deque()).append(req)
+        return req
+
+    def resume(self, req: Request, front: bool = False) -> Request:
+        """Requeue a request preempted locally or drained from another
+        engine: its generated tokens are replayed as a prompt prefix when
+        it is re-admitted. A request already settled is dropped."""
+        if req.done.is_set():
+            return req
+        _req_event(req, "requeue")
+        with self._qlock:
+            q = self._queues.setdefault(req.tenant, collections.deque())
+            if front:
+                q.appendleft(req)
+            else:
+                q.append(req)
+        return req
+
+    # ---------------- tenant bookkeeping ----------------
+    def _drain_queue(self, tenant: str) -> List[Request]:
+        with self._qlock:
+            q = self._queues.pop(tenant, None)
+        return list(q) if q is not None else []
+
+    def cancel_queued(self, tenant: str) -> List[Request]:
+        """Drop a tenant's not-yet-admitted requests, marked done."""
+        dropped = self._drain_queue(tenant)
+        for r in dropped:
+            _req_event(r, "cancel")
+            r.finish_reason = "cancelled"
+            r.finished_at = time.monotonic()
+            r.done.set()
+        return dropped
+
+    def cancel(self, req: Request) -> bool:
+        """Cancel ONE request wherever it is (queued or in flight; its slot
+        and pages are freed at once). Returns False when it already
+        finished."""
+        if req.done.is_set():
+            return False
+        dequeued = False
+        with self._qlock:
+            q = self._queues.get(req.tenant)
+            if q is not None and req in q:
+                q.remove(req)
+                if not q:
+                    del self._queues[req.tenant]
+                dequeued = True
+        if dequeued:
+            self._finish(req, "cancelled")
+            return True
+        for i, r in enumerate(self._slots):
+            if r is req:
+                self._release_slot(i)
+                self._finish(req, "cancelled")
+                return True
+        return False
+
+    def _finish(self, req: Request, reason: str):
+        _req_event(req, "cancel" if reason == "cancelled" else "finish")
+        req.finish_reason = reason
+        req.finished_at = time.monotonic()
+        req.done.set()
+        if self.on_finish is not None:
+            self.on_finish(req)
+
+    def _release_slot(self, slot: int):
+        """Free a slot (and its pool pages) without touching the request."""
+        sanitizer.emit("slot", (self._scope, slot), "release")
+        self._slots[slot] = None
+        self._prefilling.pop(slot, None)   # buffered prefill dies with it
+        self._pos[slot] = -1 if self.paged else 0
+        if self.paged:
+            self.pool.release_slot(slot)
+
+    def drain_tenant(self, tenant: str) -> List[Request]:
+        """Evict a tenant's in-flight and queued requests for hand-off to
+        another engine (export pages BEFORE draining). Returns them,
+        in-flight first."""
+        moved: List[Request] = []
+        for i, r in enumerate(self._slots):
+            if r is not None and r.tenant == tenant:
+                _req_event(r, "drain")
+                self._release_slot(i)
+                moved.append(r)
+        moved.extend(self._drain_queue(tenant))
+        return moved
+
+    def inflight(self, tenant: Optional[str] = None) -> List[Request]:
+        return [r for r in self._slots
+                if r is not None and (tenant is None or r.tenant == tenant)]
+
+    def holds(self, req: Request) -> bool:
+        """Is this request physically on this engine (slotted or queued)?"""
+        if any(r is req for r in self._slots):
+            return True
+        with self._qlock:
+            q = self._queues.get(req.tenant)
+            return q is not None and any(r is req for r in q)
+
+    def active_by_tenant(self) -> Dict[str, int]:
+        counts: Dict[str, int] = {}
+        for r in self._slots:
+            if r is not None:
+                counts[r.tenant] = counts.get(r.tenant, 0) + 1
+        return counts
+
+    def queued_by_tenant(self) -> Dict[str, int]:
+        with self._qlock:
+            return {t: len(q) for t, q in self._queues.items() if q}
+
+    def _ctx_tokens(self, req: Request) -> np.ndarray:
+        """Prompt + already-generated tokens: the context a (re-)admission
+        must cover (the final token seeds the next decode step)."""
+        if not req.out_tokens:
+            return req.prompt
+        # admission-time list->array conversion, not per-decode-step
+        return np.concatenate(
+            [req.prompt,
+             np.asarray(req.out_tokens, np.int32)])  # rc3e: allow-host-sync
+
+    def _pages_dev(self, pages) -> torch.Tensor:
+        """Upload a page-index list (block order kept) at admission, growth
+        or flush time — never per decode step."""
+        return torch.as_tensor(
+            np.asarray(pages, np.int64),             # rc3e: allow-host-sync
+            device=self.device)
+
+    def _invalidate_pages(self, pages) -> None:
+        """Reset recycled pages' stale ``pos`` metadata before first use by
+        a token-at-a-time writer."""
+        if not self.paged or not pages:
+            return
+        _invalidate_pool_pages(self.caches, self._pages_dev(sorted(pages)))
+
+    def _flush_scrub(self) -> int:
+        """Drain the pool's zero-on-free queue with ONE batched zeroing.
+        Called at the top of every step and before any page allocation."""
+        if not self.paged or not self.pool.scrub_pending:
+            return 0
+        pids = self.pool.take_scrub()
+        t0 = time.monotonic()
+        _scrub_pool_pages(self.caches, self._pages_dev(sorted(pids)))
+        self.scrub_ms += (time.monotonic() - t0) * 1e3
+        return len(pids)
+
+    def _page_budget_ok(self, tenant: str, extra: int) -> bool:
+        budget = self._tenant_pages.get(tenant)
+        return budget is None or \
+            self.pool.tenant_pages(tenant) + extra <= budget
+
+    def _can_admit(self, req: Request) -> bool:
+        """Paged admission gate: queue-on-exhaustion."""
+        if not self.paged:
+            return True
+        needed = self.pool.pages_needed(
+            req.tenant, self._ctx_tokens(req),
+            share=self.prefill_mode == "batched")
+        return needed <= self.pool.free_pages and \
+            self._page_budget_ok(req.tenant, needed)
+
+    def _admit_cost(self, req: Request) -> float:
+        """What one admission debits from its tenant's fair-share credit:
+        one decode slot plus the prefill work, in page-sized chunks."""
+        unit = self.page_size if self.paged else 16
+        return 1.0 + (len(self._ctx_tokens(req)) - 1) / max(1, unit)
+
+    def _pop_next_request(self) -> Optional[Request]:
+        """Weighted deficit round-robin over tenants: every eligible tenant
+        accrues credit proportional to its weight each time a slot is
+        offered, the highest-credit tenant is served and debited
+        ``_admit_cost``; ties break in rotation order."""
+        with self._qlock:
+            active = self.active_by_tenant()
+            for t in list(self._deficit):
+                if t not in self._queues and not active.get(t):
+                    del self._deficit[t]
+            tenants = [t for t, q in self._queues.items() if q]
+            if not tenants:
+                return None
+            n = len(tenants)
+            order = [tenants[(self._rr_offset + k) % n] for k in range(n)]
+            eligible = []
+            for t in order:
+                share = self._tenant_share.get(t, self.n_slots)
+                if active.get(t, 0) >= share:
+                    continue
+                if not self._can_admit(self._queues[t][0]):
+                    continue        # per-tenant FIFO: head blocks the rest
+                eligible.append(t)
+            if not eligible:
+                return None
+            best = None
+            for t in eligible:
+                self._deficit[t] = self._deficit.get(t, 0.0) + \
+                    self._tenant_weight.get(t, 1.0)
+                if best is None or self._deficit[t] > self._deficit[best]:
+                    best = t        # strict >: first-in-order wins ties
+            req = self._queues[best].popleft()
+            if not self._queues[best]:
+                del self._queues[best]
+            self._deficit[best] = self._deficit.get(best, 0.0) - \
+                self._admit_cost(req)
+            self._rr_offset = (tenants.index(best) + 1) % n
+            return req
+
+    # ---------------- engine loop ----------------
+    def _admit(self, async_chunk: Optional[int] = None):
+        for slot in range(self.n_slots):
+            if self._slots[slot] is not None:
+                continue
+            req = self._pop_next_request()
+            if req is None:
+                return
+            self._slots[slot] = req
+            sanitizer.emit("slot", (self._scope, slot), "occupy")
+            _req_event(req, "admit")
+            if async_chunk is not None:
+                self._start_prefill_async(slot, req, async_chunk)
+                continue
+            toks = self._ctx_tokens(req)
+            if self.paged:
+                self._admit_paged(slot, req, toks)
+            else:
+                ctx = toks[:-1]
+                if len(ctx) >= self.PREFILL_MIN_TOKENS \
+                        and self.prefill_mode == "batched":
+                    self._prefill_slot(slot, ctx)
+                else:
+                    for i, t in enumerate(ctx):
+                        self._step_single(slot, int(t), i)
+                self._pos[slot] = len(toks) - 1
+            req._next_input = int(toks[-1])
+            _req_event(req, "ready")   # lockstep: prefill completed inline
+
+    def _start_prefill_async(self, slot: int, req: Request, chunk: int):
+        """Admit ``req`` into ``slot`` without blocking the engine event:
+        compute the batched prefill once, buffer the result, and let
+        ``step_async`` account one ``chunk`` of context tokens per event
+        before the slot joins decode."""
+        toks = self._ctx_tokens(req)
+        ctx = toks[:-1]
+        plan = None
+        if self.paged:
+            self._flush_scrub()
+            plan = self.pool.admit(slot, req.tenant, toks,
+                                   share=self.prefill_mode == "batched")
+        buf = None
+        chunks = 0
+        if plan is not None and plan.skip_prefill:
+            pass                        # every context page prefix-matched
+        elif len(ctx) >= self.PREFILL_MIN_TOKENS \
+                and self.prefill_mode == "batched":
+            buf = self._prefill(self._pad_ctx(ctx))
+            chunks = -(-len(ctx) // max(1, int(chunk)))   # ceil
+        else:
+            if plan is not None:
+                self._invalidate_pages(plan.write_pages)
+            for i, t in enumerate(ctx):
+                self._step_single(slot, int(t), i)
+        if self.paged:
+            # masked until ready: decode rows at -1 write the null page
+            self._pos[slot] = -1
+        pending = _PendingPrefill(chunks, buf, plan, len(toks),
+                                  int(toks[-1]))
+        if chunks <= 0:
+            self._finish_prefill(slot, pending)
+        else:
+            self._prefilling[slot] = pending
+
+    def _finish_prefill(self, slot: int, pending: _PendingPrefill):
+        """Splice the buffered prefill and open the slot for decode."""
+        req = self._slots[slot]
+        if pending.buf is not None:
+            if self.paged:
+                plan = pending.plan
+                _splice_pages(self.caches, pending.buf,
+                              self._pages_dev(plan.write_pages),
+                              start=plan.write_start)
+            else:
+                _splice_slot(self.caches, pending.buf, slot)
+        self._pos[slot] = pending.ctx_len - 1
+        req._next_input = pending.last_token
+        _req_event(req, "ready")
+
+    def _admit_paged(self, slot: int, req: Request, toks: np.ndarray):
+        """Page-granular admission: prefix-matched pages are adopted by
+        refcount; only the unshared suffix blocks are prefilled and
+        spliced."""
+        self._flush_scrub()
+        plan = self.pool.admit(slot, req.tenant, toks,
+                               share=self.prefill_mode == "batched")
+        ctx = toks[:-1]
+        if not plan.skip_prefill:
+            if len(ctx) >= self.PREFILL_MIN_TOKENS \
+                    and self.prefill_mode == "batched":
+                self._prefill_slot_paged(slot, ctx, plan)
+            else:
+                self._invalidate_pages(plan.write_pages)
+                for i, t in enumerate(ctx):
+                    self._step_single(slot, int(t), i)
+        self._pos[slot] = len(toks) - 1
+
+    def _prefill_slot(self, slot: int, ctx: np.ndarray):
+        """Prefill a slot's context with ONE batched call (lengths padded
+        to power-of-two buckets; padded positions sit past the context and
+        are causally masked until generation overwrites them)."""
+        _splice_slot(self.caches, self._prefill(self._pad_ctx(ctx)), slot)
+
+    def _prefill_slot_paged(self, slot: int, ctx: np.ndarray, plan):
+        """Prefill, then scatter ONLY the unshared suffix blocks into this
+        slot's pool pages."""
+        buf = self._prefill(self._pad_ctx(ctx))
+        _splice_pages(self.caches, buf,
+                      self._pages_dev(plan.write_pages),
+                      start=plan.write_start)
+
+    def _pad_ctx(self, ctx: np.ndarray) -> torch.Tensor:
+        n = len(ctx)
+        bucket = 8
+        while bucket < n:
+            bucket *= 2
+        pad = max(n, min(bucket, self._min_cache_len))
+        toks = np.zeros((1, pad), np.int32)
+        toks[0, :n] = ctx
+        # prefill prompt upload: once per admission, not per step
+        return torch.from_numpy(toks).to(self.device)
+
+    def _block_tables_dev(self) -> torch.Tensor:
+        """Device copy of the pool block tables, re-uploaded only when the
+        pool's ``version`` counter moved."""
+        if self._bt_version != self.pool.version:
+            self._bt_cache = torch.from_numpy(
+                np.ascontiguousarray(self.pool.block_tables, np.int32)
+            ).to(self.device)
+            self._bt_version = self.pool.version
+        return self._bt_cache
+
+    def _step_single(self, slot: int, token: int, pos: int):
+        """Replay ONE context token through the decode step (short or
+        legacy-mode prefill). Only the cache writes matter here."""
+        tokens = np.zeros((self.n_slots, 1), np.int32)
+        tokens[slot, 0] = token
+        if self.paged:
+            # other rows stay inactive (-1): their k/v writes land in the
+            # null page instead of garbling a possibly-shared write page
+            posv = np.full((self.n_slots,), -1, np.int32)
+        else:
+            posv = self._pos.copy()
+        posv[slot] = pos
+        self._decode(tokens, posv)
+
+    def _prepare_writes(self):
+        """Before a paged decode step: every active slot's write position
+        must land in a privately owned page (grow at a page boundary,
+        copy-on-write a shared page, preempt on exhaustion)."""
+        ps = self.page_size
+        for i, req in enumerate(self._slots):
+            if req is None or i in self._prefilling:
+                continue            # mid-prefill: pos is -1, nothing writes
+            wpos = int(self._pos[i])
+            block = wpos // ps
+            if block >= len(self.pool.slot_blocks(i)):
+                if self.pool.free_pages >= 1 and \
+                        self._page_budget_ok(req.tenant, 1):
+                    self._flush_scrub()
+                    self._invalidate_pages([self.pool.grow(i, req.tenant)])
+                else:
+                    self._preempt(i)
+                continue
+            if self.pool.is_shared(i, block):
+                if self.pool.free_pages >= 1 and \
+                        self._page_budget_ok(req.tenant, 1):
+                    self._flush_scrub()
+                    src, dst = self.pool.cow(i, block, req.tenant)
+                    _copy_page(self.caches, src, dst)
+                else:
+                    self._preempt(i)
+                continue
+            self.pool.touch_write(i, block)
+
+    def _preempt(self, slot: int):
+        req = self._slots[slot]
+        _req_event(req, "preempt")
+        self._release_slot(slot)
+        self.resume(req, front=True)
+        self.preemptions += 1
+
+    def step(self) -> int:
+        """One engine iteration: admit + one decode step for active slots.
+        Returns number of active slots."""
+        self._flush_scrub()       # pages freed since the last step
+        self._admit()
+        return self._decode_once()
+
+    def step_async(self, prefill_chunk: int = 4) -> int:
+        """One event-driven engine iteration: admit without blocking
+        (prefills are buffered and accounted ``prefill_chunk`` context
+        tokens per event), advance pending prefills one chunk, then decode
+        the slots whose prefill already completed. Token streams equal the
+        lockstep path's."""
+        self._flush_scrub()
+        self._admit(async_chunk=prefill_chunk)
+        for slot in sorted(self._prefilling):
+            pending = self._prefilling[slot]
+            pending.chunks_left -= 1
+            _req_event(self._slots[slot], "chunk")
+            if pending.chunks_left <= 0:
+                del self._prefilling[slot]
+                self._finish_prefill(slot, pending)
+        return self._decode_once()
+
+    def _decode_once(self) -> int:
+        """One decode step over every ready slot. Returns the number of
+        slots decoded."""
+        if self.paged:
+            self._prepare_writes()
+        active = [i for i, r in enumerate(self._slots)
+                  if r is not None and i not in self._prefilling]
+        if not active:
+            return 0
+        tokens = np.zeros((self.n_slots, 1), np.int32)
+        for i in active:
+            tokens[i, 0] = self._slots[i]._next_input
+        t0 = time.monotonic()
+        logits = self._decode(tokens, self._pos)
+        # argmax on device: download (n_slots,) int32 ids, not the logits
+        next_ids = _argmax_tokens(logits).cpu().numpy()  # rc3e: allow-host-sync
+        step_ms = (time.monotonic() - t0) * 1e3
+        self.steps += 1
+        if self.on_step is not None:
+            self.on_step(self.active_by_tenant(), step_ms)
+        for i in active:
+            req = self._slots[i]
+            nxt = int(next_ids[i])
+            if req.first_token_at is None:
+                req.first_token_at = time.monotonic()
+            req.out_tokens.append(nxt)
+            req._next_input = nxt
+            self._pos[i] += 1
+            eos = self.eos_id is not None and nxt == self.eos_id
+            if len(req.out_tokens) >= req.max_new_tokens or eos \
+                    or self._pos[i] >= self.max_len - 1:
+                self._release_slot(i)
+                self._finish(req, "eos" if eos else "length")
+        return len(active)
+
+    def idle(self) -> bool:
+        with self._qlock:
+            queued = any(self._queues.values())
+        return all(r is None for r in self._slots) and not queued
+
+    def run_until_idle(self, max_steps: int = 10000) -> bool:
+        """Run until no work remains. False when ``max_steps`` expired with
+        work pending or queued work can make no progress."""
+        for _ in range(max_steps):
+            n = self.step()
+            if self.idle():
+                return True
+            if n == 0:
+                return False        # nothing active, nothing admittable
+        return self.idle()
+
+    # ---------------- paged introspection / hand-off ----------------
+    def page_stats(self) -> dict:
+        """Pool occupancy for the monitor (empty dict in dense mode)."""
+        if not self.paged:
+            return {}
+        s = self.pool.stats()
+        s["preemptions"] = self.preemptions
+        s["scrub_ms"] = round(self.scrub_ms, 3)
+        return s
+
+    def export_request_pages(self, req: Request):
+        """Copy an in-flight request's pool pages to host memory for a live
+        hand-off: the cache tree with leaves (L, nb, ps, ...) as CPU
+        tensors (numpy has no bfloat16). Call BEFORE draining. None when
+        the request holds no slot or the engine is dense."""
+        if not self.paged:
+            return None
+        for i, r in enumerate(self._slots):
+            if r is req:
+                pages = self.pool.slot_blocks(i)
+                if not pages:
+                    return None
+                idx = self._pages_dev(pages)
+                return tuple(
+                    {k: v[:, idx].cpu() for k, v in st.items()}
+                    if isinstance(st, dict) else
+                    tuple({k: v[:, idx].cpu() for k, v in f.items()}
+                          for f in st)
+                    for st in self.caches)
+        return None
+
+    def import_request_pages(self, req: Request, payload,
+                             ctx_len: Optional[int] = None) -> bool:
+        """Adopt a migrated request by copying its pages into this pool —
+        decode continues without prefix replay. Returns False (caller
+        falls back to replay) when no slot, pages or budget are free, or
+        the payload was cut at another page size. ``ctx_len`` is the
+        context length at export time; tokens generated since are caught
+        up through the decode step."""
+        if not self.paged:
+            return False
+        first = next(_site_caches(payload))["pos"]
+        if first.shape[2] != self.page_size:
+            return False
+        slot = next((i for i, r in enumerate(self._slots) if r is None),
+                    None)
+        if slot is None:
+            return False
+        nb = first.shape[1]
+        if nb > self.pool.free_pages or \
+                not self._page_budget_ok(req.tenant, nb):
+            return False
+        self._flush_scrub()
+        pages = [self.pool.grow(slot, req.tenant) for _ in range(nb)]
+        _import_pages(self.caches, payload, self._pages_dev(pages))
+        toks = self._ctx_tokens(req)
+        base = len(toks) if ctx_len is None else int(ctx_len)
+        for off, t in enumerate(toks[base - 1:len(toks) - 1]):
+            pos = base - 1 + off
+            if pos // self.page_size >= len(self.pool.slot_blocks(slot)):
+                if self.pool.free_pages >= 1 and \
+                        self._page_budget_ok(req.tenant, 1):
+                    self._flush_scrub()
+                    self._invalidate_pages(
+                        [self.pool.grow(slot, req.tenant)])
+                else:
+                    # can't cover the delta — roll the adoption back
+                    self.pool.release_slot(slot)
+                    return False
+            self._step_single(slot, int(t), pos)
+        self._slots[slot] = req
+        sanitizer.emit("slot", (self._scope, slot), "occupy")
+        _req_event(req, "adopt")
+        self._pos[slot] = len(toks) - 1
+        req._next_input = int(toks[-1])
+        return True

@@ -46,3 +46,8 @@ except ImportError:
     stub.__version__ = "0.0-stub"
     sys.modules["hypothesis"] = stub
     sys.modules["hypothesis.strategies"] = stub.strategies
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips with a reason elsewhere")

@@ -1,0 +1,213 @@
+"""Port kernels: the plain PyTorch versions in ``repro_torch.kernels`` against
+the JAX package's Pallas kernels (interpret mode) and pure-jnp oracles, on
+the cases of tests/test_kernels.py. The CUDA kernels themselves are held
+against the plain versions on the card in tests/test_torch_cuda.py.
+
+Tolerance: atol 2e-5, rtol 2e-4 in float32 (the reference's own, covering
+summation-order differences of the online softmax).
+
+A decode row with no valid key (an idle slot, cur = -1) is compared on the
+active rows only: the port returns 0 there, the reference the mean of the
+swept V rows (ROADMAP.md Queue 3).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro_torch.kernels import decode_attention as tda
+from repro_torch.kernels import flash_attention as tfa
+from repro_torch.kernels import launches, ops
+
+torch.set_num_threads(1)
+
+TOL = dict(atol=2e-5, rtol=2e-4)
+
+
+def _normal(rng, shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+def _quant(x):
+    amax = np.abs(x).max(-1)
+    s = np.where(amax > 0, amax / 127.0, 1.0).astype(np.float32)
+    q = np.clip(np.round(x / s[..., None]), -127, 127).astype(np.int8)
+    return q, s
+
+
+# ---------------------------------------------------------------------------
+# Flash prefill
+# ---------------------------------------------------------------------------
+
+def _flash_inputs(b, hq, hkv, s, d, seed=0):
+    rng = np.random.default_rng(seed)
+    return (_normal(rng, (b, hq, s, d)), _normal(rng, (b, hkv, s, d)),
+            _normal(rng, (b, hkv, s, d)))
+
+
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 2), (8, 1)])
+@pytest.mark.parametrize("window", [0, 64])
+@pytest.mark.parametrize("s", [256, 512])
+def test_flash_plain_matches_reference(hq, hkv, window, s):
+    q, k, v = _flash_inputs(2, hq, hkv, s, 64)
+    got = tfa.flash_attention_ref(_t(q), _t(k), _t(v), window=window).numpy()
+    for force in ("ref", "interpret"):
+        ref = jops.flash_attention(q, k, v, window=window, force=force)
+        np.testing.assert_allclose(got, np.asarray(ref), **TOL)
+
+
+def test_flash_plain_softcap():
+    q, k, v = _flash_inputs(1, 2, 2, 256, 32)
+    got = tfa.flash_attention_ref(_t(q), _t(k), _t(v), softcap=50.0).numpy()
+    for force in ("ref", "interpret"):
+        ref = jops.flash_attention(q, k, v, softcap=50.0, force=force)
+        np.testing.assert_allclose(got, np.asarray(ref), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# Dense decode
+# ---------------------------------------------------------------------------
+
+def _decode_inputs(B, hq, hkv, L, D, cur, fill=100, seed=1):
+    rng = np.random.default_rng(seed)
+    kpos = np.broadcast_to(np.arange(L, dtype=np.int32)[None], (B, L))
+    kpos = np.where(kpos < L - fill, kpos, -1).astype(np.int32)
+    return (_normal(rng, (B, hq, D)), _normal(rng, (B, hkv, L, D)),
+            _normal(rng, (B, hkv, L, D)), kpos, np.asarray(cur, np.int32))
+
+
+@pytest.mark.parametrize("hq,hkv,L", [(8, 2, 512), (4, 4, 1024),
+                                      (16, 1, 512)])
+@pytest.mark.parametrize("window", [0, 128])
+def test_decode_plain_matches_reference(hq, hkv, L, window):
+    q, k, v, kpos, cur = _decode_inputs(2, hq, hkv, L, 64, [L - 150, L // 3])
+    got = tda.decode_attention_ref(_t(q), _t(k), _t(v), _t(kpos), _t(cur),
+                                   window=window).numpy()
+    for force in ("ref", "interpret"):
+        ref = jops.decode_attention(q, k, v, kpos, cur, window=window,
+                                    force=force)
+        np.testing.assert_allclose(got, np.asarray(ref), **TOL)
+
+
+def test_decode_plain_int8_cache():
+    B, Hq, Hkv, D, L = 2, 8, 2, 64, 1024
+    q, kf, vf, kpos, cur = _decode_inputs(B, Hq, Hkv, L, D, [800, 333],
+                                          fill=0, seed=5)
+    k8, ks = _quant(kf)
+    v8, vs = _quant(vf)
+    got = tda.decode_attention_ref(_t(q), _t(k8), _t(v8), _t(kpos), _t(cur),
+                                   k_scale=_t(ks), v_scale=_t(vs)).numpy()
+    for force in ("ref", "interpret"):
+        ref = jops.decode_attention(q, k8, v8, kpos, cur, k_scale=ks,
+                                    v_scale=vs, force=force)
+        np.testing.assert_allclose(got, np.asarray(ref), **TOL)
+
+
+def test_decode_plain_idle_slot_returns_zero():
+    """cur = -1 masks every key: active rows match the reference, the idle
+    row is 0 (the reference averages V there)."""
+    q, k, v, kpos, cur = _decode_inputs(3, 6, 3, 256, 64, [200, -1, 17])
+    got = tda.decode_attention_ref(_t(q), _t(k), _t(v), _t(kpos),
+                                   _t(cur)).numpy()
+    ref = np.asarray(jops.decode_attention(q, k, v, kpos, cur, force="ref"))
+    active = cur >= 0
+    np.testing.assert_allclose(got[active], ref[active], **TOL)
+    assert not got[~active].any()
+
+
+# ---------------------------------------------------------------------------
+# Paged decode
+# ---------------------------------------------------------------------------
+
+def _scatter_to_pool(k, v, kpos, n_pages, page_size, seed=0):
+    """Chop a dense (B, Hkv, L, D) cache into shuffled pool pages + block
+    tables (page 0 left empty — the engine's reserved null page)."""
+    B, Hkv, L, D = k.shape
+    nb = L // page_size
+    rng = np.random.default_rng(seed)
+    pages = rng.permutation(np.arange(1, n_pages))[:B * nb] \
+        .reshape(B, nb).astype(np.int32)
+    k_pool = np.zeros((n_pages, Hkv, page_size, D), k.dtype)
+    v_pool = np.zeros((n_pages, Hkv, page_size, D), v.dtype)
+    kpos_pool = np.full((n_pages, page_size), -1, np.int32)
+    for b in range(B):
+        for j in range(nb):
+            sl = slice(j * page_size, (j + 1) * page_size)
+            k_pool[pages[b, j]] = k[b, :, sl]
+            v_pool[pages[b, j]] = v[b, :, sl]
+            kpos_pool[pages[b, j]] = kpos[b, sl]
+    return k_pool, v_pool, kpos_pool, pages
+
+
+@pytest.mark.parametrize("hq,hkv", [(8, 2), (4, 4)])
+@pytest.mark.parametrize("window", [0, 128])
+def test_paged_plain_matches_reference(hq, hkv, window):
+    B, D, ps, nb = 2, 64, 64, 8
+    L = nb * ps
+    q, k, v, kpos, cur = _decode_inputs(B, hq, hkv, L, D, [L - 100, L // 3],
+                                        fill=70, seed=2)
+    kp, vp, kpp, bt = _scatter_to_pool(k, v, kpos, 2 * B * nb, ps)
+    got = tda.paged_decode_attention_ref(_t(q), _t(kp), _t(vp), _t(kpp),
+                                         _t(bt), _t(cur),
+                                         window=window).numpy()
+    for force in ("ref", "interpret"):
+        ref = jops.paged_decode_attention(q, kp, vp, kpp, bt, cur,
+                                          window=window, force=force)
+        np.testing.assert_allclose(got, np.asarray(ref), **TOL)
+
+
+def test_paged_plain_int8_pool():
+    B, Hq, Hkv, D, ps, nb = 2, 8, 2, 64, 32, 8
+    L = nb * ps
+    q, kf, vf, kpos, cur = _decode_inputs(B, Hq, Hkv, L, D, [200, 77],
+                                          fill=0, seed=6)
+    k8, ks = _quant(kf)
+    v8, vs = _quant(vf)
+    kp, vp, kpp, bt = _scatter_to_pool(k8, v8, kpos, 2 * B * nb, ps)
+    ksp, vsp, _, _ = _scatter_to_pool(ks[..., None], vs[..., None], kpos,
+                                      2 * B * nb, ps)
+    ksp, vsp = ksp[..., 0], vsp[..., 0]
+    got = tda.paged_decode_attention_ref(
+        _t(q), _t(kp), _t(vp), _t(kpp), _t(bt), _t(cur), k_scale=_t(ksp),
+        v_scale=_t(vsp)).numpy()
+    for force in ("ref", "interpret"):
+        ref = jops.paged_decode_attention(q, kp, vp, kpp, bt, cur,
+                                          k_scale=ksp, v_scale=vsp,
+                                          force=force)
+        np.testing.assert_allclose(got, np.asarray(ref), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# Dispatch
+# ---------------------------------------------------------------------------
+
+def test_ops_take_the_plain_version_on_cpu():
+    """A CPU tensor takes the plain version and launches nothing."""
+    launches.reset()
+    q, k, v, kpos, cur = _decode_inputs(2, 4, 2, 64, 32, [40, 9], fill=8)
+    a = ops.decode_attention(_t(q), _t(k), _t(v), _t(kpos), _t(cur))
+    b = tda.decode_attention_ref(_t(q), _t(k), _t(v), _t(kpos), _t(cur))
+    assert torch.equal(a, b)
+    qf, kf, vf = _flash_inputs(1, 4, 2, 40, 32)
+    assert torch.equal(ops.flash_attention(_t(qf), _t(kf), _t(vf)),
+                       tfa.flash_attention_ref(_t(qf), _t(kf), _t(vf)))
+    assert all(n == 0 for n in launches.values())
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    """A kernel wrapper given CPU tensors raises; it never falls back."""
+    q, k, v, kpos, cur = (_t(a) for a in _decode_inputs(1, 2, 1, 16, 32, [3],
+                                                        fill=0))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tda.decode_attention_cuda(q, k, v, kpos, cur)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tda.paged_decode_attention_cuda(q, k, v, kpos,
+                                        torch.zeros((1, 1), dtype=torch.int32),
+                                        cur)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tfa.flash_attention_cuda(*(_t(a) for a in _flash_inputs(1, 2, 1, 8,
+                                                                32)))
