@@ -8,30 +8,48 @@ Phases, one JSON line each (also appended to chiprun_out/chip_smoke/
 lines.jsonl):
 
 1. ``build``: compiles every CUDA kernel from ``src/repro_torch/kernels/csrc``
-   (nvcc, sm_90a) and reports the build time and ptxas register/spill lines.
-2. ``kernel``: each kernel against its plain PyTorch version at the serving
-   path's shapes (B=8, Hq=9, Hkv=3, D=64, L=2048, page 16; prefill S up to
-   2048): fp32, bf16, int8 KV, window, an idle slot, ragged L and S. Error
-   against the stated tolerance, kernel / plain-version / bound times, and
-   the time of one PyTorch library call computing the same function where
-   there is one (``scaled_dot_product_attention``, a yardstick only).
+   (nvcc, sm_90a, one process per source, all at once) and reports the
+   build time and ptxas register/spill lines.
+2. ``kernel``: each kernel against its plain PyTorch version. Attention at
+   the serving path's shapes (B=8, Hq=9, Hkv=3, D=64, L=2048, page 16;
+   prefill S up to 2048): fp32, bf16, int8 KV, window, an idle slot (the
+   mean of V, as the reference), ragged L and S. The streaming matmul on
+   the paper's stream of 100,000 16x16 / 32x32 products (fp32, bf16) and on
+   2-D products (129x257x65, 4096^3 fp32 and bf16). Error against the
+   stated tolerance, kernel / plain-version / bound times, and the time of
+   one PyTorch library call computing the same function
+   (``scaled_dot_product_attention``, ``torch.bmm``, ``torch.matmul``; a
+   yardstick only).
 3. ``model``: full-width smollm-135m prefill + decode logits, kernel path
    against the plain path, fp32.
-4. ``dense_engine`` / ``paged_engine``: full-width 30-layer smollm-135m in
-   bfloat16 (seeded torch init) served by ``BatchingEngine`` with 8 slots,
-   max_len 2048, 16 requests of 64-1024 prompt tokens (pairs sharing a
-   256-token prefix), 32 new tokens each. Launch counts must equal what the
-   path needs (layers x decode calls, layers x prefill calls); token streams
-   must equal the same engine forced onto the plain versions
-   (``kernel_force="ref"``), except from a step where the kernel path's
-   token has a plain-path logit within the bf16 tolerance of the plain
-   path's top logit (counted).
+4. ``dense_engine`` / ``paged_engine`` (the serving path): full-width
+   30-layer smollm-135m in bfloat16 (seeded torch init) served by
+   ``BatchingEngine`` with 8 slots, max_len 2048, 16 requests of 64-1024
+   prompt tokens (pairs sharing a 256-token prefix), 32 new tokens each.
+   Launch counts must equal what the path needs (layers x decode calls,
+   layers x prefill calls); token streams must equal the same engine forced
+   onto the plain versions (``kernel_force="ref"``), except from a step
+   where the kernel path's token has a plain-path logit within the bf16
+   tolerance of the plain path's top logit (counted).
 5. ``profile_*``: device busy time and idle share of decode steps.
 6. ``fp32_*_engine``: the same two engines in float32, where the streams
    are held to the fp32 logit tolerance; ``int8_*_engine``: both layouts
    with ``kv_quant`` at 4 layers.
-7. the ``kernels`` summary line, the GPU's name and power limit, and
-   ``{"ok": true, ...}`` last. Any failed check exits non-zero.
+7. ``rc3e`` (the RAaaS path): one ``Hypervisor`` over 2 nodes x 2 devices
+   on the card. Four RAaaS tenants deploy the streaming-matmul core through
+   admission and ``program_slice`` (Table I: the first configures cold,
+   the rest swap it in from the program cache). Table III: 1, 2 and 4
+   co-resident cores in a ``FusedShell``, each streaming 100,000 fp32
+   16x16 (then 32x32) matrices in blocks of 64, once from pinned host
+   memory through its own ``StreamFIFO`` and once from blocks resident on
+   the card; per-core and aggregate MB/s are input bytes over wall time;
+   every block of core 0 is checked against the plain version and the
+   batched kernel must launch exactly cores x cycles times. Then one BAaaS
+   ``invoke_service`` and one RSaaS ``program``/``run`` of a 2-D product.
+8. the ``kernels`` summary line (launches from the serving path for the
+   attention kernels, from the rc3e path for the streaming matmul), the
+   GPU's name and power limit, and ``{"ok": true, ...}`` last. Any failed
+   check exits non-zero.
 """
 import dataclasses
 import json
@@ -52,6 +70,13 @@ TOL = {torch.float32: dict(atol=2e-5, rtol=2e-4),
 B, HQ, HKV, D, L, PS = 8, 9, 3, 64, 2048, 16
 SEED = 0
 DEV = "cuda"
+MM_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}   # x sqrt(K) atol
+RC3E_MATS = 100_000     # the paper's stream, per core (Table III)
+RC3E_BLOCK = 64         # matrices per FIFO block (benchmarks/table3_matmul)
+RC3E_FIFO_DEPTH = 4
+RC3E_PROFILE_CYCLES = 200
+SERVING_KERNELS = ("decode_attention", "paged_decode_attention",
+                   "flash_attention")
 
 
 class SmokeFailure(Exception):
@@ -214,7 +239,7 @@ def kernel_phase(results):
     for name, dtype, quant, window, cur_c, Lc in cases:
         q, k, v, kpos, cur_t, ks, vs = decode_inputs(
             gen, dtype, quant, cur_c, [min(f, Lc) for f in fill], Lc)
-        active = cur_t >= 0
+        idle = cur_t < 0
         tol = TOL[dtype]
         kvbytes = k.element_size()
         # dense
@@ -223,11 +248,16 @@ def kernel_phase(results):
         ref = da.decode_attention_ref(q, k, v, kpos, cur_t, window=window,
                                       k_scale=ks, v_scale=vs)
         torch.cuda.synchronize()
-        err = float((got.float() - ref.float())[active].abs().max())
+        err = float((got.float() - ref.float()).abs().max())
         require(torch.allclose(got.float(), ref.float(), **tol),
                 f"decode_attention {name}: max err {err}")
-        require(not got[~active].float().abs().any(),
-                f"decode_attention {name}: idle row not 0")
+        if idle.any():        # the mean of the swept V rows, as the reference
+            v_deq = v[idle].float() * (vs[idle][..., None] if quant else 1.0)
+            mean_v = v_deq.mean(dim=2).repeat_interleave(HQ // HKV, dim=1)
+            require(torch.allclose(got[idle].float(),
+                                   mean_v.to(dtype).float(), **tol),
+                    f"decode_attention {name}: idle row is not the mean "
+                    "of V")
         nbytes, flops = decode_cost(q, kpos, cur_t, window, kvbytes)
         b_ms, b_by = bound(nbytes, flops, dtype)
         lib = None if quant else time_ms(sdpa_decode(q, k, v, kpos, cur_t,
@@ -252,7 +282,7 @@ def kernel_phase(results):
                                              window=window, k_scale=ksp,
                                              v_scale=vsp)
         torch.cuda.synchronize()
-        err = float((got.float() - ref.float())[active].abs().max())
+        err = float((got.float() - ref.float()).abs().max())
         require(torch.allclose(got.float(), ref.float(), **tol),
                 f"paged_decode_attention {name}: max err {err}")
         nbytes, flops = decode_cost(q, kpos, cur_t, window, kvbytes,
@@ -317,6 +347,269 @@ def kernel_phase(results):
                    bound_ms=b_ms, bound_by=b_by, library_ms=lib)
         emit(rec)
         results.setdefault("flash_attention", []).append(rec)
+
+
+def matmul_kernel_phase(results):
+    """The streaming matmul against its plain version: the paper's stream
+    of 100,000 products (batched, one launch) and 2-D products, ragged and
+    4096^3. Library yardstick: torch.bmm / torch.matmul (cuBLAS), TF32
+    off."""
+    from repro_torch.kernels import stream_matmul as mm
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 3)
+    cases = [("batched", "fp32/s16/G100000", torch.float32, (100_000, 16)),
+             ("batched", "fp32/s32/G100000", torch.float32, (100_000, 32)),
+             ("batched", "bf16/s32/G100000", torch.bfloat16, (100_000, 32)),
+             ("2d", "fp32/129x257x65", torch.float32, (129, 257, 65)),
+             ("2d", "fp32/4096^3", torch.float32, (4096, 4096, 4096)),
+             ("2d", "bf16/4096^3", torch.bfloat16, (4096, 4096, 4096))]
+    for kind, case, dtype, dims in cases:
+        if kind == "batched":
+            G, sz = dims
+            M = K = N = sz
+            shp_a, shp_b = (G, sz, sz), (G, sz, sz)
+            kern, plain = mm.stream_matmul_batched_cuda, mm.matmul_batched_ref
+            lib_fn, name = torch.bmm, "stream_matmul_batched"
+        else:
+            G, (M, K, N) = 1, dims
+            shp_a, shp_b = (M, K), (K, N)
+            kern, plain = mm.stream_matmul_cuda, mm.matmul_ref
+            lib_fn, name = torch.matmul, "stream_matmul"
+        a = torch.randn(shp_a, generator=gen, device=DEV).to(dtype)
+        b = torch.randn(shp_b, generator=gen, device=DEV).to(dtype)
+        got = kern(a, b)
+        ref = plain(a, b)
+        torch.cuda.synchronize()
+        tol = dict(atol=MM_TOL[dtype] * K ** 0.5, rtol=MM_TOL[dtype])
+        err = float((got.float() - ref.float()).abs().max())
+        require(torch.allclose(got.float(), ref.float(), **tol),
+                f"{name} {case}: max err {err}")
+        el = a.element_size()
+        b_ms, b_by = bound(G * (M * K + K * N + M * N) * el,
+                           2 * G * M * N * K, dtype)
+        rec = dict(phase="kernel", name=name, case=case,
+                   shape=dict(G=G, M=M, K=K, N=N), max_abs_err=err, tol=tol,
+                   ms=time_ms(lambda: kern(a, b)),
+                   plain_ms=time_ms(lambda: plain(a, b)),
+                   bound_ms=b_ms, bound_by=b_by,
+                   library_ms=time_ms(lambda: lib_fn(a, b)))
+        emit(rec)
+        results.setdefault("stream_matmul", []).append(rec)
+
+
+# ---------------------------------------------------------------------------
+# RC3E phase: the paper's RAaaS / BAaaS / RSaaS workflow
+# ---------------------------------------------------------------------------
+
+def _stream_core(a, b):
+    """The tenant's streaming user core (the paper's section V example):
+    one G-block of products per shell cycle."""
+    from repro_torch.kernels import ops
+    return (ops.matmul_batched(a, b),)
+
+
+def _matmul_core(a, b):
+    """A 2-D product core (BAaaS service, RSaaS program)."""
+    from repro_torch.kernels import ops
+    return (ops.matmul(a, b),)
+
+
+def _streams(gen, n_cores, sz):
+    """Each core's 100,000 (sz, sz) fp32 A and B, made on the card and
+    copied once into pinned host memory (FIFO blocks are slices of it).
+    Returns (host pairs, device pairs)."""
+    dev = [[torch.randn((RC3E_MATS, sz, sz), generator=gen, device=DEV)
+            for _ in range(2)] for _ in range(n_cores)]
+    host = []
+    for pair in dev:
+        host.append([])
+        for d in pair:
+            h = torch.empty(d.shape, dtype=d.dtype, pin_memory=True)
+            h.copy_(d)
+            host[-1].append(h)
+    return host, dev
+
+
+def _stream_run(shell, n, blocks_of, n_cycles):
+    """Run n_cycles shell cycles; core i's inputs come from blocks_of(i);
+    returns (wall seconds, core 0's output blocks)."""
+    outs0 = []
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    srcs = [blocks_of(i) for i in range(n)]
+    for _ in range(n_cycles):
+        outs = shell.run_cycle({i: srcs[i]() for i in range(n)})
+        outs0.append(outs[0][0])
+    torch.cuda.synchronize()
+    return time.monotonic() - t0, outs0
+
+
+def _profile_cycles(shell, n, srcs, cycles):
+    """Device busy ms and the host's top ops over ``cycles`` shell cycles
+    under the profiler (each src returns core i's next blocks)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(cycles):
+            shell.run_cycle({i: srcs[i]() for i in range(n)})
+        torch.cuda.synchronize()
+    ev = prof.key_averages()
+    dev = [e for e in ev if e.device_type == torch.autograd.DeviceType.CUDA]
+    host = sorted((e for e in ev
+                   if e.device_type == torch.autograd.DeviceType.CPU),
+                  key=lambda e: -e.self_cpu_time_total)[:6]
+    return (sum(e.self_device_time_total for e in dev) / 1e3,
+            {e.key[:60]: e.self_cpu_time_total / 1e3 / cycles for e in host})
+
+
+def rc3e_phase():
+    """Table I (cold configure vs PR swap) and Table III (1, 2, 4
+    co-resident streaming cores, 100,000 fp32 matrices each, from host
+    memory through StreamFIFOs and from blocks resident on the card) on one
+    Hypervisor; one BAaaS invocation and one RSaaS program/run. Returns the
+    launches of this path."""
+    from repro_torch.core import (BAaaSSession, ClusterSpec, Hypervisor,
+                                  RAaaSSession, RSaaSSession)
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels import stream_matmul as mm
+    from repro_torch.rc2f import (CoreSpec, FusedShell, OutputFIFO,
+                                  StreamFIFO, StreamSpec)
+    t_phase = time.monotonic()
+    _lib.launches.reset()                    # the rc3e path starts here
+    hv = Hypervisor(ClusterSpec(n_nodes=2, devices_per_node=2), device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 4)
+    g = RC3E_BLOCK
+    n_cycles = -(-RC3E_MATS // g)
+    table1, table3 = [], []
+    for sz in (16, 32):
+        spec = CoreSpec(f"mm{sz}", (StreamSpec((g, sz, sz)),) * 2,
+                        (StreamSpec((g, sz, sz)),))
+        sessions = [RAaaSSession(hv, f"tenant{i}") for i in range(4)]
+        entries = []
+        for i, sess in enumerate(sessions):
+            t0 = time.perf_counter()
+            entries.append(sess.deploy_core(_stream_core,
+                                            spec.example_inputs(),
+                                            f"mm{sz}"))
+            deploy_ms = (time.perf_counter() - t0) * 1e3
+            ev = hv.log[-1]
+            require(ev["kind"] == "program" and ev["cache_hit"] == (i > 0),
+                    f"rc3e: deploy {i} of mm{sz}: {ev}")
+            if i < 2:
+                table1.append(dict(core=f"mm{sz}", tenant=i,
+                                   path="pr_swap" if i else "full_configure",
+                                   program_ms=ev["seconds"] * 1e3,
+                                   deploy_ms=deploy_ms))
+        host, dev = _streams(gen, 4, sz)
+        ref0 = mm.matmul_batched_ref(*dev[0])         # core 0's answer
+        tol = dict(atol=MM_TOL[torch.float32] * sz ** 0.5,
+                   rtol=MM_TOL[torch.float32])
+        in_bytes = 2 * RC3E_MATS * sz * sz * 4          # per core
+        # grow the allocator's pool for one run's output blocks up front,
+        # so that no timed run pays cudaMalloc (each run's blocks are
+        # freed before the next)
+        warm = [torch.empty((g, sz, sz), device=DEV) for _ in range(n_cycles)]
+        del warm
+        for n in (1, 2, 4):
+            shell = FusedShell(4, device=DEV)
+            for i in range(n):
+                shell.load(i, entries[i].compiled, spec, f"tenant{i}")
+            rows = {}
+            for source in ("host", "resident"):
+                if source == "host":
+                    fifos = []
+
+                    def blocks_of(i):   # the FIFO starts inside the timing
+                        fifos.append(StreamFIFO(depth=RC3E_FIFO_DEPTH,
+                                                device=DEV).feed(
+                            (host[i][0][j:j + g], host[i][1][j:j + g])
+                            for j in range(0, RC3E_MATS, g)))
+                        return fifos[-1].get
+                else:
+                    def blocks_of(i):
+                        it = ((dev[i][0][j:j + g], dev[i][1][j:j + g])
+                              for j in range(0, RC3E_MATS, g))
+                        return lambda: next(it)
+                before = _lib.launches["stream_matmul_batched"]
+                wall, outs0 = _stream_run(shell, n, blocks_of, n_cycles)
+                got = _lib.launches["stream_matmul_batched"] - before
+                require(got == n * n_cycles,
+                        f"rc3e mm{sz} n={n} {source}: {got} launches != "
+                        f"{n * n_cycles}")
+                out0 = torch.cat(outs0)
+                err = float((out0 - ref0).abs().max())
+                require(out0.shape == ref0.shape
+                        and bool(torch.isfinite(out0).all())
+                        and torch.allclose(out0, ref0, **tol),
+                        f"rc3e mm{sz} n={n} {source}: max err {err}")
+                del outs0, out0
+                if source == "host":
+                    require(all(f.items_in == n_cycles for f in fifos),
+                            "rc3e: a FIFO lost blocks")
+                rows[source] = dict(
+                    wall_s=wall, per_core_MBps=in_bytes / wall / 1e6,
+                    aggregate_MBps=n * in_bytes / wall / 1e6,
+                    max_abs_err_core0=err)
+                if n == 4 and sz == 16:     # where the cycle's time goes
+                    p = RC3E_PROFILE_CYCLES
+                    if source == "host":
+                        srcs = [StreamFIFO(depth=RC3E_FIFO_DEPTH, device=DEV)
+                                .feed((h[0][j:j + g], h[1][j:j + g])
+                                      for j in range(0, p * g, g)).get
+                                for h in host[:n]]
+                    else:
+                        srcs = [blocks_of(i) for i in range(n)]
+                    busy_ms, top = _profile_cycles(shell, n, srcs, p)
+                    cycle_ms = wall * 1e3 / n_cycles
+                    rows[source].update(
+                        cycle_ms=cycle_ms,
+                        device_busy_ms_per_cycle=busy_ms / p,
+                        device_idle_share=1.0 - busy_ms / p / cycle_ms,
+                        host_top_ms_per_cycle=top)
+            rec = dict(phase="rc3e", table="III", core=f"mm{sz}",
+                       cores=n, matrices_per_core=RC3E_MATS, block=g,
+                       cycles=n_cycles, launches=n * n_cycles, tol=tol,
+                       **{f"{k}_{src}": v for src, r in rows.items()
+                          for k, v in r.items()})
+            emit(rec)
+            table3.append(rec)
+        del host, dev, ref0
+        for sess in sessions:
+            sess.close()
+
+    # BAaaS: a provider service, allocation invisible to the tenant
+    gen2 = torch.Generator(device=DEV).manual_seed(SEED + 5)
+    a = torch.randn((129, 257), generator=gen2, device=DEV)
+    b = torch.randn((257, 65), generator=gen2, device=DEV)
+    hv.register_service("matmul-129x257x65",
+                        lambda: (_matmul_core, (a, b)))
+    out = BAaaSSession(hv, "carol").invoke("matmul-129x257x65", a, b)[0]
+    # RSaaS: a whole device, the tenant's own program
+    rs = RSaaSSession(hv, "dave")
+    rs.program(_matmul_core, (a, b))
+    out_rs = rs.run(a, b)[0]
+    rs.close()
+    ref = mm.matmul_ref(a, b)
+    torch.cuda.synchronize()
+    tol = dict(atol=MM_TOL[torch.float32] * 257 ** 0.5,
+               rtol=MM_TOL[torch.float32])
+    require(torch.allclose(out, ref, **tol) and torch.allclose(out_rs, ref,
+                                                                **tol),
+            "rc3e: BAaaS / RSaaS product disagrees with the plain version")
+    require(all(u == 0.0 for u in hv.status()["utilization"].values()),
+            "rc3e: allocations not reclaimed")
+    launches = dict(_lib.launches)
+    for k in ("stream_matmul", "stream_matmul_batched"):
+        require(launches[k] > 0, f"rc3e: {k} never launched")
+    sink = OutputFIFO(depth=1)
+    sink.put((out,))
+    require(sink.get()[0].shape == (129, 65), "rc3e: output FIFO")
+    emit(dict(phase="rc3e", table="I", rows=table1,
+              baas_rsaas_max_abs_err=float(max((out - ref).abs().max(),
+                                               (out_rs - ref).abs().max())),
+              launches=launches, log_events=len(hv.log),
+              wall_s=time.monotonic() - t_phase))
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -452,7 +745,7 @@ def compare_streams(kern, plain, top8, tol):
                 plain_steps_with_tie=sum(g == 0 for g in gaps))
 
 
-def engine_phase(phase, cfg, params, prompts, paged, counts):
+def engine_phase(phase, cfg, params, prompts, paged):
     """Serve ``prompts`` on the kernel path and on the plain path; check the
     launches and compare the streams at the logit tolerance of the
     config's dtype."""
@@ -474,8 +767,6 @@ def engine_phase(phase, cfg, params, prompts, paged, counts):
             f"{phase}: launches {got} != needed {need}")
     tol = TOL[getattr(torch, cfg.dtype)]
     streams = compare_streams(kern, plain, top8, tol)
-    for k, n in got.items():
-        counts[k] = counts.get(k, 0) + n
     emit(dict(phase=phase, layers=cfg.n_layers, dtype=cfg.dtype,
               kv_quant=cfg.kv_quant, paged=paged, launches=got,
               launches_needed=need, logit_tol=tol, **streams,
@@ -541,7 +832,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gpu = gpu_line()
-    t0 = time.monotonic()
+    t_start = t0 = time.monotonic()
     built = _lib.build()
     emit(dict(phase="build", gpu=gpu, torch=torch.__version__,
               cuda=torch.version.cuda, build_s=built["build_s"],
@@ -550,6 +841,7 @@ def main():
 
     results = {}
     kernel_phase(results)
+    matmul_kernel_phase(results)
 
     cfg = get_config("smollm-135m")
     gen = torch.Generator(device=DEV).manual_seed(SEED)
@@ -557,43 +849,54 @@ def main():
     model_phase(cfg, params)
 
     prompts = workload(cfg.vocab_size)
-    _lib.launches.reset()                   # the main path starts here
-    counts = {}
-    engine_phase("dense_engine", cfg, params, prompts, False, counts)
-    engine_phase("paged_engine", cfg, params, prompts, True, counts)
-    main_path = dict(_lib.launches)
-    require(all(main_path[k] > 0 for k in main_path),
-            f"a kernel of the main path never launched: {main_path}")
+    _lib.launches.reset()                   # the serving path starts here
+    engine_phase("dense_engine", cfg, params, prompts, False)
+    engine_phase("paged_engine", cfg, params, prompts, True)
+    serving_path = dict(_lib.launches)
+    require(all(serving_path[k] > 0 for k in SERVING_KERNELS),
+            f"a kernel of the serving path never launched: {serving_path}")
     cfg32 = cfg.replace(dtype="float32")
-    engine_phase("fp32_dense_engine", cfg32, params, prompts, False, {})
-    engine_phase("fp32_paged_engine", cfg32, params, prompts, True, {})
+    engine_phase("fp32_dense_engine", cfg32, params, prompts, False)
+    engine_phase("fp32_paged_engine", cfg32, params, prompts, True)
     profile_phase("profile_dense_decode", cfg, params, prompts, False)
     profile_phase("profile_paged_decode", cfg, params, prompts, True)
 
     qcfg = cfg.replace(kv_quant=True, n_layers=4)
     gen = torch.Generator(device=DEV).manual_seed(SEED + 2)
     qparams = Model(qcfg, device=DEV).init(gen)
-    engine_phase("int8_dense_engine", qcfg, qparams, prompts, False, {})
-    engine_phase("int8_paged_engine", qcfg, qparams, prompts, True, {})
+    engine_phase("int8_dense_engine", qcfg, qparams, prompts, False)
+    engine_phase("int8_paged_engine", qcfg, qparams, prompts, True)
+
+    rc3e_path = rc3e_phase()
 
     main_case = {"decode_attention": "bf16", "paged_decode_attention": "bf16",
-                 "flash_attention": "bf16/S1024"}
+                 "flash_attention": "bf16/S1024",
+                 "stream_matmul": "fp32/s16/G100000"}
     sources = {"decode_attention": ("decode_attention", 133),
                "paged_decode_attention": ("decode_attention", 235),
-               "flash_attention": ("flash_attention", 100)}
+               "flash_attention": ("flash_attention", 100),
+               "stream_matmul": ("stream_matmul", 57)}
+    path_launches = {k: serving_path[k] for k in SERVING_KERNELS}
+    path_launches["stream_matmul"] = (rc3e_path["stream_matmul"]
+                                      + rc3e_path["stream_matmul_batched"])
     rows = []
     for name, recs in results.items():
         m = next(r for r in recs if r["case"] == main_case[name])
         src, line = sources[name]
-        rows.append(dict(
+        row = dict(
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{src}.cu",
             replaces=f"src/repro/kernels/{src}.py:{line}",
-            launches=main_path[name],
+            launches=path_launches[name],
             max_abs_err=max(r["max_abs_err"] for r in recs),
             ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
-            bound_by=m["bound_by"], library_ms=m["library_ms"]))
-    emit({"kernels": rows})
+            bound_by=m["bound_by"], library_ms=m["library_ms"])
+        if name == "stream_matmul":
+            row["launches_by_entry"] = {
+                k: rc3e_path[k] for k in ("stream_matmul",
+                                          "stream_matmul_batched")}
+        rows.append(row)
+    emit({"kernels": rows, "wall_s": time.monotonic() - t_start})
     print(gpu, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,7 +23,7 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
-SOURCES = ("decode_attention", "flash_attention")
+SOURCES = ("decode_attention", "flash_attention", "stream_matmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 
@@ -42,7 +42,8 @@ class LaunchCounts(dict):
 
 
 launches = LaunchCounts(decode_attention=0, paged_decode_attention=0,
-                        flash_attention=0)
+                        flash_attention=0, stream_matmul=0,
+                        stream_matmul_batched=0)
 
 
 def build_dir() -> Path:

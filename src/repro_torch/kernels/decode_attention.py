@@ -17,9 +17,11 @@ kpos may be strided views (the serving caches are (B, L, Hkv, D) and
 q/k/v must be contiguous.
 
 Masking: a key counts when ``kpos >= 0 & kpos <= cur`` (and
-``cur - kpos < window``). A row with no such key returns 0. The Pallas
-kernel and ``repro.kernels.ref`` return the mean of the swept V rows there
-instead; the serving engines discard such rows (inactive paged slots).
+``cur - kpos < window``). A row with no such key (an idle slot, cur = -1)
+returns the mean of the swept V rows, as the Pallas kernel and
+``repro.kernels.ref`` do: all L rows of a dense cache, all ``nb * ps`` rows
+of the pages a block-table row names (null page and repeats included),
+dequantized with ``v_scale`` on the int8 path.
 """
 from __future__ import annotations
 
@@ -59,9 +61,7 @@ def decode_attention_ref(q, k, v, kpos, cur, *, window: int = 0,
         mask &= (cur - kpos) < window
     s = s.masked_fill(~mask[:, None, :], -1e30)
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhl,bhld->bhd", p, vv)
-    out = out.masked_fill(~mask.any(dim=-1)[:, None, None], 0.0)
-    return out.to(q.dtype)
+    return torch.einsum("bhl,bhld->bhd", p, vv).to(q.dtype)
 
 
 def paged_decode_attention_ref(q, k_pool, v_pool, kpos_pool, block_tables,

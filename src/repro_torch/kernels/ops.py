@@ -1,19 +1,36 @@
 """Kernel dispatch by the tensors' device: a CUDA tensor launches the
 hand-written kernel (or the wrapper raises on what the kernel does not
-take); a CPU tensor takes the kernel's plain PyTorch version. There is no
+take); a CPU tensor takes the kernel's plain PyTorch version. A meta tensor
+also takes the plain version, which computes nothing there and returns an
+empty meta tensor of the output's shape and dtype (admission's shape check,
+``rc2f.admission.admit_core``). Any other device raises. There is no
 fallback from one to the other."""
 from __future__ import annotations
 
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import stream_matmul as _mm
 
 
 def _on_cuda(t, name: str) -> bool:
     if t.device.type == "cuda":
         return True
-    if t.device.type == "cpu":
+    if t.device.type in ("cpu", "meta"):
         return False
     raise ValueError(f"{name}: no kernel for device {t.device}")
+
+
+def matmul(a, b):
+    """(M, K) @ (K, N), fp32 accumulation, output in a's dtype."""
+    fn = _mm.stream_matmul_cuda if _on_cuda(a, "matmul") else _mm.matmul_ref
+    return fn(a, b)
+
+
+def matmul_batched(a, b):
+    """(G, M, K) @ (G, K, N): the streaming core's G-block of products."""
+    fn = _mm.stream_matmul_batched_cuda if _on_cuda(a, "matmul_batched") \
+        else _mm.matmul_batched_ref
+    return fn(a, b)
 
 
 def decode_attention(q, k, v, kpos, cur, *, window: int = 0,

@@ -100,7 +100,7 @@ def test_flash_kernel_on_card(cuda, dtype, window, s, hq, hkv, d):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_kernels_on_card(cuda, quant, window, dtype):
     """Dense and paged kernels on the same logical cache, one idle row
-    (cur = -1: the kernel returns 0 there)."""
+    (cur = -1: the kernel returns the mean of the swept V rows there)."""
     B, Hq, Hkv, D, ps = 3, 9, 3, 64, 16
     L = 32 * ps
     q, k, v, kpos, cur = _decode_inputs(B, Hq, Hkv, L, D, [400, -1, 77],
@@ -121,7 +121,10 @@ def test_decode_kernels_on_card(cuda, quant, window, dtype):
                                    v_scale=dvs)
     tol = TOL if dtype == torch.float32 else TOL_BF16
     torch.testing.assert_close(got.float(), ref.float(), **tol)
-    assert not got[1].float().abs().any()
+    v_deq = dev[2][1].float() * (dvs[1][..., None] if quant else 1.0)
+    mean_v = v_deq.mean(dim=1).repeat_interleave(Hq // Hkv, dim=0)
+    torch.testing.assert_close(got[1].float(), mean_v.to(dtype).float(),
+                               **tol)
     kp, vp, kpp, bt, scatter = _to_pool(k, v, kpos, ps, seed=4)
     pks = None if ks is None else scatter(ks, 1.0).to(cuda)
     pvs = None if vs is None else scatter(vs, 1.0).to(cuda)
@@ -147,3 +150,119 @@ def test_decode_kernel_reads_strided_cache(cuda):
     ref = tda.decode_attention_ref(q, kt.contiguous(), vt.contiguous(), kpos,
                                    cur)
     torch.testing.assert_close(got, ref, **TOL)
+
+
+# ---------------------------------------------------------------------------
+# Streaming matmul (csrc/stream_matmul.cu) and the RC2F dataplane on the card
+# ---------------------------------------------------------------------------
+
+MM_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+
+
+def _mm_close(got, ref, dtype, k):
+    """tests/test_kernels.py's matmul tolerance: atol tol*sqrt(k), rtol tol
+    (summation order; bf16 rounds the output once)."""
+    tol = MM_TOL[dtype]
+    torch.testing.assert_close(got.float(), ref.float(), atol=tol * k ** 0.5,
+                               rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,s,G", [
+    (torch.float32, 16, 100_000), (torch.float32, 32, 100_000),
+    (torch.bfloat16, 32, 100_000), (torch.bfloat16, 16, 7),
+    (torch.float32, 24, 1000), (torch.float32, 32, 64)])
+def test_stream_matmul_batched_on_card(cuda, dtype, s, G):
+    """The paper's stream (G = 100,000), a ragged last block of matrices,
+    and a size off the specialised path (24: the tiled kernel, G on z)."""
+    from repro_torch.kernels import stream_matmul as tmm
+    gen = torch.Generator(device=cuda).manual_seed(s + G)
+    a = torch.randn((G, s, s), generator=gen, device=cuda).to(dtype)
+    b = torch.randn((G, s, s), generator=gen, device=cuda).to(dtype)
+    n = launches["stream_matmul_batched"]
+    got = tmm.stream_matmul_batched_cuda(a, b)
+    assert launches["stream_matmul_batched"] == n + 1
+    assert got.dtype == dtype and got.shape == (G, s, s)
+    _mm_close(got, tmm.matmul_batched_ref(a, b), dtype, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(16, 16, 16), (32, 32, 32),
+                                   (128, 128, 128), (200, 300, 150),
+                                   (129, 257, 65), (4096, 4096, 4096)])
+def test_stream_matmul_on_card(cuda, dtype, m, k, n):
+    from repro_torch.kernels import stream_matmul as tmm
+    gen = torch.Generator(device=cuda).manual_seed(m + k + n)
+    a = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
+    b = torch.randn((k, n), generator=gen, device=cuda).to(dtype)
+    cnt = launches["stream_matmul"]
+    got = tmm.stream_matmul_cuda(a, b)
+    assert launches["stream_matmul"] == cnt + 1
+    assert got.dtype == dtype and got.shape == (m, n)
+    _mm_close(got, tmm.matmul_ref(a, b), dtype, k)
+
+
+@pytest.mark.cuda
+def test_stream_fifo_on_card_delivers_host_blocks_in_order(cuda):
+    """Blocks sliced from one pinned stream and pageable numpy blocks arrive
+    on the card equal to the host blocks, in order, usable on the consumer's
+    stream."""
+    from repro_torch.rc2f import StreamFIFO
+    rng = np.random.default_rng(11)
+    host = torch.from_numpy(rng.standard_normal((40, 8, 16, 16))
+                            .astype(np.float32)).pin_memory()
+    items = [(host[i], rng.standard_normal((3,)).astype(np.float32))
+             for i in range(40)]
+    fifo = StreamFIFO(depth=3, device="cuda").feed(iter(items))
+    n = 0
+    for (blk, vec), (h_blk, h_vec) in zip(fifo, items):
+        assert blk.device.type == "cuda" and vec.device.type == "cuda"
+        torch.testing.assert_close((blk * 2).cpu(), h_blk * 2, rtol=0,
+                                   atol=0)
+        torch.testing.assert_close(vec.cpu(), torch.from_numpy(h_vec),
+                                   rtol=0, atol=0)
+        n += 1
+    assert n == fifo.items_in == 40
+
+
+@pytest.mark.cuda
+def test_raas_slice_on_card(cuda):
+    """RAaaS deploy -> FIFO -> FusedShell and SpatialShell on the card: the
+    batched kernel runs once per core per cycle; outputs match the plain
+    version on the host blocks."""
+    from repro_torch.core import ClusterSpec, Hypervisor, RAaaSSession
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import stream_matmul as tmm
+    from repro_torch.rc2f import (CoreSpec, FusedShell, SpatialShell,
+                                  StreamFIFO, StreamSpec)
+
+    def core(a, b):
+        return (ops.matmul_batched(a, b),)
+
+    g, s, n, cycles = 64, 16, 4, 5
+    hv = Hypervisor(ClusterSpec(n_nodes=2, devices_per_node=2))
+    spec = CoreSpec("mm16", (StreamSpec((g, s, s)),) * 2,
+                    (StreamSpec((g, s, s)),))
+    entries = [RAaaSSession(hv, f"t{i}").deploy_core(
+        core, spec.example_inputs(), "mm16") for i in range(n)]
+    rng = np.random.default_rng(5)
+    blocks = [[tuple(torch.from_numpy(rng.standard_normal((g, s, s))
+                                      .astype(np.float32)) for _ in range(2))
+               for _ in range(cycles)] for _ in range(n)]
+    for shell in (FusedShell(4), SpatialShell(4)):
+        for i, e in enumerate(entries):
+            shell.load(i, e.compiled, spec, f"t{i}")
+        fifos = [StreamFIFO(2).feed(iter(blocks[i])) for i in range(n)]
+        before = launches["stream_matmul_batched"]
+        for c in range(cycles):
+            if isinstance(shell, FusedShell):
+                outs = shell.run_cycle({i: fifos[i].get() for i in range(n)})
+            else:
+                outs = {i: shell.run(i, *fifos[i].get()) for i in range(n)}
+                shell.join()
+            for i in range(n):
+                ref = tmm.matmul_batched_ref(*blocks[i][c])
+                torch.testing.assert_close(outs[i][0].cpu(), ref, atol=1e-4,
+                                           rtol=1e-4)
+        assert launches["stream_matmul_batched"] - before == n * cycles

@@ -41,7 +41,7 @@ def test_port_imports_without_jax_or_reference():
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 20     # every module was walked
+    assert int(out.stdout.split()[-1]) >= 49     # every module was walked
 
 
 def test_chip_smoke_imports_neither_jax_nor_reference():

@@ -6,9 +6,8 @@ against the plain versions on the card in tests/test_torch_cuda.py.
 Tolerance: atol 2e-5, rtol 2e-4 in float32 (the reference's own, covering
 summation-order differences of the online softmax).
 
-A decode row with no valid key (an idle slot, cur = -1) is compared on the
-active rows only: the port returns 0 there, the reference the mean of the
-swept V rows (ROADMAP.md Queue 3).
+A decode row with no valid key (an idle slot, cur = -1) returns the mean of
+the swept V rows on both sides, and is compared like any other row.
 """
 import numpy as np
 import pytest
@@ -107,16 +106,40 @@ def test_decode_plain_int8_cache():
         np.testing.assert_allclose(got, np.asarray(ref), **TOL)
 
 
-def test_decode_plain_idle_slot_returns_zero():
-    """cur = -1 masks every key: active rows match the reference, the idle
-    row is 0 (the reference averages V there)."""
-    q, k, v, kpos, cur = _decode_inputs(3, 6, 3, 256, 64, [200, -1, 17])
-    got = tda.decode_attention_ref(_t(q), _t(k), _t(v), _t(kpos),
-                                   _t(cur)).numpy()
-    ref = np.asarray(jops.decode_attention(q, k, v, kpos, cur, force="ref"))
-    active = cur >= 0
-    np.testing.assert_allclose(got[active], ref[active], **TOL)
-    assert not got[~active].any()
+@pytest.mark.parametrize("paged", [False, True])
+@pytest.mark.parametrize("quant", [False, True])
+def test_decode_plain_idle_slot_is_mean_of_v(paged, quant):
+    """cur = -1 masks every key: the idle row is the mean of the swept V
+    rows (dequantized on the int8 path), as in the reference, and every
+    row matches the reference."""
+    B, Hq, Hkv, D, L, ps = 3, 6, 3, 64, 256, 32
+    q, k, v, kpos, cur = _decode_inputs(B, Hq, Hkv, L, D, [200, -1, 17])
+    ks = vs = None
+    if quant:
+        k, ks = _quant(k)
+        v, vs = _quant(v)
+    v_deq = v.astype(np.float32) * (vs[..., None] if quant else 1.0)
+    mean_v = np.repeat(v_deq[1].mean(axis=1), Hq // Hkv, axis=0)
+    opt = dict(k_scale=ks, v_scale=vs)
+    if paged:
+        kp, vp, kpp, bt = _scatter_to_pool(k, v, kpos, 2 * B * L // ps, ps)
+        if quant:
+            ksp, vsp, _, _ = _scatter_to_pool(ks[..., None], vs[..., None],
+                                              kpos, 2 * B * L // ps, ps)
+            opt = dict(k_scale=ksp[..., 0], v_scale=vsp[..., 0])
+        args = (q, kp, vp, kpp, bt, cur)
+        got = tda.paged_decode_attention_ref(
+            *(_t(a) for a in args),
+            **{n: _t(x) for n, x in opt.items() if x is not None}).numpy()
+        ref = jops.paged_decode_attention(*args, **opt, force="ref")
+    else:
+        args = (q, k, v, kpos, cur)
+        got = tda.decode_attention_ref(
+            *(_t(a) for a in args),
+            **{n: _t(x) for n, x in opt.items() if x is not None}).numpy()
+        ref = jops.decode_attention(*args, **opt, force="ref")
+    np.testing.assert_allclose(got[1], mean_v, **TOL)
+    np.testing.assert_allclose(got, np.asarray(ref), **TOL)
 
 
 # ---------------------------------------------------------------------------
