@@ -15,11 +15,17 @@ lines.jsonl):
    prefill S up to 2048): fp32, bf16, int8 KV, window, an idle slot (the
    mean of V, as the reference), ragged L and S. The streaming matmul on
    the paper's stream of 100,000 16x16 / 32x32 products (fp32, bf16) and on
-   2-D products (129x257x65, 4096^3 fp32 and bf16). Error against the
-   stated tolerance, kernel / plain-version / bound times, and the time of
-   one PyTorch library call computing the same function
-   (``scaled_dot_product_attention``, ``torch.bmm``, ``torch.matmul``; a
-   yardstick only).
+   2-D products (129x257x65, 4096^3 fp32 and bf16). The SSD scan at
+   mamba2-370m's width (H 32, P 64, N 128, G 1) on the layer's strided
+   views: bf16 and fp32 at B=4, S=1024, bf16 at B=8, S=256 (the ssm_serve
+   batches), B=1 at S=2048, ragged S=1000, so that every state-row layout
+   the path launches (8, 16 and 32 rows a block) is held; y and the final
+   state against the plain sequential version and the chunked
+   ``ssd_scan``, with ptxas's registers, shared memory and spills.
+   Error against the stated tolerance, kernel / plain-version / bound
+   times, and the time of one PyTorch library call computing the same
+   function (``scaled_dot_product_attention``, ``torch.bmm``,
+   ``torch.matmul``; a yardstick only; none for the SSD).
 3. ``model``: full-width smollm-135m prefill + decode logits, kernel path
    against the plain path, fp32.
 4. ``dense_engine`` / ``paged_engine`` (the serving path): full-width
@@ -46,10 +52,24 @@ lines.jsonl):
    every block of core 0 is checked against the plain version and the
    batched kernel must launch exactly cores x cycles times. Then one BAaaS
    ``invoke_service`` and one RSaaS ``program``/``run`` of a 2-D product.
-8. the ``kernels`` summary line (launches from the serving path for the
-   attention kernels, from the rc3e path for the streaming matmul), the
-   GPU's name and power limit, and ``{"ok": true, ...}`` last. Any failed
-   check exits non-zero.
+8. ``ssm_model``: full-width, full-depth (48-layer) mamba2-370m prefill of
+   2 x 100 tokens + 4 decode steps in fp32, logits on the kernel path
+   against the plain chunked path (``kernel_force="ref"``).
+9. ``ssm_serve`` (the SSM path): mamba2-370m in bfloat16 (seeded torch
+   init, gate norms set to 1) served through ``make_prefill_step`` /
+   ``make_serve_step`` with greedy argmax on the device: 4 prompts x 1024
+   tokens, then 8 x 256, 32 new tokens each. The plain path, and both paths
+   in float32, are then fed the kernel path's tokens, so that every step of
+   every stream is compared on the same inputs: the fp32 logits within the
+   model phases' tolerance and the fp32 greedy tokens equal but at a
+   counted near-tie; the bf16 kernel path no less accurate than the plain
+   bf16 path against fp32 (RMS). ``ssd_chunk_scan`` must launch 48 times a
+   prefill call and nothing else may launch. Prefill ms, decode step ms,
+   tokens/s, and the decode step's device idle share.
+10. the ``kernels`` summary line (launches from the serving path for the
+   attention kernels, from the rc3e path for the streaming matmul, from
+   the SSM path for the SSD scan), the GPU's name and power limit, and
+   ``{"ok": true, ...}`` last. Any failed check exits non-zero.
 """
 import dataclasses
 import json
@@ -77,6 +97,16 @@ RC3E_FIFO_DEPTH = 4
 RC3E_PROFILE_CYCLES = 200
 SERVING_KERNELS = ("decode_attention", "paged_decode_attention",
                    "flash_attention")
+SSM_H, SSM_P, SSM_N = 32, 64, 128      # mamba2-370m's SSD width
+SSD_TOL = {torch.float32: dict(atol=5e-4, rtol=5e-3),    # tests/test_kernels
+           torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+SSM_BATCHES = ((4, 1024), (8, 256))    # prompts x tokens, ssm_serve
+SSM_NEW_TOKENS = 32
+SSM_LOGIT_TOL = dict(atol=1e-3, rtol=1e-3)   # fp32 logits, as model phases
+# the bf16 kernel path's RMS logit error against the fp32 plain path, over
+# the plain bf16 path's: the two differ only in the SSD's summation order,
+# which moves the ratio by under 1% on the H100 (PERF.md)
+SSM_BF16_RMS_RATIO = 1.05
 
 
 class SmokeFailure(Exception):
@@ -396,6 +426,79 @@ def matmul_kernel_phase(results):
         results.setdefault("stream_matmul", []).append(rec)
 
 
+def ssd_kernel_phase(results):
+    """The Mamba2 SSD scan against its plain (sequential) version and the
+    layer's chunked ``ssd_scan``, at mamba2-370m's width (H 32, P 64,
+    N 128, G 1), on the layer's strided views of one (B, S, C) activation;
+    y and the final state. No single PyTorch call computes the SSD, so
+    there is no library yardstick."""
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels import mamba2_chunk as ssd
+    from repro_torch.layers.ssm import ssd_scan
+    F = torch.nn.functional
+    t_phase = time.monotonic()
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 6)
+    H, P, N, G = SSM_H, SSM_P, SSM_N, 1
+    ptxas = _lib.ptxas_lines("ssd_chunk_scan")
+    layouts = set()
+    for case, dtype, Bsz, S in (("bf16/B4/S1024", torch.bfloat16, 4, 1024),
+                                ("fp32/B4/S1024", torch.float32, 4, 1024),
+                                ("bf16/B8/S256", torch.bfloat16, 8, 256),
+                                ("fp32/B1/S2048", torch.float32, 1, 2048),
+                                ("fp32/B2/S1000", torch.float32, 2, 1000)):
+        C = H * P + 2 * G * N
+        xbc = (torch.randn((Bsz, S, C), generator=gen, device=DEV)
+               * 0.5).to(dtype)
+        xs = xbc[..., :H * P].reshape(Bsz, S, H, P)
+        Bm = xbc[..., H * P:H * P + G * N].reshape(Bsz, S, G, N)
+        Cm = xbc[..., H * P + G * N:].reshape(Bsz, S, G, N)
+        dt = F.softplus(torch.randn((Bsz, S, H), generator=gen, device=DEV)
+                        - 1.0)
+        A = -torch.exp(torch.randn((H,), generator=gen, device=DEV))
+        D = torch.randn((H,), generator=gen, device=DEV)
+        args = (xs, dt, A, Bm, Cm, D)
+        rows = ssd._rows(xs.device, Bsz * H, P)     # state rows a block
+        layouts.add(rows)
+        y, st = ssd.ssd_cuda(*args)
+        ry, rs = ssd.ssd_ref(*args)
+        cy, cs = ssd_scan(*args, 256)
+        torch.cuda.synchronize()
+        tol = SSD_TOL[dtype]
+        err = float((y.float() - ry.float()).abs().max())
+        err_state = float((st - rs).abs().max())
+        err_chunked = float(max((y.float() - cy.float()).abs().max(),
+                                (st - cs).abs().max()))
+        require(tuple(y.shape) == (Bsz, S, H, P) and y.dtype == dtype
+                and bool(torch.isfinite(y.float()).all())
+                and bool(torch.isfinite(st).all()),
+                f"ssd_chunk_scan {case}: shape, dtype or non-finite")
+        for name, a, b in (("y", y, ry), ("state", st, rs),
+                           ("y vs ssd_scan", y, cy),
+                           ("state vs ssd_scan", st, cs)):
+            require(torch.allclose(a.float(), b.float(), **tol),
+                    f"ssd_chunk_scan {case} {name}: max err "
+                    f"{float((a.float() - b.float()).abs().max())}")
+        el = xs.element_size()
+        nbytes = (2 * Bsz * S * H * P * el + Bsz * S * H * 4
+                  + 2 * Bsz * S * G * N * el + Bsz * H * P * N * 4)
+        b_ms, b_by = bound(nbytes, 4 * P * N * Bsz * S * H, dtype)
+        rec = dict(phase="kernel", name="ssd_chunk_scan", case=case,
+                   shape=dict(B=Bsz, S=S, H=H, P=P, G=G, N=N), rows=rows,
+                   max_abs_err=max(err, err_state), max_abs_err_y=err,
+                   max_abs_err_state=err_state,
+                   max_abs_err_vs_ssd_scan=err_chunked, tol=tol,
+                   ms=time_ms(lambda: ssd.ssd_cuda(*args)),
+                   plain_ms=time_ms(lambda: ssd.ssd_ref(*args), iters=3),
+                   chunked_ms=time_ms(lambda: ssd_scan(*args, 256), iters=5),
+                   bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                   ptxas=ptxas, phase_wall_s=time.monotonic() - t_phase)
+        emit(rec)
+        results.setdefault("ssd_chunk_scan", []).append(rec)
+    require(layouts == {8, 16, 32},
+            f"ssd_chunk_scan: held the row layouts {sorted(layouts)}, not "
+            "8, 16 and 32")
+
+
 # ---------------------------------------------------------------------------
 # RC3E phase: the paper's RAaaS / BAaaS / RSaaS workflow
 # ---------------------------------------------------------------------------
@@ -651,6 +754,273 @@ def model_phase(cfg, params):
               shape=list(a.shape), max_abs_err=err, tol=tol))
 
 
+def ssm_params(model, seed):
+    """Seeded mamba2 weights. The reference's init sets each block's gated
+    RMSNorm weight to 0, and ``rms_norm(..., plus_one=False)`` then zeroes
+    the block's output, so the SSD would not reach the logits: set it to 1
+    (upstream Mamba2's init)."""
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+    params = model.init(gen)
+    for st in params["stages"]:
+        st["ssm"]["norm"].fill_(1.0)
+    return params
+
+
+def ssm_model_phase(cfg, params):
+    """Full-width, full-depth mamba2-370m prefill (2 x 100 tokens) + 4 decode
+    steps in fp32: logits on the kernel path against the plain chunked path
+    (``kernel_force="ref"``), at the smollm model phase's tolerance."""
+    from repro_torch.kernels import _lib
+    from repro_torch.models import Model
+    tol = SSM_LOGIT_TOL
+    cfg32 = cfg.replace(dtype="float32")
+    t_phase = time.monotonic()
+    out = {}
+    for tag, c in (("kernel", cfg32), ("plain", plain_cfg(cfg32))):
+        m = Model(c, device=DEV)
+        before = _lib.launches["ssd_chunk_scan"]
+        toks = torch.from_numpy(np.random.default_rng(SEED).integers(
+            0, c.vocab_size, (2, 100)).astype(np.int32)).to(DEV)
+        h, caches = m.prefill(params, {"tokens": toks}, 0)
+        logs = [m.logits(params, h[:, -1:])[:, 0]]
+        nxt = logs[0].argmax(-1).to(torch.int32)
+        pos = torch.full((2,), 100, dtype=torch.int32, device=DEV)
+        for _ in range(4):
+            lg, caches = m.decode(params, caches, nxt[:, None], pos)
+            logs.append(lg[:, 0])
+            nxt, pos = lg[:, 0].argmax(-1).to(torch.int32), pos + 1
+        out[tag] = torch.stack(logs)
+        got = _lib.launches["ssd_chunk_scan"] - before
+        require(got == (cfg.n_layers if tag == "kernel" else 0),
+                f"ssm_model {tag}: {got} ssd_chunk_scan launches")
+    a, b = out["kernel"], out["plain"]
+    err = float((a - b).abs().max())
+    require(bool(torch.isfinite(a).all()), "ssm_model: non-finite logits")
+    require(tuple(a.shape) == (5, 2, cfg.vocab_size), "ssm_model: shape")
+    require(torch.allclose(a, b, **tol), f"ssm_model: max err {err}")
+    emit(dict(phase="ssm_model", layers=cfg.n_layers, dtype="float32",
+              shape=list(a.shape), max_abs_err=err, tol=tol,
+              wall_s=time.monotonic() - t_phase))
+
+
+def ssm_generate(model, params, prompts, feed=None):
+    """Greedy generation through the serve-step factories: one prefill of
+    the (B, S) prompts, then SSM_NEW_TOKENS - 1 decode steps (the first
+    token comes from the prefill). With ``feed`` (B, SSM_NEW_TOKENS), step i
+    is fed ``feed[:, i - 1]`` instead of the model's own last token, so that
+    two paths see the same inputs. Returns (own greedy tokens (B, n) on the
+    host, logits (n, B, V) on the device, prefill ms, decode step ms list,
+    caches, last tokens, next position)."""
+    from repro_torch.runtime import make_prefill_step, make_serve_step
+    prefill = make_prefill_step(model, 0)
+    step = make_serve_step(model)
+    B, S = prompts.shape
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    h, caches = prefill(params, {"tokens": prompts})
+    logits = [model.logits(params, h[:, -1:])[:, 0]]
+    toks = [logits[0].argmax(-1).to(torch.int32)]
+    torch.cuda.synchronize()
+    prefill_ms = (time.monotonic() - t0) * 1e3
+    step_ms = []
+    nxt = toks[0] if feed is None else feed[:, 0]
+    pos = torch.full((B,), S, dtype=torch.int32, device=DEV)
+    for i in range(1, SSM_NEW_TOKENS):
+        t0 = time.monotonic()
+        lg, caches = step(params, caches, nxt[:, None], pos)
+        logits.append(lg[:, 0])
+        toks.append(lg[:, 0].argmax(-1).to(torch.int32))
+        torch.cuda.synchronize()
+        step_ms.append((time.monotonic() - t0) * 1e3)
+        nxt = toks[-1] if feed is None else feed[:, i]
+        pos = pos + 1
+    return (torch.stack(toks, 1).cpu().numpy(), torch.stack(logits),
+            prefill_ms, step_ms, caches, nxt, pos)
+
+
+def _errs(a, b, tol):
+    """Max and RMS of |a - b| over all logits, and the share outside
+    atol + rtol |b|."""
+    e = (a.float() - b.float()).abs()
+    out = e > tol["atol"] + tol["rtol"] * b.float().abs()
+    return dict(max=float(e.max()), rms=float(e.pow(2).mean().sqrt()),
+                share_outside_tol=float(out.float().mean()))
+
+
+def compare_forced(logits, tol16):
+    """Four runs on the same weights and the same tokens at every step (the
+    bf16 kernel path's own greedy tokens): ``k16``/``p16`` the bf16 kernel
+    and plain paths, ``k32``/``p32`` the same two in fp32. Every step of
+    every stream is compared; nothing is excused wholesale.
+
+    * fp32, where the two paths differ by summation order only: every logit
+      within SSM_LOGIT_TOL (the model phases' tolerance), and every greedy
+      token the plain path's argmax or, at a near-tie (the plain logit of
+      the kernel's token within that tolerance of the top), counted; a
+      check that excused more than half of the tokens would hold nothing,
+      and fails.
+    * bf16: over 48 layers bf16 rounding alone moves the logits far past
+      the bf16 tolerance (the plain bf16 path against the fp32 one shows
+      it), so the bf16 kernel path is held to be no less accurate than the
+      plain bf16 path, both measured against the fp32 plain path: RMS
+      error at most SSM_BF16_RMS_RATIO times the plain path's."""
+    require(all(bool(torch.isfinite(v).all()) for v in logits.values()),
+            "ssm_serve: non-finite logits")
+    k32, p32 = logits["k32"], logits["p32"]
+    err32 = _errs(k32, p32, SSM_LOGIT_TOL)
+    require(err32["share_outside_tol"] == 0.0,
+            f"ssm_serve fp32: logits outside {SSM_LOGIT_TOL}: {err32}")
+    top2 = p32.topk(2, dim=-1).values                    # (n, B, 2)
+    best = top2[..., 0]
+    mine_idx = k32.argmax(-1)
+    mine = p32.gather(-1, mine_idx[..., None])[..., 0]
+    differ = mine_idx != p32.argmax(-1)
+    near = best - mine <= (SSM_LOGIT_TOL["atol"]
+                           + SSM_LOGIT_TOL["rtol"] * best.abs())
+    require(not bool((differ & ~near).any()),
+            f"ssm_serve fp32: {int((differ & ~near).sum())} greedy tokens "
+            "are not the plain path's argmax nor a near-tie")
+    n_tok = int(differ.numel())
+    excused = int(differ.sum())
+    require(2 * excused <= n_tok,
+            f"ssm_serve fp32: {excused} of {n_tok} tokens excused")
+    k16_err = _errs(logits["k16"], p32, tol16)
+    p16_err = _errs(logits["p16"], p32, tol16)
+    ratio = k16_err["rms"] / p16_err["rms"]
+    require(ratio <= SSM_BF16_RMS_RATIO,
+            f"ssm_serve bf16: kernel path RMS error {k16_err['rms']} against "
+            f"fp32 is {ratio:.4f}x the plain path's {p16_err['rms']}")
+    margin = (top2[..., 0] - top2[..., 1]).flatten().cpu().numpy()
+    return dict(
+        logits_compared=int(k32.numel()),
+        fp32_kernel_vs_plain=err32, fp32_logit_tol=SSM_LOGIT_TOL,
+        fp32_tokens_compared=n_tok, fp32_tokens_excused_near_tie=excused,
+        fp32_streams_without_excuse=int((~differ).all(0).sum()),
+        fp32_plain_margin_p50=float(np.median(margin)),
+        bf16_kernel_vs_plain=_errs(logits["k16"], logits["p16"], tol16),
+        bf16_kernel_vs_fp32=k16_err, bf16_plain_vs_fp32=p16_err,
+        bf16_rms_ratio=ratio,
+        bf16_argmax_differ=int((logits["k16"].argmax(-1)
+                                != logits["p16"].argmax(-1)).sum()),
+        plain_logit_std=float(p32.std()))
+
+
+def ssm_decode_profile(model, params, caches, nxt, pos, steps=10):
+    """Device busy time of ``steps`` decode steps under the profiler; the
+    idle share is taken against the wall time of ``steps`` unprofiled
+    steps just before (as ``profile_phase``)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.runtime import make_serve_step
+    step = make_serve_step(model)
+
+    def run():
+        nonlocal nxt, pos
+        for _ in range(steps):
+            logits, _ = step(params, caches, nxt[:, None], pos)
+            nxt = logits[:, 0].argmax(-1).to(torch.int32)
+            pos = pos + 1
+        torch.cuda.synchronize()
+
+    run()                                 # warm up
+    t0 = time.monotonic()
+    run()
+    wall_ms = (time.monotonic() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in dev) / 1e3 / steps
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
+    return dict(wall_ms_per_step=wall_ms, device_busy_ms_per_step=busy,
+                device_idle_share=1.0 - busy / wall_ms if busy else None,
+                device_ops_per_step=sum(e.count for e in dev) / steps,
+                top_kernels_ms_per_step={
+                    e.key[:80]: e.self_device_time_total / 1e3 / steps
+                    for e in top})
+
+
+def ssm_serve_phase(cfg, params):
+    """mamba2-370m in bf16 served through make_prefill_step /
+    make_serve_step with greedy argmax on the device: 4 prompts x 1024
+    tokens, then 8 x 256, 32 new tokens each, on the kernel path; then the
+    plain path, and both paths in fp32, fed the kernel path's tokens
+    (``compare_forced``). The SSD kernel must launch once per layer per
+    prefill call. Returns the launches of the (bf16) kernel path."""
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.mamba2_chunk import _rows
+    from repro_torch.models import Model
+    cfg32 = cfg.replace(dtype="float32")
+    models = {"k16": Model(cfg, device=DEV),
+              "p16": Model(plain_cfg(cfg), device=DEV),
+              "k32": Model(cfg32, device=DEV),
+              "p32": Model(plain_cfg(cfg32), device=DEV)}
+    tol = TOL[getattr(torch, cfg.dtype)]
+    n_heads = cfg.ssm.expand * cfg.d_model // cfg.ssm.head_dim
+    t_phase = time.monotonic()
+    rng = np.random.default_rng(SEED + 7)
+    path = {k: 0 for k in _lib.launches}
+    for bi, (B, S) in enumerate(SSM_BATCHES):
+        prompts = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))
+                                   .astype(np.int32)).to(DEV)
+        before = dict(_lib.launches)
+        t0 = time.monotonic()
+        kt, k_logits, k_pre, k_steps, caches, nxt, pos = ssm_generate(
+            models["k16"], params, prompts)
+        k_wall = time.monotonic() - t0
+        got = {k: _lib.launches[k] - before[k] for k in before}
+        for k in path:
+            path[k] += got[k]
+        require(got["ssd_chunk_scan"] == cfg.n_layers
+                and sum(got.values()) == cfg.n_layers,
+                f"ssm_serve {B}x{S}: launches {got}, needed "
+                f"{cfg.n_layers} ssd_chunk_scan (1 prefill call)")
+        require(kt.shape == (B, SSM_NEW_TOKENS)
+                and bool(((kt >= 0) & (kt < cfg.vocab_size)).all()),
+                f"ssm_serve {B}x{S}: token shape or range")
+        prof = ssm_decode_profile(models["k16"], params, caches, nxt, pos) \
+            if bi == 0 else None
+        del caches
+        logits = {"k16": k_logits}
+        feed = torch.from_numpy(kt).to(DEV)
+        for tag in ("p16", "k32", "p32"):
+            before = dict(_lib.launches)
+            t0 = time.monotonic()
+            _, logits[tag], pre, steps, _, _, _ = ssm_generate(
+                models[tag], params, prompts, feed=feed)
+            if tag == "p16":
+                p_pre, p_steps = pre, steps
+                p_wall = time.monotonic() - t0
+            n = _lib.launches["ssd_chunk_scan"] - before["ssd_chunk_scan"]
+            require(n == (cfg.n_layers if tag == "k32" else 0)
+                    and sum(_lib.launches.values()) - sum(before.values())
+                    == n, f"ssm_serve {tag}: {n} ssd_chunk_scan launches")
+        checks = compare_forced(logits, tol)
+        del logits, k_logits
+        n_tok = B * SSM_NEW_TOKENS
+        rec = dict(phase="ssm_serve", layers=cfg.n_layers, dtype=cfg.dtype,
+                   prompts=B, prompt_tokens=S, new_tokens=SSM_NEW_TOKENS,
+                   launches=got, ssd_rows=_rows(prompts.device, B * n_heads,
+                                                cfg.ssm.head_dim),
+                   logit_tol=tol, **checks,
+                   kernel_path=dict(
+                       prefill_ms=k_pre,
+                       step_ms_p50=float(np.percentile(k_steps, 50)),
+                       step_ms_p95=float(np.percentile(k_steps, 95)),
+                       wall_s=k_wall, tokens_per_s=n_tok / k_wall,
+                       decode_tokens_per_s=B * len(k_steps)
+                       / (sum(k_steps) / 1e3)),
+                   plain_path=dict(
+                       prefill_ms=p_pre,
+                       step_ms_p50=float(np.percentile(p_steps, 50)),
+                       wall_s=p_wall, tokens_per_s=n_tok / p_wall))
+        if prof is not None:
+            rec["profile_decode"] = prof
+        rec["phase_wall_s"] = time.monotonic() - t_phase
+        emit(rec)
+    return path
+
+
 def workload(vocab, n=16):
     """16 prompts of 64-1024 tokens; requests 4k and 4k+1 share a 256-token
     prefix (same tenant); two tenants."""
@@ -842,6 +1212,7 @@ def main():
     results = {}
     kernel_phase(results)
     matmul_kernel_phase(results)
+    ssd_kernel_phase(results)
 
     cfg = get_config("smollm-135m")
     gen = torch.Generator(device=DEV).manual_seed(SEED)
@@ -869,24 +1240,38 @@ def main():
 
     rc3e_path = rc3e_phase()
 
+    scfg = get_config("mamba2-370m")
+    sparams = ssm_params(Model(scfg, device=DEV), SEED + 8)
+    ssm_model_phase(scfg, sparams)
+    _lib.launches.reset()                   # the SSM path starts here
+    ssm_path = ssm_serve_phase(scfg, sparams)
+    require(ssm_path["ssd_chunk_scan"] > 0,
+            f"ssd_chunk_scan never launched on the SSM path: {ssm_path}")
+    del sparams
+
     main_case = {"decode_attention": "bf16", "paged_decode_attention": "bf16",
                  "flash_attention": "bf16/S1024",
-                 "stream_matmul": "fp32/s16/G100000"}
-    sources = {"decode_attention": ("decode_attention", 133),
-               "paged_decode_attention": ("decode_attention", 235),
-               "flash_attention": ("flash_attention", 100),
-               "stream_matmul": ("stream_matmul", 57)}
+                 "stream_matmul": "fp32/s16/G100000",
+                 "ssd_chunk_scan": "bf16/B4/S1024"}
+    sources = {"decode_attention": ("decode_attention", "decode_attention",
+                                    133),
+               "paged_decode_attention": ("decode_attention",
+                                          "decode_attention", 235),
+               "flash_attention": ("flash_attention", "flash_attention", 100),
+               "stream_matmul": ("stream_matmul", "stream_matmul", 57),
+               "ssd_chunk_scan": ("ssd_chunk_scan", "mamba2_chunk", 68)}
     path_launches = {k: serving_path[k] for k in SERVING_KERNELS}
     path_launches["stream_matmul"] = (rc3e_path["stream_matmul"]
                                       + rc3e_path["stream_matmul_batched"])
+    path_launches["ssd_chunk_scan"] = ssm_path["ssd_chunk_scan"]
     rows = []
     for name, recs in results.items():
         m = next(r for r in recs if r["case"] == main_case[name])
-        src, line = sources[name]
+        src, ref, line = sources[name]
         row = dict(
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{src}.cu",
-            replaces=f"src/repro/kernels/{src}.py:{line}",
+            replaces=f"src/repro/kernels/{ref}.py:{line}",
             launches=path_launches[name],
             max_abs_err=max(r["max_abs_err"] for r in recs),
             ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],

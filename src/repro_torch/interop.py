@@ -4,8 +4,10 @@
 already converted to a numpy array (``jax.tree.map(np.asarray, params)`` on
 the JAX side, so this module needs no JAX) and returns the port's parameter
 tree: the same nesting of dicts and tuples, leaves as tensors in the
-config's ``param_dtype`` on ``device``. Caches are not carried across; each
-engine builds its own.
+config's ``param_dtype`` on ``device``, except an SSM block's ``A_log``,
+``dt_bias`` and ``D``, which stay float32 whatever ``param_dtype`` is (as
+the reference's ``init_ssm`` makes them). Caches are not carried across;
+each engine builds its own.
 """
 from __future__ import annotations
 
@@ -15,18 +17,22 @@ import torch
 from repro_torch.configs.base import ModelConfig
 
 
+SSM_FP32_LEAVES = ("A_log", "dt_bias", "D")
+
+
 def params_from_numpy(tree, cfg: ModelConfig, device="cpu"):
     dtype = getattr(torch, cfg.param_dtype)
 
-    def conv(node):
+    def conv(node, path=()):
         if isinstance(node, dict):
-            return {k: conv(v) for k, v in node.items()}
+            return {k: conv(v, path + (k,)) for k, v in node.items()}
         if isinstance(node, (tuple, list)):
-            return tuple(conv(v) for v in node)
+            return tuple(conv(v, path) for v in node)
         arr = np.ascontiguousarray(node)
         if arr.dtype.kind != "f":
             raise TypeError(f"parameter leaf of dtype {arr.dtype}")
-        return torch.from_numpy(arr.astype(np.float32)).to(device=device,
-                                                           dtype=dtype)
+        fp32 = path[-2:-1] == ("ssm",) and path[-1] in SSM_FP32_LEAVES
+        return torch.from_numpy(arr.astype(np.float32)).to(
+            device=device, dtype=torch.float32 if fp32 else dtype)
 
     return conv(tree)

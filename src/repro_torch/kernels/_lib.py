@@ -23,7 +23,8 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
-SOURCES = ("decode_attention", "flash_attention", "stream_matmul")
+SOURCES = ("decode_attention", "flash_attention", "stream_matmul",
+           "ssd_chunk_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo")
 
@@ -43,7 +44,7 @@ class LaunchCounts(dict):
 
 launches = LaunchCounts(decode_attention=0, paged_decode_attention=0,
                         flash_attention=0, stream_matmul=0,
-                        stream_matmul_batched=0)
+                        stream_matmul_batched=0, ssd_chunk_scan=0)
 
 
 def build_dir() -> Path:

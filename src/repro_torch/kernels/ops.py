@@ -9,6 +9,7 @@ from __future__ import annotations
 
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import mamba2_chunk as _ssd
 from repro_torch.kernels import stream_matmul as _mm
 
 
@@ -56,3 +57,21 @@ def flash_attention(q, k, v, *, window: int = 0, scale: float = 0.0,
     fn = _fa.flash_attention_cuda if _on_cuda(q, "flash_attention") \
         else _fa.flash_attention_ref
     return fn(q, k, v, window=window, scale=scale, softcap=softcap)
+
+
+def ssd_chunk_scan(x, dt, Bm, Cm, a, d, chunk: int = 256):
+    """The reference's signature: x (BH, S, P); dt (BH, S); Bm/Cm
+    (BH, S, N); a/d (BH,). Returns y (BH, S, P) in x's dtype."""
+    if _on_cuda(x, "ssd_chunk_scan"):
+        return _ssd.ssd_chunk_scan_cuda(x, dt, Bm, Cm, a, d, chunk=chunk)
+    return _ssd.ssd_chunk_scan_ref(x, dt, Bm, Cm, a, d)
+
+
+def ssd(xs, dt, A, Bm, Cm, D, *, init_state=None, chunk: int = 256):
+    """The same scan in the Mamba2 layer's layout: xs (B, S, H, P); dt
+    (B, S, H) fp32; Bm/Cm (B, S, G, N); A/D (H,) fp32; init_state
+    (B, H, P, N) fp32 or None. Returns (y (B, S, H, P), final state
+    (B, H, P, N) fp32)."""
+    if _on_cuda(xs, "ssd"):
+        return _ssd.ssd_cuda(xs, dt, A, Bm, Cm, D, init_state, chunk=chunk)
+    return _ssd.ssd_ref(xs, dt, A, Bm, Cm, D, init_state)

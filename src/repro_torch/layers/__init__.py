@@ -6,3 +6,6 @@ from repro_torch.layers.embeddings import embed, init_embedding
 from repro_torch.layers.mlp import init_mlp, mlp_forward
 from repro_torch.layers.norms import rms_norm, softcap
 from repro_torch.layers.rope import apply_rope
+from repro_torch.layers.ssm import (SSMOpts, fill_ssm_cache, init_ssm,
+                                    init_ssm_cache, ssd_scan, ssm_decode,
+                                    ssm_forward)

@@ -1,9 +1,10 @@
 """``Model``: init / prefill / decode for the dense attention
-families, on an explicit device (CUDA unless the caller asks for the CPU).
+families and the pure-SSM family (mamba2: every layer an SSM mixer), on an
+explicit device (CUDA unless the caller asks for the CPU).
 
 Families the port cannot run yet raise ``NotImplementedError``: MoE, MLA,
-SSM and hybrid, encoder-decoder and VLM configs arrive with ROADMAP.md
-Queue 1 item 9 ("Remaining model families").
+hybrid SSM/attention (zamba2), encoder-decoder and VLM configs arrive with
+ROADMAP.md Queue 1 item 9 ("Remaining model families").
 """
 from __future__ import annotations
 
@@ -20,9 +21,13 @@ def _unsupported(cfg: ModelConfig) -> str:
         return "MoE"
     if cfg.mla is not None:
         return "MLA"
-    if cfg.ssm is not None or MIXER_SSM in cfg.pattern \
-            or MIXER_SHARED_ATTN in cfg.pattern:
-        return "SSM/hybrid"
+    if MIXER_SHARED_ATTN in cfg.pattern:
+        return ("hybrid SSM/attention (zamba2's shared attention has head "
+                "dim 112, which neither attention kernel takes: HEAD_DIMS "
+                "in kernels/decode_attention.py)")
+    pure_ssm = cfg.ssm is not None and set(cfg.layer_kinds()) == {MIXER_SSM}
+    if not pure_ssm and (cfg.ssm is not None or MIXER_SSM in cfg.pattern):
+        return "mixed SSM/attention"
     if cfg.encoder is not None:
         return "encoder-decoder"
     if cfg.n_patches:

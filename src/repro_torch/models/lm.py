@@ -1,6 +1,6 @@
 """Decoder-only LM for the dense attention families (smollm, phi3,
-gemma2/3): plain functions over a parameter dict laid out as the
-reference's pytree.
+gemma2/3) and the pure-SSM family (mamba2): plain functions over a
+parameter dict laid out as the reference's pytree.
 
   init_lm(cfg, generator, device)                 -> params
   lm_logits(cfg, params, hidden)                  -> logits

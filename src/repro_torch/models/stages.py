@@ -1,4 +1,5 @@
-"""Stage planner and stage execution for the dense attention families.
+"""Stage planner and stage execution for the dense attention families and
+the pure-SSM family (mamba2).
 
 ``plan_stages`` is the reference's planner, copied: a *site* is one layer's
 static description (mixer kind, mlp kind, rope theta, window); consecutive
@@ -9,7 +10,8 @@ reference scans over the stacked weights with ``lax.scan``; here a Python
 loop indexes them layer by layer. Parameters and caches keep the
 reference's stacked layout, so the JAX parameter pytree maps onto them
 one to one (``repro_torch.interop``). Caches are updated in place: layer
-``i`` works on views ``leaf[i]`` of the stacked cache tensors.
+``i`` works on views ``leaf[i]`` of the stacked cache tensors (an SSM
+site's final state and conv tail are written into its view at prefill).
 """
 from __future__ import annotations
 
@@ -26,6 +28,8 @@ from repro_torch.layers.attention import (AttnOpts, attn_decode,
                                           init_kv_cache, init_paged_kv_pool)
 from repro_torch.layers.mlp import init_mlp, mlp_forward
 from repro_torch.layers.norms import rms_norm
+from repro_torch.layers.ssm import (SSMOpts, fill_ssm_cache, init_ssm,
+                                    init_ssm_cache, ssm_decode, ssm_forward)
 
 
 # ---------------------------------------------------------------------------
@@ -112,12 +116,20 @@ def attn_opts(cfg: ModelConfig, site: LayerSite) -> AttnOpts:
         kernel_force=cfg.geometry.kernel_force)
 
 
+def ssm_opts(cfg: ModelConfig) -> SSMOpts:
+    return SSMOpts(d_model=cfg.d_model, cfg=cfg.ssm,
+                   kernel_force=cfg.geometry.kernel_force)
+
+
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
 
 def _init_site(cfg: ModelConfig, site: LayerSite, gen, dtype, device):
     z = lambda: torch.zeros((cfg.d_model,), dtype=dtype, device=device)
+    if site.mixer == MIXER_SSM:
+        return {"ssm": init_ssm(gen, ssm_opts(cfg), dtype, device),
+                "norm1": z()}
     p = {"norm1": z(), "norm2": z()}
     if cfg.post_norm:
         p["norm1_post"] = z()
@@ -173,10 +185,18 @@ def _stacked_caches(cfg: ModelConfig, make_one):
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device,
                clamp_window: bool = True):
     """Empty cache tree mirroring the stage structure. ``clamp_window=False``
-    sizes windowed sites at ``max_len`` too (no ring)."""
-    return _stacked_caches(cfg, lambda site: init_kv_cache(
-        batch, _site_cache_len(site, max_len) if clamp_window else max_len,
-        attn_opts(cfg, site), dtype, quant=cfg.kv_quant, device=device))
+    sizes windowed sites at ``max_len`` too (no ring). An SSM site's cache
+    is its (B, H, P, N) fp32 state and (B, d_conv-1, C) conv buffer,
+    whatever ``max_len``."""
+    def one(site):
+        if site.mixer == MIXER_SSM:
+            return init_ssm_cache(batch, ssm_opts(cfg), dtype, device)
+        return init_kv_cache(
+            batch, _site_cache_len(site, max_len) if clamp_window
+            else max_len, attn_opts(cfg, site), dtype, quant=cfg.kv_quant,
+            device=device)
+
+    return _stacked_caches(cfg, one)
 
 
 def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int, dtype,
@@ -184,7 +204,11 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int, dtype,
     """Empty paged KV pool tree mirroring the stage structure: every
     attention site gets (n_pages, page_size, kv, hd) pool tensors. One
     logical page allocates the same physical row in every layer's pool, so
-    a single block table per sequence addresses the whole stack."""
+    a single block table per sequence addresses the whole stack. SSM/MLA
+    archs have no paged form."""
+    if cfg.ssm is not None or cfg.mla is not None:
+        raise ValueError("paged KV caches support attention-family models "
+                         "(SSM state and MLA latents are not paged)")
     return _stacked_caches(cfg, lambda site: init_paged_kv_pool(
         n_pages, page_size, attn_opts(cfg, site), dtype, quant=cfg.kv_quant,
         device=device))
@@ -206,6 +230,11 @@ def _apply_site_full(cfg, site, p, x, positions, cache):
     """Full-sequence site application; fills ``cache`` (a layer's view of
     the stacked prefill cache) in place when one is given."""
     h = rms_norm(x, p["norm1"])
+    if site.mixer == MIXER_SSM:
+        y, (state, conv_tail) = ssm_forward(p["ssm"], h, ssm_opts(cfg))
+        if cache is not None:
+            fill_ssm_cache(cache, state, conv_tail)
+        return x + y
     y, (k, v) = attn_forward(p["attn"], h, positions, attn_opts(cfg, site))
     if cfg.post_norm:
         y = rms_norm(y, p["norm1_post"])
@@ -217,6 +246,9 @@ def _apply_site_full(cfg, site, p, x, positions, cache):
 
 def _apply_site_decode(cfg, site, p, x, positions, cache, block_tables):
     h = rms_norm(x, p["norm1"])
+    if site.mixer == MIXER_SSM:
+        y, _ = ssm_decode(p["ssm"], h, cache, ssm_opts(cfg))
+        return x + y
     if block_tables is not None:
         y, _ = attn_decode_paged(p["attn"], h, positions, cache,
                                  block_tables, attn_opts(cfg, site))

@@ -1,7 +1,12 @@
-"""Continuous-batching serving engine (the reference's ``BatchingEngine``)
-on PyTorch: dense per-slot KV rows or a paged KV pool, DRR fair-share
-admission, lockstep ``step`` and event-driven ``step_async``, preemption,
-copy-on-write prefix sharing, zero-on-free scrubbing and page hand-off.
+"""Serving runtime on PyTorch: the prefill and decode step factories, and
+the continuous-batching engine (the reference's ``BatchingEngine``) with
+dense per-slot KV rows or a paged KV pool, DRR fair-share admission,
+lockstep ``step`` and event-driven ``step_async``, preemption, copy-on-write
+prefix sharing, zero-on-free scrubbing and page hand-off.
+
+SSM models (mamba2) are served by ``make_prefill_step`` and
+``make_serve_step`` directly: the engine refuses them, as the reference's
+does, because slot recycling relies on position-masked KV caches.
 
 Greedy decoding (argmax on the device). Decode runs eagerly, one call per
 step; its attention goes through the hand-written CUDA kernels on a CUDA
@@ -26,6 +31,38 @@ import torch
 from repro_torch.analysis.lifecycle import sanitizer
 from repro_torch.models.api import Model
 from repro_torch.runtime.paged import PagePoolManager, default_pool_pages
+
+
+# ---------------------------------------------------------------------------
+# Step factories
+# ---------------------------------------------------------------------------
+
+def make_serve_step(model: Model):
+    """serve_step(params, caches, tokens, pos) -> (logits, caches)."""
+
+    def serve_step(params, caches, tokens, pos):
+        return model.decode(params, caches, tokens, pos)
+
+    return serve_step
+
+
+def make_paged_serve_step(model: Model):
+    """serve_step over the paged pool: extra (B, nb) block-table operand."""
+
+    def serve_step(params, caches, tokens, pos, block_tables):
+        return model.decode_paged(params, caches, tokens, pos, block_tables)
+
+    return serve_step
+
+
+def make_prefill_step(model: Model, max_len: int, clamp_window: bool = True):
+    """prefill_step(params, batch) -> (hidden, caches)."""
+
+    def prefill_step(params, batch):
+        return model.prefill(params, batch, max_len,
+                             clamp_window=clamp_window)
+
+    return prefill_step
 
 
 # ---------------------------------------------------------------------------
@@ -177,6 +214,14 @@ class BatchingEngine:
                  paged: bool = False, page_size: int = 16,
                  cache_pages: Optional[int] = None,
                  scrub_on_free: bool = True):
+        # Slot recycling relies on position-masked KV caches (stale entries
+        # carry positions > current and are masked out). SSM state has no
+        # such masking, so the engine serves attention-family models; SSM
+        # serving uses the step factories above.
+        if model.cfg.ssm is not None:
+            raise ValueError("BatchingEngine supports attention-family "
+                             "models; use make_prefill_step and "
+                             "make_serve_step for SSM archs")
         if prefill_mode not in ("batched", "legacy"):
             raise ValueError(f"unknown prefill_mode {prefill_mode!r}")
         self.model = model

@@ -5,7 +5,8 @@ the card. Imports nothing of JAX, so it runs on a machine without it:
 
 Without a CUDA device every test skips. Tolerances: atol 2e-5, rtol 2e-4 in
 float32; atol 2e-2, rtol 2e-2 in bfloat16 (both sides accumulate in fp32
-and round once to bf16; they differ by summation order).
+and round once to bf16; they differ by summation order). The SSD scan is
+held at the reference's SSD tolerance, atol 5e-4, rtol 5e-3, in float32.
 """
 import numpy as np
 import pytest
@@ -266,3 +267,125 @@ def test_raas_slice_on_card(cuda):
                 torch.testing.assert_close(outs[i][0].cpu(), ref, atol=1e-4,
                                            rtol=1e-4)
         assert launches["stream_matmul_batched"] - before == n * cycles
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD scan
+# ---------------------------------------------------------------------------
+
+SSD_TOL = dict(atol=5e-4, rtol=5e-3)
+
+
+def _ssd_layer_inputs(gen, dev, B, S, H, P, G, N, dtype):
+    """The layer's operands: xs, Bm, Cm as views of one (B, S, C) activation
+    (as ``_split_xbc`` makes them), dt (B, S, H) fp32, A and D (H,)."""
+    C = H * P + 2 * G * N
+    xbc = (torch.randn((B, S, C), generator=gen, device=dev) * 0.5).to(dtype)
+    xs = xbc[..., :H * P].reshape(B, S, H, P)
+    Bm = xbc[..., H * P:H * P + G * N].reshape(B, S, G, N)
+    Cm = xbc[..., H * P + G * N:].reshape(B, S, G, N)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=gen, device=dev) - 1.0)
+    A = -torch.exp(torch.randn((H,), generator=gen, device=dev))
+    D = torch.randn((H,), generator=gen, device=dev)
+    return xs, dt, A, Bm, Cm, D
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,dtype,B,S,H,P,G,N,init", [
+    ("fp32/B4/S1024", torch.float32, 4, 1024, 32, 64, 1, 128, False),
+    ("bf16/B4/S1024", torch.bfloat16, 4, 1024, 32, 64, 1, 128, False),
+    ("fp32/B1/S2048", torch.float32, 1, 2048, 32, 64, 1, 128, False),
+    ("fp32/B2/S1000", torch.float32, 2, 1000, 32, 64, 1, 128, True),
+    ("fp32/groups", torch.float32, 2, 77, 8, 48, 2, 64, True),
+    ("bf16/B8/S256", torch.bfloat16, 8, 256, 32, 64, 1, 128, False),
+    ("fp32/N16", torch.float32, 3, 40, 4, 16, 1, 16, False),
+    ("bf16/N64", torch.bfloat16, 1, 100, 8, 32, 4, 64, True)])
+def test_ssd_kernel_on_card(cuda, case, dtype, B, S, H, P, G, N, init):
+    """mamba2-370m's width (H 32, P 64, N 128) at the chip_smoke cases (the
+    ssm_serve batches B 4 and 8 run 16 and 32 state rows a block), and
+    groups, a ragged row tile (P 48), the other state dims, an init state:
+    y and the final state against the sequential plain version and the
+    chunked ``ssd_scan``."""
+    from repro_torch.kernels import mamba2_chunk as tssd
+    from repro_torch.layers.ssm import ssd_scan
+    if case == "bf16/B8/S256":        # 256 (sequence, head) pairs
+        assert tssd._rows(cuda, B * H, P) == 32
+    gen = torch.Generator(device=cuda).manual_seed(S + N)
+    xs, dt, A, Bm, Cm, D = _ssd_layer_inputs(gen, cuda, B, S, H, P, G, N,
+                                             dtype)
+    st0 = (torch.randn((B, H, P, N), generator=gen, device=cuda) * 0.1
+           if init else None)
+    n = launches["ssd_chunk_scan"]
+    y, st = tssd.ssd_cuda(xs, dt, A, Bm, Cm, D, st0)
+    assert launches["ssd_chunk_scan"] == n + 1
+    assert y.dtype == dtype and y.shape == (B, S, H, P)
+    assert st.dtype == torch.float32 and st.shape == (B, H, P, N)
+    tol = SSD_TOL if dtype == torch.float32 else TOL_BF16
+    for ry, rs in (tssd.ssd_ref(xs, dt, A, Bm, Cm, D, st0),
+                   ssd_scan(xs, dt, A, Bm, Cm, D, 256, st0)):
+        torch.testing.assert_close(y.float(), ry.float(), **tol)
+        torch.testing.assert_close(st, rs, **tol)
+
+
+@pytest.mark.cuda
+def test_ssd_chunk_scan_reference_layout_on_card(cuda):
+    """The (BH, S, P) entry with per-head operands (the reference's
+    signature), bf16 dt widened."""
+    from repro_torch.kernels import mamba2_chunk as tssd
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    BH, S, P, N = 6, 300, 64, 128
+    x = torch.randn((BH, S, P), generator=gen, device=cuda) * 0.5
+    dt = torch.nn.functional.softplus(
+        torch.randn((BH, S), generator=gen, device=cuda))
+    Bm = torch.randn((BH, S, N), generator=gen, device=cuda) * 0.3
+    Cm = torch.randn((BH, S, N), generator=gen, device=cuda) * 0.3
+    a = -torch.exp(torch.randn((BH,), generator=gen, device=cuda))
+    d = torch.ones((BH,), device=cuda)
+    n = launches["ssd_chunk_scan"]
+    got = ops.ssd_chunk_scan(x, dt, Bm, Cm, a, d, chunk=64)
+    got16 = ops.ssd_chunk_scan(x.bfloat16(), dt.bfloat16(), Bm.bfloat16(),
+                               Cm.bfloat16(), a, d)
+    assert launches["ssd_chunk_scan"] == n + 2
+    torch.testing.assert_close(got, tssd.ssd_chunk_scan_ref(x, dt, Bm, Cm,
+                                                            a, d), **SSD_TOL)
+    ref16 = tssd.ssd_chunk_scan_ref(x.bfloat16(), dt.bfloat16(),
+                                    Bm.bfloat16(), Cm.bfloat16(), a, d)
+    torch.testing.assert_close(got16.float(), ref16.float(), **TOL_BF16)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_refuses_what_it_cannot_take(cuda):
+    """Refused on the card; nothing falls back to the plain version."""
+    from repro_torch.kernels import mamba2_chunk as tssd
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    args = _ssd_layer_inputs(gen, cuda, 1, 8, 2, 16, 1, 16, torch.float32)
+    xs, dt, A, Bm, Cm, D = args
+    n = launches["ssd_chunk_scan"]
+    with pytest.raises(TypeError):
+        tssd.ssd_cuda(xs.half(), dt, A, Bm.half(), Cm.half(), D)
+    with pytest.raises(TypeError):
+        tssd.ssd_cuda(xs, dt.bfloat16(), A, Bm, Cm, D)
+    for n_state in (24, 32, 256):      # no config has these
+        bad = _ssd_layer_inputs(gen, cuda, 1, 8, 2, 16, 1, n_state,
+                                torch.float32)
+        with pytest.raises(ValueError, match="state dim"):
+            tssd.ssd_cuda(*bad)
+    bad = _ssd_layer_inputs(gen, cuda, 1, 8, 2, 12, 1, 16, torch.bfloat16)
+    with pytest.raises(ValueError, match="head dim 12"):
+        tssd.ssd_cuda(*bad)
+    with pytest.raises(ValueError, match="contiguous last dim"):
+        tssd.ssd_cuda(xs.transpose(2, 3).contiguous().transpose(2, 3), dt,
+                      A, Bm, Cm, D)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tssd.ssd_cuda(*(t.cpu() for t in args))
+    # views of a (B, S, C + 1) activation from its second column: the base
+    # is 4 bytes off and the rows are C + 1 long
+    xbc = torch.randn((1, 8, 2 * 16 + 2 * 16 + 1), generator=gen,
+                      device=cuda)[..., 1:]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tssd.ssd_cuda(xbc[..., :32].reshape(1, 8, 2, 16), dt, A,
+                      xbc[..., 32:48].reshape(1, 8, 1, 16),
+                      xbc[..., 48:].reshape(1, 8, 1, 16), D)
+    assert launches["ssd_chunk_scan"] == n

@@ -1,12 +1,19 @@
 """Port model against the JAX package: the reduced smollm-135m fixture of
 tests/test_paged.py (fp32), JAX-initialised weights carried across by
 ``repro_torch.interop``; prefill, decode and paged-decode logits and greedy
-tokens. Also: families and devices the port refuses.
+tokens. The same for reduced mamba2-370m (fp32) through the serve-step
+factories, on the plain chunked path (``kernel_force="ref"``) and on the
+default path (the SSD kernel's sequential plain version on the CPU). Also:
+families, layouts, engines and devices the port refuses.
 
-Tolerance: atol 2e-5, rtol 2e-4 on fp32 logits. Greedy tokens must be
-identical; every step here has a top-2 logit margin far above that
+Tolerance: atol 2e-5, rtol 2e-4 on fp32 logits where both sides run the
+same algorithm; atol 5e-4, rtol 5e-3 (the reference's SSD tolerance) where
+the port's sequential SSD meets the reference's chunked one. Greedy tokens
+must be identical; every step here has a top-2 logit margin far above that
 tolerance (asserted), so no step needs the reference's token fed in.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -16,13 +23,17 @@ import torch
 from repro.configs import get_config as j_get_config
 from repro.configs import reduced as j_reduced
 from repro.models import get_model as j_get_model
+from repro.runtime.serve import BatchingEngine as JBatchingEngine
 from repro_torch.configs import get_config, reduced
 from repro_torch.interop import params_from_numpy
 from repro_torch.models import Model
+from repro_torch.runtime import (BatchingEngine, make_paged_serve_step,
+                                 make_prefill_step, make_serve_step)
 
 torch.set_num_threads(1)
 
 TOL = dict(atol=2e-5, rtol=2e-4)
+SSD_TOL = dict(atol=5e-4, rtol=5e-3)
 MARGIN = 1e-3
 
 
@@ -73,13 +84,15 @@ def test_prefill_then_decode_matches_reference(pair):
 
 
 def test_decode_paged_matches_reference(pair):
-    """Token-at-a-time decode through a paged pool: two rows on shuffled
-    pages, one row inactive (pos -1, the mean of the null page's V rows on
-    both sides), block tables padded with the null page."""
+    """Token-at-a-time decode through a paged pool (the paged serve step):
+    two rows on shuffled pages, one row inactive (pos -1, the mean of the
+    null page's V rows on both sides), block tables padded with the null
+    page."""
     jmodel, jparams, model, params = pair
     ps, n_pages, nb, B = 4, 24, 6, 3
     jpool = jmodel.make_paged_caches(n_pages, ps)
     tpool = model.make_paged_caches(n_pages, ps)
+    step = make_paged_serve_step(model)
     rng = np.random.default_rng(1)
     pages = rng.permutation(np.arange(1, n_pages))
     bt = np.zeros((B, nb), np.int32)
@@ -90,10 +103,8 @@ def test_decode_paged_matches_reference(pair):
         jl, jpool = jmodel.decode_paged(jparams, jpool,
                                         jnp.asarray(toks[:, None]),
                                         jnp.asarray(pos), jnp.asarray(bt))
-        tl, tpool = model.decode_paged(params, tpool,
-                                       torch.tensor(toks[:, None]),
-                                       torch.from_numpy(pos),
-                                       torch.from_numpy(bt))
+        tl, tpool = step(params, tpool, torch.tensor(toks[:, None]),
+                         torch.from_numpy(pos), torch.from_numpy(bt))
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
         assert _margin(jl) > MARGIN
         toks = np.asarray(jnp.argmax(jl[:, 0], -1), np.int32)
@@ -104,6 +115,11 @@ def test_decode_paged_matches_reference(pair):
                                   "mamba2-370m", "zamba2-7b", "whisper-tiny",
                                   "llava-next-34b"])
 def test_unported_families_refuse(arch):
+    """Families the port cannot run yet refuse, pointing at ROADMAP.md;
+    mamba2 (pure SSM) is ported and admitted."""
+    if arch == "mamba2-370m":
+        assert Model(reduced(get_config(arch)), device="cpu").cfg.ssm
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         Model(reduced(get_config(arch)), device="cpu")
 
@@ -117,3 +133,120 @@ def test_model_defaults_to_cuda():
     else:
         with pytest.raises(RuntimeError, match="device='cpu'"):
             Model(cfg)
+
+
+# ---------------------------------------------------------------------------
+# mamba2 (pure SSM)
+# ---------------------------------------------------------------------------
+
+def _with_gate_norm(tree, rng):
+    """The reference's init sets each SSM block's gate norm to 0, which
+    zeroes the block's output (``rms_norm(..., plus_one=False)``); give it
+    weights around 1 so that the SSD shows in the logits."""
+    if isinstance(tree, dict):
+        return {k: (1.0 + 0.1 * rng.standard_normal(v.shape))
+                .astype(np.float32) if k == "norm" and "in_proj" in tree
+                else _with_gate_norm(v, rng) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(_with_gate_norm(v, rng) for v in tree)
+    return tree
+
+
+def _force(cfg, force):
+    return cfg.replace(geometry=dataclasses.replace(cfg.geometry,
+                                                    kernel_force=force))
+
+
+@pytest.fixture(scope="module")
+def ssm_pair():
+    jcfg = j_reduced(j_get_config("mamba2-370m")).replace(dtype="float32")
+    jmodel = j_get_model(jcfg)
+    tree = _with_gate_norm(
+        jax.tree.map(np.asarray, jmodel.init(jax.random.PRNGKey(0))),
+        np.random.default_rng(0))
+    jparams = jax.tree.map(jnp.asarray, tree)
+    cfg = reduced(get_config("mamba2-370m")).replace(dtype="float32")
+    return jmodel, jparams, cfg, params_from_numpy(tree, cfg)
+
+
+@pytest.mark.parametrize("force", ["ref", ""])
+def test_ssm_prefill_then_decode_matches_reference(ssm_pair, force):
+    """Through the serve-step factories (the port's SSM entry point)."""
+    jmodel, jparams, cfg, params = ssm_pair
+    model = Model(_force(cfg, force), device="cpu")
+    tol = TOL if force == "ref" else SSD_TOL
+    prefill = make_prefill_step(model, 48)
+    step = make_serve_step(model)
+    toks = _tokens(cfg, 2, 24, seed=3)
+    jh, jc = jmodel.prefill(jparams, {"tokens": jnp.asarray(toks)}, 48)
+    th, tc = prefill(params, {"tokens": torch.from_numpy(toks)})
+    jl = jmodel.logits(jparams, jh)
+    tl = model.logits(params, th)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **tol)
+    assert _margin(jl[:, -1]) > MARGIN
+    nxt = np.asarray(jnp.argmax(jl[:, -1], -1), np.int32)
+    assert np.array_equal(nxt, tl[:, -1].argmax(-1).numpy())
+    pos = np.full((2,), 24, np.int32)
+    for _ in range(6):
+        jl, jc = jmodel.decode(jparams, jc, jnp.asarray(nxt[:, None]),
+                               jnp.asarray(pos))
+        tl, tc = step(params, tc, torch.tensor(nxt[:, None]),
+                      torch.from_numpy(pos))
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **tol)
+        for jv, tv in zip(jax.tree.leaves(jc), jax.tree.leaves(tc)):
+            np.testing.assert_allclose(tv.numpy(), np.asarray(jv), **tol)
+        assert _margin(jl) > MARGIN
+        nxt = np.asarray(jnp.argmax(jl[:, 0], -1), np.int32)
+        assert np.array_equal(nxt, tl[:, 0].argmax(-1).numpy())
+        pos = pos + 1
+
+
+def test_ssm_decode_matches_forward(ssm_pair):
+    """Prefill of S-1 tokens + one decode step gives the logits of a
+    prefill over all S (the port's teacher-forced forward), as
+    tests/test_models.py checks for the reference."""
+    _, _, cfg, params = ssm_pair
+    model = Model(cfg, device="cpu")
+    toks = torch.from_numpy(_tokens(cfg, 2, 32, seed=4))
+    h, _ = model.prefill(params, {"tokens": toks}, 40)
+    full = model.logits(params, h)[:, -1]
+    _, caches = model.prefill(params, {"tokens": toks[:, :-1]}, 40)
+    d, _ = model.decode(params, caches, toks[:, -1:],
+                        torch.full((2,), 31, dtype=torch.int32))
+    assert float((d[:, 0] - full).abs().max()) < 2e-4
+
+
+def test_ssm_paged_caches_and_engine_refused(ssm_pair):
+    """No paged form and no BatchingEngine for SSM models, in either
+    package. The refusals agree up to the entry point they name: the
+    reference's ``jit_serve_step`` is not ported (a mesh and shardings),
+    so the port names its own step factories."""
+    jmodel, jparams, cfg, params = ssm_pair
+    model = Model(cfg, device="cpu")
+    for make in (lambda: jmodel.make_paged_caches(8, 4),
+                 lambda: model.make_paged_caches(8, 4)):
+        with pytest.raises(ValueError, match="attention-family"):
+            make()
+    msgs = []
+    for engine, m, p in ((JBatchingEngine, jmodel, jparams),
+                         (BatchingEngine, model, params)):
+        with pytest.raises(ValueError, match="attention-family") as e:
+            engine(m, p)
+        msgs.append(str(e.value))
+    lead = "BatchingEngine supports attention-family models; use "
+    assert msgs[0].startswith(lead) and msgs[1].startswith(lead)
+    assert "jit_serve_step" in msgs[0]
+    assert "make_prefill_step and make_serve_step" in msgs[1]
+
+
+def test_ssm_short_prompt_refused(ssm_pair):
+    _, _, cfg, params = ssm_pair
+    model = Model(cfg, device="cpu")
+    with pytest.raises(ValueError, match="d_conv-1"):
+        model.prefill(params, {"tokens": torch.zeros((1, 2),
+                                                     dtype=torch.int32)}, 8)
+
+
+def test_hybrid_refusal_names_the_head_dim():
+    with pytest.raises(NotImplementedError, match="head dim 112"):
+        Model(get_config("zamba2-7b"), device="cpu")
