@@ -9,11 +9,17 @@ lines.jsonl):
 
 1. ``build``: compiles every CUDA kernel from ``src/repro_torch/kernels/csrc``
    (nvcc, sm_90a, one process per source, all at once) and reports the
-   build time and ptxas register/spill lines.
+   build time, ptxas's registers, spills and static shared memory per
+   kernel, and the tensor-core instructions (HMMA, HGMMA) in each
+   library's SASS (``cuobjdump -sass``). Fails if the flash library has
+   none, or if its bf16 kernel at D 64 spills registers.
 2. ``kernel``: each kernel against its plain PyTorch version. Attention at
    the serving path's shapes (B=8, Hq=9, Hkv=3, D=64, L=2048, page 16;
-   prefill S up to 2048): fp32, bf16, int8 KV, window, an idle slot (the
-   mean of V, as the reference), ragged L and S. The streaming matmul on
+   prefill S 64 to 2048): fp32, bf16, int8 KV, window, an idle slot (the
+   mean of V, as the reference), ragged L and S; decode also at B=1 and
+   B=64 (many splits and one; each decode record gives the ``n_split``
+   its first launch used).
+   The streaming matmul on
    the paper's stream of 100,000 16x16 / 32x32 products (fp32, bf16) and on
    2-D products (129x257x65, 4096^3 fp32 and bf16). The SSD scan at
    mamba2-370m's width (H 32, P 64, N 128, G 1) on the layer's strided
@@ -37,7 +43,8 @@ lines.jsonl):
    onto the plain versions (``kernel_force="ref"``), except from a step
    where the kernel path's token has a plain-path logit within the bf16
    tolerance of the plain path's top logit (counted).
-5. ``profile_*``: device busy time and idle share of decode steps.
+5. ``profile_*``: device busy time and idle share of decode steps, and
+   the step's five largest device kernels by time.
 6. ``fp32_*_engine``: the same two engines in float32, where the streams
    are held to the fp32 logit tolerance; ``int8_*_engine``: both layouts
    with ``kv_quant`` at 4 layers.
@@ -73,6 +80,7 @@ lines.jsonl):
 """
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import time
@@ -140,22 +148,34 @@ def gpu_line():
 _flush = None
 
 
-def time_ms(fn, iters=20):
+def time_ms(fn, iters=20, graph=True):
     """Mean device time of ``fn`` per call, CUDA events around each call,
     with a 256 MB write between calls so every call finds L2 cold (as a
-    layer does in the engine: the other layers' caches evict it)."""
+    layer does in the engine: the other layers' caches evict it). With
+    ``graph`` the call is captured once in a CUDA graph and replayed, so
+    the events time the device's work alone: a kernel of a few microseconds
+    would otherwise be timed by its wrapper's host work (argument checks,
+    allocation, the launch), which the eager engine pays per call and the
+    ``eager_ms`` records show."""
     global _flush
     if _flush is None:
         _flush = torch.empty(64 << 20, dtype=torch.float32, device=DEV)
     for _ in range(3):
         fn()
+    run = fn
+    if graph:
+        g = torch.cuda.CUDAGraph()
+        torch.cuda.synchronize()
+        with torch.cuda.graph(g):
+            fn()
+        run = g.replay
     total = 0.0
     for _ in range(iters):
         _flush.zero_()
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
-        fn()
+        run()
         e.record()
         e.synchronize()
         total += s.elapsed_time(e)
@@ -180,12 +200,14 @@ def _quant(x):
 
 
 def decode_inputs(gen, dtype, quant, cur, fill, Lc=L):
-    """Dense-cache inputs: row b holds positions 0..fill[b]-1 (entries past
-    ``cur`` are stale and masked), the rest empty (-1)."""
+    """Dense-cache inputs, one row per entry of ``cur``: row b holds
+    positions 0..fill[b]-1 (entries past ``cur`` are stale and masked), the
+    rest empty (-1)."""
     dev = DEV
-    q = torch.randn((B, HQ, D), generator=gen, device=dev).to(dtype)
-    k = torch.randn((B, HKV, Lc, D), generator=gen, device=dev)
-    v = torch.randn((B, HKV, Lc, D), generator=gen, device=dev)
+    Bc = len(cur)
+    q = torch.randn((Bc, HQ, D), generator=gen, device=dev).to(dtype)
+    k = torch.randn((Bc, HKV, Lc, D), generator=gen, device=dev)
+    v = torch.randn((Bc, HKV, Lc, D), generator=gen, device=dev)
     ks = vs = None
     if quant:
         k, ks = _quant(k)
@@ -202,10 +224,10 @@ def decode_inputs(gen, dtype, quant, cur, fill, Lc=L):
 def to_pool(gen, k, v, kpos, ks, vs):
     """Scatter a dense cache into a shuffled (P, Hkv, ps, D) page pool with
     page 0 left as the null page; returns pool tensors and block tables."""
-    nb = k.shape[2] // PS
-    P = B * nb + 1
+    Bc, nb = k.shape[0], k.shape[2] // PS
+    P = Bc * nb + 1
     perm = torch.randperm(P - 1, generator=gen, device=DEV) + 1
-    bt = perm[:B * nb].reshape(B, nb).to(torch.int32)
+    bt = perm[:Bc * nb].reshape(Bc, nb).to(torch.int32)
 
     def scatter(x):
         shp = (P,) + (x.shape[1], PS) + tuple(x.shape[3:]) \
@@ -213,10 +235,10 @@ def to_pool(gen, k, v, kpos, ks, vs):
         pool = torch.zeros(shp, dtype=x.dtype, device=DEV)
         if x.dim() == 2:                     # kpos (B, L)
             pool.fill_(-1)
-            pool[bt.long()] = x.reshape(B, nb, PS)
+            pool[bt.long()] = x.reshape(Bc, nb, PS)
         else:                                # (B, Hkv, L, ...)
             pool[bt.long()] = x.reshape(
-                (B, x.shape[1], nb, PS) + tuple(x.shape[3:])).movedim(2, 1)
+                (Bc, x.shape[1], nb, PS) + tuple(x.shape[3:])).movedim(2, 1)
         return pool
 
     return (scatter(k), scatter(v), scatter(kpos),
@@ -246,35 +268,46 @@ def decode_cost(q, kpos, cur, window, kvbytes, paged_nb=0):
     if kvbytes == 1:
         nbytes += n_valid * HKV * 4 * 2                # row scales
     if paged_nb:
-        nbytes += B * paged_nb * 4                     # block table
+        nbytes += kpos.shape[0] * paged_nb * 4         # block table
     return nbytes, 4 * D * HQ * n_valid
 
 
 def kernel_phase(results):
+    from repro_torch.kernels import _lib
     from repro_torch.kernels import decode_attention as da
     from repro_torch.kernels import flash_attention as fa
 
     gen = torch.Generator(device=DEV).manual_seed(SEED)
     rng = np.random.default_rng(SEED)
-    lens = rng.integers(64, 2047, size=B)
-    cur = [int(n) for n in lens]
-    fill = [min(L, int(n) + 1 + int(rng.integers(0, 64))) for n in lens]
-    cases = [("fp32", torch.float32, False, 0, cur, L),
-             ("bf16", torch.bfloat16, False, 0, cur, L),
-             ("int8", torch.bfloat16, True, 0, cur, L),
-             ("window256", torch.bfloat16, False, 256, cur, L),
-             ("idle_slot", torch.float32, False, 0, [-1] + cur[1:], L),
+
+    def batch(n):
+        lens = rng.integers(64, 2047, size=n)
+        return ([int(x) for x in lens],
+                [min(L, int(x) + 1 + int(rng.integers(0, 64))) for x in lens])
+
+    cur, fill = batch(B)
+    cur1, fill1 = batch(1)              # n_split large
+    cur64, fill64 = batch(64)           # B*Hkv fills the card: one split
+    cases = [("fp32", torch.float32, False, 0, cur, fill, L),
+             ("bf16", torch.bfloat16, False, 0, cur, fill, L),
+             ("int8", torch.bfloat16, True, 0, cur, fill, L),
+             ("window256", torch.bfloat16, False, 256, cur, fill, L),
+             ("idle_slot", torch.float32, False, 0, [-1] + cur[1:], fill, L),
              ("ragged_L2000", torch.float32, False, 0,
-              [min(c, 1990) for c in cur], 2000)]
-    for name, dtype, quant, window, cur_c, Lc in cases:
+              [min(c, 1990) for c in cur], fill, 2000),
+             ("bf16/B1", torch.bfloat16, False, 0, cur1, fill1, L),
+             ("bf16/B64", torch.bfloat16, False, 0, cur64, fill64, L)]
+    for name, dtype, quant, window, cur_c, fill_c, Lc in cases:
         q, k, v, kpos, cur_t, ks, vs = decode_inputs(
-            gen, dtype, quant, cur_c, [min(f, Lc) for f in fill], Lc)
+            gen, dtype, quant, cur_c, [min(f, Lc) for f in fill_c], Lc)
+        Bc = len(cur_c)
         idle = cur_t < 0
         tol = TOL[dtype]
         kvbytes = k.element_size()
         # dense
         got = da.decode_attention_cuda(q, k, v, kpos, cur_t, window=window,
                                        k_scale=ks, v_scale=vs)
+        n_split = _lib.last_plan["decode_attention"][0]
         ref = da.decode_attention_ref(q, k, v, kpos, cur_t, window=window,
                                       k_scale=ks, v_scale=vs)
         torch.cuda.synchronize()
@@ -293,11 +326,15 @@ def kernel_phase(results):
         lib = None if quant else time_ms(sdpa_decode(q, k, v, kpos, cur_t,
                                                       window))
         rec = dict(phase="kernel", name="decode_attention", case=name,
-                   shape=dict(B=B, Hq=HQ, Hkv=HKV, D=D, L=Lc),
+                   shape=dict(B=Bc, Hq=HQ, Hkv=HKV, D=D, L=Lc),
+                   n_split=n_split,
                    max_abs_err=err, tol=tol,
                    ms=time_ms(lambda: da.decode_attention_cuda(
                        q, k, v, kpos, cur_t, window=window, k_scale=ks,
                        v_scale=vs)),
+                   eager_ms=time_ms(lambda: da.decode_attention_cuda(
+                       q, k, v, kpos, cur_t, window=window, k_scale=ks,
+                       v_scale=vs), graph=False),
                    plain_ms=time_ms(lambda: da.decode_attention_ref(
                        q, k, v, kpos, cur_t, window=window, k_scale=ks,
                        v_scale=vs)),
@@ -311,6 +348,7 @@ def kernel_phase(results):
         got = da.paged_decode_attention_cuda(q, kp, vp, kpp, bt, cur_t,
                                              window=window, k_scale=ksp,
                                              v_scale=vsp)
+        n_split = _lib.last_plan["paged_decode_attention"][0]
         torch.cuda.synchronize()
         err = float((got.float() - ref.float()).abs().max())
         require(torch.allclose(got.float(), ref.float(), **tol),
@@ -319,11 +357,15 @@ def kernel_phase(results):
                                     paged_nb=bt.shape[1])
         b_ms, b_by = bound(nbytes, flops, dtype)
         rec = dict(phase="kernel", name="paged_decode_attention", case=name,
-                   shape=dict(B=B, Hq=HQ, Hkv=HKV, D=D, L=Lc, ps=PS),
+                   shape=dict(B=Bc, Hq=HQ, Hkv=HKV, D=D, L=Lc, ps=PS),
+                   n_split=n_split,
                    max_abs_err=err, tol=tol,
                    ms=time_ms(lambda: da.paged_decode_attention_cuda(
                        q, kp, vp, kpp, bt, cur_t, window=window,
                        k_scale=ksp, v_scale=vsp)),
+                   eager_ms=time_ms(lambda: da.paged_decode_attention_cuda(
+                       q, kp, vp, kpp, bt, cur_t, window=window,
+                       k_scale=ksp, v_scale=vsp), graph=False),
                    plain_ms=time_ms(lambda: da.paged_decode_attention_ref(
                        q, kp, vp, kpp, bt, cur_t, window=window,
                        k_scale=ksp, v_scale=vsp)),
@@ -336,6 +378,8 @@ def kernel_phase(results):
             ("fp32/S512", torch.float32, 512, 0, 0.0),
             ("fp32/S2048", torch.float32, 2048, 0, 0.0),
             ("fp32/S1500", torch.float32, 1500, 0, 0.0),
+            ("bf16/S64", torch.bfloat16, 64, 0, 0.0),
+            ("bf16/S256", torch.bfloat16, 256, 0, 0.0),
             ("bf16/S1024", torch.bfloat16, 1024, 0, 0.0),
             ("bf16/S2048", torch.bfloat16, 2048, 0, 0.0),
             ("window256/S2048", torch.float32, 2048, 256, 0.0),
@@ -372,6 +416,8 @@ def kernel_phase(results):
                    max_abs_err=err, tol=tol,
                    ms=time_ms(lambda: fa.flash_attention_cuda(
                        q, k, v, window=window, softcap=cap)),
+                   eager_ms=time_ms(lambda: fa.flash_attention_cuda(
+                       q, k, v, window=window, softcap=cap), graph=False),
                    plain_ms=time_ms(lambda: fa.flash_attention_ref(
                        q, k, v, window=window, softcap=cap)),
                    bound_ms=b_ms, bound_by=b_by, library_ms=lib)
@@ -439,7 +485,7 @@ def ssd_kernel_phase(results):
     t_phase = time.monotonic()
     gen = torch.Generator(device=DEV).manual_seed(SEED + 6)
     H, P, N, G = SSM_H, SSM_P, SSM_N, 1
-    ptxas = _lib.ptxas_lines("ssd_chunk_scan")
+    ptxas = _lib.ptxas_table("ssd_chunk_scan")
     layouts = set()
     for case, dtype, Bsz, S in (("bf16/B4/S1024", torch.bfloat16, 4, 1024),
                                 ("fp32/B4/S1024", torch.float32, 4, 1024),
@@ -1173,7 +1219,7 @@ def profile_phase(phase, cfg, params, prompts, paged):
     dev = [e for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in dev) / 1e3 / steps
-    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:6]
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:5]
     emit(dict(phase=phase, steps=steps, wall_ms_per_step=wall_ms,
               profiled_wall_ms_per_step=prof_wall_ms,
               device_busy_ms_per_step=busy,
@@ -1204,10 +1250,19 @@ def main():
     gpu = gpu_line()
     t_start = t0 = time.monotonic()
     built = _lib.build()
+    ptxas = {n: _lib.ptxas_table(n) for n in _lib.SOURCES}
+    tensor_ops = {n: _lib.sass_count(n) for n in _lib.SOURCES}
     emit(dict(phase="build", gpu=gpu, torch=torch.__version__,
               cuda=torch.version.cuda, build_s=built["build_s"],
-              wall_s=time.monotonic() - t0,
-              ptxas={n: _lib.ptxas_lines(n) for n in _lib.SOURCES}))
+              wall_s=time.monotonic() - t0, tensor_core_ops=tensor_ops,
+              ptxas=ptxas))
+    require(sum(tensor_ops["flash_attention"].values()) > 0,
+            "flash_attention: no HMMA/HGMMA in the SASS (the bf16 kernel "
+            "does not run on the tensor cores)")
+    mma64 = [v for k, v in ptxas["flash_attention"].items()
+             if re.search(r"flash_mma_kernel(<(\(int\))?64>|ILi64E)", k)]
+    require(len(mma64) == 1 and mma64[0]["spill_bytes"] == 0,
+            f"flash_attention: the bf16 D 64 kernel spills registers: {mma64}")
 
     results = {}
     kernel_phase(results)

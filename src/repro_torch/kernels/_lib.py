@@ -14,12 +14,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
@@ -46,6 +47,10 @@ launches = LaunchCounts(decode_attention=0, paged_decode_attention=0,
                         flash_attention=0, stream_matmul=0,
                         stream_matmul_batched=0, ssd_chunk_scan=0)
 
+# The launch plan a wrapper used on its latest launch, by wrapper name (split
+# decode: (n_split, split_rows)).
+last_plan: Dict[str, tuple] = {}
+
 
 def build_dir() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
@@ -55,15 +60,16 @@ def build_dir() -> Path:
     return BUILD_ROOT / h.hexdigest()[:16]
 
 
-def _nvcc() -> str:
+def cuda_tool(tool: str = "nvcc") -> str:
+    """Path of a CUDA toolkit program (nvcc, cuobjdump, cu++filt)."""
     from torch.utils.cpp_extension import CUDA_HOME
-    cand = os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else None
+    cand = os.path.join(CUDA_HOME, "bin", tool) if CUDA_HOME else None
     if cand and os.path.exists(cand):
         return cand
-    found = shutil.which("nvcc")
+    found = shutil.which(tool)
     if found is None:
-        raise RuntimeError("nvcc not found: the CUDA kernels are built on a "
-                           "machine with the CUDA toolkit")
+        raise RuntimeError(f"{tool} not found: the CUDA kernels are built on "
+                           "a machine with the CUDA toolkit")
     return found
 
 
@@ -75,7 +81,7 @@ def build() -> Dict[str, float]:
     if not todo:
         return {"build_s": 0.0, "built": 0}
     out.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
+    nvcc = cuda_tool()
     t0 = time.monotonic()
     procs = []
     for name in todo:
@@ -100,11 +106,50 @@ def build() -> Dict[str, float]:
     return {"build_s": time.monotonic() - t0, "built": len(todo)}
 
 
-def ptxas_lines(name: str) -> List[str]:
-    """The register, shared-memory and spill lines ``ptxas -v`` printed."""
-    text = (build_dir() / f"{name}.log").read_text()
-    return [ln.strip() for ln in text.splitlines()
-            if "registers" in ln or "spill" in ln]
+def ptxas_table(name: str, text: str = "") -> Dict[str, Dict[str, int]]:
+    """Per kernel of ``csrc/<name>.cu`` (demangled name): registers, spill
+    bytes (stores + loads) and static shared memory, as ``ptxas -v``
+    printed them in the build's log (or in ``text``)."""
+    text = text or (build_dir() / f"{name}.log").read_text()
+    table: Dict[str, Dict[str, int]] = {}
+    fn = None
+    for ln in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            fn = m.group(1)
+            table[fn] = dict(registers=0, spill_bytes=0, smem_bytes=0)
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            table[fn]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            table[fn]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", ln)
+            table[fn]["smem_bytes"] = int(m.group(1)) if m else 0
+    names = list(table)
+    try:
+        pretty = subprocess.run(
+            [cuda_tool("cu++filt")], input="\n".join(names),
+            capture_output=True, text=True, check=True).stdout.splitlines()
+    except (RuntimeError, subprocess.CalledProcessError):
+        pretty = names                      # no demangler: mangled names
+    return {re.sub(r"(\(anonymous namespace\)|<unnamed>)::", "", p): table[n]
+            for n, p in zip(names, pretty)}
+
+
+def sass_count(name: str, opcodes=("HMMA", "HGMMA")) -> Dict[str, int]:
+    """How many instructions of each opcode the SASS of ``lib<name>.so``
+    holds (``cuobjdump -sass``): HMMA is ``mma.sync`` on the tensor cores,
+    HGMMA is ``wgmma``."""
+    sass = subprocess.run(
+        [cuda_tool("cuobjdump"), "-sass", str(build_dir() / f"lib{name}.so")],
+        capture_output=True, text=True, check=True).stdout
+    ops = re.findall(r"^\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9_]+)",
+                     sass, flags=re.M)
+    return {op: sum(1 for o in ops if o == op) for op in opcodes}
 
 
 def library(name: str) -> ctypes.CDLL:
@@ -118,6 +163,19 @@ def library(name: str) -> ctypes.CDLL:
             lib.rt_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
         return lib
+
+
+def check_rows_aligned(name: str, what: str, t, nbytes: int = 16) -> None:
+    """Raise unless ``t``'s rows can be read as ``nbytes``-byte vectors: the
+    base and every outer stride (of a dim longer than 1) a multiple of
+    ``nbytes`` bytes. The kernels that copy rows with cp.async, ldmatrix or
+    vector loads need it."""
+    el = t.element_size()
+    if t.data_ptr() % nbytes or any(
+            st * el % nbytes for st, n in zip(t.stride()[:-1], t.shape[:-1])
+            if n > 1):
+        raise ValueError(f"{name}: {what} rows are not {nbytes}-byte aligned "
+                         f"(strides {t.stride()})")
 
 
 def check(rc: int, lib: ctypes.CDLL, what: str) -> None:

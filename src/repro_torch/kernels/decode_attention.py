@@ -2,19 +2,23 @@
 (ring-buffered) KV cache or a block-table-paged pool, GQA, online softmax.
 
 Replaces the Pallas kernels ``repro.kernels.decode_attention.decode_attention``
-and ``paged_decode_attention`` with one hand-written CUDA kernel
-(``csrc/decode_attention.cu``); a dense cache is the paged case with one
-"page" per sequence. Beside it, the plain PyTorch versions
-(``decode_attention_ref``, ``paged_decode_attention_ref``, ported from
-``repro.kernels.ref``) serve CPU tensors and are what the kernel is held
-against.
+and ``paged_decode_attention`` with one hand-written split-K CUDA kernel
+pair (``csrc/decode_attention.cu``): a split pass over (sequence, kv head,
+row range) blocks that writes unnormalised fp32 partials, and a merge pass
+that combines them. A dense cache is the paged case with one "page" per
+sequence. ``split_plan`` picks the number of splits from shapes alone. Beside
+them, the plain PyTorch versions (``decode_attention_ref``,
+``paged_decode_attention_ref``, ported from ``repro.kernels.ref``) serve
+CPU tensors and are what the kernels are held against; ``decode_partials_ref``
+and ``merge_partials_ref`` are the plain versions of the two passes.
 
 Layouts are the reference's: q (B, Hq, D); dense k/v (B, Hkv, L, D), kpos
 (B, L), scales (B, Hkv, L); pools (P, Hkv, ps, D), kpos_pool (P, ps), scales
 (P, Hkv, ps); block_tables (B, nb); cur (B,). Any of k, v, the scales and
 kpos may be strided views (the serving caches are (B, L, Hkv, D) and
 (P, ps, Hkv, D) rows, passed transposed without a copy); the last dim of
-q/k/v must be contiguous.
+q/k/v must be contiguous, and K/V rows start on 16 bytes (8 for int8): the
+kernel reads them as vectors.
 
 Masking: a key counts when ``kpos >= 0 & kpos <= cur`` (and
 ``cur - kpos < window``). A row with no such key (an idle slot, cur = -1)
@@ -26,13 +30,18 @@ dequantized with ``v_scale`` on the int8 path.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import Tuple
 
 import torch
 
 from repro_torch.kernels import _lib
 
 MAX_GROUP = 8                  # query heads per kv head the kernel holds
-HEAD_DIMS = (32, 64, 128)      # one lane per 1, 2 or 4 head-dim elements
+HEAD_DIMS = (32, 64, 128)      # a row is 2..32 lanes of 16-byte slices
+MIN_SPLIT_ROWS = 64            # floor of rows a split sweeps
+SPLIT_WAVES = 2                # aim for this many blocks per SM
+MAX_SPLITS = 128               # the merge pass's limit
 
 
 # ---------------------------------------------------------------------------
@@ -92,6 +101,86 @@ def paged_decode_attention_ref(q, k_pool, v_pool, kpos_pool, block_tables,
 
 
 # ---------------------------------------------------------------------------
+# Split-K: the plan and the plain versions of the two passes
+# ---------------------------------------------------------------------------
+
+def split_plan(bh: int, capacity: int, sm_count: int,
+               unit: int = 16) -> Tuple[int, int]:
+    """(n_split, split_rows) for ``bh`` = B*Hkv (sequence, kv head) pairs
+    over ``capacity`` swept rows (L, or nb*ps), from shapes alone: about
+    ``SPLIT_WAVES`` blocks per SM, at least ``MIN_SPLIT_ROWS`` rows a split,
+    ``split_rows`` a multiple of ``unit`` (the page size of a paged cache,
+    so that a split covers whole block-table entries), at most
+    ``MAX_SPLITS`` splits, and one split when ``bh`` already fills the
+    card. Split i sweeps rows [i*split_rows, min(capacity,
+    (i+1)*split_rows)); every split holds at least one row."""
+    capacity = max(int(capacity), 1)
+    n = 1
+    if bh < sm_count:
+        n = min(-(-SPLIT_WAVES * sm_count // bh), MAX_SPLITS,
+                max(1, capacity // MIN_SPLIT_ROWS))
+    rows = -(-capacity // n)
+    rows = -(-rows // unit) * unit
+    return -(-capacity // rows), rows
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def decode_partials_ref(q, k, v, kpos, cur, split_rows: int, *,
+                        window: int = 0, scale: float = 0.0, k_scale=None,
+                        v_scale=None):
+    """Plain version of the split pass on a dense cache (arguments as
+    ``decode_attention_ref``): the sweep cut into splits of ``split_rows``
+    rows. Returns fp32 partials acc (B, Hq, n_split, D) (unnormalised), m
+    and l (B, Hq, n_split); a split with no valid key has m = -inf, l = 0
+    and acc = 0. (The kernel keeps m in log2 units; this version in natural
+    ones.)"""
+    B, Hq, D = q.shape
+    Hkv, L = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    scale = scale or D ** -0.5
+    k = k.float()
+    v = v.float()
+    if k_scale is not None:
+        k = k * k_scale[..., None]
+        v = v * v_scale[..., None]
+    s = torch.einsum("bhd,bhld->bhl", q.float() * scale,
+                     k.repeat_interleave(g, dim=1))
+    c = cur[:, None]
+    mask = (kpos >= 0) & (kpos <= c)
+    if window:
+        mask &= (c - kpos) < window
+    s = s.masked_fill(~mask[:, None, :], float("-inf"))
+    n = -(-L // split_rows)
+    pad = n * split_rows - L
+    s = torch.nn.functional.pad(s, (0, pad), value=float("-inf"))
+    vv = torch.nn.functional.pad(v.repeat_interleave(g, dim=1),
+                                 (0, 0, 0, pad))
+    s = s.reshape(B, Hq, n, split_rows)
+    m = s.amax(-1)
+    p = torch.exp(s - torch.where(torch.isinf(m), 0.0, m)[..., None])
+    acc = torch.einsum("bhnr,bhnrd->bhnd", p,
+                       vv.reshape(B, Hq, n, split_rows, D))
+    return acc, m, p.sum(-1)
+
+
+def merge_partials_ref(acc, m, l, mean_v):
+    """Plain version of the merge pass: o = sum_i e^(m_i - m*) acc_i /
+    sum_i e^(m_i - m*) l_i over the splits; a row whose splits are all
+    empty (m = -inf everywhere) takes ``mean_v`` (B, Hq, D), the mean of
+    its swept V rows. Returns (B, Hq, D) fp32."""
+    mmax = m.amax(-1, keepdim=True)
+    idle = torch.isinf(mmax)
+    w = torch.exp(m - torch.where(idle, 0.0, mmax))
+    num = (w[..., None] * acc).sum(2)
+    den = (w * l).sum(2, keepdim=True)
+    return torch.where(idle, mean_v.float(), num / torch.where(idle, 1.0, den))
+
+
+# ---------------------------------------------------------------------------
 # CUDA kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -99,11 +188,12 @@ class _Args(ctypes.Structure):
     """Mirror of ``DecodeArgs`` in csrc/decode_attention.cu."""
     _fields_ = [(n, ctypes.c_void_p) for n in (
         "q", "k", "v", "k_scale", "v_scale", "kpos", "cur", "block_tables",
-        "out")] + [(n, ctypes.c_longlong) for n in (
+        "out", "ws_acc", "ws_m", "ws_l")] + [(n, ctypes.c_longlong) for n in (
         "q_sb", "q_sh", "k_sp", "k_sh", "k_sl", "v_sp", "v_sh", "v_sl",
         "ks_sp", "ks_sh", "ks_sl", "vs_sp", "vs_sh", "vs_sl", "kp_sp",
         "kp_sl", "bt_sb", "o_sb", "o_sh")] + [(n, ctypes.c_int) for n in (
-        "B", "Hq", "Hkv", "D", "nb", "ps", "window")] + [
+        "B", "Hq", "Hkv", "D", "nb", "ps", "ps_shift", "window", "n_split",
+        "split_rows")] + [
         ("scale", ctypes.c_float), ("dtype", ctypes.c_int),
         ("quant", ctypes.c_int)]
 
@@ -111,6 +201,7 @@ class _Args(ctypes.Structure):
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 
+@functools.lru_cache(maxsize=None)
 def _entry():
     lib = _lib.library("decode_attention")
     fn = lib.rt_decode_attention
@@ -154,6 +245,8 @@ def _check_common(name, q, k, v, kpos, cur, k_scale, v_scale):
                          f"at most {MAX_GROUP} query heads per kv head")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError(f"{name}: the head dim of q/k/v must be contiguous")
+    for t, what in ((k, "k"), (v, "v")):      # rows read as vectors
+        _lib.check_rows_aligned(name, what, t, 8 if quant else 16)
     if cur.shape != (B,):
         raise ValueError(f"{name}: cur shape {tuple(cur.shape)} != ({B},)")
     return quant
@@ -167,6 +260,14 @@ def _launch(name, q, k, v, kpos, cur, bt, k_scale, v_scale, window, scale,
     if B == 0:
         return out
     cur = cur.contiguous()
+    dev = q.device.index
+    dev = torch.cuda.current_device() if dev is None else dev
+    n_split, rows = split_plan(B * k.shape[1], nb * ps, _sm_count(dev),
+                               unit=ps if bt is not None else 16)
+    # one workspace: acc (B, Hq, n_split, D), then m and l (B, Hq, n_split)
+    n_ml = B * Hq * n_split
+    ws = torch.empty(n_ml * (D + 2), dtype=torch.float32, device=q.device)
+    ws_acc = ws.data_ptr()
     ks = k_scale.stride() if quant else (0, 0, 0)
     vs = v_scale.stride() if quant else (0, 0, 0)
     a = _Args(
@@ -175,7 +276,8 @@ def _launch(name, q, k, v, kpos, cur, bt, k_scale, v_scale, window, scale,
         v_scale=v_scale.data_ptr() if quant else None,
         kpos=kpos.data_ptr(), cur=cur.data_ptr(),
         block_tables=bt.data_ptr() if bt is not None else None,
-        out=out.data_ptr(),
+        out=out.data_ptr(), ws_acc=ws_acc, ws_m=ws_acc + n_ml * D * 4,
+        ws_l=ws_acc + n_ml * (D + 1) * 4,
         q_sb=q.stride(0), q_sh=q.stride(1),
         k_sp=k.stride(0), k_sh=k.stride(1), k_sl=k.stride(2),
         v_sp=v.stride(0), v_sh=v.stride(1), v_sl=v.stride(2),
@@ -184,14 +286,17 @@ def _launch(name, q, k, v, kpos, cur, bt, k_scale, v_scale, window, scale,
         kp_sp=kpos.stride(0), kp_sl=kpos.stride(1),
         bt_sb=bt.stride(0) if bt is not None else 0,
         o_sb=out.stride(0), o_sh=out.stride(1),
-        B=B, Hq=Hq, Hkv=k.shape[1], D=D, nb=nb, ps=ps, window=int(window),
+        B=B, Hq=Hq, Hkv=k.shape[1], D=D, nb=nb, ps=ps,
+        ps_shift=ps.bit_length() - 1 if ps & (ps - 1) == 0 else -1,
+        window=int(window), n_split=n_split, split_rows=rows,
         scale=float(scale or D ** -0.5), dtype=_DTYPES[q.dtype],
         quant=int(quant))
     lib, fn = _entry()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = fn(ctypes.byref(a), stream)
+    rc = fn(ctypes.byref(a), stream)      # the split and the merge pass
     _lib.check(rc, lib, name)
     _lib.launches[name] += 1
+    _lib.last_plan[name] = (n_split, rows)
     return out
 
 

@@ -2,19 +2,23 @@
 accumulator, optional sliding window and tanh logit softcap.
 
 Replaces the Pallas kernel ``repro.kernels.flash_attention.flash_attention``
-with a hand-written CUDA kernel (``csrc/flash_attention.cu``). Beside it,
-the plain PyTorch version ``flash_attention_ref`` (ported from
-``repro.kernels.ref``) serves CPU tensors and is what the kernel is held
-against.
+with hand-written CUDA kernels (``csrc/flash_attention.cu``), one per dtype:
+bfloat16 runs on the tensor cores (``mma.sync``), float32 on the CUDA cores
+(TF32 would not meet the fp32 tolerance). Beside them, the plain PyTorch
+version ``flash_attention_ref`` (ported from ``repro.kernels.ref``) serves
+CPU tensors and is what the kernels are held against.
 
 Layout (the reference's): q (B, Hq, S, D); k, v (B, Hkv, S, D), Hq = G·Hkv;
 query and key positions are ``arange(S)``. Any S works (the kernel masks
 the ragged edge itself), and q/k/v may be strided views whose last dim is
-contiguous. Inference only: there is no backward.
+contiguous; the bfloat16 kernel copies rows with 16-byte ``cp.async``, so
+its q/k/v rows must start on 16 bytes (the layer's views do). Inference
+only: there is no backward.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -51,11 +55,21 @@ class _Args(ctypes.Structure):
             "q_sb", "q_sh", "q_ss", "k_sb", "k_sh", "k_ss", "v_sb", "v_sh",
             "v_ss", "o_sb", "o_sh", "o_ss")] + [
         (n, ctypes.c_int) for n in ("B", "Hq", "Hkv", "S", "D", "window")] + [
-        ("scale", ctypes.c_float), ("softcap", ctypes.c_float),
-        ("dtype", ctypes.c_int)]
+        ("scale", ctypes.c_float), ("softcap", ctypes.c_float)]
 
 
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the kernel's C entry point per dtype
+_ENTRIES = {torch.float32: "rt_flash_attention_f32",
+            torch.bfloat16: "rt_flash_attention_bf16"}
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(dtype):
+    lib = _lib.library("flash_attention")
+    fn = getattr(lib, _ENTRIES[dtype])
+    fn.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib, fn
 
 
 def flash_attention_cuda(q, k, v, *, window: int = 0, scale: float = 0.0,
@@ -76,7 +90,7 @@ def flash_attention_cuda(q, k, v, *, window: int = 0, scale: float = 0.0,
             raise TypeError(f"{name}: q/k/v dtypes differ")
         if t.dim() != 4 or t.stride(-1) != 1:
             raise ValueError(f"{name}: 4-d tensors with a contiguous head dim")
-    if q.dtype not in _DTYPES:
+    if q.dtype not in _ENTRIES:
         raise TypeError(f"{name}: dtype {q.dtype} (float32 or bfloat16)")
     B, Hq, S, D = q.shape
     Hkv = k.shape[1]
@@ -86,6 +100,9 @@ def flash_attention_cuda(q, k, v, *, window: int = 0, scale: float = 0.0,
         raise ValueError(f"{name}: head dim {D} (kernel takes {HEAD_DIMS})")
     if Hq % Hkv:
         raise ValueError(f"{name}: Hq={Hq} not a multiple of Hkv={Hkv}")
+    if q.dtype == torch.bfloat16:
+        for t, what in ((q, "q"), (k, "k"), (v, "v")):
+            _lib.check_rows_aligned(name, what, t)
     out = torch.empty((B, S, Hq, D), dtype=q.dtype,
                       device=q.device).permute(0, 2, 1, 3)
     if B == 0 or S == 0:
@@ -97,12 +114,8 @@ def flash_attention_cuda(q, k, v, *, window: int = 0, scale: float = 0.0,
               v_sb=v.stride(0), v_sh=v.stride(1), v_ss=v.stride(2),
               o_sb=out.stride(0), o_sh=out.stride(1), o_ss=out.stride(2),
               B=B, Hq=Hq, Hkv=Hkv, S=S, D=D, window=int(window),
-              scale=float(scale or D ** -0.5), softcap=float(softcap),
-              dtype=_DTYPES[q.dtype])
-    lib = _lib.library("flash_attention")
-    fn = lib.rt_flash_attention
-    fn.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+              scale=float(scale or D ** -0.5), softcap=float(softcap))
+    lib, fn = _entry(q.dtype)
     rc = fn(ctypes.byref(a), torch.cuda.current_stream(q.device).cuda_stream)
     _lib.check(rc, lib, name)
     _lib.launches[name] += 1

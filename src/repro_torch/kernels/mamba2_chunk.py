@@ -157,14 +157,7 @@ def _check(name, xs, dt, A, Bm, Cm, D, init_state):
         raise ValueError(f"{name}: head dim {P} (the kernel copies 16-byte "
                          f"rows: a multiple of {16 // xs.element_size()})")
     for t, what in ((xs, "x"), (Bm, "B"), (Cm, "C")):
-        # the kernel copies rows with 16-byte cp.async: the base and every
-        # outer stride (of a dim longer than 1) a multiple of 16 bytes
-        el = t.element_size()
-        if t.data_ptr() % 16 or any(
-                st * el % 16 for st, n in zip(t.stride()[:-1],
-                                              t.shape[:-1]) if n > 1):
-            raise ValueError(f"{name}: {what} rows are not 16-byte aligned "
-                             f"(strides {t.stride()})")
+        _lib.check_rows_aligned(name, what, t)   # 16-byte cp.async rows
     if not (A.is_contiguous() and D.is_contiguous()):
         raise ValueError(f"{name}: A and D must be contiguous")
     if init_state is not None and (

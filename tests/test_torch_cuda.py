@@ -154,6 +154,276 @@ def test_decode_kernel_reads_strided_cache(cuda):
 
 
 # ---------------------------------------------------------------------------
+# Flash prefill on the tensor cores (bf16) at the serving path's shapes
+# ---------------------------------------------------------------------------
+
+def _flash_bf16(cuda, shape_q, shape_kv, seed):
+    rng = np.random.default_rng(seed)
+    return tuple(_normal(rng, s).to(cuda, torch.bfloat16)
+                 for s in (shape_q, shape_kv, shape_kv))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s", [64, 128, 1024, 300, 1000])
+def test_flash_bf16_serving_buckets_on_card(cuda, s):
+    """smollm-135m's prefill (B 1, Hq 9, Hkv 3, D 64) at the engine's
+    power-of-two buckets and at ragged lengths; the output is written
+    (B, S, Hq, D)-major."""
+    q, k, v = _flash_bf16(cuda, (1, 9, s, 64), (1, 3, s, 64), seed=s)
+    n = launches["flash_attention"]
+    got = tfa.flash_attention_cuda(q, k, v)
+    assert launches["flash_attention"] == n + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (1, 9, s, 64)
+    assert got.permute(0, 2, 1, 3).is_contiguous()
+    torch.testing.assert_close(got.float(),
+                               tfa.flash_attention_ref(q, k, v).float(),
+                               **TOL_BF16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128])
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (100, 0.0),
+                                            (0, 30.0), (100, 30.0)])
+def test_flash_bf16_head_dims_window_softcap_on_card(cuda, d, window,
+                                                     softcap):
+    """Every head dim; a window of 100 starts inside a 64-key tile, so rows
+    of a query tile meet a first key tile with no valid key; the tanh
+    softcap in bf16."""
+    q, k, v = _flash_bf16(cuda, (2, 4, 300, d), (2, 2, 300, d), seed=d)
+    got = tfa.flash_attention_cuda(q, k, v, window=window, softcap=softcap)
+    ref = tfa.flash_attention_ref(q, k, v, window=window, softcap=softcap)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), ref.float(), **TOL_BF16)
+
+
+@pytest.mark.cuda
+def test_flash_bf16_reads_the_layers_views_and_refuses_misaligned(cuda):
+    """q/k/v as strided views of one (B, S, (Hq + 2 Hkv) D) projection, as
+    the layer passes them; a view whose rows do not start on 16 bytes is
+    refused (the bf16 kernel copies rows by cp.async), and nothing
+    launches."""
+    B, S, Hq, Hkv, D = 1, 200, 9, 3, 64
+    rng = np.random.default_rng(3)
+    qkv = _normal(rng, (B, S, (Hq + 2 * Hkv) * D + 8)).to(cuda,
+                                                           torch.bfloat16)
+
+    def views(x):
+        q = x[..., :Hq * D].reshape(B, S, Hq, D).permute(0, 2, 1, 3)
+        k = x[..., Hq * D:(Hq + Hkv) * D].reshape(B, S, Hkv, D)
+        v = x[..., (Hq + Hkv) * D:(Hq + 2 * Hkv) * D].reshape(B, S, Hkv, D)
+        return q, k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+
+    q, k, v = views(qkv)
+    torch.testing.assert_close(
+        tfa.flash_attention_cuda(q, k, v).float(),
+        tfa.flash_attention_ref(q, k, v).float(), **TOL_BF16)
+    n = launches["flash_attention"]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        tfa.flash_attention_cuda(*views(qkv[..., 4:]))      # 8 bytes off
+    assert launches["flash_attention"] == n
+    got32 = tfa.flash_attention_cuda(*(t.float() for t in views(qkv)))
+    torch.testing.assert_close(
+        got32, tfa.flash_attention_ref(*(t.float() for t in views(qkv))),
+        **TOL)
+
+
+# ---------------------------------------------------------------------------
+# Split-K decode: many splits, some, one
+# ---------------------------------------------------------------------------
+
+def _split_decode_inputs(cuda, B, L, dtype, quant, seed):
+    """Row 0's cur far below L (most splits hold no valid key), row 1 idle
+    (cur = -1) where B > 1, the rest random; empty (-1) slots past each
+    row's fill."""
+    rng = np.random.default_rng(seed)
+    cur = rng.integers(64, L - 1, size=B)
+    cur[0] = 40
+    if B > 1:
+        cur[1] = -1
+    fill = np.minimum(L, np.maximum(cur, 0) + 1 + rng.integers(0, 64, B))
+    kpos = np.where(np.arange(L)[None] < fill[:, None], np.arange(L)[None],
+                    -1).astype(np.int32)
+    q, k, v = (_normal(rng, s) for s in ((B, 9, 64), (B, 3, L, 64),
+                                         (B, 3, L, 64)))
+    ks = vs = None
+    if quant:
+        k, ks = _quant(k)
+        v, vs = _quant(v)
+    else:
+        k, v = k.to(dtype), v.to(dtype)
+    dev = lambda t: None if t is None else t.to(cuda)  # noqa: E731
+    return (dev(q.to(dtype)), dev(k), dev(v), dev(torch.from_numpy(kpos)),
+            dev(torch.from_numpy(cur.astype(np.int32))), dev(ks), dev(vs))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,n_split", [(1, 32), (8, 11), (64, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_split_counts_on_card(cuda, B, n_split, dtype):
+    """smollm-135m's decode (Hq 9, Hkv 3, D 64) at L 2048, dense and paged
+    (page 16), where the plan gives 32, 11 and 1 splits on the H100; the
+    wrapper counts one launch for its split and merge passes and records
+    the plan it launched."""
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.decode_attention import _sm_count, split_plan
+    q, k, v, kpos, cur, _, _ = _split_decode_inputs(cuda, B, 2048, dtype,
+                                                    False, seed=B)
+    h100 = _sm_count(cuda.index or 0) == 132
+    if h100:
+        assert split_plan(B * 3, 2048, 132)[0] == n_split
+    tol = TOL if dtype == torch.float32 else TOL_BF16
+    ref = tda.decode_attention_ref(q, k, v, kpos, cur)
+    n = launches["decode_attention"]
+    got = tda.decode_attention_cuda(q, k, v, kpos, cur)
+    assert launches["decode_attention"] == n + 1
+    if h100:
+        assert _lib.last_plan["decode_attention"][0] == n_split
+    torch.testing.assert_close(got.float(), ref.float(), **tol)
+    kp, vp, kpp, bt, _ = _to_pool(k.cpu(), v.cpu(), kpos.cpu(), 16, seed=B)
+    n = launches["paged_decode_attention"]
+    got = tda.paged_decode_attention_cuda(q, kp.to(cuda), vp.to(cuda),
+                                          kpp.to(cuda), bt.to(cuda), cur)
+    assert launches["paged_decode_attention"] == n + 1
+    if h100:
+        assert _lib.last_plan["paged_decode_attention"][0] == n_split
+    torch.testing.assert_close(got.float(), ref.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["ragged_L2000", "window128", "int8"])
+def test_decode_split_cases_on_card(cuda, case):
+    """B 8 (11 splits) with a ragged L, a window and int8 K/V; the idle row
+    is the mean of its (dequantized) V rows."""
+    L = 2000 if case == "ragged_L2000" else 2048
+    quant = case == "int8"
+    window = 128 if case == "window128" else 0
+    q, k, v, kpos, cur, ks, vs = _split_decode_inputs(
+        cuda, 8, L, torch.bfloat16, quant, seed=len(case))
+    ref = tda.decode_attention_ref(q, k, v, kpos, cur, window=window,
+                                   k_scale=ks, v_scale=vs)
+    got = tda.decode_attention_cuda(q, k, v, kpos, cur, window=window,
+                                    k_scale=ks, v_scale=vs)
+    torch.testing.assert_close(got.float(), ref.float(), **TOL_BF16)
+    v_deq = v[1].float() * (vs[1][..., None] if quant else 1.0)
+    torch.testing.assert_close(
+        got[1].float(), v_deq.mean(dim=1).repeat_interleave(3, dim=0)
+        .bfloat16().float(), **TOL_BF16)
+    kp, vp, kpp, bt, scatter = _to_pool(k.cpu(), v.cpu(), kpos.cpu(), 16,
+                                        seed=3)
+    got = tda.paged_decode_attention_cuda(
+        q, kp.to(cuda), vp.to(cuda), kpp.to(cuda), bt.to(cuda), cur,
+        window=window,
+        k_scale=None if ks is None else scatter(ks.cpu(), 1.0).to(cuda),
+        v_scale=None if vs is None else scatter(vs.cpu(), 1.0).to(cuda))
+    torch.testing.assert_close(got.float(), ref.float(), **TOL_BF16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hq,hkv,d", [(8, 1, 32), (8, 1, 128), (6, 2, 128),
+                                      (2, 2, 32)])
+@pytest.mark.parametrize("kind", ["fp32", "bf16", "int8"])
+def test_decode_split_head_dims_and_groups_on_card(cuda, hq, hkv, d, kind):
+    """The other head dims (a row is 2 to 32 lanes: fp32 D 128 takes a
+    whole warp a row, int8 D 32 two lanes) and group sizes (g 1 and 2 in
+    the 4-head register layout, g 6 and 8 in the 8-head one), dense and
+    paged, with an idle row and a row whose cur is far below L."""
+    B, L, ps = 3, 640, 16
+    dtype = torch.float32 if kind == "fp32" else torch.bfloat16
+    q, k, v, kpos, cur = _decode_inputs(B, hq, hkv, L, d, [600, -1, 30],
+                                        fill=25, seed=d + hq)
+    q = q.to(dtype)
+    ks = vs = None
+    if kind == "int8":
+        k, ks = _quant(k)
+        v, vs = _quant(v)
+    else:
+        k, v = k.to(dtype), v.to(dtype)
+    dev = [t.to(cuda) for t in (q, k, v, kpos, cur)]
+    opt = {} if ks is None else dict(k_scale=ks.to(cuda),
+                                     v_scale=vs.to(cuda))
+    tol = TOL if dtype == torch.float32 else TOL_BF16
+    ref = tda.decode_attention_ref(*dev, **opt)
+    torch.testing.assert_close(tda.decode_attention_cuda(*dev, **opt).float(),
+                               ref.float(), **tol)
+    kp, vp, kpp, bt, scatter = _to_pool(k, v, kpos, ps, seed=d)
+    popt = {} if ks is None else dict(k_scale=scatter(ks, 1.0).to(cuda),
+                                      v_scale=scatter(vs, 1.0).to(cuda))
+    got = tda.paged_decode_attention_cuda(
+        dev[0], kp.to(cuda), vp.to(cuda), kpp.to(cuda), bt.to(cuda), dev[4],
+        **popt)
+    torch.testing.assert_close(got.float(), ref.float(), **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True])
+def test_decode_no_valid_key_with_cur_set_on_card(cuda, quant):
+    """Rows with cur >= 0 and still no valid key (an empty cache row; keys
+    all older than the window) take the merge block's own mean-of-V pass;
+    an idle slot (cur = -1) the split blocks' row sums; the other rows the
+    normal merge."""
+    B, L = 4, 1024
+    q, k, v, kpos, cur, ks, vs = _split_decode_inputs(
+        cuda, B, L, torch.float32, quant, seed=21)
+    kpos[2] = -1                                 # nothing cached
+    cur[2] = 500
+    kpos[3] = torch.where(kpos[3] <= 50, kpos[3], -1)
+    cur[3] = 900                                 # keys 0..50 out of window
+    opt = dict(window=128, k_scale=ks, v_scale=vs)
+    got = tda.decode_attention_cuda(q, k, v, kpos, cur, **opt)
+    ref = tda.decode_attention_ref(q, k, v, kpos, cur, **opt)
+    torch.testing.assert_close(got, ref, **TOL)
+    v_deq = v.float() * (vs[..., None] if quant else 1.0)
+    for row in (1, 2, 3):
+        torch.testing.assert_close(
+            got[row], v_deq[row].mean(dim=1).repeat_interleave(3, dim=0),
+            **TOL)
+    kp, vp, kpp, bt, scatter = _to_pool(k.cpu(), v.cpu(), kpos.cpu(), 16,
+                                        seed=5)
+    got = tda.paged_decode_attention_cuda(
+        q, kp.to(cuda), vp.to(cuda), kpp.to(cuda), bt.to(cuda), cur,
+        window=128,
+        k_scale=None if ks is None else scatter(ks.cpu(), 1.0).to(cuda),
+        v_scale=None if vs is None else scatter(vs.cpu(), 1.0).to(cuda))
+    torch.testing.assert_close(got, ref, **TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True])
+def test_paged_split_null_and_repeated_pages_on_card(cuda, quant):
+    """Block tables with unused entries on the null page (page 0, kpos -1)
+    and a page named twice in one row; an idle row averages every V row its
+    table names, null and repeated pages included."""
+    B, Hq, Hkv, D, ps, nb, P = 4, 9, 3, 64, 16, 24, 100
+    rng = np.random.default_rng(11)
+    kp, vp = _normal(rng, (P, Hkv, ps, D)), _normal(rng, (P, Hkv, ps, D))
+    ksp = vsp = None
+    if quant:
+        kp, ksp = _quant(kp)
+        vp, vsp = _quant(vp)
+        ksp[0] = vsp[0] = 1.0
+    else:
+        kp, vp = kp.bfloat16(), vp.bfloat16()
+    kp[0] = 0
+    vp[0] = 0
+    kpp = (torch.arange(P * ps, dtype=torch.int32).reshape(P, ps)
+           % (nb * ps))
+    kpp[0] = -1
+    bt = torch.from_numpy(rng.permutation(np.arange(1, P))[:B * nb]
+                          .reshape(B, nb).astype(np.int32))
+    bt[0, 10:] = 0
+    bt[1, 7:] = 0
+    bt[2, 5] = bt[2, 3]
+    cur = torch.tensor([200, -1, nb * ps - 1, 60], dtype=torch.int32)
+    q = _normal(rng, (B, Hq, D)).bfloat16()
+    args = [t.to(cuda) for t in (q, kp, vp, kpp, bt, cur)]
+    opt = {} if not quant else dict(k_scale=ksp.to(cuda),
+                                    v_scale=vsp.to(cuda))
+    got = tda.paged_decode_attention_cuda(*args, **opt)
+    ref = tda.paged_decode_attention_ref(*args, **opt)
+    torch.testing.assert_close(got.float(), ref.float(), **TOL_BF16)
+
+
+# ---------------------------------------------------------------------------
 # Streaming matmul (csrc/stream_matmul.cu) and the RC2F dataplane on the card
 # ---------------------------------------------------------------------------
 
