@@ -11,14 +11,21 @@ lines.jsonl):
    (nvcc, sm_90a, one process per source, all at once) and reports the
    build time, ptxas's registers, spills and static shared memory per
    kernel, and the tensor-core instructions (HMMA, HGMMA) in each
-   library's SASS (``cuobjdump -sass``). Fails if the flash library has
-   none, or if its bf16 kernel at D 64 spills registers.
+   library's SASS (``cuobjdump -sass``), and every kernel that spills.
+   Fails if the flash library has no tensor-core instruction, or if a
+   flash kernel (bf16 ``flash_mma_kernel``, fp32 3xTF32
+   ``flash_tf32_kernel``) is missing a head dim of ``HEAD_DIMS`` or spills.
 2. ``kernel``: each kernel against its plain PyTorch version. Attention at
    the serving path's shapes (B=8, Hq=9, Hkv=3, D=64, L=2048, page 16;
    prefill S 64 to 2048): fp32, bf16, int8 KV, window, an idle slot (the
    mean of V, as the reference), ragged L and S; decode also at B=1 and
    B=64 (many splits and one; each decode record gives the ``n_split``
-   its first launch used).
+   its first launch used). Decode (dense and paged; fp32, bf16, int8) at
+   the heads of the configs with head dims 96, 112 and 256 (``NEW_HEADS``);
+   flash (fp32, bf16) at every head dim at S=1024, at the families'
+   prefill shapes, and fp32 at S=1500 with window 256 and softcap 50. The
+   fp32 flash bound is operations over 3xTF32's rate (495 / 3 TFLOP/s),
+   with the fp32 CUDA-core bound beside it (``bound_cuda_core_ms``).
    The streaming matmul on
    the paper's stream of 100,000 16x16 / 32x32 products (fp32, bf16) and on
    2-D products (129x257x65, 4096^3 fp32 and bf16). The SSD scan at
@@ -73,10 +80,24 @@ lines.jsonl):
    bf16 path against fp32 (RMS). ``ssd_chunk_scan`` must launch 48 times a
    prefill call and nothing else may launch. Prefill ms, decode step ms,
    tokens/s, and the decode step's device idle share.
-10. the ``kernels`` summary line (launches from the serving path for the
-   attention kernels, from the rc3e path for the streaming matmul, from
-   the SSM path for the SSD scan), the GPU's name and power limit, and
-   ``{"ok": true, ...}`` last. Any failed check exits non-zero.
+10. the dense families (after the int8 engines): ``gemma3_dense_engine`` /
+   ``gemma3_paged_engine`` (gemma3-1b, full width and depth: 26 layers, d
+   1152, 4 q / 1 kv heads of 256, 5:1 local (window 512) : global,
+   qk-norm) and ``phi3_dense_engine`` / ``phi3_paged_engine``
+   (phi3-mini-3.8b, 32 layers, d 3072, 32 heads of 96), bf16, the
+   serving workload and gates of phase 4; ``profile_phi3_dense_decode``;
+   ``families_model`` (fp32, 2 x 600 tokens + 4 decode steps, kernel path
+   against the plain path, flash once a layer and decode once a layer a
+   step) for both, and for gemma2-9b at full width cut to 4 layers (two
+   local/global pairs; attention softcap 50 at D 256, so its decode takes
+   the einsum path as the reference's does). Weights are freed between.
+11. the ``kernels`` summary line (launches of the attention kernels from
+   the smollm and the families' serving paths, ``launches_by_path``; the
+   flash row's ``fp32`` entry: the fp32 S=512 case and fp32 flash's
+   launches on the fp32 engines and ``families_model``; the streaming
+   matmul's from the rc3e path, the SSD scan's from the SSM path), the
+   GPU's name and power limit, and ``{"ok": true, ...}`` last. Any failed
+   check exits non-zero.
 """
 import dataclasses
 import json
@@ -93,6 +114,9 @@ ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out" / "chip_smoke"
 MEM_BYTES_S = 3.35e12                              # H100 SXM HBM3
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+# fp32 flash runs as 3xTF32 on the tensor cores: three TF32 products (495
+# TFLOP/s dense) per fp32 product
+PEAK_FLOPS_3XTF32 = 495e12 / 3
 TOL = {torch.float32: dict(atol=2e-5, rtol=2e-4),
        torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
 B, HQ, HKV, D, L, PS = 8, 9, 3, 64, 2048, 16
@@ -105,6 +129,10 @@ RC3E_FIFO_DEPTH = 4
 RC3E_PROFILE_CYCLES = 200
 SERVING_KERNELS = ("decode_attention", "paged_decode_attention",
                    "flash_attention")
+# (Hq, Hkv, D) of the configs with head dims 96, 112 and 256: phi3-mini-3.8b,
+# zamba2-7b, gemma3-1b, gemma2-9b
+NEW_HEADS = (("d96g1", (32, 32, 96)), ("d112g1", (32, 32, 112)),
+             ("d256g4", (4, 1, 256)), ("d256g2", (16, 8, 256)))
 SSM_H, SSM_P, SSM_N = 32, 64, 128      # mamba2-370m's SSD width
 SSD_TOL = {torch.float32: dict(atol=5e-4, rtol=5e-3),    # tests/test_kernels
            torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
@@ -188,6 +216,20 @@ def bound(nbytes, flops, dtype):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
+def flash_bound(nbytes, flops, dtype):
+    """The flash kernel's bound: bf16 as ``bound``; fp32 against 3xTF32 on
+    the tensor cores (operations over PEAK_FLOPS_3XTF32, "operations
+    (3xTF32)"), with the fp32 CUDA-core bound beside it."""
+    if dtype != torch.float32:
+        b_ms, b_by = bound(nbytes, flops, dtype)
+        return dict(bound_ms=b_ms, bound_by=b_by)
+    t_b = nbytes / MEM_BYTES_S * 1e3
+    t_o = flops / PEAK_FLOPS_3XTF32 * 1e3
+    return dict(bound_ms=max(t_b, t_o),
+                bound_by="bytes" if t_b >= t_o else "operations (3xTF32)",
+                bound_cuda_core_ms=bound(nbytes, flops, dtype)[0])
+
+
 # ---------------------------------------------------------------------------
 # Kernel phase
 # ---------------------------------------------------------------------------
@@ -199,15 +241,16 @@ def _quant(x):
         .to(torch.int8), s.float()
 
 
-def decode_inputs(gen, dtype, quant, cur, fill, Lc=L):
+def decode_inputs(gen, dtype, quant, cur, fill, Lc=L, heads=(HQ, HKV, D)):
     """Dense-cache inputs, one row per entry of ``cur``: row b holds
     positions 0..fill[b]-1 (entries past ``cur`` are stale and masked), the
-    rest empty (-1)."""
+    rest empty (-1). ``heads``: (Hq, Hkv, D)."""
     dev = DEV
     Bc = len(cur)
-    q = torch.randn((Bc, HQ, D), generator=gen, device=dev).to(dtype)
-    k = torch.randn((Bc, HKV, Lc, D), generator=gen, device=dev)
-    v = torch.randn((Bc, HKV, Lc, D), generator=gen, device=dev)
+    hq, hkv, d = heads
+    q = torch.randn((Bc, hq, d), generator=gen, device=dev).to(dtype)
+    k = torch.randn((Bc, hkv, Lc, d), generator=gen, device=dev)
+    v = torch.randn((Bc, hkv, Lc, d), generator=gen, device=dev)
     ks = vs = None
     if quant:
         k, ks = _quant(k)
@@ -257,19 +300,20 @@ def sdpa_decode(q, k, v, kpos, cur, window):
         q[:, :, None], k, v, attn_mask=mask, enable_gqa=True)
 
 
-def decode_cost(q, kpos, cur, window, kvbytes, paged_nb=0):
+def decode_cost(q, kpos, cur, window, kvbytes, hkv, paged_nb=0):
     valid = (kpos >= 0) & (kpos <= cur[:, None])
     if window:
         valid &= (cur[:, None] - kpos) < window
     n_valid = int(valid.sum())
+    hq, d = q.shape[1], q.shape[2]
     qb = q.element_size()
     nbytes = (2 * q.numel() * qb + kpos.numel() * 4 + cur.numel() * 4
-              + n_valid * HKV * D * kvbytes * 2)
+              + n_valid * hkv * d * kvbytes * 2)
     if kvbytes == 1:
-        nbytes += n_valid * HKV * 4 * 2                # row scales
+        nbytes += n_valid * hkv * 4 * 2                # row scales
     if paged_nb:
         nbytes += kpos.shape[0] * paged_nb * 4         # block table
-    return nbytes, 4 * D * HQ * n_valid
+    return nbytes, 4 * d * hq * n_valid
 
 
 def kernel_phase(results):
@@ -297,9 +341,20 @@ def kernel_phase(results):
               [min(c, 1990) for c in cur], fill, 2000),
              ("bf16/B1", torch.bfloat16, False, 0, cur1, fill1, L),
              ("bf16/B64", torch.bfloat16, False, 0, cur64, fill64, L)]
-    for name, dtype, quant, window, cur_c, fill_c, Lc in cases:
+    cases = [c + ((HQ, HKV, D),) for c in cases]
+    # the new head dims at their configs' heads: phi3-mini (D 96, g 1),
+    # zamba2 (D 112, g 1), gemma3-1b (D 256, g 4), gemma2-9b (D 256, g 2)
+    for tag, heads in NEW_HEADS:
+        for kind, dtype, quant in (("fp32", torch.float32, False),
+                                   ("bf16", torch.bfloat16, False),
+                                   ("int8", torch.bfloat16, True)):
+            cases.append((f"{tag}/{kind}", dtype, quant, 0, cur, fill, L,
+                          heads))
+    for name, dtype, quant, window, cur_c, fill_c, Lc, heads in cases:
+        hq, hkv, d = heads
         q, k, v, kpos, cur_t, ks, vs = decode_inputs(
-            gen, dtype, quant, cur_c, [min(f, Lc) for f in fill_c], Lc)
+            gen, dtype, quant, cur_c, [min(f, Lc) for f in fill_c], Lc,
+            heads)
         Bc = len(cur_c)
         idle = cur_t < 0
         tol = TOL[dtype]
@@ -316,17 +371,17 @@ def kernel_phase(results):
                 f"decode_attention {name}: max err {err}")
         if idle.any():        # the mean of the swept V rows, as the reference
             v_deq = v[idle].float() * (vs[idle][..., None] if quant else 1.0)
-            mean_v = v_deq.mean(dim=2).repeat_interleave(HQ // HKV, dim=1)
+            mean_v = v_deq.mean(dim=2).repeat_interleave(hq // hkv, dim=1)
             require(torch.allclose(got[idle].float(),
                                    mean_v.to(dtype).float(), **tol),
                     f"decode_attention {name}: idle row is not the mean "
                     "of V")
-        nbytes, flops = decode_cost(q, kpos, cur_t, window, kvbytes)
+        nbytes, flops = decode_cost(q, kpos, cur_t, window, kvbytes, hkv)
         b_ms, b_by = bound(nbytes, flops, dtype)
         lib = None if quant else time_ms(sdpa_decode(q, k, v, kpos, cur_t,
                                                       window))
         rec = dict(phase="kernel", name="decode_attention", case=name,
-                   shape=dict(B=Bc, Hq=HQ, Hkv=HKV, D=D, L=Lc),
+                   shape=dict(B=Bc, Hq=hq, Hkv=hkv, D=d, L=Lc),
                    n_split=n_split,
                    max_abs_err=err, tol=tol,
                    ms=time_ms(lambda: da.decode_attention_cuda(
@@ -353,11 +408,11 @@ def kernel_phase(results):
         err = float((got.float() - ref.float()).abs().max())
         require(torch.allclose(got.float(), ref.float(), **tol),
                 f"paged_decode_attention {name}: max err {err}")
-        nbytes, flops = decode_cost(q, kpos, cur_t, window, kvbytes,
+        nbytes, flops = decode_cost(q, kpos, cur_t, window, kvbytes, hkv,
                                     paged_nb=bt.shape[1])
         b_ms, b_by = bound(nbytes, flops, dtype)
         rec = dict(phase="kernel", name="paged_decode_attention", case=name,
-                   shape=dict(B=Bc, Hq=HQ, Hkv=HKV, D=D, L=Lc, ps=PS),
+                   shape=dict(B=Bc, Hq=hq, Hkv=hkv, D=d, L=Lc, ps=PS),
                    n_split=n_split,
                    max_abs_err=err, tol=tol,
                    ms=time_ms(lambda: da.paged_decode_attention_cuda(
@@ -374,20 +429,33 @@ def kernel_phase(results):
         results.setdefault("paged_decode_attention", []).append(rec)
 
     F = torch.nn.functional
-    for name, dtype, S, window, cap in (
-            ("fp32/S512", torch.float32, 512, 0, 0.0),
-            ("fp32/S2048", torch.float32, 2048, 0, 0.0),
-            ("fp32/S1500", torch.float32, 1500, 0, 0.0),
-            ("bf16/S64", torch.bfloat16, 64, 0, 0.0),
-            ("bf16/S256", torch.bfloat16, 256, 0, 0.0),
-            ("bf16/S1024", torch.bfloat16, 1024, 0, 0.0),
-            ("bf16/S2048", torch.bfloat16, 2048, 0, 0.0),
-            ("window256/S2048", torch.float32, 2048, 256, 0.0),
-            ("softcap50/S2048", torch.float32, 2048, 0, 50.0)):
-        q = torch.randn((1, HQ, S, D), generator=gen, device=DEV).to(dtype)
-        k = torch.randn((1, HKV, S, D), generator=gen,
+    f32, b16 = torch.float32, torch.bfloat16
+    flash_cases = [(n, dt, S, w, cap, (HQ, HKV, D)) for n, dt, S, w, cap in (
+        ("fp32/S512", f32, 512, 0, 0.0),
+        ("fp32/S2048", f32, 2048, 0, 0.0),
+        ("fp32/S1500", f32, 1500, 0, 0.0),
+        ("bf16/S64", b16, 64, 0, 0.0),
+        ("bf16/S256", b16, 256, 0, 0.0),
+        ("bf16/S1024", b16, 1024, 0, 0.0),
+        ("bf16/S2048", b16, 2048, 0, 0.0),
+        ("window256/S2048", f32, 2048, 256, 0.0),
+        ("softcap50/S2048", f32, 2048, 0, 50.0),
+        ("fp32/S1500/window256/softcap50", f32, 1500, 256, 50.0))]
+    # every head dim at S 1024 on smollm's heads (comparable with D 64),
+    # then the families' own prefill shapes
+    for d in (96, 112, 128, 256):
+        for tag, dt in (("fp32", f32), ("bf16", b16)):
+            flash_cases.append((f"{tag}/D{d}/S1024", dt, 1024, 0, 0.0,
+                                (HQ, HKV, d)))
+    flash_cases += [
+        ("phi3/bf16/S1024", b16, 1024, 0, 0.0, (32, 32, 96)),
+        ("gemma3/bf16/S1024/window512", b16, 1024, 512, 0.0, (4, 1, 256)),
+        ("gemma2/fp32/S1024/softcap50", f32, 1024, 0, 50.0, (16, 8, 256))]
+    for name, dtype, S, window, cap, (hq, hkv, d) in flash_cases:
+        q = torch.randn((1, hq, S, d), generator=gen, device=DEV).to(dtype)
+        k = torch.randn((1, hkv, S, d), generator=gen,
                         device=DEV).to(dtype)
-        v = torch.randn((1, HKV, S, D), generator=gen,
+        v = torch.randn((1, hkv, S, d), generator=gen,
                         device=DEV).to(dtype)
         tol = TOL[dtype]
         got = fa.flash_attention_cuda(q, k, v, window=window, softcap=cap)
@@ -399,7 +467,6 @@ def kernel_phase(results):
         pairs = sum(min(i + 1, window) if window else i + 1
                     for i in range(S))
         nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
-        b_ms, b_by = bound(nbytes, 4 * D * HQ * pairs, dtype)
         lib = None
         if not cap:
             if window:
@@ -412,7 +479,8 @@ def kernel_phase(results):
                 lib = time_ms(lambda: F.scaled_dot_product_attention(
                     q, k, v, is_causal=True, enable_gqa=True))
         rec = dict(phase="kernel", name="flash_attention", case=name,
-                   shape=dict(B=1, Hq=HQ, Hkv=HKV, D=D, S=S),
+                   shape=dict(B=1, Hq=hq, Hkv=hkv, D=d, S=S),
+                   window=window, softcap=cap,
                    max_abs_err=err, tol=tol,
                    ms=time_ms(lambda: fa.flash_attention_cuda(
                        q, k, v, window=window, softcap=cap)),
@@ -420,7 +488,8 @@ def kernel_phase(results):
                        q, k, v, window=window, softcap=cap), graph=False),
                    plain_ms=time_ms(lambda: fa.flash_attention_ref(
                        q, k, v, window=window, softcap=cap)),
-                   bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+                   library_ms=lib,
+                   **flash_bound(nbytes, 4 * d * hq * pairs, dtype))
         emit(rec)
         results.setdefault("flash_attention", []).append(rec)
 
@@ -770,34 +839,80 @@ def plain_cfg(cfg):
                                                     kernel_force="ref"))
 
 
-def model_phase(cfg, params):
-    """Full-width prefill + 4 decode steps, kernel path against the plain
-    path, in fp32 (summation order is the only difference)."""
+def kernel_vs_plain_logits(cfg, params, n_tok, max_len, steps=4):
+    """fp32 prefill of 2 x ``n_tok`` seeded tokens + ``steps`` greedy
+    decode steps on the kernel path and on the plain path
+    (``kernel_force="ref"``), the same weights. Returns the two (steps + 1,
+    2, vocab) logit stacks and the kernel path's launches."""
+    from repro_torch.kernels import launches
     from repro_torch.models import Model
-    tol = dict(atol=1e-3, rtol=1e-3)
     cfg32 = cfg.replace(dtype="float32")
-    out = {}
+    out, got = {}, {}
     for tag, c in (("kernel", cfg32), ("plain", plain_cfg(cfg32))):
+        before = dict(launches)
         m = Model(c, device=DEV)
         gen = np.random.default_rng(SEED)
-        toks = torch.from_numpy(gen.integers(0, c.vocab_size, (2, 100))
+        toks = torch.from_numpy(gen.integers(0, c.vocab_size, (2, n_tok))
                                 .astype(np.int32)).to(DEV)
-        h, caches = m.prefill(params, {"tokens": toks}, 256)
-        logs = [m.logits(params, h)[:, -1]]
+        h, caches = m.prefill(params, {"tokens": toks}, max_len)
+        logs = [m.logits(params, h[:, -1:])[:, 0]]
         nxt = logs[0].argmax(-1).to(torch.int32)
-        pos = torch.full((2,), 100, dtype=torch.int32, device=DEV)
-        for _ in range(4):
+        pos = torch.full((2,), n_tok, dtype=torch.int32, device=DEV)
+        for _ in range(steps):
             lg, caches = m.decode(params, caches, nxt[:, None], pos)
             logs.append(lg[:, 0])
             nxt, pos = lg[:, 0].argmax(-1).to(torch.int32), pos + 1
         out[tag] = torch.stack(logs)
-    a, b = out["kernel"], out["plain"]
+        got[tag] = {k: launches[k] - before[k] for k in launches}
+        del caches, h
+    require(not any(got["plain"].values()),
+            f"{cfg.name}: the plain path launched {got['plain']}")
+    return out["kernel"], out["plain"], got["kernel"]
+
+
+def model_phase(cfg, params):
+    """Full-width prefill + 4 decode steps, kernel path against the plain
+    path, in fp32 (summation order is the only difference)."""
+    tol = dict(atol=1e-3, rtol=1e-3)
+    a, b, _ = kernel_vs_plain_logits(cfg, params, 100, 256)
     err = float((a - b).abs().max())
     require(bool(torch.isfinite(a).all()), "model: non-finite logits")
     require(tuple(a.shape) == (5, 2, cfg.vocab_size), "model: logits shape")
     require(torch.allclose(a, b, **tol), f"model: max err {err}")
     emit(dict(phase="model", layers=cfg.n_layers, dtype="float32",
               shape=list(a.shape), max_abs_err=err, tol=tol))
+
+
+def families_model_phase(cfg, params, cut=""):
+    """One dense family in fp32 at full width: a prefill of 2 x 600 tokens
+    (past gemma3's 512-token window) + 4 decode steps, logits on the kernel
+    path against the plain path at the model phase's tolerance. Flash must
+    launch once a layer; decode once a layer a step, or never where an
+    attention softcap sends decode to the einsum path (gemma2), as in the
+    reference. Returns the kernel path's launches."""
+    t_phase = time.monotonic()
+    tol = dict(atol=1e-3, rtol=1e-3)
+    steps = 4
+    a, b, got = kernel_vs_plain_logits(cfg, params, 600, 640, steps)
+    err = float((a - b).abs().max())
+    n_dec = 0 if cfg.attn_softcap else steps * cfg.n_layers
+    need = {"flash_attention": cfg.n_layers, "decode_attention": n_dec}
+    require(all(got[k] == need[k] for k in need)
+            and sum(got.values()) == sum(need.values()),
+            f"families_model {cfg.name}: launches {got} != {need}")
+    require(bool(torch.isfinite(a).all()),
+            f"families_model {cfg.name}: non-finite logits")
+    require(tuple(a.shape) == (steps + 1, 2, cfg.vocab_size),
+            f"families_model {cfg.name}: logits shape")
+    require(torch.allclose(a, b, **tol),
+            f"families_model {cfg.name}: max err {err}")
+    emit(dict(phase="families_model", arch=cfg.name, layers=cfg.n_layers,
+              cut=cut or "none", d_model=cfg.d_model, heads=[
+                  cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim],
+              dtype="float32", prompt=[2, 600], decode_steps=steps,
+              shape=list(a.shape), max_abs_err=err, tol=tol, launches=got,
+              wall_s=time.monotonic() - t_phase))
+    return got
 
 
 def ssm_params(model, seed):
@@ -1183,8 +1298,9 @@ def engine_phase(phase, cfg, params, prompts, paged):
             f"{phase}: launches {got} != needed {need}")
     tol = TOL[getattr(torch, cfg.dtype)]
     streams = compare_streams(kern, plain, top8, tol)
-    emit(dict(phase=phase, layers=cfg.n_layers, dtype=cfg.dtype,
-              kv_quant=cfg.kv_quant, paged=paged, launches=got,
+    emit(dict(phase=phase, arch=cfg.name, layers=cfg.n_layers,
+              dtype=cfg.dtype, kv_quant=cfg.kv_quant, paged=paged,
+              launches=got,
               launches_needed=need, logit_tol=tol, **streams,
               kernel_path=km, plain_path=pm))
 
@@ -1252,17 +1368,27 @@ def main():
     built = _lib.build()
     ptxas = {n: _lib.ptxas_table(n) for n in _lib.SOURCES}
     tensor_ops = {n: _lib.sass_count(n) for n in _lib.SOURCES}
+    spills = {k: v["spill_bytes"] for n in _lib.SOURCES
+              for k, v in ptxas[n].items() if v["spill_bytes"]}
     emit(dict(phase="build", gpu=gpu, torch=torch.__version__,
               cuda=torch.version.cuda, build_s=built["build_s"],
               wall_s=time.monotonic() - t0, tensor_core_ops=tensor_ops,
-              ptxas=ptxas))
+              spill_bytes=spills, ptxas=ptxas))
     require(sum(tensor_ops["flash_attention"].values()) > 0,
-            "flash_attention: no HMMA/HGMMA in the SASS (the bf16 kernel "
-            "does not run on the tensor cores)")
-    mma64 = [v for k, v in ptxas["flash_attention"].items()
-             if re.search(r"flash_mma_kernel(<(\(int\))?64>|ILi64E)", k)]
-    require(len(mma64) == 1 and mma64[0]["spill_bytes"] == 0,
-            f"flash_attention: the bf16 D 64 kernel spills registers: {mma64}")
+            "flash_attention: no HMMA/HGMMA in the SASS (the kernels do not "
+            "run on the tensor cores)")
+    from repro_torch.kernels.decode_attention import HEAD_DIMS
+    for kern in ("flash_mma_kernel", "flash_tf32_kernel"):
+        by_d = {int(m.group(1)): v for k, v in ptxas["flash_attention"].items()
+                for m in [re.search(kern + r"(?:<(?:\(int\))?|ILi)(\d+)", k)]
+                if m}
+        require(sorted(by_d) == sorted(HEAD_DIMS),
+                f"flash_attention: {kern} built for D {sorted(by_d)}, not "
+                f"{HEAD_DIMS}")
+        spills = {d: v["spill_bytes"] for d, v in by_d.items()
+                  if v["spill_bytes"]}
+        require(not spills, f"flash_attention: {kern} spills registers "
+                f"(bytes by head dim): {spills}")
 
     results = {}
     kernel_phase(results)
@@ -1282,8 +1408,10 @@ def main():
     require(all(serving_path[k] > 0 for k in SERVING_KERNELS),
             f"a kernel of the serving path never launched: {serving_path}")
     cfg32 = cfg.replace(dtype="float32")
+    _lib.launches.reset()                   # fp32 flash: the fp32 engines
     engine_phase("fp32_dense_engine", cfg32, params, prompts, False)
     engine_phase("fp32_paged_engine", cfg32, params, prompts, True)
+    fp32_path = {"fp32_engines": _lib.launches["flash_attention"]}
     profile_phase("profile_dense_decode", cfg, params, prompts, False)
     profile_phase("profile_paged_decode", cfg, params, prompts, True)
 
@@ -1292,6 +1420,41 @@ def main():
     qparams = Model(qcfg, device=DEV).init(gen)
     engine_phase("int8_dense_engine", qcfg, qparams, prompts, False)
     engine_phase("int8_paged_engine", qcfg, qparams, prompts, True)
+    del params, qparams
+
+    # the dense families at full width and depth (bf16 serving; fp32
+    # logits), then gemma2-9b at full width, 4 layers; weights freed between
+    families_path = {k: 0 for k in SERVING_KERNELS}
+    fp32_path["families_model"] = 0
+    for i, (tag, arch) in enumerate((("gemma3", "gemma3-1b"),
+                                     ("phi3", "phi3-mini-3.8b"))):
+        fcfg = get_config(arch)
+        gen = torch.Generator(device=DEV).manual_seed(SEED + 10 + i)
+        fparams = Model(fcfg, device=DEV).init(gen)
+        fprompts = workload(fcfg.vocab_size)
+        _lib.launches.reset()               # this family's serving path
+        engine_phase(f"{tag}_dense_engine", fcfg, fparams, fprompts, False)
+        engine_phase(f"{tag}_paged_engine", fcfg, fparams, fprompts, True)
+        for k in SERVING_KERNELS:
+            require(_lib.launches[k] > 0,
+                    f"{tag}: {k} never launched on its serving path")
+            families_path[k] += _lib.launches[k]
+        if tag == "phi3":
+            profile_phase("profile_phi3_dense_decode", fcfg, fparams,
+                          fprompts, False)
+        got = families_model_phase(fcfg, fparams)
+        fp32_path["families_model"] += got["flash_attention"]
+        del fparams
+        torch.cuda.empty_cache()
+    g2cfg = get_config("gemma2-9b").replace(n_layers=4)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 12)
+    g2params = Model(g2cfg, device=DEV).init(gen)
+    got = families_model_phase(
+        g2cfg, g2params, cut="n_layers 42 -> 4 (two local/global pairs; "
+        "chip time)")
+    fp32_path["families_model"] += got["flash_attention"]
+    del g2params
+    torch.cuda.empty_cache()
 
     rc3e_path = rc3e_phase()
 
@@ -1315,7 +1478,8 @@ def main():
                "flash_attention": ("flash_attention", "flash_attention", 100),
                "stream_matmul": ("stream_matmul", "stream_matmul", 57),
                "ssd_chunk_scan": ("ssd_chunk_scan", "mamba2_chunk", 68)}
-    path_launches = {k: serving_path[k] for k in SERVING_KERNELS}
+    path_launches = {k: serving_path[k] + families_path[k]
+                     for k in SERVING_KERNELS}
     path_launches["stream_matmul"] = (rc3e_path["stream_matmul"]
                                       + rc3e_path["stream_matmul_batched"])
     path_launches["ssd_chunk_scan"] = ssm_path["ssd_chunk_scan"]
@@ -1335,6 +1499,22 @@ def main():
             row["launches_by_entry"] = {
                 k: rc3e_path[k] for k in ("stream_matmul",
                                           "stream_matmul_batched")}
+        if name in SERVING_KERNELS:
+            row["launches_by_path"] = {
+                "smollm_serving": serving_path[name],
+                "families_serving": families_path[name]}
+        if name == "flash_attention":      # the fp32 (3xTF32) kernel
+            f = next(r for r in recs if r["case"] == "fp32/S512")
+            row["fp32"] = dict(
+                case=f["case"], shape=f["shape"],
+                launches=sum(fp32_path.values()),
+                launches_by_path=fp32_path, max_abs_err=max(
+                    r["max_abs_err"] for r in recs
+                    if r["tol"] == TOL[torch.float32]),
+                ms=f["ms"], plain_ms=f["plain_ms"], bound_ms=f["bound_ms"],
+                bound_by=f["bound_by"],
+                bound_cuda_core_ms=f["bound_cuda_core_ms"],
+                library_ms=f["library_ms"])
         rows.append(row)
     emit({"kernels": rows, "wall_s": time.monotonic() - t_start})
     print(gpu, flush=True)

@@ -1,6 +1,6 @@
 // Causal flash attention (prefill) for Hopper (sm_90a): GQA, blocked online
 // softmax with an fp32 accumulator, optional sliding window and tanh logit
-// softcap, ragged sequence lengths.
+// softcap, ragged sequence lengths, head dims 32, 64, 96, 112, 128 and 256.
 //
 // Replaces the Pallas TPU kernel flash_attention (_flash_kernel) in
 // src/repro/kernels/flash_attention.py.
@@ -9,43 +9,63 @@
 // costs 4*D flops, while the bytes grow only linearly in S (q, k, v and out
 // once each), so above a few hundred tokens the arithmetic dominates.
 //
-// Two kernels, chosen by dtype in the wrapper (one entry point each):
-//
-// flash_mma_kernel (bfloat16), an FA2-style forward on the tensor cores:
-//   * one block per (sequence, query head, 64-query tile) with two sets of
-//     4 warps; a warp owns 16 query rows, and set j takes the tile's key
-//     tiles j, j+2, ... (two warps a query row, so a long row's sweep is
-//     halved); the sets merge (m, l, O) through shared memory at the end;
-//   * S = Q K^T and O += P V run as mma.sync.m16n8k16 (bf16 in, fp32
-//     accumulators in registers); Q and K fragments come from shared
-//     memory by ldmatrix, V by ldmatrix.trans; P goes from the S
-//     accumulator fragment to the A fragment of P V in registers (rounded
-//     to bf16, as the reference layer rounds its probabilities before
-//     P V), never through shared memory; the softmax scale is applied to
-//     the fp32 scores;
-//   * K/V tiles of 64 keys are staged bf16 by 16-byte cp.async, two groups
-//     of two tiles deep, in rows whose 16-byte chunks are XOR-swizzled by
-//     the row index so that each 8-row ldmatrix phase hits 8 distinct bank
-//     groups;
+// Two kernels, chosen by dtype in the wrapper (one entry point each), both
+// FA2-style forwards on the tensor cores with one structure:
+//   * one block per (sequence, query head, 64-query tile) with kSets sets
+//     of 4 warps; a warp owns 16 query rows, and set j takes the tile's key
+//     tiles j, j+kSets, ... (several warps a query row, so a long row's
+//     sweep is shortened); the sets merge (m, l, O) through shared memory
+//     at the end (finish);
+//   * S = Q K^T and O += P V run as mma.sync with fp32 accumulators in
+//     registers; P goes from the S accumulator fragment to the A fragment
+//     of P V in registers, never through shared memory; the softmax scale
+//     (and cap) is applied to the fp32 scores;
+//   * K/V tiles are staged by 16-byte cp.async, kStages groups of kSets
+//     tiles deep, in rows laid out so that a fragment load hits distinct
+//     banks;
 //   * the online softmax works per row in registers (log2 domain, exp2);
 //     a row's max is reduced over the 4 lanes of its fragment quad, its sum
-//     is kept per lane and reduced once at the end;
+//     is kept per lane and reduced once at the end (softmax_tile);
 //   * loop bounds come from the causal band and the window; only the
 //     diagonal tile and the tiles at the window's edge compute masks, and
 //     a row none of whose keys in a tile is valid keeps m = -inf without a
 //     NaN (exp2 is taken against 0 while m is -inf);
 //   * the query-tile axis is the grid's slowest and is walked in reverse,
 //     so the longest (most keys) tiles start first.
-//   What bounds it now (by count): instruction issue and shared-memory
-//   reads. A 16-row warp tile re-reads every K/V fragment per 2 mma.sync,
-//   so ldmatrix traffic matches the tensor work; wgmma (64-row warpgroup
-//   tiles reading K/V from shared memory once per warpgroup) and TMA copies
-//   are the next step. Not done either: folding a kv group's query heads
-//   into one block.
 //
-// flash_kernel (float32) stays on the fp32 CUDA cores (TF32 cannot meet the
-// fp32 tolerance): 4 warps, a lane scores one key of a 32-key tile from
-// shared memory, P V broadcasts each probability by shuffle.
+// flash_mma_kernel (bfloat16): mma.sync.m16n8k16 bf16 -> fp32. Q and K
+//   fragments come from shared memory by ldmatrix, V by ldmatrix.trans; P is
+//   rounded to bf16 before P V, as the reference layer rounds its
+//   probabilities. Rows of 16-byte chunks are XOR-swizzled by the row index
+//   (within groups of 8 chunks; a row is padded to a multiple of 64
+//   elements, so D 96 and 112 take D 128's 256-byte rows) so that each
+//   8-row ldmatrix phase hits 8 distinct bank groups. At D <= 128 a warp
+//   keeps its Q fragments in registers; at D 256 (O alone is 128 fp32
+//   registers a lane) it reloads them by ldmatrix every key tile, takes
+//   32-key tiles and loads V fragments 4 at a time, so that nothing spills.
+//   What bounds it now (by count): instruction issue and shared-memory
+//   reads; a 16-row warp tile re-reads every K/V fragment per 2 mma.sync.
+//   wgmma on 64-row warpgroup tiles and TMA copies are the next step.
+//
+// flash_tf32_kernel (float32): 3xTF32 on mma.sync.m16n8k8. TF32 keeps 10
+//   mantissa bits, too few for the fp32 tolerance, so each operand x is
+//   split into hi = tf32(x) and lo = tf32(x - hi), and each product is
+//   lo*hi + hi*lo + hi*hi into the fp32 accumulator (the dropped lo*lo is
+//   below 2^-22 of the product). The same holds for Q K^T and for P V (P
+//   in fp32, split the same way). fp32 fragments cannot be loaded by
+//   ldmatrix (b16 only), so they are read from shared memory with plain
+//   32-bit loads; rows are padded to D + 4 floats (D + 4 = 4 or 20 mod 32),
+//   which puts the 32 lanes of every fragment load (8 rows x 4 columns for
+//   Q and K, 4 row pairs x 8 columns for V) on 32 distinct banks with no
+//   swizzle. Operands are split where they are read (3 instructions an
+//   element). V's rows are read in the order of P's accumulator columns
+//   (key 2t, 2t+1 to fragment rows t, t+4), so P needs no shuffle. D <= 64
+//   takes 64-key tiles and two warp sets, D 96-128 32-key tiles (shared
+//   memory), D 256 32-key tiles and one warp set whose two halves each
+//   keep half of O's columns (O whole is 128 registers a lane, and ptxas
+//   spilled at 255): both halves score the same keys, 1.5x the mma work.
+//   What bounds it (by count): issue, about 3 split and load instructions
+//   an mma, near the tensor pipe's own rate.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -69,153 +89,13 @@ struct FlashArgs {
 
 namespace {
 
-// ---------------------------------------------------------------------------
-// float32: CUDA cores
-// ---------------------------------------------------------------------------
-
-constexpr int kBQ = 64;     // query rows per block
-constexpr int kBK = 32;     // keys per tile: one per lane
-constexpr int kWarps = 4;
-constexpr int kRows = kBQ / kWarps;
-
-template <int DPL>
-constexpr int smem_bytes() {
-  return (kBQ * 32 * DPL + kBK * (32 * DPL + 1) + kBK * 32 * DPL) *
-         static_cast<int>(sizeof(float));
-}
-
-template <int DPL>
-__global__ void __launch_bounds__(kWarps * 32)
-flash_kernel(const FlashArgs a) {
-  constexpr int D = 32 * DPL;
-  extern __shared__ float smem[];
-  float* qs = smem;                  // [kBQ][D], pre-scaled
-  float* ks = qs + kBQ * D;          // [kBK][D + 1]
-  float* vs = ks + kBK * (D + 1);    // [kBK][D]
-
-  const int bh = blockIdx.y;
-  const int b = bh / a.Hq;
-  const int h = bh - b * a.Hq;
-  const int hk = h / (a.Hq / a.Hkv);
-  const int q0 = blockIdx.x * kBQ;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const float* qg = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const float* kg = static_cast<const float*>(a.k) + b * a.k_sb + hk * a.k_sh;
-  const float* vg = static_cast<const float*>(a.v) + b * a.v_sb + hk * a.v_sh;
-  float* og = static_cast<float*>(a.out) + b * a.o_sb + h * a.o_sh;
-
-  for (int e = threadIdx.x; e < kBQ * D; e += blockDim.x) {
-    const int r = e / D;
-    const int d = e - r * D;
-    const int qi = q0 + r;
-    qs[e] = qi < a.S ? qg[qi * a.q_ss + d] * a.scale : 0.f;
-  }
-
-  float m[kRows], l[kRows], acc[kRows][DPL];
-#pragma unroll
-  for (int rr = 0; rr < kRows; ++rr) {
-    m[rr] = -INFINITY;
-    l[rr] = 0.f;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[rr][i] = 0.f;
-  }
-
-  const int k_end = min(q0 + kBQ, a.S);  // causal: keys <= last query
-  int k_begin = a.window ? max(0, q0 - a.window + 1) : 0;
-  k_begin = (k_begin / kBK) * kBK;
-  for (int k0 = k_begin; k0 < k_end; k0 += kBK) {
-    __syncthreads();  // the previous tile is consumed (and qs is written)
-    for (int e = threadIdx.x; e < kBK * D; e += blockDim.x) {
-      const int r = e / D;
-      const int d = e - r * D;
-      const int ki = k0 + r;
-      const bool in = ki < a.S;
-      ks[r * (D + 1) + d] = in ? kg[ki * a.k_ss + d] : 0.f;
-      vs[r * D + d] = in ? vg[ki * a.v_ss + d] : 0.f;
-    }
-    __syncthreads();
-
-    const int kp = k0 + lane;  // this lane's key
-    const float* krow = ks + lane * (D + 1);
-#pragma unroll
-    for (int rr = 0; rr < kRows; ++rr) {
-      const int r = warp * kRows + rr;
-      const int qp = q0 + r;
-      // warp-uniform skips: row past the end, tile after the row, tile
-      // wholly before the row's window
-      if (qp >= a.S || k0 > qp) continue;
-      if (a.window && k0 + kBK - 1 <= qp - a.window) continue;
-      const float* qrow = qs + r * D;
-      float s = 0.f;
-#pragma unroll 16
-      for (int d = 0; d < D; ++d) s += qrow[d] * krow[d];
-      if (a.softcap != 0.f) s = a.softcap * tanhf(s / a.softcap);
-      const bool valid = kp <= qp && (a.window == 0 || qp - kp < a.window);
-      float mx = valid ? s : -INFINITY;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_new = fmaxf(m[rr], mx);  // finite: key qp or an
-                                             // earlier one is in the tile
-      const float p = valid ? __expf(s - m_new) : 0.f;
-      float psum = p;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        psum += __shfl_xor_sync(0xffffffffu, psum, o);
-      const float alpha = __expf(m[rr] - m_new);
-      l[rr] = l[rr] * alpha + psum;
-      float o_acc[DPL];
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) o_acc[i] = acc[rr][i] * alpha;
-#pragma unroll 8
-      for (int j = 0; j < kBK; ++j) {
-        const float pj = __shfl_sync(0xffffffffu, p, j);
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) o_acc[i] += pj * vs[j * D + lane + 32 * i];
-      }
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[rr][i] = o_acc[i];
-      m[rr] = m_new;
-    }
-  }
-
-#pragma unroll
-  for (int rr = 0; rr < kRows; ++rr) {
-    const int qp = q0 + warp * kRows + rr;
-    if (qp < a.S) {
-      const float inv = 1.f / fmaxf(l[rr], 1e-30f);
-#pragma unroll
-      for (int i = 0; i < DPL; ++i)
-        og[qp * a.o_ss + lane + 32 * i] = acc[rr][i] * inv;
-    }
-  }
-}
-
-template <int DPL>
-int launch_f32_d(const FlashArgs& a, cudaStream_t stream) {
-  constexpr int bytes = smem_bytes<DPL>();
-  if (bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_kernel<DPL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        bytes);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  const dim3 grid((a.S + kBQ - 1) / kBQ, a.B * a.Hq);
-  flash_kernel<DPL><<<grid, kWarps * 32, bytes, stream>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ---------------------------------------------------------------------------
-// bfloat16: tensor cores (mma.sync m16n8k16)
-// ---------------------------------------------------------------------------
-
-constexpr int kMmaBQ = 64;      // query rows per block: 16 per warp of a set
-constexpr int kMmaBK = 64;      // keys per K/V tile
-constexpr int kSets = 2;       // warp sets: set j takes tiles j, j+kSets..
-constexpr int kMmaWarps = 4 * kSets;
-constexpr int kStages = 2;     // groups of kSets K/V tiles in flight
+constexpr int kBQ = 64;      // query rows per block: 16 per warp of a set
+constexpr int kStages = 2;   // groups of kSets K/V tiles in flight
 constexpr float kLog2e = 1.4426950408889634f;
+
+// ---------------------------------------------------------------------------
+// Shared helpers
+// ---------------------------------------------------------------------------
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -262,6 +142,34 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// c += a (16x8, row) * b (8x8, col), tf32 in, fp32 accumulate.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// x = hi + lo with hi and lo both tf32 (round to nearest).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  const float r = x - __uint_as_float(hi);
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(r));
+}
+
+// c += a * b in 3xTF32: the two small cross terms first, then hi * hi.
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4],
+                                           const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4],
+                                           const uint32_t (&bh)[2],
+                                           const uint32_t (&bl)[2]) {
+  mma_tf32(c, al, bh);
+  mma_tf32(c, ah, bl);
+  mma_tf32(c, ah, bh);
+}
+
 // 2^x in one MUFU op (flushes results below 2^-126 to 0; x <= 0 here).
 __device__ __forceinline__ float exp2_approx(float x) {
   float y;
@@ -274,252 +182,91 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// Element offset of (row, 16-byte chunk) in a [rows][D] bf16 tile whose
-// chunks are XOR-swizzled: the 8 rows an ldmatrix phase reads at one
-// logical chunk land in 8 distinct 16-byte bank groups. At D = 32 two rows
-// share a 128-byte line, so the row index is halved first.
-template <int D>
-__device__ __forceinline__ int swz(int row, int chunk) {
-  constexpr int kShift = D == 32 ? 1 : 0;
-  constexpr int kMask = D == 32 ? 3 : 7;
-  return row * D + ((chunk ^ ((row >> kShift) & kMask)) << 3);
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float x, float y) {
+  *reinterpret_cast<uint32_t*>(p) = pack_bf16(x, y);
+}
+__device__ __forceinline__ void store2(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
 }
 
-template <int D>
-constexpr int mma_smem_bytes() {
-  return (kMmaBQ + 2 * kStages * kSets * kMmaBK) * D * 2;
-}
-
-// 64 rows of a [S][D] bf16 matrix (row stride ss) into a swizzled tile;
-// rows at or past S are zero-filled.
-template <int D>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* src,
-                                          long long ss, int r0, int S) {
-  constexpr int kChunks = D / 8;
-  constexpr int kPerThread = 64 * kChunks / (kMmaWarps * 32);
-  static_assert(kPerThread * kMmaWarps * 32 == 64 * kChunks,
-                "every thread copies the same number of 16-byte chunks");
+// A key tile's scores (kST n8 accumulator fragments of a 16-row warp tile;
+// this lane's rows ra (c0, c1) and ra + 8 (c2, c3), keys k0 + 8t + col and
+// + 1) to unnormalised probabilities, in place: scale (or cap) to the log2
+// domain, mask on the diagonal and window-edge tiles (masked), exp2
+// against the running max m. Updates m and l (this lane's share of the row
+// sums) and gives the factor alpha by which each row's O is rescaled.
+template <int kST>
+__device__ __forceinline__ void softmax_tile(float (&s)[kST][4], float (&m)[2],
+                                             float (&l)[2], float (&alpha)[2],
+                                             const FlashArgs& a, float s_mul,
+                                             float cap_log2, bool masked,
+                                             int ra, int k0, int col) {
+  if (a.softcap != 0.f) {
 #pragma unroll
-  for (int i = 0; i < kPerThread; ++i) {
-    const int e = threadIdx.x + i * kMmaWarps * 32;
-    const int r = e / kChunks;
-    const int c = e - r * kChunks;
-    const int gr = r0 + r;
-    const bool in = gr < S;
-    cp_async16(smem_addr(dst + swz<D>(r, c)),
-               src + (long long)(in ? gr : 0) * ss + c * 8, in ? 16 : 0);
+    for (int t = 0; t < kST; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[t][e] = cap_log2 * tanhf(s[t][e] * s_mul);
+  } else {
+#pragma unroll
+    for (int t = 0; t < kST; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[t][e] *= s_mul;
+  }
+  if (masked) {
+#pragma unroll
+    for (int t = 0; t < kST; ++t) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = ra + ((e >> 1) << 3);
+        const int key = k0 + 8 * t + col + (e & 1);
+        if (key > row || (a.window && row - key >= a.window))
+          s[t][e] = -INFINITY;
+      }
+    }
+  }
+  // per row: max over the quad, exp2 against a finite base (0 while the
+  // row has seen no valid key)
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int t = 0; t < kST; ++t)
+      mx = fmaxf(mx, fmaxf(s[t][2 * r], s[t][2 * r + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[r], mx);
+    const float base = m_new == -INFINITY ? 0.f : m_new;
+    alpha[r] = exp2_approx(m[r] - base);
+    float sum = 0.f;
+#pragma unroll
+    for (int t = 0; t < kST; ++t) {
+      s[t][2 * r] = exp2_approx(s[t][2 * r] - base);
+      s[t][2 * r + 1] = exp2_approx(s[t][2 * r + 1] - base);
+      sum += s[t][2 * r] + s[t][2 * r + 1];
+    }
+    l[r] = l[r] * alpha[r] + sum;
+    m[r] = m_new;
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kMmaWarps * 32, 1)
-flash_mma_kernel(const FlashArgs a) {
-  constexpr int kKSteps = D / 16;      // k-steps of Q K^T
-  constexpr int kSTiles = kMmaBK / 8;  // n8 tiles of S
-  constexpr int kOTiles = D / 8;       // n8 tiles of O
-  constexpr int kTile = kMmaBK * D;    // elements of a K or V tile
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* ks = qs + kMmaBQ * D;  // [kStages][kSets][kMmaBK][D]
-  __nv_bfloat16* vs = ks + kStages * kSets * kTile;
-
-  const int bh = blockIdx.x;
-  const int b = bh / a.Hq;
-  const int h = bh - b * a.Hq;
-  const int hk = h / (a.Hq / a.Hkv);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kMmaBQ;  // longest first
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int wrow = (warp & 3) * 16;  // this warp's 16 rows of the tile
-  const int set = warp >> 2;
-  const __nv_bfloat16* qg =
-      static_cast<const __nv_bfloat16*>(a.q) + b * a.q_sb + h * a.q_sh;
-  const __nv_bfloat16* kg =
-      static_cast<const __nv_bfloat16*>(a.k) + b * a.k_sb + hk * a.k_sh;
-  const __nv_bfloat16* vg =
-      static_cast<const __nv_bfloat16*>(a.v) + b * a.v_sb + hk * a.v_sh;
-  __nv_bfloat16* og =
-      static_cast<__nv_bfloat16*>(a.out) + b * a.o_sb + h * a.o_sh;
-
-  const int k_end = min(q0 + kMmaBQ, a.S);  // causal: keys <= last query
-  int k_begin = a.window ? max(0, q0 - a.window + 1) : 0;
-  k_begin = (k_begin / kMmaBK) * kMmaBK;
-  const int n_tiles = (k_end - k_begin + kMmaBK - 1) / kMmaBK;
-  const int n_groups = (n_tiles + kSets - 1) / kSets;
-
-  // group i: tiles i*kSets .. i*kSets + kSets-1 (those that exist)
-  auto load_group = [&](int i) {
-    const int st = i % kStages;
-#pragma unroll
-    for (int j = 0; j < kSets; ++j) {
-      const int tile = i * kSets + j;
-      if (tile < n_tiles) {
-        const int k0 = k_begin + tile * kMmaBK;
-        load_tile<D>(ks + (st * kSets + j) * kTile, kg, a.k_ss, k0, a.S);
-        load_tile<D>(vs + (st * kSets + j) * kTile, vg, a.v_ss, k0, a.S);
-      }
-    }
-    cp_async_commit();
-  };
-  load_tile<D>(qs, qg, a.q_ss, q0, a.S);
-#pragma unroll
-  for (int i = 0; i < kStages - 1; ++i) load_group(i);  // Q rides group 0
-
-  // this lane's rows of the fragments: ra (c0, c1) and ra + 8 (c2, c3)
-  const int ra = q0 + wrow + (lane >> 2);
-  const int col = 2 * (lane & 3);
-  // scores to the log2 domain: s * scale * log2(e), or with the cap
-  // cap * tanh(s * scale / cap) * log2(e)
-  const bool capped = a.softcap != 0.f;
-  const float s_mul = capped ? a.scale / a.softcap : a.scale * kLog2e;
-  const float cap_log2 = a.softcap * kLog2e;
-
-  uint32_t qf[kKSteps][4];
-  float o[kOTiles][4];
-#pragma unroll
-  for (int t = 0; t < kOTiles; ++t)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[t][e] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};  // this lane's share of the row sums
-
-  for (int it = 0; it < n_groups; ++it) {
-    // keep kStages - 1 groups in flight: issue group it + kStages - 1
-    // (an empty commit past the end keeps the group count uniform)
-    load_group(it + kStages - 1 < n_groups ? it + kStages - 1 : n_groups);
-    cp_async_wait<kStages - 1>();
-    __syncthreads();
-    if (it == 0) {
-#pragma unroll
-      for (int kk = 0; kk < kKSteps; ++kk)
-        ldmatrix_x4(qf[kk], smem_addr(qs + swz<D>(wrow + (lane & 15),
-                                                  2 * kk + (lane >> 4))));
-    }
-    const int tile = it * kSets + set;
-    if (tile < n_tiles) {  // warp-uniform
-      const int k0 = k_begin + tile * kMmaBK;
-      const int slot = (it % kStages) * kSets + set;
-      const __nv_bfloat16* kt = ks + slot * kTile;
-      const __nv_bfloat16* vt = vs + slot * kTile;
-
-      // S = Q K^T: an x4 load's matrices are (keys 0-7 | 8-15) x (d lo | hi)
-      float s[kSTiles][4];
-#pragma unroll
-      for (int t = 0; t < kSTiles; ++t)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[t][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kKSteps; ++kk) {
-        uint32_t bf[kSTiles / 2][4];  // all loads of a k-step, then the mmas
-#pragma unroll
-        for (int np = 0; np < kSTiles / 2; ++np)
-          ldmatrix_x4(bf[np], smem_addr(kt + swz<D>(np * 16 + (lane & 7) +
-                                                        ((lane >> 4) << 3),
-                                                    2 * kk +
-                                                        ((lane >> 3) & 1))));
-#pragma unroll
-        for (int np = 0; np < kSTiles / 2; ++np) {
-          mma_bf16(s[2 * np], qf[kk], bf[np][0], bf[np][1]);
-          mma_bf16(s[2 * np + 1], qf[kk], bf[np][2], bf[np][3]);
-        }
-      }
-
-      // scale (and cap) in fp32, to the log2 domain; mask where needed
-      if (capped) {
-#pragma unroll
-        for (int t = 0; t < kSTiles; ++t)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            s[t][e] = cap_log2 * tanhf(s[t][e] * s_mul);
-      } else {
-#pragma unroll
-        for (int t = 0; t < kSTiles; ++t)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[t][e] *= s_mul;
-      }
-      if (k0 + kMmaBK - 1 > q0 ||                            // the diagonal
-          (a.window && q0 + kMmaBQ - 1 - k0 >= a.window)) {  // window edge
-#pragma unroll
-        for (int t = 0; t < kSTiles; ++t) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int row = ra + ((e >> 1) << 3);
-            const int key = k0 + 8 * t + col + (e & 1);
-            if (key > row || (a.window && row - key >= a.window))
-              s[t][e] = -INFINITY;
-          }
-        }
-      }
-
-      // online softmax, per row: max over the quad, exp2 against a finite
-      // base (0 while the row has seen no valid key)
-      float alpha[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        float mx = -INFINITY;
-#pragma unroll
-        for (int t = 0; t < kSTiles; ++t)
-          mx = fmaxf(mx, fmaxf(s[t][2 * r], s[t][2 * r + 1]));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float m_new = fmaxf(m[r], mx);
-        const float base = m_new == -INFINITY ? 0.f : m_new;
-        alpha[r] = exp2_approx(m[r] - base);
-        float sum = 0.f;
-#pragma unroll
-        for (int t = 0; t < kSTiles; ++t) {
-          s[t][2 * r] = exp2_approx(s[t][2 * r] - base);
-          s[t][2 * r + 1] = exp2_approx(s[t][2 * r + 1] - base);
-          sum += s[t][2 * r] + s[t][2 * r + 1];
-        }
-        l[r] = l[r] * alpha[r] + sum;
-        m[r] = m_new;
-      }
-#pragma unroll
-      for (int t = 0; t < kOTiles; ++t) {
-        o[t][0] *= alpha[0];
-        o[t][1] *= alpha[0];
-        o[t][2] *= alpha[1];
-        o[t][3] *= alpha[1];
-      }
-
-      // O += P V: the S fragments of keys 16kk..16kk+15 are P's A fragment
-#pragma unroll
-      for (int kk = 0; kk < kMmaBK / 16; ++kk) {
-        const uint32_t pa[4] = {
-            pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-            pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-            pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-            pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-        uint32_t bf[kOTiles / 2][4];
-#pragma unroll
-        for (int dp = 0; dp < kOTiles / 2; ++dp)
-          ldmatrix_x4_trans(bf[dp],
-                            smem_addr(vt + swz<D>(kk * 16 + (lane & 15),
-                                                  2 * dp + (lane >> 4))));
-#pragma unroll
-        for (int dp = 0; dp < kOTiles / 2; ++dp) {
-          mma_bf16(o[2 * dp], pa, bf[dp][0], bf[dp][1]);
-          mma_bf16(o[2 * dp + 1], pa, bf[dp][2], bf[dp][3]);
-        }
-      }
-    }
-    __syncthreads();  // this stage is consumed before it is refilled
-  }
-
+// End of a block: reduce the row sums over the quad, merge the warp sets'
+// (m, l, O) into set 0 through xs (the drained K/V buffers: kSets - 1 sets
+// x 128 lanes x (4 + 4 kOT) floats), normalise and store this lane's
+// output pairs.
+template <int kOT, int kSets, typename T>
+__device__ __forceinline__ void finish(float (&o)[kOT][4], float (&m)[2],
+                                       float (&l)[2], float* xs, int set,
+                                       int li, T* og, long long o_ss, int ra,
+                                       int col, int S) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
   if (kSets > 1) {
-    // sets 1.. hand (m, l, o) to set 0 through the drained K/V buffers
     cp_async_wait<0>();
     __syncthreads();
-    constexpr int kPart = 4 + 4 * kOTiles;  // floats a lane hands over
-    float* xs = reinterpret_cast<float*>(ks);  // [kSets-1][128][kPart]
-    const int li = (warp & 3) * 32 + lane;
+    constexpr int kPart = 4 + 4 * kOT;  // floats a lane hands over
     if (set > 0) {
       float* x = xs + ((set - 1) * 128 + li) * kPart;
       x[0] = m[0];
@@ -527,7 +274,7 @@ flash_mma_kernel(const FlashArgs a) {
       x[2] = l[0];
       x[3] = l[1];
 #pragma unroll
-      for (int t = 0; t < kOTiles; ++t)
+      for (int t = 0; t < kOT; ++t)
 #pragma unroll
         for (int e = 0; e < 4; ++e) x[4 + 4 * t + e] = o[t][e];
     }
@@ -547,7 +294,7 @@ flash_mma_kernel(const FlashArgs a) {
         m[r] = mn;
       }
 #pragma unroll
-      for (int t = 0; t < kOTiles; ++t)
+      for (int t = 0; t < kOT; ++t)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           o[t][e] = o[t][e] * c_own[e >> 1] + x[4 + 4 * t + e] * c_x[e >> 1];
@@ -556,29 +303,469 @@ flash_mma_kernel(const FlashArgs a) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = ra + 8 * r;
-    if (row < a.S) {
+    if (row < S) {
       const float inv = 1.f / fmaxf(l[r], 1e-30f);
-      __nv_bfloat16* orow = og + (long long)row * a.o_ss + col;
+      T* orow = og + (long long)row * o_ss + col;
 #pragma unroll
-      for (int t = 0; t < kOTiles; ++t)
-        *reinterpret_cast<uint32_t*>(orow + 8 * t) =
-            pack_bf16(o[t][2 * r] * inv, o[t][2 * r + 1] * inv);
+      for (int t = 0; t < kOT; ++t)
+        store2(orow + 8 * t, o[t][2 * r] * inv, o[t][2 * r + 1] * inv);
+    }
+  }
+}
+
+// The key range of query tile q0: causal (keys <= last query) and window.
+__device__ __forceinline__ void key_range(const FlashArgs& a, int q0, int bk,
+                                          int* k_begin, int* n_tiles) {
+  const int k_end = min(q0 + kBQ, a.S);
+  int kb = a.window ? max(0, q0 - a.window + 1) : 0;
+  kb = (kb / bk) * bk;
+  *k_begin = kb;
+  *n_tiles = (k_end - kb + bk - 1) / bk;
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16: mma.sync m16n8k16
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct MmaCfg {
+  static constexpr int kBK = D >= 256 ? 32 : 64;  // keys a K/V tile
+  static constexpr int kSets = 2;
+  static constexpr int kWarps = 4 * kSets;
+  // elements a shared row: whole groups of 8 16-byte chunks (D 32: 4)
+  static constexpr int kLd = D <= 32 ? 32 : (D + 63) / 64 * 64;
+  static constexpr bool kQReg = D <= 128;  // Q fragments kept in registers
+  static constexpr int kSmem = (kBQ + 2 * kStages * kSets * kBK) * kLd * 2;
+  static_assert(kSmem <= 232448, "shared memory a block may use");
+  static_assert((kSets - 1) * 128 * (4 + D / 2) * 4 <=
+                    2 * kStages * kSets * kBK * kLd * 2,
+                "the set merge fits in the K/V buffers");
+};
+
+// Element offset of (row, 16-byte chunk) in a [rows][kLd] bf16 tile whose
+// chunks are XOR-swizzled within groups of 8: the 8 rows an ldmatrix phase
+// reads at one logical chunk land in 8 distinct 16-byte bank groups. At
+// D = 32 two rows share a 128-byte line, so the row index is halved first.
+template <int D>
+__device__ __forceinline__ int swz(int row, int chunk) {
+  constexpr int kShift = D == 32 ? 1 : 0;
+  constexpr int kMask = D == 32 ? 3 : 7;
+  return row * MmaCfg<D>::kLd + ((chunk ^ ((row >> kShift) & kMask)) << 3);
+}
+
+// kRows rows of a [S][D] bf16 matrix (row stride ss) into a swizzled
+// tile; rows at or past S are zero-filled.
+template <int D, int kRows>
+__device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
+                                               const __nv_bfloat16* src,
+                                               long long ss, int r0, int S) {
+  constexpr int kChunks = D / 8;
+  constexpr int kThreads = MmaCfg<D>::kWarps * 32;
+  constexpr int kN = kRows * kChunks;
+#pragma unroll
+  for (int i = 0; i < (kN + kThreads - 1) / kThreads; ++i) {
+    const int e = threadIdx.x + i * kThreads;
+    if (kN % kThreads == 0 || e < kN) {
+      const int r = e / kChunks;
+      const int c = e - r * kChunks;
+      const int gr = r0 + r;
+      const bool in = gr < S;
+      cp_async16(smem_addr(dst + swz<D>(r, c)),
+                 src + (long long)(in ? gr : 0) * ss + c * 8, in ? 16 : 0);
     }
   }
 }
 
 template <int D>
-int launch_mma_d(const FlashArgs& a, cudaStream_t stream) {
-  constexpr int bytes = mma_smem_bytes<D>();
+__global__ void __launch_bounds__(MmaCfg<D>::kWarps * 32, 1)
+flash_mma_kernel(const FlashArgs a) {
+  using C = MmaCfg<D>;
+  constexpr int kBK = C::kBK;
+  constexpr int kSets = C::kSets;
+  constexpr int kKSteps = D / 16;   // k-steps of Q K^T
+  constexpr int kSTiles = kBK / 8;  // n8 tiles of S
+  constexpr int kOTiles = D / 8;    // n8 tiles of O
+  constexpr int kVP = kOTiles / 2;  // x4 loads of V a k-step
+  constexpr int kVB = kVP <= 8 ? kVP : 4;  // of which in flight at once
+  constexpr int kTile = kBK * C::kLd;      // elements of a K or V tile
+  static_assert(kVP % kVB == 0, "V loads in whole batches");
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* ks = qs + kBQ * C::kLd;  // [kStages][kSets][kBK][kLd]
+  __nv_bfloat16* vs = ks + kStages * kSets * kTile;
+
+  const int bh = blockIdx.x;
+  const int b = bh / a.Hq;
+  const int h = bh - b * a.Hq;
+  const int hk = h / (a.Hq / a.Hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // longest first
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int wrow = (warp & 3) * 16;  // this warp's 16 rows of the tile
+  const int set = warp >> 2;
+  const __nv_bfloat16* qg =
+      static_cast<const __nv_bfloat16*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const __nv_bfloat16* kg =
+      static_cast<const __nv_bfloat16*>(a.k) + b * a.k_sb + hk * a.k_sh;
+  const __nv_bfloat16* vg =
+      static_cast<const __nv_bfloat16*>(a.v) + b * a.v_sb + hk * a.v_sh;
+  __nv_bfloat16* og =
+      static_cast<__nv_bfloat16*>(a.out) + b * a.o_sb + h * a.o_sh;
+
+  int k_begin, n_tiles;
+  key_range(a, q0, kBK, &k_begin, &n_tiles);
+  const int n_groups = (n_tiles + kSets - 1) / kSets;
+
+  // group i: tiles i*kSets .. i*kSets + kSets-1 (those that exist)
+  auto load_group = [&](int i) {
+    const int st = i % kStages;
+#pragma unroll
+    for (int j = 0; j < kSets; ++j) {
+      const int tile = i * kSets + j;
+      if (tile < n_tiles) {
+        const int k0 = k_begin + tile * kBK;
+        load_tile_bf16<D, kBK>(ks + (st * kSets + j) * kTile, kg, a.k_ss, k0,
+                               a.S);
+        load_tile_bf16<D, kBK>(vs + (st * kSets + j) * kTile, vg, a.v_ss, k0,
+                               a.S);
+      }
+    }
+    cp_async_commit();
+  };
+  load_tile_bf16<D, kBQ>(qs, qg, a.q_ss, q0, a.S);
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) load_group(i);  // Q rides group 0
+
+  // this lane's rows of the fragments: ra (c0, c1) and ra + 8 (c2, c3)
+  const int ra = q0 + wrow + (lane >> 2);
+  const int col = 2 * (lane & 3);
+  // scores to the log2 domain: s * scale * log2(e), or with the cap
+  // cap * tanh(s * scale / cap) * log2(e)
+  const float s_mul =
+      a.softcap != 0.f ? a.scale / a.softcap : a.scale * kLog2e;
+  const float cap_log2 = a.softcap * kLog2e;
+
+  uint32_t qf[C::kQReg ? kKSteps : 1][4];
+  float o[kOTiles][4];
+#pragma unroll
+  for (int t = 0; t < kOTiles; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[t][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};  // this lane's share of the row sums
+  auto q_frag = [&](uint32_t(&r)[4], int kk) {
+    ldmatrix_x4(r, smem_addr(qs + swz<D>(wrow + (lane & 15),
+                                         2 * kk + (lane >> 4))));
+  };
+
+  for (int it = 0; it < n_groups; ++it) {
+    // keep kStages - 1 groups in flight: issue group it + kStages - 1
+    // (an empty commit past the end keeps the group count uniform)
+    load_group(it + kStages - 1 < n_groups ? it + kStages - 1 : n_groups);
+    cp_async_wait<kStages - 1>();
+    __syncthreads();
+    if (C::kQReg && it == 0) {
+#pragma unroll
+      for (int kk = 0; kk < (C::kQReg ? kKSteps : 0); ++kk)
+        q_frag(qf[kk], kk);
+    }
+    const int tile = it * kSets + set;
+    if (tile < n_tiles) {  // warp-uniform
+      const int k0 = k_begin + tile * kBK;
+      const int slot = (it % kStages) * kSets + set;
+      const __nv_bfloat16* kt = ks + slot * kTile;
+      const __nv_bfloat16* vt = vs + slot * kTile;
+
+      // S = Q K^T: an x4 load's matrices are (keys 0-7 | 8-15) x (d lo | hi)
+      float s[kSTiles][4];
+#pragma unroll
+      for (int t = 0; t < kSTiles; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[t][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kKSteps; ++kk) {
+        uint32_t qa[4];
+        if constexpr (C::kQReg) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) qa[e] = qf[kk][e];
+        } else {
+          q_frag(qa, kk);
+        }
+        uint32_t bf[kSTiles / 2][4];  // all loads of a k-step, then the mmas
+#pragma unroll
+        for (int np = 0; np < kSTiles / 2; ++np)
+          ldmatrix_x4(bf[np], smem_addr(kt + swz<D>(np * 16 + (lane & 7) +
+                                                        ((lane >> 4) << 3),
+                                                    2 * kk +
+                                                        ((lane >> 3) & 1))));
+#pragma unroll
+        for (int np = 0; np < kSTiles / 2; ++np) {
+          mma_bf16(s[2 * np], qa, bf[np][0], bf[np][1]);
+          mma_bf16(s[2 * np + 1], qa, bf[np][2], bf[np][3]);
+        }
+      }
+
+      float alpha[2];
+      softmax_tile<kSTiles>(
+          s, m, l, alpha, a, s_mul, cap_log2,
+          k0 + kBK - 1 > q0 ||                                 // diagonal
+              (a.window && q0 + kBQ - 1 - k0 >= a.window),     // window edge
+          ra, k0, col);
+#pragma unroll
+      for (int t = 0; t < kOTiles; ++t) {
+        o[t][0] *= alpha[0];
+        o[t][1] *= alpha[0];
+        o[t][2] *= alpha[1];
+        o[t][3] *= alpha[1];
+      }
+
+      // O += P V: the S fragments of keys 16kk..16kk+15 are P's A fragment
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        const uint32_t pa[4] = {
+            pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+            pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+            pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+            pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+        for (int d0 = 0; d0 < kVP; d0 += kVB) {
+          uint32_t bf[kVB][4];
+#pragma unroll
+          for (int i = 0; i < kVB; ++i)
+            ldmatrix_x4_trans(bf[i],
+                              smem_addr(vt + swz<D>(kk * 16 + (lane & 15),
+                                                    2 * (d0 + i) +
+                                                        (lane >> 4))));
+#pragma unroll
+          for (int i = 0; i < kVB; ++i) {
+            mma_bf16(o[2 * (d0 + i)], pa, bf[i][0], bf[i][1]);
+            mma_bf16(o[2 * (d0 + i) + 1], pa, bf[i][2], bf[i][3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // this stage is consumed before it is refilled
+  }
+  finish<kOTiles, kSets>(o, m, l, reinterpret_cast<float*>(ks), set,
+                         (warp & 3) * 32 + lane, og, a.o_ss, ra, col, a.S);
+}
+
+// ---------------------------------------------------------------------------
+// float32: 3xTF32, mma.sync m16n8k8
+// ---------------------------------------------------------------------------
+
+template <int D>
+struct Tf32Cfg {
+  static constexpr int kBK = D <= 64 ? 64 : 32;  // keys a K/V tile
+  // D 256: one warp set whose O columns are split between two halves of 4
+  // warps (each half scores the same keys; 64 O registers a lane, not 128)
+  static constexpr int kSets = D >= 256 ? 1 : 2;
+  static constexpr int kHalves = D >= 256 ? 2 : 1;
+  static constexpr int kWarps = 4 * kSets * kHalves;
+  static constexpr int kLd = D + 4;  // floats a shared row
+  static constexpr int kSmem = (kBQ + 2 * kStages * kSets * kBK) * kLd * 4;
+  static_assert(kSmem <= 232448, "shared memory a block may use");
+  static_assert((kSets - 1) * 128 * (4 + D / 2) * 4 <=
+                    2 * kStages * kSets * kBK * kLd * 4,
+                "the set merge fits in the K/V buffers");
+};
+
+// kRows rows of a [S][D] fp32 matrix (row stride ss) into a [kRows][kLd]
+// tile; rows at or past S are zero-filled.
+template <int D, int kRows>
+__device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
+                                              long long ss, int r0, int S) {
+  constexpr int kChunks = D / 4;
+  constexpr int kThreads = Tf32Cfg<D>::kWarps * 32;
+  constexpr int kN = kRows * kChunks;
+#pragma unroll
+  for (int i = 0; i < (kN + kThreads - 1) / kThreads; ++i) {
+    const int e = threadIdx.x + i * kThreads;
+    if (kN % kThreads == 0 || e < kN) {
+      const int r = e / kChunks;
+      const int c = e - r * kChunks;
+      const int gr = r0 + r;
+      const bool in = gr < S;
+      cp_async16(smem_addr(dst + r * Tf32Cfg<D>::kLd + c * 4),
+                 src + (long long)(in ? gr : 0) * ss + c * 4, in ? 16 : 0);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(Tf32Cfg<D>::kWarps * 32, 1)
+flash_tf32_kernel(const FlashArgs a) {
+  using C = Tf32Cfg<D>;
+  constexpr int kBK = C::kBK;
+  constexpr int kSets = C::kSets;
+  constexpr int kLd = C::kLd;
+  constexpr int kKSteps = D / 8;    // k-steps of Q K^T
+  constexpr int kSTiles = kBK / 8;  // n8 tiles of S (= k-steps of P V)
+  constexpr int kOTiles = D / 8 / C::kHalves;  // n8 tiles of O a warp
+  constexpr int kTile = kBK * kLd;  // floats of a K or V tile
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* qs = reinterpret_cast<float*>(smem_raw);  // [kBQ][kLd]
+  float* ks = qs + kBQ * kLd;  // [kStages][kSets][kBK][kLd]
+  float* vs = ks + kStages * kSets * kTile;
+
+  const int bh = blockIdx.x;
+  const int b = bh / a.Hq;
+  const int h = bh - b * a.Hq;
+  const int hk = h / (a.Hq / a.Hkv);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // longest first
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int wrow = (warp & 3) * 16;  // this warp's 16 rows of the tile
+  const int set = C::kHalves > 1 ? 0 : warp >> 2;
+  const int d0 = C::kHalves > 1 ? (warp >> 2) * (D / 2) : 0;  // O columns
+  const int gq = lane >> 2;  // fragment row (A, C) / column (B)
+  const int tq = lane & 3;   // fragment column (A) / row (B)
+  const float* qg = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const float* kg =
+      static_cast<const float*>(a.k) + b * a.k_sb + hk * a.k_sh;
+  const float* vg =
+      static_cast<const float*>(a.v) + b * a.v_sb + hk * a.v_sh;
+  float* og = static_cast<float*>(a.out) + b * a.o_sb + h * a.o_sh + d0;
+
+  int k_begin, n_tiles;
+  key_range(a, q0, kBK, &k_begin, &n_tiles);
+  const int n_groups = (n_tiles + kSets - 1) / kSets;
+
+  auto load_group = [&](int i) {
+    const int st = i % kStages;
+#pragma unroll
+    for (int j = 0; j < kSets; ++j) {
+      const int tile = i * kSets + j;
+      if (tile < n_tiles) {
+        const int k0 = k_begin + tile * kBK;
+        load_tile_f32<D, kBK>(ks + (st * kSets + j) * kTile, kg, a.k_ss, k0,
+                              a.S);
+        load_tile_f32<D, kBK>(vs + (st * kSets + j) * kTile, vg, a.v_ss, k0,
+                              a.S);
+      }
+    }
+    cp_async_commit();
+  };
+  load_tile_f32<D, kBQ>(qs, qg, a.q_ss, q0, a.S);
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) load_group(i);  // Q rides group 0
+
+  const int ra = q0 + wrow + gq;
+  const int col = 2 * tq;
+  const float s_mul =
+      a.softcap != 0.f ? a.scale / a.softcap : a.scale * kLog2e;
+  const float cap_log2 = a.softcap * kLog2e;
+
+  float o[kOTiles][4];
+#pragma unroll
+  for (int t = 0; t < kOTiles; ++t)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[t][e] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+  // A fragment of Q: rows gq, gq + 8 x columns tq, tq + 4 of k-step kk
+  const float* qrow = qs + (wrow + gq) * kLd + tq;
+
+  for (int it = 0; it < n_groups; ++it) {
+    load_group(it + kStages - 1 < n_groups ? it + kStages - 1 : n_groups);
+    cp_async_wait<kStages - 1>();
+    __syncthreads();
+    const int tile = it * kSets + set;
+    if (tile < n_tiles) {  // warp-uniform
+      const int k0 = k_begin + tile * kBK;
+      const int slot = (it % kStages) * kSets + set;
+      const float* kt = ks + slot * kTile;
+      const float* vt = vs + slot * kTile;
+
+      // S = Q K^T; B fragment of K^T: key 8nt + gq, d 8kk + tq (+ 4)
+      float s[kSTiles][4];
+#pragma unroll
+      for (int t = 0; t < kSTiles; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[t][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kKSteps; ++kk) {
+        uint32_t ah[4], al[4];
+        split_tf32(qrow[8 * kk], ah[0], al[0]);
+        split_tf32(qrow[8 * kLd + 8 * kk], ah[1], al[1]);
+        split_tf32(qrow[8 * kk + 4], ah[2], al[2]);
+        split_tf32(qrow[8 * kLd + 8 * kk + 4], ah[3], al[3]);
+#pragma unroll
+        for (int nt = 0; nt < kSTiles; ++nt) {
+          const float* kr = kt + (8 * nt + gq) * kLd + 8 * kk + tq;
+          uint32_t bh[2], bl[2];
+          split_tf32(kr[0], bh[0], bl[0]);
+          split_tf32(kr[4], bh[1], bl[1]);
+          mma_3xtf32(s[nt], ah, al, bh, bl);
+        }
+      }
+
+      float alpha[2];
+      softmax_tile<kSTiles>(
+          s, m, l, alpha, a, s_mul, cap_log2,
+          k0 + kBK - 1 > q0 || (a.window && q0 + kBQ - 1 - k0 >= a.window),
+          ra, k0, col);
+#pragma unroll
+      for (int t = 0; t < kOTiles; ++t) {
+        o[t][0] *= alpha[0];
+        o[t][1] *= alpha[0];
+        o[t][2] *= alpha[1];
+        o[t][3] *= alpha[1];
+      }
+
+      // O += P V over k-steps of 8 keys. The lane holds P at keys
+      // 8kk + 2tq, + 1 (accumulator columns); as A fragment columns tq and
+      // tq + 4 they pair with V rows 8kk + 2tq and 8kk + 2tq + 1.
+#pragma unroll
+      for (int kk = 0; kk < kSTiles; ++kk) {
+        uint32_t ph[4], pl[4];
+        split_tf32(s[kk][0], ph[0], pl[0]);  // row gq,     column tq
+        split_tf32(s[kk][2], ph[1], pl[1]);  // row gq + 8, column tq
+        split_tf32(s[kk][1], ph[2], pl[2]);  // row gq,     column tq + 4
+        split_tf32(s[kk][3], ph[3], pl[3]);  // row gq + 8, column tq + 4
+        const float* vr = vt + (8 * kk + 2 * tq) * kLd + d0 + gq;
+#pragma unroll
+        for (int dt = 0; dt < kOTiles; ++dt) {
+          uint32_t bh[2], bl[2];
+          split_tf32(vr[8 * dt], bh[0], bl[0]);
+          split_tf32(vr[kLd + 8 * dt], bh[1], bl[1]);
+          mma_3xtf32(o[dt], ph, pl, bh, bl);
+        }
+      }
+    }
+    __syncthreads();  // this stage is consumed before it is refilled
+  }
+  finish<kOTiles, kSets>(o, m, l, ks, set, (warp & 3) * 32 + lane, og,
+                         a.o_ss, ra, col, a.S);
+}
+
+// ---------------------------------------------------------------------------
+// Launch
+// ---------------------------------------------------------------------------
+
+template <typename Kernel>
+int launch(Kernel kernel, int threads, int bytes, const FlashArgs& a,
+           cudaStream_t stream) {
   if (bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        bytes);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const dim3 grid(a.B * a.Hq, (a.S + kMmaBQ - 1) / kMmaBQ);
-  flash_mma_kernel<D><<<grid, kMmaWarps * 32, bytes, stream>>>(a);
+  const dim3 grid(a.B * a.Hq, (a.S + kBQ - 1) / kBQ);
+  kernel<<<grid, threads, bytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_mma_d(const FlashArgs& a, cudaStream_t stream) {
+  using C = MmaCfg<D>;
+  return launch(flash_mma_kernel<D>, C::kWarps * 32, C::kSmem, a, stream);
+}
+
+template <int D>
+int launch_tf32_d(const FlashArgs& a, cudaStream_t stream) {
+  using C = Tf32Cfg<D>;
+  return launch(flash_tf32_kernel<D>, C::kWarps * 32, C::kSmem, a, stream);
 }
 
 bool bad_args(const FlashArgs* a) {
@@ -591,9 +778,12 @@ extern "C" int rt_flash_attention_f32(const FlashArgs* a, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bad_args(a)) return static_cast<int>(cudaErrorInvalidValue);
   switch (a->D) {
-    case 32: return launch_f32_d<1>(*a, s);
-    case 64: return launch_f32_d<2>(*a, s);
-    case 128: return launch_f32_d<4>(*a, s);
+    case 32: return launch_tf32_d<32>(*a, s);
+    case 64: return launch_tf32_d<64>(*a, s);
+    case 96: return launch_tf32_d<96>(*a, s);
+    case 112: return launch_tf32_d<112>(*a, s);
+    case 128: return launch_tf32_d<128>(*a, s);
+    case 256: return launch_tf32_d<256>(*a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -604,7 +794,10 @@ extern "C" int rt_flash_attention_bf16(const FlashArgs* a, void* stream) {
   switch (a->D) {
     case 32: return launch_mma_d<32>(*a, s);
     case 64: return launch_mma_d<64>(*a, s);
+    case 96: return launch_mma_d<96>(*a, s);
+    case 112: return launch_mma_d<112>(*a, s);
     case 128: return launch_mma_d<128>(*a, s);
+    case 256: return launch_mma_d<256>(*a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -38,7 +38,8 @@ import torch
 from repro_torch.kernels import _lib
 
 MAX_GROUP = 8                  # query heads per kv head the kernel holds
-HEAD_DIMS = (32, 64, 128)      # a row is 2..32 lanes of 16-byte slices
+# the head dims of every dense and hybrid config (all three attention kernels)
+HEAD_DIMS = (32, 64, 96, 112, 128, 256)
 MIN_SPLIT_ROWS = 64            # floor of rows a split sweeps
 SPLIT_WAVES = 2                # aim for this many blocks per SM
 MAX_SPLITS = 128               # the merge pass's limit

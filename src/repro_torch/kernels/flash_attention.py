@@ -2,18 +2,20 @@
 accumulator, optional sliding window and tanh logit softcap.
 
 Replaces the Pallas kernel ``repro.kernels.flash_attention.flash_attention``
-with hand-written CUDA kernels (``csrc/flash_attention.cu``), one per dtype:
-bfloat16 runs on the tensor cores (``mma.sync``), float32 on the CUDA cores
-(TF32 would not meet the fp32 tolerance). Beside them, the plain PyTorch
-version ``flash_attention_ref`` (ported from ``repro.kernels.ref``) serves
-CPU tensors and is what the kernels are held against.
+with hand-written CUDA kernels (``csrc/flash_attention.cu``), one per dtype,
+both on the tensor cores (``mma.sync``): bfloat16 directly, float32 as
+3xTF32 (each operand split into two TF32 halves, three products each, so
+that the fp32 tolerance holds). Head dims: ``HEAD_DIMS``. Beside them, the
+plain PyTorch version ``flash_attention_ref`` (ported from
+``repro.kernels.ref``) serves CPU tensors and is what the kernels are held
+against.
 
 Layout (the reference's): q (B, Hq, S, D); k, v (B, Hkv, S, D), Hq = G·Hkv;
 query and key positions are ``arange(S)``. Any S works (the kernel masks
 the ragged edge itself), and q/k/v may be strided views whose last dim is
-contiguous; the bfloat16 kernel copies rows with 16-byte ``cp.async``, so
-its q/k/v rows must start on 16 bytes (the layer's views do). Inference
-only: there is no backward.
+contiguous; both kernels copy rows with 16-byte ``cp.async``, so q/k/v rows
+must start on 16 bytes (the layer's views do). Inference only: there is no
+backward.
 """
 from __future__ import annotations
 
@@ -100,9 +102,8 @@ def flash_attention_cuda(q, k, v, *, window: int = 0, scale: float = 0.0,
         raise ValueError(f"{name}: head dim {D} (kernel takes {HEAD_DIMS})")
     if Hq % Hkv:
         raise ValueError(f"{name}: Hq={Hq} not a multiple of Hkv={Hkv}")
-    if q.dtype == torch.bfloat16:
-        for t, what in ((q, "q"), (k, "k"), (v, "v")):
-            _lib.check_rows_aligned(name, what, t)
+    for t, what in ((q, "q"), (k, "k"), (v, "v")):
+        _lib.check_rows_aligned(name, what, t)
     out = torch.empty((B, S, Hq, D), dtype=q.dtype,
                       device=q.device).permute(0, 2, 1, 3)
     if B == 0 or S == 0:

@@ -4,7 +4,7 @@ explicit device (CUDA unless the caller asks for the CPU).
 
 Families the port cannot run yet raise ``NotImplementedError``: MoE, MLA,
 hybrid SSM/attention (zamba2), encoder-decoder and VLM configs arrive with
-ROADMAP.md Queue 1 item 9 ("Remaining model families").
+ROADMAP.md Queue 1 item 5 ("Remaining model families").
 """
 from __future__ import annotations
 
@@ -22,9 +22,8 @@ def _unsupported(cfg: ModelConfig) -> str:
     if cfg.mla is not None:
         return "MLA"
     if MIXER_SHARED_ATTN in cfg.pattern:
-        return ("hybrid SSM/attention (zamba2's shared attention has head "
-                "dim 112, which neither attention kernel takes: HEAD_DIMS "
-                "in kernels/decode_attention.py)")
+        return ("hybrid SSM/attention (the shared attention block and "
+                "hybrid stage path are not ported)")
     pure_ssm = cfg.ssm is not None and set(cfg.layer_kinds()) == {MIXER_SSM}
     if not pure_ssm and (cfg.ssm is not None or MIXER_SSM in cfg.pattern):
         return "mixed SSM/attention"
@@ -45,7 +44,7 @@ class Model:
         if family:
             raise NotImplementedError(
                 f"{self.cfg.name}: {family} models are not ported yet "
-                "(ROADMAP.md Queue 1 item 9, remaining model families)")
+                "(ROADMAP.md Queue 1 item 5, remaining model families)")
         # the card unless the caller asks for the CPU; no silent fallback
         if self.dev.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("CUDA is not available; pass device='cpu' to "

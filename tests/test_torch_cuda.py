@@ -320,13 +320,17 @@ def test_decode_split_cases_on_card(cuda, case):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("hq,hkv,d", [(8, 1, 32), (8, 1, 128), (6, 2, 128),
-                                      (2, 2, 32)])
+                                      (2, 2, 32)] + [
+    (g * 2, 2, d) for d in (96, 112, 256) for g in (1, 2, 4, 8)])
 @pytest.mark.parametrize("kind", ["fp32", "bf16", "int8"])
 def test_decode_split_head_dims_and_groups_on_card(cuda, hq, hkv, d, kind):
     """The other head dims (a row is 2 to 32 lanes: fp32 D 128 takes a
-    whole warp a row, int8 D 32 two lanes) and group sizes (g 1 and 2 in
-    the 4-head register layout, g 6 and 8 in the 8-head one), dense and
-    paged, with an idle row and a row whose cur is far below L."""
+    whole warp a row, int8 D 32 two lanes; at D 96 and 112 a row is a power
+    of two of lanes, some idle: bf16 D 96 is 12 slices over 16 lanes; fp32
+    D 256 is 2 slices a lane) and group sizes (g 1, 2 and 4 in the 4-head
+    register layout, g 6 and 8 in the 8-head one; at G 8 and D 256 the
+    warps merge in two rounds), dense and paged, with an idle row and a row
+    whose cur is far below L."""
     B, L, ps = 3, 640, 16
     dtype = torch.float32 if kind == "fp32" else torch.bfloat16
     q, k, v, kpos, cur = _decode_inputs(B, hq, hkv, L, d, [600, -1, 30],
@@ -421,6 +425,94 @@ def test_paged_split_null_and_repeated_pages_on_card(cuda, quant):
     got = tda.paged_decode_attention_cuda(*args, **opt)
     ref = tda.paged_decode_attention_ref(*args, **opt)
     torch.testing.assert_close(got.float(), ref.float(), **TOL_BF16)
+
+
+# ---------------------------------------------------------------------------
+# The head dims of phi3-mini (96), zamba2 (112) and the gemma families (256)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [96, 112, 256])
+@pytest.mark.parametrize("s", [64, 300, 1024])
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (100, 0.0),
+                                            (0, 30.0), (100, 30.0)])
+def test_flash_new_head_dims_on_card(cuda, dtype, d, s, window, softcap):
+    """bf16 (mma.sync, rows padded to 128/256 elements, D 256 on 32-key
+    tiles) and fp32 (3xTF32) at the new head dims; a window of 100 leaves
+    rows of a query tile with no valid key in their first key tile."""
+    rng = np.random.default_rng(s + d)
+    q, k, v = (_normal(rng, shp).to(cuda, dtype) for shp in
+               ((2, 4, s, d), (2, 2, s, d), (2, 2, s, d)))
+    n = launches["flash_attention"]
+    got = tfa.flash_attention_cuda(q, k, v, window=window, softcap=softcap)
+    assert launches["flash_attention"] == n + 1
+    ref = tfa.flash_attention_ref(q, k, v, window=window, softcap=softcap)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), ref.float(),
+                               **(TOL if dtype == torch.float32
+                                  else TOL_BF16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_head_dims_outside_the_set_are_refused(cuda, dtype):
+    """A head dim the kernels do not take (80, a multiple of 8 that the
+    reference takes) raises, naming the set, and nothing launches."""
+    assert tfa.HEAD_DIMS == tda.HEAD_DIMS == (32, 64, 96, 112, 128, 256)
+    rng = np.random.default_rng(0)
+    q, k, v = (_normal(rng, shp).to(cuda, dtype) for shp in
+               ((1, 2, 64, 80), (1, 1, 64, 80), (1, 1, 64, 80)))
+    before = dict(launches)
+    with pytest.raises(ValueError, match=r"\(32, 64, 96, 112, 128, 256\)"):
+        tfa.flash_attention_cuda(q, k, v)
+    kpos = torch.arange(64, dtype=torch.int32, device=cuda)[None]
+    cur = torch.tensor([63], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match=r"\(32, 64, 96, 112, 128, 256\)"):
+        tda.decode_attention_cuda(q[:, :, 0], k, v, kpos, cur)
+    assert dict(launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["phi3-mini-3.8b", "gemma3-1b",
+                                  "gemma2-9b"])
+def test_family_layers_on_card(cuda, arch):
+    """Full-width layers of each dense family (gemma3: its 6-layer period,
+    5 local and 1 global; the others 2 layers, gemma2's a local/global
+    pair), fp32, seeded init: a 600-token prefill (past gemma3's 512-token
+    window) and 3 decode steps, kernel path against the plain path
+    (``kernel_force="ref"``) at the model phases' tolerance."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    cfg = get_config(arch)
+    cfg = cfg.replace(n_layers=len(cfg.pattern) if len(cfg.pattern) > 2
+                      else 2, dtype="float32")
+    plain = cfg.replace(geometry=dataclasses.replace(cfg.geometry,
+                                                     kernel_force="ref"))
+    params = Model(cfg).init(torch.Generator(device=cuda).manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 600)).astype(np.int32)).to(cuda)
+    out = []
+    n = dict(launches)
+    for c in (cfg, plain):
+        m = Model(c)
+        h, caches = m.prefill(params, {"tokens": toks}, 640)
+        logs = [m.logits(params, h[:, -1:])[:, 0]]
+        nxt = logs[0].argmax(-1).to(torch.int32)
+        pos = torch.full((2,), 600, dtype=torch.int32, device=cuda)
+        for _ in range(3):
+            lg, caches = m.decode(params, caches, nxt[:, None], pos)
+            logs.append(lg[:, 0])
+            nxt, pos = lg[:, 0].argmax(-1).to(torch.int32), pos + 1
+        out.append(torch.stack(logs))
+        if c is cfg:
+            assert launches["flash_attention"] - n["flash_attention"] \
+                == cfg.n_layers
+            assert launches["decode_attention"] - n["decode_attention"] \
+                == (0 if cfg.attn_softcap else 3 * cfg.n_layers)
+    assert torch.isfinite(out[0]).all()
+    torch.testing.assert_close(out[0], out[1], atol=1e-3, rtol=1e-3)
 
 
 # ---------------------------------------------------------------------------

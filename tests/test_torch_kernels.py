@@ -205,6 +205,60 @@ def test_paged_plain_int8_pool():
 
 
 # ---------------------------------------------------------------------------
+# The head dims the kernels took on for phi3-mini (96), zamba2 (112) and the
+# gemma families (256): the plain versions the card holds them against
+# agree with the reference's Pallas kernels there too
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("d", [96, 112, 256])
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (48, 30.0)])
+def test_flash_plain_new_head_dims(d, window, softcap):
+    q, k, v = _flash_inputs(1, 4, 2, 256, d, seed=d)
+    got = tfa.flash_attention_ref(_t(q), _t(k), _t(v), window=window,
+                                  softcap=softcap).numpy()
+    for force in ("ref", "interpret"):
+        ref = jops.flash_attention(q, k, v, window=window, softcap=softcap,
+                                   force=force)
+        np.testing.assert_allclose(got, np.asarray(ref), **TOL)
+
+
+@pytest.mark.parametrize("d", [96, 112, 256])
+@pytest.mark.parametrize("quant", [False, True])
+def test_decode_plain_new_head_dims(d, quant):
+    """Dense and paged, g 4, a window, an idle row (the mean of V)."""
+    B, Hq, Hkv, ps, nb = 3, 8, 2, 32, 8
+    L = nb * ps
+    q, k, v, kpos, cur = _decode_inputs(B, Hq, Hkv, L, d, [L - 40, -1, 90],
+                                        fill=20, seed=d)
+    opt = dict(window=128)
+    if quant:
+        k, ks = _quant(k)
+        v, vs = _quant(v)
+        opt.update(k_scale=ks, v_scale=vs)
+    tt = {n: _t(x) if isinstance(x, np.ndarray) else x
+          for n, x in opt.items()}
+    got = tda.decode_attention_ref(_t(q), _t(k), _t(v), _t(kpos), _t(cur),
+                                   **tt).numpy()
+    for force in ("ref", "interpret"):
+        ref = jops.decode_attention(q, k, v, kpos, cur, **opt, force=force)
+        np.testing.assert_allclose(got, np.asarray(ref), **TOL)
+    kp, vp, kpp, bt = _scatter_to_pool(k, v, kpos, 2 * B * nb, ps)
+    popt = dict(window=128)
+    if quant:
+        ksp, vsp, _, _ = _scatter_to_pool(ks[..., None], vs[..., None], kpos,
+                                          2 * B * nb, ps)
+        popt.update(k_scale=ksp[..., 0], v_scale=vsp[..., 0])
+    tt = {n: _t(x) if isinstance(x, np.ndarray) else x
+          for n, x in popt.items()}
+    got = tda.paged_decode_attention_ref(_t(q), _t(kp), _t(vp), _t(kpp),
+                                         _t(bt), _t(cur), **tt).numpy()
+    for force in ("ref", "interpret"):
+        ref = jops.paged_decode_attention(q, kp, vp, kpp, bt, cur, **popt,
+                                          force=force)
+        np.testing.assert_allclose(got, np.asarray(ref), **TOL)
+
+
+# ---------------------------------------------------------------------------
 # Dispatch
 # ---------------------------------------------------------------------------
 

@@ -10,13 +10,15 @@ spreads drift in the host's and the card's clocks over both. Each process
 measures, at smollm-135m's widths (Hq 9, Hkv 3, D 64, bf16):
 
 * decode at B=8, L=2048 (64-2047 live keys a row; dense, and paged with
-  page 16) and flash prefill at B=1, S=1024: ``graph_ms`` (the call
+  page 16), bf16 flash prefill at B=1, S=1024, and fp32 flash prefill at
+  B=1, S=512 and S=2048: ``graph_ms`` (the call
   replayed from a CUDA graph) and ``eager_ms`` (the call launched eagerly),
   means of CUDA events with L2 flushed between calls; ``host_us``, the
   wrapper's host time a call (back-to-back calls on the host clock, no
   synchronisation); and ``sdpa_graph_ms``, one
   ``scaled_dot_product_attention`` call on the same inputs (dense decode,
-  flash), replayed the same way;
+  flash), replayed the same way, with fp32 matmuls in full fp32 (TF32
+  off);
 * the dense and the paged ``BatchingEngine`` (full-width smollm-135m,
   seeded weights, 8 slots, 8 prompts of 64-1024 tokens): wall ms of each
   of 20 steady decode steps after 3 warm-up steps, with their mean and
@@ -118,6 +120,13 @@ def kernel_cases(da, fa):
         lambda: fa.flash_attention_cuda(fq, fk, fv),
         lambda: F.scaled_dot_product_attention(fq, fk, fv, is_causal=True,
                                                enable_gqa=True))
+    for s in (512, 2048):
+        q32, k32, v32 = (torch.randn((1, h, s, D), generator=gen, device=DEV)
+                         for h in (HQ, HKV, HKV))
+        out[f"flash_fp32_S{s}"] = timings(
+            lambda: fa.flash_attention_cuda(q32, k32, v32),
+            lambda: F.scaled_dot_product_attention(
+                q32, k32, v32, is_causal=True, enable_gqa=True))
     return out
 
 
