@@ -28,13 +28,19 @@ lines.jsonl):
    with the fp32 CUDA-core bound beside it (``bound_cuda_core_ms``).
    The streaming matmul on
    the paper's stream of 100,000 16x16 / 32x32 products (fp32, bf16) and on
-   2-D products (129x257x65, 4096^3 fp32 and bf16). The SSD scan at
-   mamba2-370m's width (H 32, P 64, N 128, G 1) on the layer's strided
-   views: bf16 and fp32 at B=4, S=1024, bf16 at B=8, S=256 (the ssm_serve
-   batches), B=1 at S=2048, ragged S=1000, so that every state-row layout
-   the path launches (8, 16 and 32 rows a block) is held; y and the final
-   state against the plain sequential version and the chunked
-   ``ssd_scan``, with ptxas's registers, shared memory and spills.
+   2-D products (129x257x65, split K with unaligned rows; 4096^3 fp32 and
+   bf16), each 2-D record with its launch plan; the 2-D fp32 bound is
+   operations over 3xTF32's rate with the CUDA-core bound beside it. The
+   SSD scan at mamba2-370m's width (H 32, P 64, N 128, G 1) on the layer's
+   strided views: bf16 and fp32 at B=4, S=1024, bf16 at B=8, S=256 (the
+   ssm_serve batches), B=1 at S=2048, ragged S=1000, so that both block
+   shapes of its plan (64 rows of 4 x 2 warps, 16 rows of 1 x 8) are held;
+   y and the final state against the plain sequential version and the
+   chunked ``ssd_scan``, with ptxas's registers, shared memory and spills;
+   its bound counts the function's 4*P*N operations a token and head over
+   the TF32 tensor-core rate of its products (2 TF32 mma a product in bf16,
+   3 in fp32), the CUDA-core bound beside it. The 2-D matmul and the SSD
+   must give bitwise equal results on two calls.
    Error against the stated tolerance, kernel / plain-version / bound
    times, and the time of one PyTorch library call computing the same
    function (``scaled_dot_product_attention``, ``torch.bmm``,
@@ -117,6 +123,8 @@ PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
 # fp32 flash runs as 3xTF32 on the tensor cores: three TF32 products (495
 # TFLOP/s dense) per fp32 product
 PEAK_FLOPS_3XTF32 = 495e12 / 3
+# the SSD's bf16 products split only their fp32 operand: two TF32 products
+PEAK_FLOPS_2XTF32 = 495e12 / 2
 TOL = {torch.float32: dict(atol=2e-5, rtol=2e-4),
        torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
 B, HQ, HKV, D, L, PS = 8, 9, 3, 64, 2048, 16
@@ -216,18 +224,21 @@ def bound(nbytes, flops, dtype):
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
-def flash_bound(nbytes, flops, dtype):
-    """The flash kernel's bound: bf16 as ``bound``; fp32 against 3xTF32 on
-    the tensor cores (operations over PEAK_FLOPS_3XTF32, "operations
-    (3xTF32)"), with the fp32 CUDA-core bound beside it."""
-    if dtype != torch.float32:
+def tc_bound(nbytes, flops, dtype, split=3):
+    """A tensor-core kernel's bound: bf16 as ``bound``; fp32 work done as
+    ``split`` TF32 products a product on the tensor cores (operations over
+    495 / split TFLOP/s, "operations (3xTF32)"), with the fp32 CUDA-core
+    bound beside it."""
+    if dtype != torch.float32 and split == 3:
         b_ms, b_by = bound(nbytes, flops, dtype)
         return dict(bound_ms=b_ms, bound_by=b_by)
+    peak = PEAK_FLOPS_3XTF32 if split == 3 else PEAK_FLOPS_2XTF32
     t_b = nbytes / MEM_BYTES_S * 1e3
-    t_o = flops / PEAK_FLOPS_3XTF32 * 1e3
+    t_o = flops / peak * 1e3
     return dict(bound_ms=max(t_b, t_o),
-                bound_by="bytes" if t_b >= t_o else "operations (3xTF32)",
-                bound_cuda_core_ms=bound(nbytes, flops, dtype)[0])
+                bound_by="bytes" if t_b >= t_o
+                else f"operations ({split}xTF32)",
+                bound_cuda_core_ms=bound(nbytes, flops, torch.float32)[0])
 
 
 # ---------------------------------------------------------------------------
@@ -489,7 +500,7 @@ def kernel_phase(results):
                    plain_ms=time_ms(lambda: fa.flash_attention_ref(
                        q, k, v, window=window, softcap=cap)),
                    library_ms=lib,
-                   **flash_bound(nbytes, 4 * d * hq * pairs, dtype))
+                   **tc_bound(nbytes, 4 * d * hq * pairs, dtype))
         emit(rec)
         results.setdefault("flash_attention", []).append(rec)
 
@@ -497,8 +508,9 @@ def kernel_phase(results):
 def matmul_kernel_phase(results):
     """The streaming matmul against its plain version: the paper's stream
     of 100,000 products (batched, one launch) and 2-D products, ragged and
-    4096^3. Library yardstick: torch.bmm / torch.matmul (cuBLAS), TF32
-    off."""
+    4096^3, the 2-D ones with their plan and repeated bitwise. Library
+    yardstick: torch.bmm / torch.matmul (cuBLAS), TF32 off."""
+    from repro_torch.kernels import _lib
     from repro_torch.kernels import stream_matmul as mm
     gen = torch.Generator(device=DEV).manual_seed(SEED + 3)
     cases = [("batched", "fp32/s16/G100000", torch.float32, (100_000, 16)),
@@ -522,6 +534,8 @@ def matmul_kernel_phase(results):
         a = torch.randn(shp_a, generator=gen, device=DEV).to(dtype)
         b = torch.randn(shp_b, generator=gen, device=DEV).to(dtype)
         got = kern(a, b)
+        plan = _lib.last_plan.get(name)
+        again = kern(a, b)
         ref = plain(a, b)
         torch.cuda.synchronize()
         tol = dict(atol=MM_TOL[dtype] * K ** 0.5, rtol=MM_TOL[dtype])
@@ -529,14 +543,21 @@ def matmul_kernel_phase(results):
         require(torch.allclose(got.float(), ref.float(), **tol),
                 f"{name} {case}: max err {err}")
         el = a.element_size()
-        b_ms, b_by = bound(G * (M * K + K * N + M * N) * el,
-                           2 * G * M * N * K, dtype)
+        nbytes = G * (M * K + K * N + M * N) * el
+        if kind == "2d":               # tensor cores: 3xTF32 in fp32
+            require(torch.equal(got, again),
+                    f"{name} {case}: two calls differ")
+            b_rec = tc_bound(nbytes, 2 * M * N * K, dtype)
+        else:                          # the batched kernel: CUDA cores
+            b_ms, b_by = bound(nbytes, 2 * G * M * N * K, dtype)
+            b_rec = dict(bound_ms=b_ms, bound_by=b_by)
         rec = dict(phase="kernel", name=name, case=case,
                    shape=dict(G=G, M=M, K=K, N=N), max_abs_err=err, tol=tol,
                    ms=time_ms(lambda: kern(a, b)),
-                   plain_ms=time_ms(lambda: plain(a, b)),
-                   bound_ms=b_ms, bound_by=b_by,
+                   plain_ms=time_ms(lambda: plain(a, b)), **b_rec,
                    library_ms=time_ms(lambda: lib_fn(a, b)))
+        if kind == "2d":
+            rec["plan"] = plan._asdict()
         emit(rec)
         results.setdefault("stream_matmul", []).append(rec)
 
@@ -555,7 +576,7 @@ def ssd_kernel_phase(results):
     gen = torch.Generator(device=DEV).manual_seed(SEED + 6)
     H, P, N, G = SSM_H, SSM_P, SSM_N, 1
     ptxas = _lib.ptxas_table("ssd_chunk_scan")
-    layouts = set()
+    shapes = set()
     for case, dtype, Bsz, S in (("bf16/B4/S1024", torch.bfloat16, 4, 1024),
                                 ("fp32/B4/S1024", torch.float32, 4, 1024),
                                 ("bf16/B8/S256", torch.bfloat16, 8, 256),
@@ -572,9 +593,10 @@ def ssd_kernel_phase(results):
         A = -torch.exp(torch.randn((H,), generator=gen, device=DEV))
         D = torch.randn((H,), generator=gen, device=DEV)
         args = (xs, dt, A, Bm, Cm, D)
-        rows = ssd._rows(xs.device, Bsz * H, P)     # state rows a block
-        layouts.add(rows)
         y, st = ssd.ssd_cuda(*args)
+        plan = _lib.last_plan["ssd_chunk_scan"]
+        shapes.add((plan.wp, plan.ns))          # the block shape launched
+        y2, st2 = ssd.ssd_cuda(*args)
         ry, rs = ssd.ssd_ref(*args)
         cy, cs = ssd_scan(*args, 256)
         torch.cuda.synchronize()
@@ -587,6 +609,8 @@ def ssd_kernel_phase(results):
                 and bool(torch.isfinite(y.float()).all())
                 and bool(torch.isfinite(st).all()),
                 f"ssd_chunk_scan {case}: shape, dtype or non-finite")
+        require(torch.equal(y, y2) and torch.equal(st, st2),
+                f"ssd_chunk_scan {case}: two calls differ")
         for name, a, b in (("y", y, ry), ("state", st, rs),
                            ("y vs ssd_scan", y, cy),
                            ("state vs ssd_scan", st, cs)):
@@ -596,22 +620,24 @@ def ssd_kernel_phase(results):
         el = xs.element_size()
         nbytes = (2 * Bsz * S * H * P * el + Bsz * S * H * 4
                   + 2 * Bsz * S * G * N * el + Bsz * H * P * N * 4)
-        b_ms, b_by = bound(nbytes, 4 * P * N * Bsz * S * H, dtype)
         rec = dict(phase="kernel", name="ssd_chunk_scan", case=case,
-                   shape=dict(B=Bsz, S=S, H=H, P=P, G=G, N=N), rows=rows,
+                   shape=dict(B=Bsz, S=S, H=H, P=P, G=G, N=N),
+                   plan=plan._asdict(),
                    max_abs_err=max(err, err_state), max_abs_err_y=err,
                    max_abs_err_state=err_state,
                    max_abs_err_vs_ssd_scan=err_chunked, tol=tol,
                    ms=time_ms(lambda: ssd.ssd_cuda(*args)),
                    plain_ms=time_ms(lambda: ssd.ssd_ref(*args), iters=3),
                    chunked_ms=time_ms(lambda: ssd_scan(*args, 256), iters=5),
-                   bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                   **tc_bound(nbytes, 4 * P * N * Bsz * S * H, dtype,
+                              split=3 if dtype == torch.float32 else 2),
+                   library_ms=None,
                    ptxas=ptxas, phase_wall_s=time.monotonic() - t_phase)
         emit(rec)
         results.setdefault("ssd_chunk_scan", []).append(rec)
-    require(layouts == {8, 16, 32},
-            f"ssd_chunk_scan: held the row layouts {sorted(layouts)}, not "
-            "8, 16 and 32")
+    require(shapes == {(4, 2), (1, 8)},
+            f"ssd_chunk_scan: held the block shapes {sorted(shapes)}, not "
+            "(4, 2) and (1, 8) warps")
 
 
 # ---------------------------------------------------------------------------
@@ -1109,7 +1135,7 @@ def ssm_serve_phase(cfg, params):
     (``compare_forced``). The SSD kernel must launch once per layer per
     prefill call. Returns the launches of the (bf16) kernel path."""
     from repro_torch.kernels import _lib
-    from repro_torch.kernels.mamba2_chunk import _rows
+    from repro_torch.kernels.mamba2_chunk import ssd_plan
     from repro_torch.models import Model
     cfg32 = cfg.replace(dtype="float32")
     models = {"k16": Model(cfg, device=DEV),
@@ -1161,8 +1187,10 @@ def ssm_serve_phase(cfg, params):
         n_tok = B * SSM_NEW_TOKENS
         rec = dict(phase="ssm_serve", layers=cfg.n_layers, dtype=cfg.dtype,
                    prompts=B, prompt_tokens=S, new_tokens=SSM_NEW_TOKENS,
-                   launches=got, ssd_rows=_rows(prompts.device, B * n_heads,
-                                                cfg.ssm.head_dim),
+                   launches=got, ssd_plan=ssd_plan(
+                       B, S, n_heads, cfg.ssm.head_dim, cfg.ssm.d_state,
+                       torch.cuda.get_device_properties(0)
+                       .multi_processor_count)._asdict(),
                    logit_tol=tol, **checks,
                    kernel_path=dict(
                        prefill_ms=k_pre,
@@ -1389,6 +1417,16 @@ def main():
                   if v["spill_bytes"]}
         require(not spills, f"flash_attention: {kern} spills registers "
                 f"(bytes by head dim): {spills}")
+    # the redesigned 2-D matmul and SSD: on the tensor cores, no spills
+    for lib, kerns in (("stream_matmul", ("mm_kernel",)),
+                       ("ssd_chunk_scan", ("ssd_prep_kernel",
+                                           "ssd_chunk_kernel"))):
+        require(sum(tensor_ops[lib].values()) > 0,
+                f"{lib}: no HMMA/HGMMA in the SASS")
+        spills = {k: v["spill_bytes"] for k, v in ptxas[lib].items()
+                  if k.split("<")[0].split()[-1] in kerns
+                  and v["spill_bytes"]}
+        require(not spills, f"{lib}: kernels spill registers: {spills}")
 
     results = {}
     kernel_phase(results)
@@ -1499,6 +1537,16 @@ def main():
             row["launches_by_entry"] = {
                 k: rc3e_path[k] for k in ("stream_matmul",
                                           "stream_matmul_batched")}
+            # the 2-D entry (tensor cores) at the rc3e path's product and
+            # at 4096^3
+            row["2d"] = [dict(
+                case=f["case"], launches=rc3e_path["stream_matmul"]
+                if f["case"] == "fp32/129x257x65" else 0,
+                plan=f["plan"], max_abs_err=f["max_abs_err"], ms=f["ms"],
+                plain_ms=f["plain_ms"], bound_ms=f["bound_ms"],
+                bound_by=f["bound_by"],
+                bound_cuda_core_ms=f.get("bound_cuda_core_ms"),
+                library_ms=f["library_ms"]) for f in recs if "plan" in f]
         if name in SERVING_KERNELS:
             row["launches_by_path"] = {
                 "smollm_serving": serving_path[name],

@@ -48,7 +48,8 @@ launches = LaunchCounts(decode_attention=0, paged_decode_attention=0,
                         stream_matmul_batched=0, ssd_chunk_scan=0)
 
 # The launch plan a wrapper used on its latest launch, by wrapper name (split
-# decode: (n_split, split_rows)).
+# decode: (n_split, split_rows); the 2-D stream_matmul: a MatmulPlan; the SSD:
+# an SsdPlan).
 last_plan: Dict[str, tuple] = {}
 
 

@@ -23,13 +23,21 @@ Two layouts, one kernel:
   (BH, S, P), dt (BH, S), Bm/Cm (BH, S, N), a/d (BH,); y (BH, S, P). It is
   the layer's case with one sequence of BH heads, one group per head.
 
+The kernel runs the chunked form on the tensor cores (see the source's
+note): ``ssd_plan`` picks its chunk length and block shape, and
+``ssd_chunked_ref`` is the plain model of its passes, with the kernel's
+TF32 hi/lo splits emulated, that the CPU tests hold against the JAX
+package.
+
 ``chunk`` is accepted for signature parity with the Pallas kernel; the
-result does not depend on it (but for fp32 rounding). Any S works.
-Inference only: there is no backward.
+kernel's chunk is its own (``SSD_CHUNK``) and the result does not depend on
+either but for fp32 rounding. Any S works. Inference only: there is no
+backward.
 """
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -37,6 +45,31 @@ from repro_torch.kernels import _lib
 
 STATE_DIMS = (16, 64, 128)     # the configs' d_state: reduced, zamba2, mamba2
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+SSD_CHUNK = 32                 # steps a chunk (csrc: kChunk)
+
+
+class SsdPlan(NamedTuple):
+    """How the kernel cuts a scan: chunks of ``q`` steps (``n_chunks``);
+    a block holds 16 * ``wp`` state rows (``wp`` warps along P) of one
+    (sequence, head), each warp N / ``ns`` state columns (``ns`` warps
+    along N); ``p_blocks`` blocks cover P."""
+    q: int
+    n_chunks: int
+    wp: int
+    ns: int
+    p_blocks: int
+
+
+def ssd_plan(B: int, S: int, H: int, P: int, N: int, sms: int) -> SsdPlan:
+    """64-row blocks (4 x 2 warps) where the (sequence, head) pairs give at
+    least half as many blocks as SMs; else 16-row blocks (1 x 8 warps, 1 x
+    2 at N 16), four times as many."""
+    q = SSD_CHUNK
+    if B * H * -(-P // 64) * 2 >= sms:
+        wp, ns = 4, 2
+    else:
+        wp, ns = 1, (8 if N >= 64 else 2)
+    return SsdPlan(q, max(1, -(-S // q)), wp, ns, -(-P // (16 * wp)))
 
 
 # ---------------------------------------------------------------------------
@@ -74,6 +107,82 @@ def ssd_ref(xs, dt, A, Bm, Cm, D, init_state=None):
     return y.to(xs.dtype), state
 
 
+def _tf32(v):
+    """v rounded to TF32 (10 mantissa bits, to nearest, ties away from
+    zero), as ``cvt.rna.tf32.f32`` rounds: half an ulp of TF32 added to the
+    bits, then the 13 low mantissa bits masked off."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mm_tf32(a, b, a_exact: bool, b_exact: bool):
+    """a @ b (fp32) as the kernel's tensor-core products: each operand that
+    is not exact in TF32 is split into hi + lo, and the terms lo*hi, hi*lo,
+    hi*hi (those that exist) are summed in fp32."""
+    ah = a if a_exact else _tf32(a)
+    bh = b if b_exact else _tf32(b)
+    out = torch.matmul(ah, bh)
+    if not a_exact:
+        out = out + torch.matmul(_tf32(a - ah), bh)
+    if not b_exact:
+        out = out + torch.matmul(ah, _tf32(b - bh))
+    return out
+
+
+def ssd_chunked_ref(xs, dt, A, Bm, Cm, D, init_state=None, *, q=None):
+    """The CUDA kernel's passes in plain PyTorch, in the layer's layout
+    (arguments and results as ``ssd_ref``): per chunk of ``q`` steps (the
+    kernel's ``SSD_CHUNK`` by default) C B^T once per group, the decay
+    vectors per head, then y^T = state . C^T scaled by exp(cums),
+    + x^T . M^T with M = C B^T o L o dt_j, and state = exp(total) state +
+    (x o w)^T . B, with every fp32 operand split hi/lo in TF32 as the kernel
+    splits it (bf16 x, B, C are exact)."""
+    Bsz, S, H, P = xs.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    hpg = H // G
+    q = q or SSD_CHUNK
+    exact = xs.dtype == torch.bfloat16
+    nc = max(1, -(-S // q))
+    pad = nc * q - S
+    F = torch.nn.functional
+    x32 = F.pad(xs.float(), (0, 0, 0, 0, 0, pad))            # (B, S', H, P)
+    dt32 = F.pad(dt.float(), (0, 0, 0, pad))                 # (B, S', H)
+    B32 = F.pad(Bm.float(), (0, 0, 0, 0, 0, pad))            # (B, S', G, N)
+    C32 = F.pad(Cm.float(), (0, 0, 0, 0, 0, pad))
+    state = (torch.zeros((Bsz, H, P, N), dtype=torch.float32,
+                         device=xs.device)
+             if init_state is None else init_state.float().clone())
+    tri = torch.tril(torch.ones((q, q), dtype=torch.bool, device=xs.device))
+    ys = []
+    for c in range(nc):
+        sl = slice(c * q, (c + 1) * q)
+        xq = x32[:, sl].permute(0, 2, 1, 3)                  # (B, H, Q, P)
+        dq = dt32[:, sl].permute(0, 2, 1)                    # (B, H, Q)
+        Bq = B32[:, sl].permute(0, 2, 1, 3)                  # (B, G, Q, N)
+        Cq = C32[:, sl].permute(0, 2, 1, 3)
+        # pass 1: C B^T a group; the heads' cums, w, exp(cums)
+        cb = _mm_tf32(Cq, Bq.transpose(-1, -2), exact, exact)
+        cb = cb.repeat_interleave(hpg, dim=1)                # (B, H, Q, Q)
+        cums = torch.cumsum(dq * A.float()[None, :, None], dim=-1)
+        total = cums[..., -1:]
+        w = dq * torch.exp(total - cums)
+        seg = (cums[..., :, None] - cums[..., None, :]).masked_fill(
+            ~tri, float("-inf"))
+        m = cb * torch.exp(seg) * dq[..., None, :]           # (B, H, Qi, Qj)
+        # pass 2
+        Ch = Cq.repeat_interleave(hpg, dim=1)                # (B, H, Q, N)
+        Bh = Bq.repeat_interleave(hpg, dim=1)
+        y = _mm_tf32(Ch, state.transpose(-1, -2), exact, False) \
+            * torch.exp(cums)[..., None]
+        y = y + _mm_tf32(m, xq, False, exact)
+        state = state * torch.exp(total)[..., None] + _mm_tf32(
+            (xq * w[..., None]).transpose(-1, -2), Bh, False, exact)
+        y = y + D.float()[None, :, None, None] * xq
+        ys.append(y.permute(0, 2, 1, 3))
+    y = torch.cat(ys, dim=1)[:, :S]
+    return y.to(xs.dtype), state
+
+
 def _as_layer(x, dt, Bm, Cm):
     """(BH, S, ...) reference operands as views of one sequence of BH heads,
     one group per head."""
@@ -96,23 +205,14 @@ def ssd_chunk_scan_ref(x, dt, Bm, Cm, a, d):
 class _Args(ctypes.Structure):
     """Mirror of ``SsdArgs`` in csrc/ssd_chunk_scan.cu."""
     _fields_ = [(n, ctypes.c_void_p) for n in (
-        "x", "dt", "bm", "cm", "a", "d", "init_state", "y", "state_out")] + [
+        "x", "dt", "bm", "cm", "a", "d", "init_state", "y", "state_out",
+        "cb_ws", "vec_ws")] + [
         (n, ctypes.c_longlong) for n in (
             "x_sb", "x_ss", "x_sh", "dt_sb", "dt_ss", "dt_sh",
             "b_sb", "b_ss", "b_sg", "c_sb", "c_ss", "c_sg",
             "y_sb", "y_ss", "y_sh", "is_sb", "is_sh", "so_sb", "so_sh")] + [
-        (n, ctypes.c_int) for n in ("B", "S", "H", "G", "P", "N", "rows",
-                                    "dtype")]
-
-
-def _rows(dev, n_bh: int, P: int) -> int:
-    """State rows a block holds: the largest of 32, 16, 8 that still gives
-    two blocks per SM, where the batch allows."""
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    rows = 32
-    while rows > 8 and n_bh * -(-P // rows) < 2 * sms:
-        rows //= 2
-    return rows
+        (n, ctypes.c_int) for n in ("B", "S", "H", "G", "P", "N", "q", "wp",
+                                    "ns", "dtype")]
 
 
 def _check(name, xs, dt, A, Bm, Cm, D, init_state):
@@ -170,16 +270,24 @@ def _check(name, xs, dt, A, Bm, Cm, D, init_state):
 
 
 def _launch(xs, dt, A, Bm, Cm, D, init_state, y, y_strides, state):
-    """One launch; y (and state, if given) are written in place."""
+    """One call (two kernels, counted as one launch); y (and state, if
+    given) are written in place. The plan is left in ``_lib.last_plan``."""
     name = "ssd_chunk_scan"
     Bsz, S, H, P = xs.shape
     G, N = Bm.shape[2], Bm.shape[3]
     ist = init_state
+    sms = torch.cuda.get_device_properties(xs.device).multi_processor_count
+    plan = ssd_plan(Bsz, S, H, P, N, sms)
+    cb_ws = torch.empty((Bsz, plan.n_chunks, G, plan.q, plan.q),
+                        dtype=torch.float32, device=xs.device)
+    vec_ws = torch.empty((Bsz, plan.n_chunks, H, 4, plan.q),
+                         dtype=torch.float32, device=xs.device)
     a = _Args(
         x=xs.data_ptr(), dt=dt.data_ptr(), bm=Bm.data_ptr(),
         cm=Cm.data_ptr(), a=A.data_ptr(), d=D.data_ptr(),
         init_state=None if ist is None else ist.data_ptr(),
         y=y.data_ptr(), state_out=None if state is None else state.data_ptr(),
+        cb_ws=cb_ws.data_ptr(), vec_ws=vec_ws.data_ptr(),
         x_sb=xs.stride(0), x_ss=xs.stride(1), x_sh=xs.stride(2),
         dt_sb=dt.stride(0), dt_ss=dt.stride(1), dt_sh=dt.stride(2),
         b_sb=Bm.stride(0), b_ss=Bm.stride(1), b_sg=Bm.stride(2),
@@ -189,7 +297,7 @@ def _launch(xs, dt, A, Bm, Cm, D, init_state, y, y_strides, state):
         is_sh=0 if ist is None else ist.stride(1),
         so_sb=0 if state is None else state.stride(0),
         so_sh=0 if state is None else state.stride(1),
-        B=Bsz, S=S, H=H, G=G, P=P, N=N, rows=_rows(xs.device, Bsz * H, P),
+        B=Bsz, S=S, H=H, G=G, P=P, N=N, q=plan.q, wp=plan.wp, ns=plan.ns,
         dtype=_DTYPES[xs.dtype])
     lib = _lib.library(name)
     fn = lib.rt_ssd_chunk_scan
@@ -198,6 +306,7 @@ def _launch(xs, dt, A, Bm, Cm, D, init_state, y, y_strides, state):
     rc = fn(ctypes.byref(a), torch.cuda.current_stream(xs.device).cuda_stream)
     _lib.check(rc, lib, name)
     _lib.launches[name] += 1
+    _lib.last_plan[name] = plan
 
 
 def ssd_cuda(xs, dt, A, Bm, Cm, D, init_state=None, *, chunk: int = 256):

@@ -534,7 +534,8 @@ def _mm_close(got, ref, dtype, k):
 @pytest.mark.parametrize("dtype,s,G", [
     (torch.float32, 16, 100_000), (torch.float32, 32, 100_000),
     (torch.bfloat16, 32, 100_000), (torch.bfloat16, 16, 7),
-    (torch.float32, 24, 1000), (torch.float32, 32, 64)])
+    (torch.float32, 24, 1000), (torch.float32, 32, 64),
+    (torch.bfloat16, 24, 300)])
 def test_stream_matmul_batched_on_card(cuda, dtype, s, G):
     """The paper's stream (G = 100,000), a ragged last block of matrices,
     and a size off the specialised path (24: the tiled kernel, G on z)."""
@@ -549,11 +550,18 @@ def test_stream_matmul_batched_on_card(cuda, dtype, s, G):
     _mm_close(got, tmm.matmul_batched_ref(a, b), dtype, s)
 
 
+MM_CARD_SHAPES = [
+    (16, 16, 16), (32, 32, 32), (128, 128, 128), (200, 300, 150),
+    (129, 257, 65), (4096, 4096, 4096),
+    (200, 301, 150), (129, 257, 65),                  # rows off 16 bytes
+    (16, 8192, 16), (1, 4096, 1), (64, 4096, 64),     # split K
+    (127, 129, 255), (255, 127, 129), (129, 255, 127),
+    (255, 255, 255), (127, 127, 127)]                 # tile edges
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m,k,n", [(16, 16, 16), (32, 32, 32),
-                                   (128, 128, 128), (200, 300, 150),
-                                   (129, 257, 65), (4096, 4096, 4096)])
+@pytest.mark.parametrize("m,k,n", MM_CARD_SHAPES[:6])
 def test_stream_matmul_on_card(cuda, dtype, m, k, n):
     from repro_torch.kernels import stream_matmul as tmm
     gen = torch.Generator(device=cuda).manual_seed(m + k + n)
@@ -564,6 +572,51 @@ def test_stream_matmul_on_card(cuda, dtype, m, k, n):
     assert launches["stream_matmul"] == cnt + 1
     assert got.dtype == dtype and got.shape == (m, n)
     _mm_close(got, tmm.matmul_ref(a, b), dtype, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", MM_CARD_SHAPES[6:])
+def test_stream_matmul_plans_on_card(cuda, dtype, m, k, n):
+    """Unaligned rows, split K (one launch counted for the tile kernel and
+    the split sum) and tile edges; the plan launched is matmul_plan's, and
+    two calls are bitwise equal (the splits are summed in a fixed order)."""
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels import stream_matmul as tmm
+    gen = torch.Generator(device=cuda).manual_seed(m * n + k)
+    a = torch.randn((m, k), generator=gen, device=cuda).to(dtype)
+    b = torch.randn((k, n), generator=gen, device=cuda).to(dtype)
+    cnt = launches["stream_matmul"]
+    got = tmm.stream_matmul_cuda(a, b)
+    again = tmm.stream_matmul_cuda(a, b)
+    assert launches["stream_matmul"] == cnt + 2
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert _lib.last_plan["stream_matmul"] == tmm.matmul_plan(m, k, n, dtype,
+                                                              sms)
+    assert got.dtype == dtype and got.shape == (m, n)
+    assert torch.equal(got, again)
+    _mm_close(got, tmm.matmul_ref(a, b), dtype, k)
+
+
+@pytest.mark.cuda
+def test_stream_matmul_refuses_what_it_cannot_take(cuda):
+    """Refused on the card; nothing falls back to the plain version."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import stream_matmul as tmm
+    a = torch.randn((64, 32), device=cuda)
+    b = torch.randn((32, 16), device=cuda)
+    cnt = launches["stream_matmul"]
+    with pytest.raises(TypeError):
+        tmm.stream_matmul_cuda(a.half(), b.half())
+    with pytest.raises(TypeError):
+        ops.matmul(a, b.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        tmm.stream_matmul_cuda(a.t().contiguous().t(), b)
+    with pytest.raises(ValueError, match="chain"):
+        tmm.stream_matmul_cuda(a, b.t().contiguous())
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        tmm.stream_matmul_cuda(a.cpu(), b.cpu())
+    assert launches["stream_matmul"] == cnt
 
 
 @pytest.mark.cuda
@@ -662,17 +715,27 @@ def _ssd_layer_inputs(gen, dev, B, S, H, P, G, N, dtype):
     ("fp32/groups", torch.float32, 2, 77, 8, 48, 2, 64, True),
     ("bf16/B8/S256", torch.bfloat16, 8, 256, 32, 64, 1, 128, False),
     ("fp32/N16", torch.float32, 3, 40, 4, 16, 1, 16, False),
-    ("bf16/N64", torch.bfloat16, 1, 100, 8, 32, 4, 64, True)])
+    ("bf16/N64", torch.bfloat16, 1, 100, 8, 32, 4, 64, True),
+    ("bf16/B1/S2048", torch.bfloat16, 1, 2048, 32, 64, 1, 128, True),
+    ("bf16/S<Q", torch.bfloat16, 2, 20, 8, 64, 2, 128, True),
+    ("fp32/S=Q+1", torch.float32, 3, 33, 4, 32, 1, 64, False),
+    ("bf16/N16/G4", torch.bfloat16, 2, 70, 8, 16, 4, 16, True),
+    ("fp32/N128/G4", torch.float32, 1, 300, 8, 64, 4, 128, True)])
 def test_ssd_kernel_on_card(cuda, case, dtype, B, S, H, P, G, N, init):
     """mamba2-370m's width (H 32, P 64, N 128) at the chip_smoke cases (the
-    ssm_serve batches B 4 and 8 run 16 and 32 state rows a block), and
-    groups, a ragged row tile (P 48), the other state dims, an init state:
-    y and the final state against the sequential plain version and the
-    chunked ``ssd_scan``."""
+    ssm_serve batches B 4 and 8 take 64-row blocks, B 1 16-row ones), and
+    groups, a ragged row tile (P 48), the other state dims, an init state,
+    S below one chunk and one step past it: y and the final state against
+    the sequential plain version and the chunked ``ssd_scan``."""
+    from repro_torch.kernels import _lib
     from repro_torch.kernels import mamba2_chunk as tssd
     from repro_torch.layers.ssm import ssd_scan
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = tssd.ssd_plan(B, S, H, P, N, sms)
     if case == "bf16/B8/S256":        # 256 (sequence, head) pairs
-        assert tssd._rows(cuda, B * H, P) == 32
+        assert (plan.wp, plan.ns) == (4, 2)
+    if case == "bf16/B1/S2048":       # 32 pairs: 16-row blocks
+        assert (plan.wp, plan.ns) == (1, 8)
     gen = torch.Generator(device=cuda).manual_seed(S + N)
     xs, dt, A, Bm, Cm, D = _ssd_layer_inputs(gen, cuda, B, S, H, P, G, N,
                                              dtype)
@@ -681,6 +744,7 @@ def test_ssd_kernel_on_card(cuda, case, dtype, B, S, H, P, G, N, init):
     n = launches["ssd_chunk_scan"]
     y, st = tssd.ssd_cuda(xs, dt, A, Bm, Cm, D, st0)
     assert launches["ssd_chunk_scan"] == n + 1
+    assert _lib.last_plan["ssd_chunk_scan"] == plan
     assert y.dtype == dtype and y.shape == (B, S, H, P)
     assert st.dtype == torch.float32 and st.shape == (B, H, P, N)
     tol = SSD_TOL if dtype == torch.float32 else TOL_BF16
@@ -688,6 +752,21 @@ def test_ssd_kernel_on_card(cuda, case, dtype, B, S, H, P, G, N, init):
                    ssd_scan(xs, dt, A, Bm, Cm, D, 256, st0)):
         torch.testing.assert_close(y.float(), ry.float(), **tol)
         torch.testing.assert_close(st, rs, **tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,B", [(torch.bfloat16, 4), (torch.float32, 1)])
+def test_ssd_kernel_is_deterministic_on_card(cuda, dtype, B):
+    """Two calls give bitwise equal y and state (no atomics), one launch
+    each, at both block shapes."""
+    from repro_torch.kernels import mamba2_chunk as tssd
+    gen = torch.Generator(device=cuda).manual_seed(B)
+    args = _ssd_layer_inputs(gen, cuda, B, 1000, 32, 64, 1, 128, dtype)
+    n = launches["ssd_chunk_scan"]
+    y, st = tssd.ssd_cuda(*args)
+    y2, st2 = tssd.ssd_cuda(*args)
+    assert launches["ssd_chunk_scan"] == n + 2
+    assert torch.equal(y, y2) and torch.equal(st, st2)
 
 
 @pytest.mark.cuda
