@@ -23,7 +23,10 @@ lines.jsonl):
    its first launch used). Decode (dense and paged; fp32, bf16, int8) at
    the heads of the configs with head dims 96, 112 and 256 (``NEW_HEADS``);
    flash (fp32, bf16) at every head dim at S=1024, at the families'
-   prefill shapes, and fp32 at S=1500 with window 256 and softcap 50. The
+   prefill shapes, and fp32 at S=1500 with window 256 and softcap 50; flash
+   (fp32, bf16, S=1024) and decode (fp32, bf16, int8) also at D 80, a head dim
+   outside ``HEAD_DIMS`` that the wrappers zero-pad to 96 (``pad_ms``: the
+   padding copies alone). The
    fp32 flash bound is operations over 3xTF32's rate (495 / 3 TFLOP/s),
    with the fp32 CUDA-core bound beside it (``bound_cuda_core_ms``).
    The streaming matmul on
@@ -58,6 +61,35 @@ lines.jsonl):
    tolerance of the plain path's top logit (counted).
 5. ``profile_*``: device busy time and idle share of decode steps, and
    the step's five largest device kernels by time.
+5b. serving through the hypervisor, each path with the launch counts zeroed
+   before it and read after it, every decode and flash launch accounted
+   for (layers x engine decode calls, plus one decode step a configure's
+   warm-up; layers x prefill calls):
+   ``launch_serve``: the port's launcher (``repro_torch.launch.serve``) at
+   full width (smollm-135m, fp32 as the launcher sets it), 2 devices, 3
+   tenants, 12 requests, dense and ``--paged``; its own audit (every
+   request in ``hv.log`` against a ``vs-`` slice) must hold; tokens/s and
+   median latency. ``gateway_fleet``: smollm-135m in bf16 through a paged
+   ``GatewayFleet`` (8 slots, max_len 2048) on a Hypervisor over 2 x 2
+   devices, four tenants of 2, 2, 2, 1 slots, the 16-request workload of
+   phase 4, 32 new tokens, one directed migration of a tenant mid-decode (a
+   live hand-off that copies pages); streams against the same fleet on the
+   plain path (near-ties counted), one ``serve`` event a request, every pool
+   verified and empty after the drain; tokens/s, step and round ms, TTFT,
+   steps by engine, and the host ms a decode step of an engine bare and
+   bound to the configured program, with the program wrapper's tree
+   rebuild alone. ``fleet_chaos``: the reference's chaos workload (4 nodes
+   x 1 device, six 2-slot tenants packed on 3 devices and a spare parked, 2
+   requests of 64-256 tokens each, 16 new tokens) at full width in fp32;
+   a seeded device kill mid-decode in the lockstep loop and through
+   ``EventLoop``; token logs against the fault-free run (near-ties
+   counted), 4 requests resumed from the journal, the spare woken, the
+   invariants after every step; the fault-free run's token logs against
+   the same fleet on the plain path at the fp32 tolerance (the bf16
+   ``gateway_fleet`` comparison stops most streams at an exact tie; fp32
+   ties are rare, so this holds most of the fleet's tokens); and
+   Table I's pair on the serving program
+   (the first engine's configure against the other engines' PR swaps).
 6. ``fp32_*_engine``: the same two engines in float32, where the streams
    are held to the fp32 logit tolerance; ``int8_*_engine``: both layouts
    with ``kv_quant`` at 4 layers.
@@ -98,14 +130,17 @@ lines.jsonl):
    local/global pairs; attention softcap 50 at D 256, so its decode takes
    the einsum path as the reference's does). Weights are freed between.
 11. the ``kernels`` summary line (launches of the attention kernels from
-   the smollm and the families' serving paths, ``launches_by_path``; the
-   flash row's ``fp32`` entry: the fp32 S=512 case and fp32 flash's
-   launches on the fp32 engines and ``families_model``; the streaming
+   the smollm, the families' and the fleet phases' serving paths,
+   ``launches_by_path``; the flash row's ``fp32`` entry: the fp32 S=512
+   case and fp32 flash's launches on the fp32 engines, ``families_model``,
+   ``launch_serve`` and ``fleet_chaos``; the streaming
    matmul's from the rc3e path, the SSD scan's from the SSM path), the
    GPU's name and power limit, and ``{"ok": true, ...}`` last. Any failed
    check exits non-zero.
 """
+import contextlib
 import dataclasses
+import io
 import json
 import re
 import subprocess
@@ -141,6 +176,9 @@ SERVING_KERNELS = ("decode_attention", "paged_decode_attention",
 # zamba2-7b, gemma3-1b, gemma2-9b
 NEW_HEADS = (("d96g1", (32, 32, 96)), ("d112g1", (32, 32, 112)),
              ("d256g4", (4, 1, 256)), ("d256g2", (16, 8, 256)))
+# a head dim outside HEAD_DIMS (a multiple of 8 the reference takes): the
+# wrappers zero-pad it to 96; smollm's heads
+PAD_D = 80
 SSM_H, SSM_P, SSM_N = 32, 64, 128      # mamba2-370m's SSD width
 SSD_TOL = {torch.float32: dict(atol=5e-4, rtol=5e-3),    # tests/test_kernels
            torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
@@ -327,6 +365,20 @@ def decode_cost(q, kpos, cur, window, kvbytes, hkv, paged_nb=0):
     return nbytes, 4 * d * hq * n_valid
 
 
+def pad_cost(q, k, v):
+    """For a head dim outside ``HEAD_DIMS``: the dim the wrapper pads to and
+    the device time of the padding copies alone (q, k/pool, v/pool; the
+    wrapper pays them on every call, inside its ``ms``); else nothing."""
+    from repro_torch.kernels.decode_attention import (pad_head_dim,
+                                                      padded_head_dim)
+    d = q.shape[-1]
+    dp = padded_head_dim("pad_cost", d)
+    if dp == d:
+        return {}
+    return dict(padded_to=dp, pad_ms=time_ms(
+        lambda: [pad_head_dim(t, dp) for t in (q, k, v)]))
+
+
 def kernel_phase(results):
     from repro_torch.kernels import _lib
     from repro_torch.kernels import decode_attention as da
@@ -361,6 +413,11 @@ def kernel_phase(results):
                                    ("int8", torch.bfloat16, True)):
             cases.append((f"{tag}/{kind}", dtype, quant, 0, cur, fill, L,
                           heads))
+    for kind, dtype, quant in (("fp32", torch.float32, False),
+                               ("bf16", torch.bfloat16, False),
+                               ("int8", torch.bfloat16, True)):
+        cases.append((f"d{PAD_D}g3/{kind}", dtype, quant, 0, cur, fill, L,
+                      (HQ, HKV, PAD_D)))
     for name, dtype, quant, window, cur_c, fill_c, Lc, heads in cases:
         hq, hkv, d = heads
         q, k, v, kpos, cur_t, ks, vs = decode_inputs(
@@ -404,7 +461,8 @@ def kernel_phase(results):
                    plain_ms=time_ms(lambda: da.decode_attention_ref(
                        q, k, v, kpos, cur_t, window=window, k_scale=ks,
                        v_scale=vs)),
-                   bound_ms=b_ms, bound_by=b_by, library_ms=lib)
+                   bound_ms=b_ms, bound_by=b_by, library_ms=lib,
+                   **pad_cost(q, k, v))
         emit(rec)
         results.setdefault("decode_attention", []).append(rec)
         if Lc % PS:
@@ -435,7 +493,8 @@ def kernel_phase(results):
                    plain_ms=time_ms(lambda: da.paged_decode_attention_ref(
                        q, kp, vp, kpp, bt, cur_t, window=window,
                        k_scale=ksp, v_scale=vsp)),
-                   bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                   bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                   **pad_cost(q, kp, vp))
         emit(rec)
         results.setdefault("paged_decode_attention", []).append(rec)
 
@@ -459,6 +518,8 @@ def kernel_phase(results):
             flash_cases.append((f"{tag}/D{d}/S1024", dt, 1024, 0, 0.0,
                                 (HQ, HKV, d)))
     flash_cases += [
+        (f"fp32/D{PAD_D}/S1024", f32, 1024, 0, 0.0, (HQ, HKV, PAD_D)),
+        (f"bf16/D{PAD_D}/S1024", b16, 1024, 0, 0.0, (HQ, HKV, PAD_D)),
         ("phi3/bf16/S1024", b16, 1024, 0, 0.0, (32, 32, 96)),
         ("gemma3/bf16/S1024/window512", b16, 1024, 512, 0.0, (4, 1, 256)),
         ("gemma2/fp32/S1024/softcap50", f32, 1024, 0, 50.0, (16, 8, 256))]
@@ -500,7 +561,8 @@ def kernel_phase(results):
                    plain_ms=time_ms(lambda: fa.flash_attention_ref(
                        q, k, v, window=window, softcap=cap)),
                    library_ms=lib,
-                   **tc_bound(nbytes, 4 * d * hq * pairs, dtype))
+                   **tc_bound(nbytes, 4 * d * hq * pairs, dtype),
+                   **pad_cost(q, k, v))
         emit(rec)
         results.setdefault("flash_attention", []).append(rec)
 
@@ -1210,6 +1272,52 @@ def ssm_serve_phase(cfg, params):
     return path
 
 
+@contextlib.contextmanager
+def engine_calls(calls, top8=None):
+    """Count every engine's decode and prefill calls (``calls``) while the
+    block runs; with ``top8``, record each decoding slot's top-8 logits,
+    keyed (request id, tokens generated so far), for ``compare_streams``."""
+    from repro_torch.runtime.serve import BatchingEngine
+    dec, pre = BatchingEngine._decode, BatchingEngine._prefill
+
+    def decode(self, tokens, pos):
+        calls["decode"] += 1
+        logits = dec(self, tokens, pos)
+        if top8 is not None:
+            top = logits[:, 0].float().topk(8, dim=-1)
+            val, idx = top.values.cpu().numpy(), top.indices.cpu().numpy()
+            for i, r in enumerate(self._slots):
+                if r is not None and i not in self._prefilling:
+                    top8[(r.request_id, len(r.out_tokens))] = dict(
+                        zip(idx[i].tolist(), val[i].tolist()))
+        return logits
+
+    def prefill(self, toks):
+        calls["prefill"] += 1
+        return pre(self, toks)
+
+    BatchingEngine._decode, BatchingEngine._prefill = decode, prefill
+    try:
+        yield
+    finally:
+        BatchingEngine._decode, BatchingEngine._prefill = dec, pre
+
+
+def program_launches(phase, cfg, calls, configures, paged, got):
+    """The launches a serving run needs: one decode launch a layer for every
+    engine decode call, plus one a configure of a decode program
+    (``Reconfigurator.configure`` warms it up once), one flash launch a
+    layer for every prefill call; fails unless ``got`` is exactly that (a
+    run that decoded without launching bypassed the kernels)."""
+    dec = "paged_decode_attention" if paged else "decode_attention"
+    need = {dec: (calls["decode"] + configures) * cfg.n_layers,
+            "flash_attention": calls["prefill"] * cfg.n_layers}
+    require(all(got[k] == need[k] for k in need)
+            and sum(got.values()) == sum(need.values()),
+            f"{phase}: launches {got} != needed {need}")
+    return need
+
+
 def workload(vocab, n=16):
     """16 prompts of 64-1024 tokens; requests 4k and 4k+1 share a 256-token
     prefix (same tenant); two tenants."""
@@ -1230,33 +1338,15 @@ def serve(model, params, prompts, paged, new_tokens=32, top8=None):
     eng = BatchingEngine(model, params, n_slots=8, max_len=2048, paged=paged,
                          page_size=16)
     calls = {"decode": 0, "prefill": 0}
-    dec, pre = eng._decode_fn, eng._prefill_fn
-
-    def decode_fn(*a):
-        calls["decode"] += 1
-        logits, caches = dec(*a)
-        if top8 is not None:           # plain path: record its top 8
-            top = logits[:, 0].float().topk(8, dim=-1)
-            val, idx = top.values.cpu().numpy(), top.indices.cpu().numpy()
-            for i, r in enumerate(eng._slots):
-                if r is not None and i not in eng._prefilling:
-                    top8[(r.request_id, len(r.out_tokens))] = dict(
-                        zip(idx[i].tolist(), val[i].tolist()))
-        return logits, caches
-
-    def prefill_fn(*a, **kw):
-        calls["prefill"] += 1
-        return pre(*a, **kw)
-
-    eng._decode_fn, eng._prefill_fn = decode_fn, prefill_fn
     step_ms = []
     eng.on_step = lambda active, ms: step_ms.append(ms)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
-    reqs = [eng.submit(p, max_new_tokens=new_tokens, tenant=t)
-            for p, t in prompts]
-    drained = eng.run_until_idle()
+    with engine_calls(calls, top8):      # plain path: record its top 8
+        reqs = [eng.submit(p, max_new_tokens=new_tokens, tenant=t)
+                for p, t in prompts]
+        drained = eng.run_until_idle()
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     require(drained, "engine did not drain")
@@ -1318,12 +1408,9 @@ def engine_phase(phase, cfg, params, prompts, paged):
                       paged, top8=top8)
     require(all(launches[k] - before[k] == got[k] for k in launches),
             "plain path launched a kernel")
-    dec = "paged_decode_attention" if paged else "decode_attention"
-    need = {dec: km["decode_calls"] * cfg.n_layers,
-            "flash_attention": km["prefill_calls"] * cfg.n_layers}
-    require(all(got[k] == need[k] for k in need)
-            and sum(got.values()) == sum(need.values()),
-            f"{phase}: launches {got} != needed {need}")
+    need = program_launches(phase, cfg, dict(decode=km["decode_calls"],
+                                             prefill=km["prefill_calls"]),
+                            0, paged, got)
     tol = TOL[getattr(torch, cfg.dtype)]
     streams = compare_streams(kern, plain, top8, tol)
     emit(dict(phase=phase, arch=cfg.name, layers=cfg.n_layers,
@@ -1372,6 +1459,341 @@ def profile_phase(phase, cfg, params, prompts, paged):
               top_kernels_ms_per_step={
                   e.key[:80]: e.self_device_time_total / 1e3 / steps
                   for e in top}))
+
+
+# ---------------------------------------------------------------------------
+# Serving through the hypervisor: the launcher, the gateway fleet, chaos
+# ---------------------------------------------------------------------------
+
+# (tenant, vSlice slots) of gateway_fleet; request i goes to tenant
+# (i // 2) % 4, so the shared-prefix pairs of ``workload`` share a tenant
+FLEET_TENANTS = (("t0", 2), ("t1", 2), ("t2", 2), ("t3", 1))
+FLEET_MIGRATE_AT = 8            # round of the directed migration of t3
+CHAOS_TENANTS, CHAOS_REQS, CHAOS_NEW_TOKENS = 6, 2, 16
+
+
+def launch_serve_phase():
+    """The port's launcher (``repro_torch.launch.serve``) at full width:
+    smollm-135m in fp32 (as the launcher sets it), 2 devices, 3 tenants, 12
+    requests, dense then paged. The launcher's own audit must hold; its
+    printed output goes to ``OUT / "launch_serve_{dense,paged}.txt"``.
+    Returns the launches of both runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import serve as launcher
+    cfg = get_config("smollm-135m")
+    total = {k: 0 for k in _lib.launches}
+    for paged in (False, True):
+        t_phase = time.monotonic()
+        args = ["--arch", "smollm-135m", "--devices", "2", "--tenants", "3",
+                "--requests", "12", "--device", DEV] \
+            + (["--paged"] if paged else [])
+        buf = io.StringIO()
+        calls = {"decode": 0, "prefill": 0}
+        _lib.launches.reset()
+        with engine_calls(calls), contextlib.redirect_stdout(buf):
+            out = launcher.main(args)
+        got = dict(_lib.launches)
+        text = buf.getvalue()
+        (OUT / f"launch_serve_{'paged' if paged else 'dense'}.txt") \
+            .write_text(text)
+        audit = [ln for ln in text.splitlines() if ln.startswith("audit:")]
+        require(out["serve_events"] == out["requests"] == 12
+                and all(sl.startswith("vs-") for sl in out["slices"])
+                and audit, f"launch_serve: audit failed: {out}")
+        need = program_launches("launch_serve", cfg, calls, 1, paged, got)
+        for k in total:
+            total[k] += got[k]
+        emit(dict(phase="launch_serve", arch=cfg.name, dtype="float32",
+                  paged=paged, argv=args, requests=out["requests"],
+                  tokens=out["tokens"], wall_s=out["wall_s"],
+                  tokens_per_s=out["tokens_per_s"],
+                  median_latency_ms=out["median_latency_ms"],
+                  engines=out["engines"], audit=audit[0], launches=got,
+                  launches_needed=need, engine_calls=calls,
+                  phase_wall_s=time.monotonic() - t_phase))
+    return total
+
+
+def fleet_serve(model, params, prompts, top8=None, new_tokens=32):
+    """``prompts`` through a paged ``GatewayFleet`` (8 slots, max_len 2048)
+    on a Hypervisor over 2 nodes x 2 devices, four tenants
+    (``FLEET_TENANTS``); at round ``FLEET_MIGRATE_AT`` tenant t3 is moved
+    to a parked device mid-decode (a live hand-off, pages copied). Returns
+    (streams, metrics, hv, fleet, engine calls)."""
+    from repro_torch.core import ClusterSpec, DeviceState, Hypervisor
+    from repro_torch.runtime import GatewayFleet
+    calls = {"decode": 0, "prefill": 0}
+    with engine_calls(calls, top8):
+        hv = Hypervisor(ClusterSpec(n_nodes=2, devices_per_node=2),
+                        device=DEV)
+        fleet = GatewayFleet(hv, model, params, n_slots=8, max_len=2048,
+                             paged=True, page_size=16)
+        for t, slots in FLEET_TENANTS:
+            fleet.open_session(t, slots=slots)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        reqs = [fleet.submit(FLEET_TENANTS[(i // 2) % 4][0], p,
+                             max_new_tokens=new_tokens)
+                for i, (p, _) in enumerate(prompts)]
+        rounds, engine_ms, handoff = [], [], None
+        for rnd in range(10000):
+            if rnd == FLEET_MIGRATE_AT:
+                dst = sorted(d for d, dv in hv.db.devices.items()
+                             if dv.state == DeviceState.PARKED)[0]
+                require(hv.migrate_slice(fleet.session("t3").slice_id,
+                                         target_device=dst, reason="ops")
+                        is not None, "gateway_fleet: migration refused")
+                handoff = fleet.handoffs[-1]
+            t1 = time.monotonic()
+            fleet.step()
+            rounds.append((time.monotonic() - t1) * 1e3)
+            engine_ms.extend(fleet.last_round_ms.values())
+            if all(r.done.is_set() for r in reqs):
+                break
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    require(all(r.done.is_set() for r in reqs), "gateway_fleet: not drained")
+    n_tok = sum(len(r.out_tokens) for r in reqs)
+    require(n_tok == new_tokens * len(reqs), "gateway_fleet: short streams")
+    ttft = [(r.first_token_at - r.submitted_at) * 1e3 for r in reqs]
+    metrics = dict(requests=len(reqs), tokens=n_tok, wall_s=wall,
+                   tokens_per_s=n_tok / wall, rounds=len(rounds),
+                   round_ms_p50=float(np.percentile(rounds, 50)),
+                   round_ms_p95=float(np.percentile(rounds, 95)),
+                   step_ms_p50=float(np.percentile(engine_ms, 50)),
+                   step_ms_p95=float(np.percentile(engine_ms, 95)),
+                   ttft_ms_p50=float(np.percentile(ttft, 50)),
+                   steps_by_engine={d: e.steps
+                                    for d, e in fleet._engines.items()},
+                   handoff=handoff)
+    return [r.out_tokens for r in reqs], metrics, hv, fleet, calls
+
+
+def program_overhead(model, params, prompts):
+    """Host ms a decode step of one paged engine (8 slots, 8 requests in
+    decode) bare and bound to the program the hypervisor configured
+    (``use_program``), in turns bare, program, program, bare of 10 steps
+    each; and the host time of the program wrapper's rebuild of the
+    parameter and cache trees alone (``_device_program``), per call."""
+    from repro_torch.core import ClusterSpec, Hypervisor
+    from repro_torch.core.reconfig import _device_program
+    from repro_torch.runtime import BatchingEngine
+    from repro_torch.runtime.gateway import serve_example
+    from repro_torch.runtime.serve import make_paged_serve_step
+    eng = BatchingEngine(model, params, n_slots=8, max_len=2048, paged=True,
+                         page_size=16)
+    for p, t in prompts[:8]:
+        eng.submit(p, max_new_tokens=64, tenant=t)
+    for _ in range(3):
+        eng.step()
+    hv = Hypervisor(ClusterSpec(n_nodes=1, devices_per_node=1), device=DEV)
+    entry, _, _ = hv.reconfig.partial_reconfigure(
+        make_paged_serve_step(model),
+        serve_example(model, params, 8, 2048, True, 16, eng.cache_pages),
+        static_desc="program_overhead")
+    bare = eng._decode_fn
+    ms = {"bare": [], "program": []}
+    for tag in ("bare", "program", "program", "bare"):
+        eng.use_program(bare if tag == "bare" else entry.compiled)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(10):
+            eng.step()
+        torch.cuda.synchronize()
+        ms[tag].append((time.monotonic() - t0) * 1e3 / 10)
+    args = (params, eng.caches, torch.zeros((8, 1), dtype=torch.int32,
+                                            device=DEV),
+            torch.zeros((8,), dtype=torch.int32, device=DEV),
+            eng._block_tables_dev())
+    # the wrapper the program cache holds, around a step that does nothing
+    place = _device_program(lambda *a: None, hv.reconfig.device)
+    t0 = time.monotonic()
+    for _ in range(100):
+        place(*args)
+    wrap_ms = (time.monotonic() - t0) * 1e3 / 100
+    return dict(step_host_ms_bare=ms["bare"],
+                step_host_ms_program=ms["program"],
+                program_wrapper_host_ms=wrap_ms)
+
+
+def gateway_fleet_phase(cfg, params, prompts):
+    """Full-width smollm-135m (bf16) through the paged ``GatewayFleet``
+    (``fleet_serve``): the 16-request workload, 32 new tokens each, four
+    tenants, one live hand-off mid-decode; the same fleet on the plain path
+    (``kernel_force="ref"``) gives the reference streams. Gates: the
+    launches the kernel path needs through the fleet's program path, the
+    streams (near-ties counted), one ``serve`` event a request in
+    ``hv.log`` against a ``vs-`` slice, a hand-off that copied pages, every
+    pool verified and empty after the drain. Returns the kernel run's
+    launches."""
+    from repro_torch.kernels import _lib
+    from repro_torch.models import Model
+    t_phase = time.monotonic()
+    _lib.launches.reset()
+    kern, km, hv, fleet, calls = fleet_serve(Model(cfg, device=DEV), params,
+                                             prompts)
+    got = dict(_lib.launches)
+    configures = sum(1 for e in hv.log if e["kind"] in ("fleet_up",
+                                                         "engine_up")
+                     and not e["cache_hit"])
+    need = program_launches("gateway_fleet", cfg, calls, configures, True,
+                            got)
+    serve_events = [e for e in hv.log if e["kind"] == "serve"]
+    require(len(serve_events) == len(prompts)
+            and len({e["request"] for e in serve_events}) == len(prompts)
+            and all(e["slice"].startswith("vs-") for e in serve_events),
+            f"gateway_fleet: {len(serve_events)} serve events for "
+            f"{len(prompts)} requests")
+    require(km["handoff"] is not None and km["handoff"]["page_copied"] >= 1,
+            f"gateway_fleet: the hand-off copied no pages: {km['handoff']}")
+    for eng in fleet._engines.values():
+        eng.pool.verify()
+        require(eng.pool.used_pages == 0,
+                f"gateway_fleet: {eng.pool.used_pages} pages still held")
+    fleet.close()
+    before = dict(_lib.launches)
+    top8 = {}
+    plain, pm, phv, pfleet, _ = fleet_serve(Model(plain_cfg(cfg),
+                                                  device=DEV),
+                                            params, prompts, top8=top8)
+    require(dict(_lib.launches) == before, "plain fleet launched a kernel")
+    pfleet.close()
+    streams = compare_streams(kern, plain, top8, TOL[torch.bfloat16])
+    overhead = program_overhead(Model(cfg, device=DEV), params, prompts)
+    emit(dict(phase="gateway_fleet", arch=cfg.name, layers=cfg.n_layers,
+              dtype=cfg.dtype, tenants=dict(FLEET_TENANTS),
+              launches=got, launches_needed=need, engine_calls=calls,
+              configures=configures, serve_events=len(serve_events),
+              **streams, kernel_path=km,
+              plain_path=dict(tokens_per_s=pm["tokens_per_s"],
+                              step_ms_p50=pm["step_ms_p50"]),
+              **overhead, phase_wall_s=time.monotonic() - t_phase))
+    return got
+
+
+def chaos_run(cfg, model, params, prompts, loop="lockstep", injector=None,
+              top8=None, calls=None):
+    """The reference's chaos workload (tests/test_chaos.py) at full width:
+    a paged fleet (4 slots, max_len 512) on 4 nodes x 1 device sharing the
+    injector's clock, six 2-slot tenants packed on 3 devices and one spare
+    parked, 2 requests each, ``CHAOS_NEW_TOKENS`` new tokens; invariants
+    verified after every step or tick. Returns (streams, hv, fleet)."""
+    from repro_torch.core import ClusterSpec, Hypervisor, MonitorConfig
+    from repro_torch.runtime import EventLoop, GatewayFleet
+    from repro_torch.runtime.faults import FakeClock
+    calls = calls if calls is not None else {"decode": 0, "prefill": 0}
+    with engine_calls(calls, top8):
+        clock = injector.clock if injector is not None else FakeClock()
+        hv = Hypervisor(ClusterSpec(n_nodes=4, devices_per_node=1),
+                        MonitorConfig(heartbeat_interval_s=1.0,
+                                      heartbeat_deadline_s=2.5),
+                        clock=clock, device=DEV)
+        fleet = GatewayFleet(hv, model, params, n_slots=4, max_len=512,
+                             paged=True, faults=injector)
+        for ti in range(CHAOS_TENANTS):
+            fleet.open_session(f"t{ti}", slots=2)
+        require(len(fleet._engines) == 3, "fleet_chaos: not packed on 3")
+        reqs = [fleet.submit(f"t{ti}", prompts[ti * CHAOS_REQS + k],
+                             max_new_tokens=CHAOS_NEW_TOKENS)
+                for ti in range(CHAOS_TENANTS) for k in range(CHAOS_REQS)]
+        ev = EventLoop(fleet, prefill_chunk=64) if loop == "event" else None
+        for _ in range(400):
+            fleet.step() if ev is None else ev.run_ticks(1)
+            fleet.verify_invariants()
+            if all(r.done.is_set() for r in reqs):
+                break
+        if ev is not None:
+            fleet.flush_journal()
+    require(all(r.done.is_set() for r in reqs)
+            and all(len(r.out_tokens) == CHAOS_NEW_TOKENS for r in reqs),
+            f"fleet_chaos {loop}: the workload did not drain")
+    for eng in fleet._engines.values():
+        eng.pool.verify()
+        require(eng.pool.used_pages == 0,
+                f"fleet_chaos {loop}: pages still held")
+    return [r.out_tokens for r in reqs], hv, fleet
+
+
+def fleet_chaos_phase(cfg, params):
+    """The chaos workload in fp32 (a replayed request re-prefills through
+    flash instead of decoding; fp32 keeps near-ties rare): a fault-free
+    lockstep run, then one seeded device kill mid-decode
+    (``FaultInjector(seed=0).plan_device_kill``, rounds 2-5) in the
+    lockstep loop and through ``EventLoop``. Gates: the token logs equal the
+    fault-free run's (near-ties counted), 4 requests resumed from the
+    journal, the spare device woken, the invariants after every step, the
+    launches the path needs; the fault-free run's token logs equal the same
+    fleet's on the plain path (``runs["plain"]``, near-ties counted). Then Table I's pair on the serving program:
+    the configure time against the PR swaps of the other engines. Returns
+    the launches."""
+    from repro_torch.core import DeviceState
+    from repro_torch.kernels import _lib
+    from repro_torch.models import Model
+    from repro_torch.runtime import FaultInjector
+    t_phase = time.monotonic()
+    cfg = cfg.replace(dtype="float32")
+    model = Model(cfg, device=DEV)
+    rng = np.random.default_rng(SEED + 3)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32)
+               for n in rng.integers(64, 257,
+                                     size=CHAOS_TENANTS * CHAOS_REQS)]
+    calls = {"decode": 0, "prefill": 0}
+    configures = 0
+    _lib.launches.reset()
+    top8 = {}
+    free, fhv, ffleet = chaos_run(cfg, model, params, prompts, top8=top8,
+                                  calls=calls)
+    up = [e for e in fhv.log if e["kind"] in ("fleet_up", "engine_up")]
+    configures += sum(not e["cache_hit"] for e in up)
+    table1 = dict(configure_s=next(e["compile_s"] for e in up
+                                   if e["kind"] == "fleet_up"),
+                  pr_swap_s=[e["swap_s"] for e in up
+                             if e["kind"] == "engine_up"],
+                  pr_swap_cache_hits=[e["cache_hit"] for e in up
+                                      if e["kind"] == "engine_up"])
+    ffleet.close()
+    tol = TOL[torch.float32]
+    runs = {}
+    for loop in ("lockstep", "event"):
+        inj = FaultInjector(seed=0)
+        ev = inj.plan_device_kill(["dev-0-0", "dev-1-0", "dev-2-0"], lo=2,
+                                  hi=6)
+        got, hv, fleet = chaos_run(cfg, model, params, prompts, loop=loop,
+                                   injector=inj, calls=calls)
+        configures += sum(not e["cache_hit"] for e in hv.log
+                          if e["kind"] in ("fleet_up", "engine_up"))
+        rec = fleet.recoveries
+        require(len(rec) == 1 and rec[0]["resumed"] == 4
+                and not rec[0]["evicted"],
+                f"fleet_chaos {loop}: recoveries {rec}")
+        require(hv.db.devices[ev.target].state == DeviceState.DEAD
+                and hv.db.devices["dev-3-0"].state == DeviceState.ACTIVE,
+                f"fleet_chaos {loop}: the spare did not wake")
+        runs[loop] = dict(kill=dict(step=ev.step, device=ev.target),
+                          recovery=rec[0],
+                          **compare_streams(got, free, top8, tol))
+        fleet.close()
+    got = dict(_lib.launches)
+    need = program_launches("fleet_chaos", cfg, calls, configures, True,
+                            got)
+    # the fault-free fleet on the plain path: the kernel path's token logs
+    # against plain at the fp32 tolerance
+    top8_plain = {}
+    plain, phv, pfleet = chaos_run(plain_cfg(cfg), Model(plain_cfg(cfg),
+                                                         device=DEV),
+                                   params, prompts, top8=top8_plain)
+    require(dict(_lib.launches) == got, "plain chaos fleet launched a kernel")
+    pfleet.close()
+    runs["plain"] = compare_streams(free, plain, top8_plain, tol)
+    emit(dict(phase="fleet_chaos", arch=cfg.name, layers=cfg.n_layers,
+              dtype=cfg.dtype, tenants=CHAOS_TENANTS,
+              requests=len(prompts), new_tokens=CHAOS_NEW_TOKENS,
+              logit_tol=tol, runs=runs, launches=got, launches_needed=need,
+              engine_calls=calls, phase_wall_s=time.monotonic() - t_phase))
+    emit(dict(phase="fleet_chaos", table="I", program="serve decode step",
+              **table1))
+    return got
 
 
 def main():
@@ -1453,6 +1875,18 @@ def main():
     profile_phase("profile_dense_decode", cfg, params, prompts, False)
     profile_phase("profile_paged_decode", cfg, params, prompts, True)
 
+    # serving through the hypervisor: each phase zeroes the counts before
+    # it drives its path and reads them after
+    launch_path = launch_serve_phase()                  # fp32
+    gateway_path = gateway_fleet_phase(cfg, params, prompts)     # bf16
+    chaos_path = fleet_chaos_phase(cfg, params)         # fp32
+    fleet_path = {k: launch_path[k] + gateway_path[k] + chaos_path[k]
+                  for k in SERVING_KERNELS}
+    require(all(fleet_path[k] > 0 for k in SERVING_KERNELS),
+            f"a kernel of the fleet paths never launched: {fleet_path}")
+    fp32_path["launch_serve"] = launch_path["flash_attention"]
+    fp32_path["fleet_chaos"] = chaos_path["flash_attention"]
+
     qcfg = cfg.replace(kv_quant=True, n_layers=4)
     gen = torch.Generator(device=DEV).manual_seed(SEED + 2)
     qparams = Model(qcfg, device=DEV).init(gen)
@@ -1516,7 +1950,10 @@ def main():
                "flash_attention": ("flash_attention", "flash_attention", 100),
                "stream_matmul": ("stream_matmul", "stream_matmul", 57),
                "ssd_chunk_scan": ("ssd_chunk_scan", "mamba2_chunk", 68)}
-    path_launches = {k: serving_path[k] + families_path[k]
+    # flash: the bf16 paths here, the fp32 ones in the row's fp32 entry
+    fleet_main = dict(fleet_path,
+                      flash_attention=gateway_path["flash_attention"])
+    path_launches = {k: serving_path[k] + families_path[k] + fleet_main[k]
                      for k in SERVING_KERNELS}
     path_launches["stream_matmul"] = (rc3e_path["stream_matmul"]
                                       + rc3e_path["stream_matmul_batched"])
@@ -1550,7 +1987,8 @@ def main():
         if name in SERVING_KERNELS:
             row["launches_by_path"] = {
                 "smollm_serving": serving_path[name],
-                "families_serving": families_path[name]}
+                "families_serving": families_path[name],
+                "fleet_serving": fleet_main[name]}
         if name == "flash_attention":      # the fp32 (3xTF32) kernel
             f = next(r for r in recs if r["case"] == "fp32/S512")
             row["fp32"] = dict(

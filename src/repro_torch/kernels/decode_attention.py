@@ -38,7 +38,9 @@ import torch
 from repro_torch.kernels import _lib
 
 MAX_GROUP = 8                  # query heads per kv head the kernel holds
-# the head dims of every dense and hybrid config (all three attention kernels)
+# the head dims the three attention kernels are built for: those of every
+# dense and hybrid config; another multiple of 8 up to 256 is zero-padded
+# to the next of them (``padded_head_dim``)
 HEAD_DIMS = (32, 64, 96, 112, 128, 256)
 MIN_SPLIT_ROWS = 64            # floor of rows a split sweeps
 SPLIT_WAVES = 2                # aim for this many blocks per SM
@@ -182,6 +184,57 @@ def merge_partials_ref(acc, m, l, mean_v):
 
 
 # ---------------------------------------------------------------------------
+# Head dims outside HEAD_DIMS
+# ---------------------------------------------------------------------------
+
+def padded_head_dim(name: str, D: int) -> int:
+    """The head dim the kernels run a head dim ``D`` at: ``D`` itself when
+    it is in ``HEAD_DIMS``, else, for a multiple of 8 up to 256 (the
+    reference's kernels take any multiple of 8), the next member of the set.
+    Zero columns appended to q, k and v leave q·k unchanged and add zero
+    columns to the output, so the caller pads, passes the true scale
+    ``D ** -0.5`` and slices the output back to ``D``. Raises for others."""
+    if D in HEAD_DIMS:
+        return D
+    if D % 8 or D > HEAD_DIMS[-1]:
+        raise ValueError(f"{name}: head dim {D} (kernel takes {HEAD_DIMS}, "
+                         f"and other multiples of 8 up to {HEAD_DIMS[-1]} "
+                         "zero-padded to the next of them)")
+    return next(d for d in HEAD_DIMS if d > D)
+
+
+def pad_head_dim(x: torch.Tensor, Dp: int) -> torch.Tensor:
+    """``x`` with zero columns appended along its last dim up to ``Dp``
+    (a fresh contiguous tensor; ``x`` itself when it is ``Dp`` wide)."""
+    if x.shape[-1] == Dp:
+        return x
+    return torch.nn.functional.pad(x, (0, Dp - x.shape[-1]))
+
+
+def pads_head_dim(name: str):
+    """Decorator for an attention function ``fn(q, k, v, *args, scale=...,
+    **kw)`` whose q, k and v share their last dim ``D``: where ``D`` is not
+    in ``HEAD_DIMS``, ``fn`` runs on q, k and v zero-padded to
+    ``padded_head_dim(name, D)`` with the true scale and its output is
+    sliced back to ``D``. The padding copies q, k and v (or the pools) on
+    every call."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def padded(q, k, v, *args, scale: float = 0.0, **kw):
+            D = q.shape[-1]
+            Dp = padded_head_dim(name, D) \
+                if k.shape[-1] == v.shape[-1] == D else D
+            if Dp == D:
+                return fn(q, k, v, *args, scale=scale, **kw)
+            return fn(pad_head_dim(q, Dp), pad_head_dim(k, Dp),
+                      pad_head_dim(v, Dp), *args, scale=scale or D ** -0.5,
+                      **kw)[..., :D]
+        return padded
+    return wrap
+
+
+# ---------------------------------------------------------------------------
 # CUDA kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -239,7 +292,10 @@ def _check_common(name, q, k, v, kpos, cur, k_scale, v_scale):
         raise TypeError(f"{name}: kpos and cur must be int32")
     B, Hq, D = q.shape
     Hkv = k.shape[1]
-    if D not in HEAD_DIMS or k.shape[-1] != D or v.shape[-1] != D:
+    if k.shape[-1] != D or v.shape[-1] != D:
+        raise ValueError(f"{name}: q/k/v head dims {D}/{k.shape[-1]}/"
+                         f"{v.shape[-1]} differ")
+    if D not in HEAD_DIMS:
         raise ValueError(f"{name}: head dim {D} (kernel takes {HEAD_DIMS})")
     if Hq % Hkv or Hq // Hkv > MAX_GROUP:
         raise ValueError(f"{name}: Hq={Hq} Hkv={Hkv}: need Hq % Hkv == 0 and "
@@ -301,9 +357,11 @@ def _launch(name, q, k, v, kpos, cur, bt, k_scale, v_scale, window, scale,
     return out
 
 
+@pads_head_dim("decode_attention")
 def decode_attention_cuda(q, k, v, kpos, cur, *, window: int = 0,
                           scale: float = 0.0, k_scale=None, v_scale=None):
-    """The CUDA kernel on a dense cache; arguments as ``decode_attention_ref``."""
+    """The CUDA kernel on a dense cache; arguments as ``decode_attention_ref``.
+    A head dim outside ``HEAD_DIMS`` runs zero-padded (``pads_head_dim``)."""
     name = "decode_attention"
     quant = _check_common(name, q, k, v, kpos, cur, k_scale, v_scale)
     B, _, D = q.shape
@@ -318,11 +376,13 @@ def decode_attention_cuda(q, k, v, kpos, cur, *, window: int = 0,
                    scale, nb=1, ps=L)
 
 
+@pads_head_dim("paged_decode_attention")
 def paged_decode_attention_cuda(q, k_pool, v_pool, kpos_pool, block_tables,
                                 cur, *, window: int = 0, scale: float = 0.0,
                                 k_scale=None, v_scale=None):
     """The CUDA kernel on a paged pool; arguments as
-    ``paged_decode_attention_ref``."""
+    ``paged_decode_attention_ref``. A head dim outside ``HEAD_DIMS`` runs
+    zero-padded (``pads_head_dim``)."""
     name = "paged_decode_attention"
     quant = _check_common(name, q, k_pool, v_pool, kpos_pool, cur, k_scale,
                           v_scale)

@@ -5,7 +5,8 @@ Replaces the Pallas kernel ``repro.kernels.flash_attention.flash_attention``
 with hand-written CUDA kernels (``csrc/flash_attention.cu``), one per dtype,
 both on the tensor cores (``mma.sync``): bfloat16 directly, float32 as
 3xTF32 (each operand split into two TF32 halves, three products each, so
-that the fp32 tolerance holds). Head dims: ``HEAD_DIMS``. Beside them, the
+that the fp32 tolerance holds). Head dims: ``HEAD_DIMS``; another multiple
+of 8 up to 256 runs zero-padded to the next of them. Beside them, the
 plain PyTorch version ``flash_attention_ref`` (ported from
 ``repro.kernels.ref``) serves CPU tensors and is what the kernels are held
 against.
@@ -25,7 +26,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _lib
-from repro_torch.kernels.decode_attention import HEAD_DIMS
+from repro_torch.kernels.decode_attention import HEAD_DIMS, pads_head_dim
 
 
 def flash_attention_ref(q, k, v, *, window: int = 0, scale: float = 0.0,
@@ -74,11 +75,13 @@ def _entry(dtype):
     return lib, fn
 
 
+@pads_head_dim("flash_attention")
 def flash_attention_cuda(q, k, v, *, window: int = 0, scale: float = 0.0,
                          softcap: float = 0.0):
     """The CUDA kernel; arguments as ``flash_attention_ref``. The output is
     a (B, Hq, S, D) view of (B, S, Hq, D)-major memory, the layout the
-    attention layer consumes next."""
+    attention layer consumes next. A head dim outside ``HEAD_DIMS`` runs
+    zero-padded (``pads_head_dim``)."""
     name = "flash_attention"
     if q.device.type != "cuda":
         raise ValueError(f"{name}: the CUDA kernel takes CUDA tensors, got "

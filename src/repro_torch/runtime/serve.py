@@ -282,6 +282,18 @@ class BatchingEngine:
         self.on_step: Optional[Callable[[Dict[str, int], float], None]] = None
         self.on_finish: Optional[Callable[[Request], None]] = None
 
+    def use_program(self, compiled: Callable) -> None:
+        """Swap in an externally configured decode program, of the step
+        factories' signature (``make_serve_step`` / ``make_paged_serve_step``):
+        the serving gateway and fleet configure the decode step through the
+        hypervisor's ``Reconfigurator``, so the program lives in the RC3E
+        program cache (and PR swaps bind it to each tenant's vSlice).
+        The engine keeps only the logits the program returns: the program
+        must write the caches it is given in place, on the engine's own
+        device (the gateway and the fleet refuse a model that is not on the
+        hypervisor's device)."""
+        self._decode_fn = compiled
+
     def _decode(self, tokens: np.ndarray, pos: np.ndarray):
         """One decode step over all slots; the caches update in place.
         The two small per-step uploads ((n_slots, 1) tokens and (n_slots,)

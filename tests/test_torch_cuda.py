@@ -456,13 +456,63 @@ def test_flash_new_head_dims_on_card(cuda, dtype, d, s, window, softcap):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_head_dims_outside_the_set_are_refused(cuda, dtype):
-    """A head dim the kernels do not take (80, a multiple of 8 that the
-    reference takes) raises, naming the set, and nothing launches."""
+def test_head_dims_outside_the_set_are_padded(cuda, dtype):
+    """A head dim the kernels are not built for (80, a multiple of 8 that
+    the reference takes) runs zero-padded to 96: flash, decode and paged
+    decode each launch their kernel once and agree with the plain version
+    at D 80, dense and paged decode also with an int8 KV cache. D 84 (not a
+    multiple of 8) is still refused, naming the set, and nothing
+    launches."""
     assert tfa.HEAD_DIMS == tda.HEAD_DIMS == (32, 64, 96, 112, 128, 256)
     rng = np.random.default_rng(0)
+    tol = TOL if dtype == torch.float32 else TOL_BF16
     q, k, v = (_normal(rng, shp).to(cuda, dtype) for shp in
-               ((1, 2, 64, 80), (1, 1, 64, 80), (1, 1, 64, 80)))
+               ((2, 4, 300, 80), (2, 2, 300, 80), (2, 2, 300, 80)))
+    n = launches["flash_attention"]
+    got = tfa.flash_attention_cuda(q, k, v, window=64, softcap=30.0)
+    assert launches["flash_attention"] == n + 1
+    assert got.shape == (2, 4, 300, 80)
+    torch.testing.assert_close(got.float(), tfa.flash_attention_ref(
+        q, k, v, window=64, softcap=30.0).float(), **tol)
+
+    B, L, ps = 3, 256, 16
+    qd, kd, vd, kpos, cur = _decode_inputs(B, 4, 2, L, 80, [255, 100, -1],
+                                           40, 1)
+    qd, kd, vd = (t.to(cuda, dtype) for t in (qd, kd, vd))
+    kpos, cur = kpos.to(cuda), cur.to(cuda)
+    want = tda.decode_attention_ref(qd, kd, vd, kpos, cur)
+    n = launches["decode_attention"]
+    got = tda.decode_attention_cuda(qd, kd, vd, kpos, cur)
+    assert launches["decode_attention"] == n + 1
+    assert got.shape == (B, 4, 80)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    kp, vp, pp, bt, _ = _to_pool(kd.cpu(), vd.cpu(), kpos.cpu(), ps, 2)
+    kp, vp, pp, bt = (t.to(cuda) for t in (kp, vp, pp, bt))
+    n = launches["paged_decode_attention"]
+    got = tda.paged_decode_attention_cuda(qd, kp, vp, pp, bt, cur)
+    assert launches["paged_decode_attention"] == n + 1
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+    # the int8 KV cache at D 80: int8 k/v padded, their scales as they are
+    (ki, ks), (vi, vs) = _quant(kd.float().cpu()), _quant(vd.float().cpu())
+    kip, vip, pp, bt, scatter = _to_pool(ki, vi, kpos.cpu(), ps, 3)
+    quant = dict(k_scale=ks.to(cuda), v_scale=vs.to(cuda))
+    ki, vi = ki.to(cuda), vi.to(cuda)
+    want = tda.decode_attention_ref(qd, ki, vi, kpos, cur, **quant)
+    n = launches["decode_attention"]
+    got = tda.decode_attention_cuda(qd, ki, vi, kpos, cur, **quant)
+    assert launches["decode_attention"] == n + 1
+    assert got.shape == (B, 4, 80)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    n = launches["paged_decode_attention"]
+    got = tda.paged_decode_attention_cuda(
+        qd, kip.to(cuda), vip.to(cuda), pp.to(cuda), bt.to(cuda), cur,
+        k_scale=scatter(ks, 1.0).to(cuda), v_scale=scatter(vs, 1.0).to(cuda))
+    assert launches["paged_decode_attention"] == n + 1
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+    q, k, v = (_normal(rng, shp).to(cuda, dtype) for shp in
+               ((1, 2, 64, 84), (1, 1, 64, 84), (1, 1, 64, 84)))
     before = dict(launches)
     with pytest.raises(ValueError, match=r"\(32, 64, 96, 112, 128, 256\)"):
         tfa.flash_attention_cuda(q, k, v)
@@ -471,6 +521,68 @@ def test_head_dims_outside_the_set_are_refused(cuda, dtype):
     with pytest.raises(ValueError, match=r"\(32, 64, 96, 112, 128, 256\)"):
         tda.decode_attention_cuda(q[:, :, 0], k, v, kpos, cur)
     assert dict(launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_gateway_configure_frees_its_warm_up(cuda, paged):
+    """``Reconfigurator.configure`` warms the decode program up on zeros of
+    the example's shapes: a zero copy of every weight and of the whole KV
+    cache, for a moment. Once the gateway stands, the card holds only the
+    engine's own weights and caches, plus a little slack (the warm-up's
+    logits and the allocator's rounding; cuBLAS's workspace, which the
+    allocator keeps, is taken before the baseline)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import ClusterSpec, Hypervisor
+    from repro_torch.models import Model
+    from repro_torch.runtime import ServingGateway
+    cfg = get_config("smollm-135m").replace(n_layers=4)
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    for dt in (torch.float32, torch.bfloat16):
+        x = torch.ones((2, 8, 8), dtype=dt, device=cuda)
+        torch.einsum("bij,jk->bik", x, x[0])
+        del x
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    hv = Hypervisor(ClusterSpec(n_nodes=1, devices_per_node=1))
+    gw = ServingGateway(hv, model, params, n_slots=4, max_len=512,
+                        paged=paged)
+    torch.cuda.synchronize()
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for st in gw.engine.caches
+                      for f in ((st,) if isinstance(st, dict) else st)
+                      for t in f.values())
+    grown = torch.cuda.memory_allocated() - base
+    assert cache_bytes <= grown <= cache_bytes + (16 << 20), \
+        (grown, cache_bytes)
+    gw.close()
+
+
+@pytest.mark.cuda
+def test_model_off_the_card_refused_by_a_card_hypervisor(cuda):
+    """A CPU model under the default (card) hypervisor: the program would
+    copy the weights and caches to the card on every step and decode into
+    the copies, so the gateway and the fleet refuse it; a model on
+    ``cuda:0`` matches a hypervisor on ``cuda``."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import ClusterSpec, Hypervisor
+    from repro_torch.models import Model
+    from repro_torch.runtime import GatewayFleet, ServingGateway
+    cfg = reduced(get_config("smollm-135m")).replace(dtype="float32")
+    model = Model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    for front in (ServingGateway, GatewayFleet):
+        hv = Hypervisor(ClusterSpec(n_nodes=1, devices_per_node=1))
+        with pytest.raises(ValueError, match="Hypervisor"):
+            front(hv, model, params, n_slots=2, max_len=64)
+    card = Model(cfg, device="cuda:0")
+    gw = ServingGateway(Hypervisor(ClusterSpec(n_nodes=1,
+                                               devices_per_node=1)),
+                        card, card.init(torch.Generator(device=cuda)
+                                        .manual_seed(0)),
+                        n_slots=2, max_len=64)
+    gw.close()
 
 
 @pytest.mark.cuda

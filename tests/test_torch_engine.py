@@ -12,10 +12,7 @@ teacher-forced JAX forward over each prompt plus its output shows a top-2
 logit margin above 1e-3 at every generated position, far above the fp32
 drift between the two implementations (see tests/test_torch_models.py).
 """
-import functools
-
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -28,10 +25,9 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.interop import params_from_numpy
 from repro_torch.models import Model
 from repro_torch.runtime import BatchingEngine
+from torch_parity import assert_margins
 
 torch.set_num_threads(1)
-
-MARGIN = 1e-3
 
 # name -> (engine kwargs, [(prompt len, seed, tenant, max_new_tokens)], quant)
 SCENARIOS = {
@@ -83,26 +79,6 @@ def _serve(engine, spec, vocab, mode):
     return [r.out_tokens for r in reqs], stats
 
 
-@functools.partial(jax.jit, static_argnums=0)
-def _teacher_forced_logits(jmodel, jparams, tokens):
-    h, _ = jmodel.forward(jparams, {"tokens": tokens})
-    return jmodel.logits(jparams, h)
-
-
-def _assert_margins(jmodel, jparams, spec, vocab, logs, width):
-    """One batched causal forward over every prompt + output, zero-padded
-    at the tail to ``width`` (the padding cannot reach earlier positions)."""
-    seqs = np.zeros((len(spec), width), np.int32)
-    for i, ((n, seed, _, _), out) in enumerate(zip(spec, logs)):
-        seq = _prompt(vocab, n, seed) + out
-        seqs[i, :len(seq)] = seq
-    logits = np.asarray(_teacher_forced_logits(jmodel, jparams,
-                                               jnp.asarray(seqs)), np.float64)
-    for i, ((n, _, _, _), out) in enumerate(zip(spec, logs)):
-        top2 = np.sort(logits[i, n - 1:n - 1 + len(out)], axis=-1)[:, -2:]
-        assert (top2[:, 1] - top2[:, 0]).min() > MARGIN
-
-
 def check_engine(models, scenario, paged, mode):
     jcfg, jparams, cfg, params = models
     kw, spec, quant = SCENARIOS[scenario]
@@ -117,7 +93,9 @@ def check_engine(models, scenario, paged, mode):
                              mode)
     t_eng = BatchingEngine(model, params, **kw)
     t_logs, t_stats = _serve(t_eng, spec, vocab, mode)
-    _assert_margins(jmodel, jparams, spec, vocab, j_logs, kw["max_len"])
+    assert_margins(jmodel, jparams,
+                   [_prompt(vocab, n, seed) for n, seed, _, _ in spec],
+                   j_logs, kw["max_len"])
     assert t_logs == j_logs
     assert t_stats == j_stats
     if scenario == "cow":

@@ -35,13 +35,17 @@ def test_port_imports_without_jax_or_reference():
         bad = sorted(m for m in sys.modules
                      if m == "repro" or m.startswith("repro."))
         assert not bad, bad
-        print(len(names))
+        print(" ".join(names))
     """)
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     out = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 49     # every module was walked
+    walked = set(out.stdout.split())
+    assert len(walked) >= 55                     # every module was walked
+    assert {f"repro_torch.runtime.{m}" for m in
+            ("faults", "events", "gateway", "fleet")} | {
+        "repro_torch.launch", "repro_torch.launch.serve"} <= walked
 
 
 def test_chip_smoke_imports_neither_jax_nor_reference():
