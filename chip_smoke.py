@@ -26,7 +26,8 @@ lines.jsonl):
    prefill shapes, and fp32 at S=1500 with window 256 and softcap 50; flash
    (fp32, bf16, S=1024) and decode (fp32, bf16, int8) also at D 80, a head dim
    outside ``HEAD_DIMS`` that the wrappers zero-pad to 96 (``pad_ms``: the
-   padding copies alone). The
+   padding copies alone). Paged decode (fp32, bf16) also at the harness
+   phases' engines: B=4, L=64, pages of 4 and 8, one slot idle. The
    fp32 flash bound is operations over 3xTF32's rate (495 / 3 TFLOP/s),
    with the fp32 CUDA-core bound beside it (``bound_cuda_core_ms``).
    The streaming matmul on
@@ -90,6 +91,34 @@ lines.jsonl):
    ties are rare, so this holds most of the fleet's tokens); and
    Table I's pair on the serving program
    (the first engine's configure against the other engines' PR swaps).
+5c. the traffic and tenant-isolation harnesses through the port's fleet and
+   gateway, smollm-135m at full width and depth, with the same launch
+   accounting (``harness_watch`` observes ``replay_trace`` and
+   ``run_scenario`` from outside): ``scale_soak_presets``: bf16,
+   ``smoke_cell()`` and the seed-0 chaos cells of both preset traces on
+   ``fleet2``, each record equal to its record in
+   ``benchmarks/BENCH_scale_baseline.json`` on the baseline's fields (the
+   reference added two fields after writing it), and steady / fleet2 /
+   seed 0 with chaos through the event loop twice, to identical records.
+   ``scale_soak_long``: the same harness at a chat service's request sizes
+   (``long_trace()``: prompts of median ~245 tokens up to 1024, outputs of
+   median ~25 up to 48, 2 nodes of 8 slots x 2048, 16 rounds of arrivals):
+   bf16 lockstep (under the profiler) and event loop with a seeded kill
+   and partition, fp32 fault-free on the
+   kernel path and on the plain path (token logs at the fp32 tolerance,
+   near-ties counted; records equal); arrivals accounted for, invariants
+   after every round, pools empty at close, every completed request in
+   ``hv.log`` against a ``vs-`` slice; goodput, TTFT, latency, round ms,
+   and the fleet's device idle share over the bf16 lockstep run's rounds
+   from the profiler. ``adversary``: ``run_scenario`` in bf16 at the
+   reference's parameters (4 slots, max_len 64, page 8, 48 rounds), the
+   solo run and the four behaviors, each report equal to the JAX
+   package's (``tests/data/torch_adversary_reference.json``), the victim
+   within the reference suite's bounds, isolation checked after every
+   step, the free pages read back from the card, every hostile behavior
+   with at least one request admitted; then the solo run and
+   ``CancelChurn`` at the serving shape (8 slots, max_len 2048, page 16,
+   victim prompts of 256), victim p95 against solo.
 6. ``fp32_*_engine``: the same two engines in float32, where the streams
    are held to the fp32 logit tolerance; ``int8_*_engine``: both layouts
    with ``kv_quant`` at 4 layers.
@@ -130,10 +159,11 @@ lines.jsonl):
    local/global pairs; attention softcap 50 at D 256, so its decode takes
    the einsum path as the reference's does). Weights are freed between.
 11. the ``kernels`` summary line (launches of the attention kernels from
-   the smollm, the families' and the fleet phases' serving paths,
-   ``launches_by_path``; the flash row's ``fp32`` entry: the fp32 S=512
-   case and fp32 flash's launches on the fp32 engines, ``families_model``,
-   ``launch_serve`` and ``fleet_chaos``; the streaming
+   the smollm, the families', the fleet phases' and the harness phases'
+   serving paths, ``launches_by_path``; the flash row's ``fp32`` entry:
+   the fp32 S=512 case and fp32 flash's launches on the fp32 engines,
+   ``families_model``, ``launch_serve``, ``fleet_chaos`` and
+   ``scale_soak_long``; the streaming
    matmul's from the rc3e path, the SSD scan's from the SSM path), the
    GPU's name and power limit, and ``{"ok": true, ...}`` last. Any failed
    check exits non-zero.
@@ -163,6 +193,9 @@ PEAK_FLOPS_2XTF32 = 495e12 / 2
 TOL = {torch.float32: dict(atol=2e-5, rtol=2e-4),
        torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
 B, HQ, HKV, D, L, PS = 8, 9, 3, 64, 2048, 16
+# the paged engines of the soak presets (page 4) and of the adversary's
+# reference shape (page 8): 4 slots x 64
+HARNESS_B, HARNESS_L, HARNESS_PAGES = 4, 64, (4, 8)
 SEED = 0
 DEV = "cuda"
 MM_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}   # x sqrt(K) atol
@@ -313,24 +346,24 @@ def decode_inputs(gen, dtype, quant, cur, fill, Lc=L, heads=(HQ, HKV, D)):
     return q, k, v, kpos.contiguous(), cur_t, ks, vs
 
 
-def to_pool(gen, k, v, kpos, ks, vs):
+def to_pool(gen, k, v, kpos, ks, vs, ps=PS):
     """Scatter a dense cache into a shuffled (P, Hkv, ps, D) page pool with
     page 0 left as the null page; returns pool tensors and block tables."""
-    Bc, nb = k.shape[0], k.shape[2] // PS
+    Bc, nb = k.shape[0], k.shape[2] // ps
     P = Bc * nb + 1
     perm = torch.randperm(P - 1, generator=gen, device=DEV) + 1
     bt = perm[:Bc * nb].reshape(Bc, nb).to(torch.int32)
 
     def scatter(x):
-        shp = (P,) + (x.shape[1], PS) + tuple(x.shape[3:]) \
-            if x.dim() >= 3 else (P, PS)
+        shp = (P,) + (x.shape[1], ps) + tuple(x.shape[3:]) \
+            if x.dim() >= 3 else (P, ps)
         pool = torch.zeros(shp, dtype=x.dtype, device=DEV)
         if x.dim() == 2:                     # kpos (B, L)
             pool.fill_(-1)
-            pool[bt.long()] = x.reshape(Bc, nb, PS)
+            pool[bt.long()] = x.reshape(Bc, nb, ps)
         else:                                # (B, Hkv, L, ...)
             pool[bt.long()] = x.reshape(
-                (Bc, x.shape[1], nb, PS) + tuple(x.shape[3:])).movedim(2, 1)
+                (Bc, x.shape[1], nb, ps) + tuple(x.shape[3:])).movedim(2, 1)
         return pool
 
     return (scatter(k), scatter(v), scatter(kpos),
@@ -497,6 +530,44 @@ def kernel_phase(results):
                    **pad_cost(q, kp, vp))
         emit(rec)
         results.setdefault("paged_decode_attention", []).append(rec)
+
+    # the harness phases' paged engines, 4 slots x 64 at smollm's heads:
+    # page 4 (the soak presets' fleets) and page 8 (the adversary's
+    # reference shape); the page size picks the kernel's page shift and
+    # the split plan's unit. One slot idle, as between requests.
+    for ps in HARNESS_PAGES:
+        lens = rng.integers(1, HARNESS_L - 1, size=HARNESS_B)
+        cur_h = [int(x) for x in lens[:-1]] + [-1]
+        fill_h = [min(HARNESS_L, int(x) + 1 + int(rng.integers(0, 8)))
+                  for x in lens]
+        for kind, dtype in (("fp32", torch.float32),
+                            ("bf16", torch.bfloat16)):
+            q, k, v, kpos, cur_t, _, _ = decode_inputs(
+                gen, dtype, False, cur_h, fill_h, HARNESS_L)
+            kp, vp, kpp, _, _, bt = to_pool(gen, k, v, kpos, None, None, ps)
+            got = da.paged_decode_attention_cuda(q, kp, vp, kpp, bt, cur_t)
+            n_split = _lib.last_plan["paged_decode_attention"][0]
+            ref = da.paged_decode_attention_ref(q, kp, vp, kpp, bt, cur_t)
+            torch.cuda.synchronize()
+            tol = TOL[dtype]
+            err = float((got.float() - ref.float()).abs().max())
+            require(torch.allclose(got.float(), ref.float(), **tol),
+                    f"paged_decode_attention ps{ps}/{kind}: max err {err}")
+            nbytes, flops = decode_cost(q, kpos, cur_t, 0, k.element_size(),
+                                        HKV, paged_nb=bt.shape[1])
+            b_ms, b_by = bound(nbytes, flops, dtype)
+            rec = dict(phase="kernel", name="paged_decode_attention",
+                       case=f"ps{ps}/{kind}/B{HARNESS_B}/L{HARNESS_L}",
+                       shape=dict(B=HARNESS_B, Hq=HQ, Hkv=HKV, D=D,
+                                  L=HARNESS_L, ps=ps),
+                       n_split=n_split, max_abs_err=err, tol=tol,
+                       ms=time_ms(lambda: da.paged_decode_attention_cuda(
+                           q, kp, vp, kpp, bt, cur_t)),
+                       plain_ms=time_ms(lambda: da.paged_decode_attention_ref(
+                           q, kp, vp, kpp, bt, cur_t)),
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None)
+            emit(rec)
+            results["paged_decode_attention"].append(rec)
 
     F = torch.nn.functional
     f32, b16 = torch.float32, torch.bfloat16
@@ -1796,6 +1867,445 @@ def fleet_chaos_phase(cfg, params):
     return got
 
 
+# ---------------------------------------------------------------------------
+# The traffic and tenant-isolation harnesses: trace-replay soak, adversary
+# ---------------------------------------------------------------------------
+
+SOAK_BASELINE = ROOT / "benchmarks" / "BENCH_scale_baseline.json"
+ADVERSARY_REFERENCE = ROOT / "tests" / "data" \
+    / "torch_adversary_reference.json"
+# scale_soak_long's event-loop run: context tokens accounted a prefill
+# event (the reference's default of 4 would keep a 245-token median prompt
+# prefilling for ~60 engine events)
+LONG_PREFILL_CHUNK = 256
+# scale_soak_long's rounds of arrivals, cut from 32 to keep the three
+# harness phases near 180 s (the lengths are not cut)
+LONG_HORIZON = 16
+
+
+def long_trace():
+    """scale_soak_long: the soak harness at the request sizes a chat service
+    sees (median prompt ~245 tokens, capped at 1024; median output ~25,
+    capped at 48) on 2 one-device nodes of 8 slots x 2048."""
+    from repro_torch.runtime.loadgen import FleetSpec, TraceSpec
+    trace = TraceSpec(
+        name="long", horizon=LONG_HORIZON, base_rate=0.5,
+        burst_rate_mult=3.0, burst_on_mean=4.0, burst_off_mean=8.0,
+        diurnal_period=16, diurnal_amp=0.5, tenants=4, zipf_s=1.1,
+        prompt_len_mu=5.5, prompt_len_sigma=0.8, prompt_len_max=1024,
+        out_tokens_mu=3.2, out_tokens_sigma=0.5, out_tokens_max=48)
+    fleet = FleetSpec(name="long2", n_nodes=2, devices_per_node=1,
+                      n_slots=8, max_len=2048, page_size=16,
+                      device_draws=(1.0, 2.0))
+    return trace, fleet
+
+
+def _sorted_json(obj):
+    return json.dumps(obj, sort_keys=True)
+
+
+@contextlib.contextmanager
+def harness_watch(w, top8=None):
+    """Observe ``replay_trace`` and ``run_scenario`` from outside, through
+    the classes they drive: engine decode and prefill calls
+    (``engine_calls``), configures of a decode program, the requests
+    submitted, every fleet round's wall ms and ``verify_invariants``
+    after it; and, when a fleet closes, the requests the drain bound left
+    unfinished cancelled through ``GatewayFleet.cancel``, then every pool
+    verified and empty, and every completed request's ``serve`` event in
+    ``hv.log`` (against a ``vs-`` slice) collected."""
+    from repro_torch.core.reconfig import Reconfigurator
+    from repro_torch.runtime.events import EventLoop
+    from repro_torch.runtime.fleet import GatewayFleet
+    w.update(calls={"decode": 0, "prefill": 0}, configures=0, reqs=[],
+             round_ms=[], serve_events=[], cancelled_at_close=0)
+    configure, submit = Reconfigurator.configure, GatewayFleet.submit
+    step, ticks, close = GatewayFleet.step, EventLoop.run_ticks, \
+        GatewayFleet.close
+
+    def counted_configure(self, *a, **kw):
+        w["configures"] += 1
+        return configure(self, *a, **kw)
+
+    def watched_submit(self, *a, **kw):
+        req = submit(self, *a, **kw)
+        w["reqs"].append(req)
+        return req
+
+    def round_of(run, fleet_of):
+        def watched(self, *a, **kw):
+            t0 = time.monotonic()
+            out = run(self, *a, **kw)
+            w["round_ms"].append((time.monotonic() - t0) * 1e3)
+            fleet_of(self).verify_invariants()
+            return out
+        return watched
+
+    def checked_close(self):
+        for req in w["reqs"]:
+            if not req.done.is_set():
+                require(self.cancel(req), f"request {req.request_id}: "
+                        "cancel of an unfinished request refused")
+                w["cancelled_at_close"] += 1
+        for eng in self._engines.values():
+            eng.pool.verify()
+            require(eng.pool.used_pages == 0,
+                    f"{eng.pool.used_pages} pages still held at close")
+        w["serve_events"] += [e for e in self.hv.log
+                              if e["kind"] == "serve"]
+        return close(self)
+
+    Reconfigurator.configure = counted_configure
+    GatewayFleet.submit = watched_submit
+    GatewayFleet.step = round_of(step, lambda f: f)
+    EventLoop.run_ticks = round_of(ticks, lambda ev: ev.fleet)
+    GatewayFleet.close = checked_close
+    try:
+        with engine_calls(w["calls"], top8):
+            yield w
+    finally:
+        Reconfigurator.configure, GatewayFleet.submit = configure, submit
+        GatewayFleet.step, EventLoop.run_ticks = step, ticks
+        GatewayFleet.close = close
+
+
+def harness_gates(phase, cfg, w, got, launch=True):
+    """The gates every soak run shares: the launches the run needs (one
+    paged decode launch a layer for every engine decode call and every
+    configure's warm-up step, one flash launch a layer for every prefill
+    call), and one ``serve`` event in ``hv.log`` against a ``vs-`` slice
+    for every request that completed. Returns the launches needed."""
+    done = {r.request_id for r in w["reqs"] if r.done.is_set()
+            and r.finish_reason != "cancelled"}
+    served = [e for e in w["serve_events"] if e["request"] in done]
+    require(len(served) == len(done)
+            and {e["request"] for e in served} == done
+            and all(e["slice"].startswith("vs-") for e in served),
+            f"{phase}: {len(served)} serve events for {len(done)} "
+            "completed requests")
+    if not launch:
+        require(sum(got.values()) == 0, f"{phase}: the plain path launched "
+                f"{got}")
+        return {}
+    return program_launches(phase, cfg, w["calls"], w["configures"], True,
+                            got)
+
+
+def soak_run(phase, cfg, model, params, trace, fleet, seed, top8=None,
+             **kw):
+    """One ``replay_trace`` on the card under ``harness_watch``; the
+    launches gated (none on the plain path). Returns (record, watch,
+    metrics)."""
+    from repro_torch.kernels import _lib
+    from repro_torch.runtime.loadgen import replay_trace
+    w = {}
+    before = dict(_lib.launches)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with harness_watch(w, top8):
+        rec = replay_trace(trace, fleet, seed, model, params, device=DEV,
+                           **kw)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    got = {k: _lib.launches[k] - before[k] for k in _lib.launches}
+    need = harness_gates(phase, cfg, w, got,
+                         launch=cfg.geometry.kernel_force != "ref")
+    m = rec["metrics"]
+    require(m["completed"] + m["cancelled"] + m["incomplete"]
+            + m["rejected"] == m["arrivals"],
+            f"{phase}: arrivals not accounted for: {m}")
+    require(w["cancelled_at_close"] == m["incomplete"],
+            f"{phase}: {w['cancelled_at_close']} unfinished requests at "
+            f"close, the record says {m['incomplete']}")
+    done = [r for r in w["reqs"] if r.done.is_set()
+            and r.finish_reason == "length"]
+    ttft = [(r.first_token_at - r.submitted_at) * 1e3 for r in done]
+    lat = [(r.finished_at - r.submitted_at) * 1e3 for r in done]
+    metrics = dict(
+        wall_s=wall, tokens_out=m["tokens_out"], rounds=m["rounds"],
+        tokens_per_s=m["tokens_out"] / wall,
+        goodput_tokens_per_round=m["goodput_tokens_per_round"],
+        round_ms_p50=float(np.percentile(w["round_ms"], 50)),
+        round_ms_p95=float(np.percentile(w["round_ms"], 95)),
+        ttft_ms_p50=float(np.percentile(ttft, 50)) if ttft else None,
+        ttft_ms_p95=float(np.percentile(ttft, 95)) if ttft else None,
+        latency_ms_p50=float(np.percentile(lat, 50)) if lat else None,
+        latency_ms_p95=float(np.percentile(lat, 95)) if lat else None,
+        peak_active_devices=m["peak_active_devices"],
+        engine_calls=dict(w["calls"]), configures=w["configures"],
+        launches=got, launches_needed=need)
+    return rec, w, metrics
+
+
+def scale_soak_presets_phase(cfg, params):
+    """smollm-135m at full width and depth (bf16) through the port's
+    ``replay_trace`` on the card: ``smoke_cell()``, the chaos cells of
+    seed 0 of both preset traces on ``fleet2`` (lockstep), each record
+    equal to its record in the committed baseline on the baseline's
+    fields; then steady / fleet2 / seed 0 with chaos through the event
+    loop, twice, to identical records. Returns the launches."""
+    from repro_torch.kernels import _lib
+    from repro_torch.models import Model
+    from repro_torch.runtime.loadgen import (preset_fleets, preset_traces,
+                                             smoke_cell)
+    from soak_baseline import on_baseline_fields
+    t_phase = time.monotonic()
+    committed = {_sorted_json(r["cell"]): r
+                 for r in json.loads(SOAK_BASELINE.read_text())["records"]}
+    model = Model(cfg, device=DEV)
+    fleet2 = preset_fleets()[0]
+    cells = [smoke_cell() + (False,)] + [(t, fleet2, 0, True)
+                                         for t in preset_traces()]
+    _lib.launches.reset()
+    for trace, fleet, seed, chaos in cells:
+        rec, w, metrics = soak_run("scale_soak_presets", cfg, model, params,
+                                   trace, fleet, seed, chaos=chaos)
+        base = committed[_sorted_json(rec["cell"])]
+        equal = (_sorted_json(on_baseline_fields(rec, base))
+                 == _sorted_json(base))
+        require(equal, f"scale_soak_presets {rec['cell']}: the record "
+                f"differs from the committed baseline: {rec}")
+        require(not chaos or rec["faults"],
+                f"scale_soak_presets {rec['cell']}: no fault injected")
+        emit(dict(phase="scale_soak_presets", arch=cfg.name,
+                  layers=cfg.n_layers, dtype=cfg.dtype, cell=rec["cell"],
+                  equals_baseline=equal, faults=rec["faults"],
+                  per_device_steps=rec["metrics"]["per_device_steps"],
+                  **metrics))
+    trace, fleet = preset_traces()[0], fleet2
+    recs = []
+    for _ in range(2):
+        rec, w, metrics = soak_run("scale_soak_presets", cfg, model, params,
+                                   trace, fleet, 0, chaos=True, loop="event")
+        require(rec["faults"], "scale_soak_presets event: no fault")
+        recs.append(rec)
+        emit(dict(phase="scale_soak_presets", arch=cfg.name,
+                  layers=cfg.n_layers, dtype=cfg.dtype, cell=rec["cell"],
+                  record_metrics=rec["metrics"], faults=rec["faults"],
+                  **metrics))
+    require(_sorted_json(recs[0]) == _sorted_json(recs[1]),
+            "scale_soak_presets: two event-loop replays differ")
+    got = dict(_lib.launches)
+    emit(dict(phase="scale_soak_presets", event_runs_identical=True,
+              launches=got, phase_wall_s=time.monotonic() - t_phase))
+    return got
+
+
+def soak_profile(cfg, model, params, trace, fleet, **kw):
+    """One ``soak_run`` of scale_soak_long under the profiler, tracing the
+    device only: its busy time, its idle share over the run's rounds (1 -
+    busy / the sum of the rounds' wall ms; the busy time also holds the
+    fleet set-up's warm-up steps, outside the rounds, so the share is a
+    lower bound) and its five largest device kernels. The trace holds
+    ~10^5-10^6 kernels, so their times are summed from the raw events
+    (``key_averages`` takes minutes over that many). Returns soak_run's
+    (record, watch, metrics) and the profile."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA if DEV == "cuda"
+                             else ProfilerActivity.CPU]) as prof:
+        rec, w, metrics = soak_run("scale_soak_long", cfg, model, params,
+                                   trace, fleet, 0, **kw)
+    t0 = time.monotonic()
+    by_name, n_ops = {}, 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            by_name[e.name()] = by_name.get(e.name(), 0) + e.duration_ns()
+            n_ops += 1
+    busy = sum(by_name.values()) / 1e9
+    require(busy > 0 or DEV != "cuda",
+            "scale_soak_long: the profiler saw no device time")
+    rounds_s = sum(w["round_ms"]) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return rec, w, metrics, dict(
+        rounds_wall_s=rounds_s, device_busy_s=busy,
+        device_idle_share=1.0 - busy / rounds_s if busy else None,
+        device_ops=n_ops, rounds=rec["metrics"]["rounds"],
+        top_kernels_ms={k[:80]: v / 1e6 for k, v in top},
+        events_summed_s=time.monotonic() - t0)
+
+
+def scale_soak_long_phase(cfg, params):
+    """The serving shape (``long_trace``) at full width: bf16 lockstep with
+    chaos (a seeded partition and device kill) under the profiler, which
+    gives the fleet's device idle share over its rounds; bf16 through the
+    event loop with chaos; then fp32 fault-free on the kernel path and on
+    the plain path. Gates: arrivals accounted for, faults injected,
+    invariants after every round, pools verified and empty at close (after
+    the requests the drain bound left unfinished are cancelled), every
+    completed request in ``hv.log`` against a ``vs-`` slice, the launches,
+    the fp32 kernel-path token logs against the plain path's at the fp32
+    tolerance (near-ties counted), the kernel and plain fp32 records
+    equal. Returns (bf16 launches, fp32 launches)."""
+    from repro_torch.kernels import _lib
+    from repro_torch.models import Model
+    t_phase = time.monotonic()
+    trace, fleet = long_trace()
+    model = Model(cfg, device=DEV)
+    _lib.launches.reset()
+    for loop in ("lockstep", "event"):
+        kw = dict(chaos=True, loop=loop, prefill_chunk=LONG_PREFILL_CHUNK)
+        if loop == "lockstep":
+            rec, w, metrics, prof = soak_profile(cfg, model, params, trace,
+                                                 fleet, **kw)
+        else:
+            rec, w, metrics = soak_run("scale_soak_long", cfg, model,
+                                       params, trace, fleet, 0, **kw)
+            prof = None
+        require(rec["faults"], f"scale_soak_long {loop}: no fault")
+        emit(dict(phase="scale_soak_long", arch=cfg.name,
+                  layers=cfg.n_layers, dtype=cfg.dtype, cell=rec["cell"],
+                  prefill_chunk=LONG_PREFILL_CHUNK, faults=rec["faults"],
+                  record_metrics=rec["metrics"],
+                  cancelled_at_close=w["cancelled_at_close"], profile=prof,
+                  **metrics))
+    bf16 = dict(_lib.launches)
+    cfg32 = cfg.replace(dtype="float32")
+    _lib.launches.reset()
+    kern, kw_, km = soak_run("scale_soak_long", cfg32, Model(cfg32,
+                                                            device=DEV),
+                             params, trace, fleet, 0, chaos=False)
+    fp32 = dict(_lib.launches)
+    top8 = {}
+    plain, pw, pm = soak_run("scale_soak_long", plain_cfg(cfg32),
+                             Model(plain_cfg(cfg32), device=DEV), params,
+                             trace, fleet, 0, top8=top8, chaos=False)
+    require(_sorted_json(kern) == _sorted_json(plain),
+            "scale_soak_long: the fp32 kernel and plain records differ")
+    # compare_streams keys top8 by a stream's index: the request id
+    rids = [r.request_id for r in kw_["reqs"]]
+    require(rids == list(range(len(rids)))
+            == [r.request_id for r in pw["reqs"]],
+            "scale_soak_long: the fp32 runs' request ids differ")
+    streams = compare_streams([r.out_tokens for r in kw_["reqs"]],
+                              [r.out_tokens for r in pw["reqs"]], top8,
+                              TOL[torch.float32])
+    emit(dict(phase="scale_soak_long", arch=cfg.name, layers=cfg.n_layers,
+              dtype="float32", cell=kern["cell"],
+              record_metrics=kern["metrics"], logit_tol=TOL[torch.float32],
+              **streams, kernel_path=km,
+              plain_path=dict(wall_s=pm["wall_s"],
+                              tokens_per_s=pm["tokens_per_s"],
+                              round_ms_p50=pm["round_ms_p50"]),
+              phase_wall_s=time.monotonic() - t_phase))
+    return bf16, fp32
+
+
+# the reference suite's bounds (tests/test_adversary.py)
+ADV_FAIRNESS_FACTOR, ADV_SLACK_STEPS, ADV_PATIENCE_STEPS = 2.0, 6, 40
+# the serving shape the adversary runs at once more
+ADV_SERVING = dict(n_slots=8, max_len=2048, page_size=16,
+                   victim_prompt_len=256)
+
+
+def adversary_run(cfg, model, params, behavior, seed, **kw):
+    """One ``run_scenario`` on the card (it checks pool conservation and
+    cross-tenant page disjointness after every step, and reads the free
+    pages back from the card at teardown); the launches gated, the victim
+    completing everything it submitted, a nonzero number of free pages
+    read back. Returns (report, metrics)."""
+    from repro_torch.kernels import _lib
+    from repro_torch.runtime.adversary import HOSTILE, VICTIM, run_scenario
+    w = {}
+    before = dict(_lib.launches)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    with harness_watch(w):
+        report = run_scenario(model, params, behavior=behavior, seed=seed,
+                              device=DEV, **kw)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    got = {k: _lib.launches[k] - before[k] for k in _lib.launches}
+    need = program_launches("adversary", cfg, w["calls"], w["configures"],
+                            True, got)
+    require(report.free_pages_checked > 0,
+            f"adversary {report.behavior}: no free page read back")
+    require(behavior is None or report.submitted.get(HOSTILE, 0) > 0,
+            f"adversary {report.behavior}: every hostile submit was shed, "
+            "so the attack never landed")
+    require(report.completed.get(VICTIM) == report.submitted.get(VICTIM),
+            f"adversary {report.behavior}: the victim lost requests")
+    return report, dict(wall_s=wall, steps=report.steps,
+                        step_ms=wall * 1e3 / report.steps,
+                        engine_calls=dict(w["calls"]),
+                        configures=w["configures"], launches=got,
+                        launches_needed=need)
+
+
+def adversary_phase(cfg, params):
+    """The port's ``run_scenario`` at full width (bf16) on the card at the
+    reference's parameters (4 slots, max_len 64, page 8, 48 rounds): the
+    solo baseline and the four behaviors at seed 0, each report equal to
+    the JAX package's in ``tests/data/torch_adversary_reference.json``,
+    the victim within the reference suite's patience and fairness bounds.
+    (A report depends on the vocabulary size, not on width or dtype: the
+    file holds the reports at the full model's vocabulary.)
+    Then the solo run and ``CancelChurn`` at the serving shape
+    (``ADV_SERVING``), with the victim's p95 against the solo run's.
+    ``PageSquat`` is not run there: its requests ask for max_len - 24 =
+    2024 new tokens, which the baas quota (512) sheds at admission, and a
+    quota that admits them makes the drain ~2000 decode steps a request.
+    Returns the launches."""
+    from repro_torch.kernels import _lib
+    from repro_torch.models import Model
+    from repro_torch.runtime import adversary
+    t_phase = time.monotonic()
+    model = Model(cfg, device=DEV)
+    ref = [e for e in json.loads(ADVERSARY_REFERENCE.read_text())
+           ["scenarios"] if e["seed"] == 0
+           and e["vocab_size"] == cfg.vocab_size]
+    require(len(ref) == 5, f"adversary: {len(ref)} reference reports at "
+            f"vocabulary {cfg.vocab_size}, not the solo run and four")
+    _lib.launches.reset()
+    solo = None
+    for entry in ref:
+        behavior = entry["behavior"] and getattr(
+            adversary, entry["behavior"])(**entry["kwargs"])
+        report, metrics = adversary_run(cfg, model, params, behavior, 0)
+        got = dataclasses.asdict(report)
+        equal = _sorted_json(got) == _sorted_json(entry["report"])
+        require(equal, f"adversary {report.behavior}: the report differs "
+                f"from the JAX package's: {got}")
+        victim = adversary.VICTIM
+        solo = solo or report
+        bound = ADV_FAIRNESS_FACTOR * solo.p95(victim) + ADV_SLACK_STEPS
+        require(report.max_latency(victim) <= ADV_PATIENCE_STEPS
+                and report.p95(victim) <= bound,
+                f"adversary {report.behavior}: victim p95 "
+                f"{report.p95(victim)} (bound {bound}), max "
+                f"{report.max_latency(victim)}")
+        emit(dict(phase="adversary", arch=cfg.name, layers=cfg.n_layers,
+                  dtype=cfg.dtype, shape="reference", behavior=
+                  report.behavior, equals_reference=equal,
+                  victim_p95_steps=report.p95(victim),
+                  solo_p95_steps=solo.p95(victim), bound_steps=bound,
+                  free_pages_checked=report.free_pages_checked,
+                  pages_scrubbed=report.pages_scrubbed, shed=report.shed,
+                  **metrics))
+    solo = None
+    for behavior in (None, adversary.CancelChurn()):
+        report, metrics = adversary_run(cfg, model, params, behavior, 0,
+                                        **ADV_SERVING)
+        solo = solo or report
+        victim = adversary.VICTIM
+        emit(dict(phase="adversary", arch=cfg.name, layers=cfg.n_layers,
+                  dtype=cfg.dtype, shape="serving", **ADV_SERVING,
+                  behavior=report.behavior,
+                  victim_p95_steps=report.p95(victim),
+                  solo_p95_steps=solo.p95(victim),
+                  victim_max_steps=report.max_latency(victim),
+                  within_reference_bound=report.p95(victim)
+                  <= ADV_FAIRNESS_FACTOR * solo.p95(victim)
+                  + ADV_SLACK_STEPS,
+                  free_pages_checked=report.free_pages_checked,
+                  pages_scrubbed=report.pages_scrubbed,
+                  submitted=report.submitted, shed=report.shed,
+                  cancelled=report.cancelled, **metrics))
+    got = dict(_lib.launches)
+    emit(dict(phase="adversary", launches=got,
+              phase_wall_s=time.monotonic() - t_phase))
+    return got
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1805,6 +2315,7 @@ def main():
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(ROOT / "tests"))     # soak_baseline
     from repro_torch.configs import get_config
     from repro_torch.kernels import _lib
     from repro_torch.models import Model
@@ -1887,6 +2398,19 @@ def main():
     fp32_path["launch_serve"] = launch_path["flash_attention"]
     fp32_path["fleet_chaos"] = chaos_path["flash_attention"]
 
+    # the traffic and tenant-isolation harnesses through the port's fleet
+    # and gateway (paged: dense decode has no launch there)
+    harness_path = {"scale_soak_presets": scale_soak_presets_phase(cfg,
+                                                                   params)}
+    harness_path["scale_soak_long"], long32 = scale_soak_long_phase(cfg,
+                                                                    params)
+    harness_path["adversary"] = adversary_phase(cfg, params)
+    for phase, got in harness_path.items():
+        require(all(got[k] > 0 for k in ("paged_decode_attention",
+                                         "flash_attention")),
+                f"{phase}: a kernel of its path never launched: {got}")
+    fp32_path["scale_soak_long"] = long32["flash_attention"]
+
     qcfg = cfg.replace(kv_quant=True, n_layers=4)
     gen = torch.Generator(device=DEV).manual_seed(SEED + 2)
     qparams = Model(qcfg, device=DEV).init(gen)
@@ -1954,6 +2478,7 @@ def main():
     fleet_main = dict(fleet_path,
                       flash_attention=gateway_path["flash_attention"])
     path_launches = {k: serving_path[k] + families_path[k] + fleet_main[k]
+                     + sum(got[k] for got in harness_path.values())
                      for k in SERVING_KERNELS}
     path_launches["stream_matmul"] = (rc3e_path["stream_matmul"]
                                       + rc3e_path["stream_matmul_batched"])
@@ -1988,7 +2513,8 @@ def main():
             row["launches_by_path"] = {
                 "smollm_serving": serving_path[name],
                 "families_serving": families_path[name],
-                "fleet_serving": fleet_main[name]}
+                "fleet_serving": fleet_main[name],
+                **{p: got[name] for p, got in harness_path.items()}}
         if name == "flash_attention":      # the fp32 (3xTF32) kernel
             f = next(r for r in recs if r["case"] == "fp32/S512")
             row["fp32"] = dict(
@@ -2013,6 +2539,7 @@ def main():
 if __name__ == "__main__":
     try:
         sys.exit(main())
-    except SmokeFailure as e:
-        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+    except (SmokeFailure, AssertionError) as e:
+        print(f"chip_smoke: FAILED: {type(e).__name__}: {e}",
+              file=sys.stderr)
         sys.exit(1)

@@ -136,6 +136,26 @@ def test_decode_kernels_on_card(cuda, quant, window, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("ps", [4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_decode_at_small_pages(cuda, ps, dtype):
+    """The soak presets' (page 4) and the adversary's (page 8) paged
+    engines, 4 slots x 64, one idle row: the page size picks the kernel's
+    page shift and the split plan's unit."""
+    B, Hq, Hkv, D, L = 4, 9, 3, 64, 64
+    q, k, v, kpos, cur = _decode_inputs(B, Hq, Hkv, L, D, [40, 7, -1, 62],
+                                        fill=1, seed=5)
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    kp, vp, kpp, bt, _ = _to_pool(k, v, kpos, ps, seed=6)
+    dev = [t.to(cuda) for t in (q, kp, vp, kpp, bt, cur)]
+    got = tda.paged_decode_attention_cuda(*dev)
+    ref = tda.paged_decode_attention_ref(*dev)
+    torch.testing.assert_close(got.float(), ref.float(),
+                               **(TOL if dtype == torch.float32
+                                  else TOL_BF16))
+
+
+@pytest.mark.cuda
 def test_decode_kernel_reads_strided_cache(cuda):
     """The serving layout: (B, L, Hkv, D) cache rows passed as a transposed
     (B, Hkv, L, D) view, no copy."""

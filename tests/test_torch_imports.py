@@ -44,7 +44,8 @@ def test_port_imports_without_jax_or_reference():
     walked = set(out.stdout.split())
     assert len(walked) >= 55                     # every module was walked
     assert {f"repro_torch.runtime.{m}" for m in
-            ("faults", "events", "gateway", "fleet")} | {
+            ("faults", "events", "gateway", "fleet", "loadgen",
+             "adversary")} | {
         "repro_torch.launch", "repro_torch.launch.serve"} <= walked
 
 
