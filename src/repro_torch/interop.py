@@ -5,9 +5,10 @@ already converted to a numpy array (``jax.tree.map(np.asarray, params)`` on
 the JAX side, so this module needs no JAX) and returns the port's parameter
 tree: the same nesting of dicts and tuples, leaves as tensors in the
 config's ``param_dtype`` on ``device``, except an SSM block's ``A_log``,
-``dt_bias`` and ``D``, which stay float32 whatever ``param_dtype`` is (as
-the reference's ``init_ssm`` makes them). Caches are not carried across;
-each engine builds its own.
+``dt_bias`` and ``D`` and an MoE layer's ``router``, which stay float32
+whatever ``param_dtype`` is (as the reference's ``init_ssm`` and
+``init_moe`` make them). Caches are not carried across; each engine builds
+its own.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from repro_torch.configs.base import ModelConfig
 
 
 SSM_FP32_LEAVES = ("A_log", "dt_bias", "D")
+MOE_FP32_LEAVES = ("router",)
 
 
 def params_from_numpy(tree, cfg: ModelConfig, device="cpu"):
@@ -31,7 +33,8 @@ def params_from_numpy(tree, cfg: ModelConfig, device="cpu"):
         arr = np.ascontiguousarray(node)
         if arr.dtype.kind != "f":
             raise TypeError(f"parameter leaf of dtype {arr.dtype}")
-        fp32 = path[-2:-1] == ("ssm",) and path[-1] in SSM_FP32_LEAVES
+        fp32 = (path[-2:-1] == ("ssm",) and path[-1] in SSM_FP32_LEAVES) \
+            or (path[-2:-1] == ("moe",) and path[-1] in MOE_FP32_LEAVES)
         return torch.from_numpy(arr.astype(np.float32)).to(
             device=device, dtype=torch.float32 if fp32 else dtype)
 

@@ -1,4 +1,4 @@
-"""Token embeddings."""
+"""Token embeddings and sinusoidal positions."""
 from __future__ import annotations
 
 import torch
@@ -17,3 +17,16 @@ def embed(p, tokens, scale_by_dim: bool = False):
         x = x * torch.tensor(x.shape[-1] ** 0.5, dtype=x.dtype)
     return x
 
+
+
+def sinusoidal_positions(seq: int, d_model: int, dtype=torch.float32,
+                         device=None):
+    """(seq, d_model) sin | cos table, computed in fp32 (whisper's stub
+    frontends use it in place of learned positions)."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d_model, 2, dtype=torch.float32,
+                       device=device)[None, :]
+    ang = pos / torch.pow(torch.tensor(10000.0, device=device),
+                          dim / d_model)
+    pe = torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+    return pe[:, :d_model].to(dtype)

@@ -1,23 +1,28 @@
-"""Decoder-only LM for the dense attention families (smollm, phi3,
-gemma2/3) and the pure-SSM family (mamba2): plain functions over a
-parameter dict laid out as the reference's pytree.
+"""Decoder-only LM for every decoder-only family (dense, MoE, SSM,
+hybrid, VLM): plain functions over a parameter dict laid out as the
+reference's pytree.
 
   init_lm(cfg, generator, device)                 -> params
   lm_logits(cfg, params, hidden)                  -> logits
-  lm_prefill(cfg, params, tokens, max_len)        -> (hidden, caches)
+  lm_prefill(cfg, params, tokens, max_len, patches=None)
+                                                  -> (hidden, caches)
   lm_decode(cfg, params, caches, tok, pos)        -> (logits, caches)
   lm_decode_paged(cfg, params, caches, tok, pos, block_tables)
+
+VLM (llava): ``patches`` (B, P, d_model), precomputed patch embeddings (the
+vision tower is a stub, as in the reference), are prepended to the token
+embeddings; positions then run over patches and tokens together.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import MIXER_SHARED_ATTN, ModelConfig
 from repro_torch.layers.embeddings import embed, init_embedding
 from repro_torch.layers.norms import rms_norm, softcap
 from repro_torch.models.stages import (apply_stages, init_cache,
-                                       init_paged_cache, init_stage,
-                                       plan_stages)
+                                       init_paged_cache, init_shared_block,
+                                       init_stage, plan_stages)
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -32,23 +37,29 @@ def init_lm(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
     """Seeded weights drawn from ``generator`` (the reference's init
     distributions; torch's stream, so not the reference's numbers)."""
     pdt = _param_dtype(cfg)
+    stages = plan_stages(cfg)
     params = {
         "embed": init_embedding(generator, cfg.vocab_size, cfg.d_model, pdt,
                                 device),
         "final_norm": torch.zeros((cfg.d_model,), dtype=pdt, device=device),
         "stages": tuple(init_stage(cfg, st, generator, pdt, device)
-                        for st in plan_stages(cfg)),
+                        for st in stages),
     }
     if not cfg.tie_embeddings:
         head = torch.randn((cfg.d_model, cfg.vocab_size), generator=generator,
                            device=generator.device, dtype=pdt)
         params["head"] = (head * cfg.d_model ** -0.5).to(device)
+    if any(s.mixer == MIXER_SHARED_ATTN for st in stages for s in st.sites):
+        params["shared"] = init_shared_block(cfg, generator, pdt, device)
     return params
 
 
-def _embed_tokens(cfg, params, tokens):
+def _embed_tokens(cfg, params, tokens, patches=None):
     x = embed(params["embed"], tokens.long(), scale_by_dim=cfg.embed_scale)
-    return x.to(_dtype(cfg))
+    x = x.to(_dtype(cfg))
+    if patches is not None:
+        x = torch.cat([patches.to(x.dtype), x], dim=1)
+    return x
 
 
 def _positions(x):
@@ -63,13 +74,14 @@ def lm_logits(cfg: ModelConfig, params, h):
     return softcap(h @ w.to(h.dtype), cfg.final_softcap)
 
 
-def lm_prefill(cfg: ModelConfig, params, tokens, max_len: int,
+def lm_prefill(cfg: ModelConfig, params, tokens, max_len: int, patches=None,
                clamp_window: bool = True):
-    """Run the prompt, building decode caches sized ``max_len``.
+    """Run the prompt (``patches`` first, where given), building decode
+    caches sized ``max_len``.
 
     ``clamp_window=False`` builds full-length (non-ring) caches even for
     windowed sites — the layout the paged page-splice expects."""
-    x = _embed_tokens(cfg, params, tokens)
+    x = _embed_tokens(cfg, params, tokens, patches)
     caches = init_cache(cfg, x.shape[0], max_len, _dtype(cfg), x.device,
                         clamp_window=clamp_window)
     x = apply_stages(cfg, params, x, _positions(x), mode="prefill",

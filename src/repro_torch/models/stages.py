@@ -1,17 +1,25 @@
-"""Stage planner and stage execution for the dense attention families and
-the pure-SSM family (mamba2).
+"""Stage planner and stage execution for every decoder-only family: the
+dense attention families, MoE (qwen3-moe; deepseek with MLA attention and a
+dense first layer), the pure-SSM family (mamba2), the hybrid (zamba2: a
+Mamba2 backbone with one shared attention+MLP block at every
+``shared_attn`` site) and the VLM's language model (llava).
 
 ``plan_stages`` is the reference's planner, copied: a *site* is one layer's
 static description (mixer kind, mlp kind, rope theta, window); consecutive
 identical sites form a "run" stage (weights stacked over the run) and a
-repeating multi-site pattern (gemma2/3 local/global alternation) forms a
-"pattern" stage (each period position stacked over the repeats). The
-reference scans over the stacked weights with ``lax.scan``; here a Python
-loop indexes them layer by layer. Parameters and caches keep the
-reference's stacked layout, so the JAX parameter pytree maps onto them
-one to one (``repro_torch.interop``). Caches are updated in place: layer
-``i`` works on views ``leaf[i]`` of the stacked cache tensors (an SSM
-site's final state and conv tail are written into its view at prefill).
+repeating multi-site pattern (gemma2/3 local/global alternation, zamba2's
+[5 x ssm, shared_attn]) forms a "pattern" stage (each period position
+stacked over the repeats). The reference scans over the stacked weights
+with ``lax.scan``; here a Python loop indexes them layer by layer.
+Parameters and caches keep the reference's stacked layout, so the JAX
+parameter pytree maps onto them one to one (``repro_torch.interop``). A
+``shared_attn`` site holds no weights of its own (``{}``): they live in
+``params["shared"]``. Caches are updated in place: layer ``i`` works on
+views ``leaf[i]`` of the stacked cache tensors (an SSM site's final state
+and conv tail are written into its view at prefill).
+
+This is the serving path: the MoE load-balance aux loss, a training term,
+is not computed.
 """
 from __future__ import annotations
 
@@ -26,7 +34,10 @@ from repro_torch.layers.attention import (AttnOpts, attn_decode,
                                           attn_decode_paged, attn_forward,
                                           fill_kv_cache, init_attention,
                                           init_kv_cache, init_paged_kv_pool)
+from repro_torch.layers.mla import (MLAOpts, fill_mla_cache, init_mla,
+                                    init_mla_cache, mla_decode, mla_forward)
 from repro_torch.layers.mlp import init_mlp, mlp_forward
+from repro_torch.layers.moe import MoEOpts, init_moe, moe_forward
 from repro_torch.layers.norms import rms_norm
 from repro_torch.layers.ssm import (SSMOpts, fill_ssm_cache, init_ssm,
                                     init_ssm_cache, ssm_decode, ssm_forward)
@@ -116,9 +127,18 @@ def attn_opts(cfg: ModelConfig, site: LayerSite) -> AttnOpts:
         kernel_force=cfg.geometry.kernel_force)
 
 
+def mla_opts(cfg: ModelConfig) -> MLAOpts:
+    return MLAOpts(n_heads=cfg.n_heads, cfg=cfg.mla,
+                   rope_theta=cfg.rope_theta)
+
+
 def ssm_opts(cfg: ModelConfig) -> SSMOpts:
     return SSMOpts(d_model=cfg.d_model, cfg=cfg.ssm,
                    kernel_force=cfg.geometry.kernel_force)
+
+
+def moe_opts(cfg: ModelConfig) -> MoEOpts:
+    return MoEOpts(cfg=cfg.moe, act=cfg.act, norm_topk=cfg.moe.norm_topk)
 
 
 # ---------------------------------------------------------------------------
@@ -130,14 +150,32 @@ def _init_site(cfg: ModelConfig, site: LayerSite, gen, dtype, device):
     if site.mixer == MIXER_SSM:
         return {"ssm": init_ssm(gen, ssm_opts(cfg), dtype, device),
                 "norm1": z()}
+    if site.mixer == MIXER_SHARED_ATTN:
+        return {}  # weights live in params["shared"]
     p = {"norm1": z(), "norm2": z()}
     if cfg.post_norm:
         p["norm1_post"] = z()
         p["norm2_post"] = z()
-    p["attn"] = init_attention(gen, cfg.d_model, attn_opts(cfg, site), dtype,
-                               device)
-    p["mlp"] = init_mlp(gen, cfg.d_model, site.d_ff, dtype, device)
+    if cfg.mla is not None:
+        p["attn"] = init_mla(gen, cfg.d_model, mla_opts(cfg), dtype, device)
+    else:
+        p["attn"] = init_attention(gen, cfg.d_model, attn_opts(cfg, site),
+                                   dtype, device)
+    if site.mlp == "moe":
+        p["moe"] = init_moe(gen, cfg.d_model, moe_opts(cfg), dtype, device)
+    else:
+        p["mlp"] = init_mlp(gen, cfg.d_model, site.d_ff, dtype, device)
     return p
+
+
+def init_shared_block(cfg: ModelConfig, gen, dtype, device):
+    """Zamba2's shared attention+mlp block (one copy)."""
+    site = LayerSite(MIXER_SHARED_ATTN, "dense", cfg.d_ff, cfg.rope_theta)
+    z = lambda: torch.zeros((cfg.d_model,), dtype=dtype, device=device)
+    return {"norm1": z(), "norm2": z(),
+            "attn": init_attention(gen, cfg.d_model, attn_opts(cfg, site),
+                                   dtype, device),
+            "mlp": init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device)}
 
 
 def _stack(trees):
@@ -187,14 +225,16 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device,
     """Empty cache tree mirroring the stage structure. ``clamp_window=False``
     sizes windowed sites at ``max_len`` too (no ring). An SSM site's cache
     is its (B, H, P, N) fp32 state and (B, d_conv-1, C) conv buffer,
-    whatever ``max_len``."""
+    whatever ``max_len``; an MLA site's, its compressed latents
+    (``init_mla_cache``)."""
     def one(site):
         if site.mixer == MIXER_SSM:
             return init_ssm_cache(batch, ssm_opts(cfg), dtype, device)
-        return init_kv_cache(
-            batch, _site_cache_len(site, max_len) if clamp_window
-            else max_len, attn_opts(cfg, site), dtype, quant=cfg.kv_quant,
-            device=device)
+        L = _site_cache_len(site, max_len) if clamp_window else max_len
+        if cfg.mla is not None:
+            return init_mla_cache(batch, L, mla_opts(cfg), dtype, device)
+        return init_kv_cache(batch, L, attn_opts(cfg, site), dtype,
+                             quant=cfg.kv_quant, device=device)
 
     return _stacked_caches(cfg, one)
 
@@ -218,46 +258,64 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int, dtype,
 # Site application
 # ---------------------------------------------------------------------------
 
-def _mlp_block(cfg, p, x):
-    h = rms_norm(x, p["norm2"])
-    y = mlp_forward(p["mlp"], h, cfg.act)
+def _attn_post(cfg, site, pp, p, x, y):
+    """The attention output ``y``'s post-norm and residual, then the
+    pre-norm MLP (dense or MoE) and its residual. ``pp``: the site's
+    weights or the shared block's; post-norms are the site's own."""
+    if cfg.post_norm:
+        y = rms_norm(y, p["norm1_post"])
+    x = x + y
+    h = rms_norm(x, pp["norm2"])
+    if site.mlp == "moe":
+        y = moe_forward(pp["moe"], h, moe_opts(cfg))
+    else:
+        y = mlp_forward(pp["mlp"], h, cfg.act)
     if cfg.post_norm:
         y = rms_norm(y, p["norm2_post"])
     return x + y
 
 
-def _apply_site_full(cfg, site, p, x, positions, cache):
+def _apply_site_full(cfg, site, p, shared, x, positions, cache):
     """Full-sequence site application; fills ``cache`` (a layer's view of
     the stacked prefill cache) in place when one is given."""
-    h = rms_norm(x, p["norm1"])
     if site.mixer == MIXER_SSM:
+        h = rms_norm(x, p["norm1"])
         y, (state, conv_tail) = ssm_forward(p["ssm"], h, ssm_opts(cfg))
         if cache is not None:
             fill_ssm_cache(cache, state, conv_tail)
         return x + y
-    y, (k, v) = attn_forward(p["attn"], h, positions, attn_opts(cfg, site))
-    if cfg.post_norm:
-        y = rms_norm(y, p["norm1_post"])
-    x = _mlp_block(cfg, p, x + y)
-    if cache is not None:
-        fill_kv_cache(cache, k, v, positions)
-    return x
+    pp = shared if site.mixer == MIXER_SHARED_ATTN else p
+    h = rms_norm(x, pp["norm1"])
+    if cfg.mla is not None:
+        y, (c_kv, k_rope) = mla_forward(pp["attn"], h, positions,
+                                        mla_opts(cfg))
+        if cache is not None:
+            fill_mla_cache(cache, c_kv, k_rope, positions)
+    else:
+        y, (k, v) = attn_forward(pp["attn"], h, positions,
+                                 attn_opts(cfg, site))
+        if cache is not None:
+            fill_kv_cache(cache, k, v, positions)
+    return _attn_post(cfg, site, pp, p, x, y)
 
 
-def _apply_site_decode(cfg, site, p, x, positions, cache, block_tables):
-    h = rms_norm(x, p["norm1"])
+def _apply_site_decode(cfg, site, p, shared, x, positions, cache,
+                       block_tables):
     if site.mixer == MIXER_SSM:
+        h = rms_norm(x, p["norm1"])
         y, _ = ssm_decode(p["ssm"], h, cache, ssm_opts(cfg))
         return x + y
-    if block_tables is not None:
-        y, _ = attn_decode_paged(p["attn"], h, positions, cache,
+    pp = shared if site.mixer == MIXER_SHARED_ATTN else p
+    h = rms_norm(x, pp["norm1"])
+    if cfg.mla is not None:
+        y, _ = mla_decode(pp["attn"], h, positions, cache, mla_opts(cfg))
+    elif block_tables is not None:
+        y, _ = attn_decode_paged(pp["attn"], h, positions, cache,
                                  block_tables, attn_opts(cfg, site))
     else:
-        y, _ = attn_decode(p["attn"], h, positions, cache,
+        y, _ = attn_decode(pp["attn"], h, positions, cache,
                            attn_opts(cfg, site))
-    if cfg.post_norm:
-        y = rms_norm(y, p["norm1_post"])
-    return _mlp_block(cfg, p, x + y)
+    return _attn_post(cfg, site, pp, p, x, y)
 
 
 # ---------------------------------------------------------------------------
@@ -289,13 +347,17 @@ def apply_stages(cfg: ModelConfig, params, x, positions, *,
     prefill: ``caches`` (from ``init_cache``, batch and length of the
     prompt's cache) are filled in place. decode: ``caches`` are updated in
     place; ``block_tables`` (B, nb) switches to the paged-pool path (caches
-    from ``init_paged_cache``). Returns x."""
+    from ``init_paged_cache``). ``params["shared"]`` holds the shared
+    block's weights where the pattern has ``shared_attn`` sites. Returns
+    x."""
+    shared = params.get("shared")
     for si, st in enumerate(plan_stages(cfg)):
         sc = caches[si] if caches is not None else None
         for site, p_i, c_i in _layers(st, params["stages"][si], sc):
             if mode == "decode":
-                x = _apply_site_decode(cfg, site, p_i, x, positions, c_i,
-                                       block_tables)
+                x = _apply_site_decode(cfg, site, p_i, shared, x, positions,
+                                       c_i, block_tables)
             else:
-                x = _apply_site_full(cfg, site, p_i, x, positions, c_i)
+                x = _apply_site_full(cfg, site, p_i, shared, x, positions,
+                                     c_i)
     return x

@@ -251,6 +251,9 @@ class BatchingEngine:
         self._bt_cache = None
         self._bt_version = -1
         if paged:
+            if model.cfg.mla is not None:
+                raise ValueError("paged KV caches support plain-attention "
+                                 "models (MLA latents are not paged)")
             if max_len % page_size:
                 raise ValueError(f"max_len {max_len} must be a multiple of "
                                  f"page_size {page_size}")
@@ -272,9 +275,12 @@ class BatchingEngine:
             self.caches = model.make_caches(n_slots, max_len)
             self._pos = np.zeros((n_slots,), np.int32)
             # padding a prefill past the shortest layer cache (a local-
-            # attention window) would evict real in-window history
-            self._min_cache_len = min(f["k"].shape[2]
-                                      for f in _site_caches(self.caches))
+            # attention window) would evict real in-window history; every
+            # leaf with a length axis counts (K/V rows, MLA latents, pos)
+            self._min_cache_len = min(
+                (leaf.shape[2] for f in _site_caches(self.caches)
+                 for leaf in f.values() if leaf.dim() >= 3),
+                default=max_len)
         # the model's decode and prefill entry points for this layout
         self._decode_fn = model.decode_paged if paged else model.decode
         self._prefill_fn = model.prefill

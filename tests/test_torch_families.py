@@ -37,26 +37,12 @@ from repro_torch.configs import get_config, reduced
 from repro_torch.interop import params_from_numpy
 from repro_torch.models import Model
 from repro_torch.runtime import BatchingEngine, make_paged_serve_step
+from torch_parity import MARGIN, TOL, Jitted, greedy, serve_logs
 
 torch.set_num_threads(1)
 
-TOL = dict(atol=2e-5, rtol=2e-4)
-MARGIN = 1e-3
 ARCHS = ("phi3-mini-3.8b", "gemma3-1b", "gemma2-9b")
 HEAD_DIM = {"phi3-mini-3.8b": 96, "gemma3-1b": 256, "gemma2-9b": 256}
-
-
-class _Jitted:
-    """The reference model with its decode entry points jitted once per
-    model (eager JAX takes seconds a step at 13 layers)."""
-
-    def __init__(self, jmodel):
-        self.model = jmodel
-        self.decode = jax.jit(jmodel.decode)
-        self.decode_paged = jax.jit(jmodel.decode_paged)
-
-    def __getattr__(self, name):
-        return getattr(self.model, name)
 
 
 def _pair(arch, head_dim=0, n_layers=0):
@@ -70,7 +56,7 @@ def _pair(arch, head_dim=0, n_layers=0):
     jmodel = j_get_model(jcfg)
     jparams = jmodel.init(jax.random.PRNGKey(0))
     params = params_from_numpy(jax.tree.map(np.asarray, jparams), cfg)
-    return _Jitted(jmodel), jparams, Model(cfg, device="cpu"), params
+    return Jitted(jmodel), jparams, Model(cfg, device="cpu"), params
 
 
 @pytest.fixture(scope="module")
@@ -91,18 +77,6 @@ def _tokens(vocab, b, s, seed):
     return rng.integers(0, vocab, size=(b, s)).astype(np.int32)
 
 
-def _greedy(jl, tl):
-    """The reference's greedy tokens; the port's must agree wherever the
-    reference's top-2 margin exceeds MARGIN. Returns (tokens, rows below
-    the margin)."""
-    jl = np.asarray(jl, np.float64)
-    top2 = np.sort(jl, axis=-1)[..., -2:]
-    clear = top2[..., 1] - top2[..., 0] > MARGIN
-    nxt = jl.argmax(-1)
-    assert np.array_equal(nxt[clear], tl.argmax(-1).numpy()[clear])
-    return nxt.astype(np.int32), int((~clear).sum())
-
-
 @pytest.mark.parametrize("own_head_dim", [False, True])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_prefill_then_decode_matches_reference(pairs, arch, own_head_dim):
@@ -119,7 +93,7 @@ def test_prefill_then_decode_matches_reference(pairs, arch, own_head_dim):
     jl = jmodel.logits(jparams, jh)
     tl = model.logits(params, th)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
-    nxt, near = _greedy(jl[:, -1], tl[:, -1])
+    nxt, near = greedy(jl[:, -1], tl[:, -1])
     pos = np.full((2,), 40, np.int32)
     for _ in range(8):
         jl, jc = jmodel.decode(jparams, jc, jnp.asarray(nxt[:, None]),
@@ -127,7 +101,7 @@ def test_prefill_then_decode_matches_reference(pairs, arch, own_head_dim):
         tl, tc = model.decode(params, tc, torch.tensor(nxt[:, None]),
                               torch.from_numpy(pos))
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
-        nxt, n = _greedy(jl[:, 0], tl[:, 0])
+        nxt, n = greedy(jl[:, 0], tl[:, 0])
         near += n
         pos = pos + 1
     assert near <= 2, f"{near} of 18 greedy steps below the margin"
@@ -159,7 +133,7 @@ def test_decode_paged_matches_reference(pairs, arch, own_head_dim):
         tl, tpool = step(params, tpool, torch.tensor(toks[:, None]),
                          torch.from_numpy(pos), torch.from_numpy(bt))
         np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
-        toks, n = _greedy(jl[:, 0], tl[:, 0])
+        toks, n = greedy(jl[:, 0], tl[:, 0])
         near += n
     assert near <= 4, f"{near} of {B * steps} greedy steps below the margin"
 
@@ -174,18 +148,6 @@ def _prompt(vocab, n, seed):
     return np.random.default_rng(seed).integers(0, vocab, size=n).tolist()
 
 
-def _serve(engine, vocab):
-    reqs = [engine.submit(_prompt(vocab, n, seed), max_new_tokens=new,
-                          tenant=tenant)
-            for n, seed, tenant, new in GEMMA3_SPEC]
-    for _ in range(2000):
-        engine.step()
-        if engine.idle():
-            break
-    assert engine.idle()
-    return [r.out_tokens for r in reqs]
-
-
 @pytest.mark.parametrize("paged", [False, True])
 def test_gemma3_engine_token_logs_match_reference(pairs, paged):
     """reduced gemma3-1b (5 local : 1 global, window 32, qk-norm) through
@@ -198,8 +160,10 @@ def test_gemma3_engine_token_logs_match_reference(pairs, paged):
     if paged:
         kw.update(paged=True, page_size=16)
     vocab = model.cfg.vocab_size
-    j_logs = _serve(JEngine(jmodel.model, jparams, **kw), vocab)
-    t_logs = _serve(BatchingEngine(model, params, **kw), vocab)
+    j_logs = serve_logs(JEngine(jmodel.model, jparams, **kw),
+                        GEMMA3_SPEC, vocab)
+    t_logs = serve_logs(BatchingEngine(model, params, **kw),
+                        GEMMA3_SPEC, vocab)
     width = 96
     seqs = np.zeros((len(GEMMA3_SPEC), width), np.int32)
     for i, ((n, seed, _, _), out) in enumerate(zip(GEMMA3_SPEC, j_logs)):

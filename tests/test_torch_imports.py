@@ -46,7 +46,9 @@ def test_port_imports_without_jax_or_reference():
     assert {f"repro_torch.runtime.{m}" for m in
             ("faults", "events", "gateway", "fleet", "loadgen",
              "adversary")} | {
-        "repro_torch.launch", "repro_torch.launch.serve"} <= walked
+        "repro_torch.launch", "repro_torch.launch.serve",
+        "repro_torch.layers.moe", "repro_torch.layers.mla",
+        "repro_torch.models.encdec"} <= walked
 
 
 def test_chip_smoke_imports_neither_jax_nor_reference():

@@ -4,7 +4,9 @@ tests/test_paged.py (fp32), JAX-initialised weights carried across by
 tokens. The same for reduced mamba2-370m (fp32) through the serve-step
 factories, on the plain chunked path (``kernel_force="ref"``) and on the
 default path (the SSD kernel's sequential plain version on the CPU). Also:
-families, layouts, engines and devices the port refuses.
+every config admitted, decode against prefill for every family (the
+reference's decode-against-forward test mirrored), the stage plans, and the
+layouts, engines and devices the port refuses.
 
 Tolerance: atol 2e-5, rtol 2e-4 on fp32 logits where both sides run the
 same algorithm; atol 5e-4, rtol 5e-3 (the reference's SSD tolerance) where
@@ -24,11 +26,13 @@ from repro.configs import get_config as j_get_config
 from repro.configs import reduced as j_reduced
 from repro.models import get_model as j_get_model
 from repro.runtime.serve import BatchingEngine as JBatchingEngine
-from repro_torch.configs import get_config, reduced
+from repro_torch.configs import ARCH_IDS, get_config, reduced
 from repro_torch.interop import params_from_numpy
 from repro_torch.models import Model
+from repro_torch.models.stages import plan_stages
 from repro_torch.runtime import (BatchingEngine, make_paged_serve_step,
                                  make_prefill_step, make_serve_step)
+from torch_parity import with_norms_near_one
 
 torch.set_num_threads(1)
 
@@ -111,17 +115,79 @@ def test_decode_paged_matches_reference(pair):
         assert np.array_equal(toks, tl[:, 0].argmax(-1).numpy())
 
 
-@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "deepseek-v2-lite-16b",
-                                  "mamba2-370m", "zamba2-7b", "whisper-tiny",
-                                  "llava-next-34b"])
-def test_unported_families_refuse(arch):
-    """Families the port cannot run yet refuse, pointing at ROADMAP.md;
-    mamba2 (pure SSM) is ported and admitted."""
-    if arch == "mamba2-370m":
-        assert Model(reduced(get_config(arch)), device="cpu").cfg.ssm
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(reduced(get_config(arch)), device="cpu")
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_every_config_is_admitted(arch):
+    """Every family the JAX package serves builds on the port."""
+    model = Model(reduced(get_config(arch)), device="cpu")
+    assert model.cfg.name == get_config(arch).name
+
+
+B, S = 2, 32
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_decode_matches_prefill(arch):
+    """Mirror of tests/test_models.py::test_decode_matches_forward on the
+    port, which has no training forward: the decode of token S-1 after a
+    prefill of S-1 tokens gives the logits of the last position of a
+    prefill over all S (whisper: 16 decoder tokens over 48 frames; llava:
+    its patches first), at the reference's 2e-4. The port's own seeded
+    init, with MLA ``kv_norm`` and SSM gate norms set to 1 (zero by the
+    reference's init, which zeroes those layers' outputs)."""
+    cfg = reduced(get_config(arch)).replace(dtype="float32")
+    m = Model(cfg, device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    params = m.init(gen)
+    for st in params.get("stages", ()):             # whisper has none
+        for site in (st,) if isinstance(st, dict) else st:
+            if "kv_norm" in site.get("attn", {}):
+                site["attn"]["kv_norm"].fill_(1.0)
+            if "ssm" in site:
+                site["ssm"]["norm"].fill_(1.0)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                         dtype=torch.int32)
+    if cfg.family == "audio":
+        frames = torch.randn((B, 48, cfg.d_model), generator=gen) * 0.1
+        h, _ = m.prefill(params, {"frames": frames, "tokens": toks[:, :16]},
+                         0)
+        full = m.logits(params, h)[:, 15]
+        _, caches = m.prefill(params, {"frames": frames,
+                                       "tokens": toks[:, :15]}, 0)
+        pos = 15
+        last = toks[:, 15:16]
+    else:
+        batch = {"tokens": toks}
+        if cfg.n_patches:
+            batch["patches"] = torch.randn((B, cfg.n_patches, cfg.d_model),
+                                           generator=gen) * 0.1
+        max_len = S + cfg.n_patches + 8
+        h, _ = m.prefill(params, batch, max_len)
+        full = m.logits(params, h)[:, -1]
+        _, caches = m.prefill(params, dict(batch, tokens=toks[:, :S - 1]),
+                              max_len)
+        pos = S - 1 + cfg.n_patches
+        last = toks[:, S - 1:S]
+    d, _ = m.decode(params, caches, last,
+                    torch.full((B,), pos, dtype=torch.int32))
+    err = float((d[:, 0] - full).abs().max())
+    assert err < 2e-4, f"{arch}: decode/prefill mismatch {err}"
+
+
+def test_pattern_stage_plan_structures():
+    """Mirror of tests/test_models.py's: gemma3 (5L+1G)*4+2L, gemma2 pairs,
+    zamba2 shared, deepseek's dense first layer."""
+    g3 = plan_stages(get_config("gemma3-1b"))
+    assert [s.kind for s in g3] == ["pattern", "run"]
+    assert g3[0].repeats == 4 and len(g3[0].sites) == 6
+    assert g3[1].repeats == 2
+    g2 = plan_stages(get_config("gemma2-9b"))
+    assert g2[0].kind == "pattern" and g2[0].repeats == 21
+    z = plan_stages(get_config("zamba2-7b"))
+    assert z[0].kind == "pattern" and z[0].repeats == 13
+    assert z[1].kind == "run" and z[1].repeats == 3
+    ds = plan_stages(get_config("deepseek-v2-lite-16b"))
+    assert ds[0].repeats == 1 and ds[1].repeats == 26
+    assert sum(s.repeats * len(s.sites) for s in ds) == 27
 
 
 def test_model_defaults_to_cuda():
@@ -139,19 +205,6 @@ def test_model_defaults_to_cuda():
 # mamba2 (pure SSM)
 # ---------------------------------------------------------------------------
 
-def _with_gate_norm(tree, rng):
-    """The reference's init sets each SSM block's gate norm to 0, which
-    zeroes the block's output (``rms_norm(..., plus_one=False)``); give it
-    weights around 1 so that the SSD shows in the logits."""
-    if isinstance(tree, dict):
-        return {k: (1.0 + 0.1 * rng.standard_normal(v.shape))
-                .astype(np.float32) if k == "norm" and "in_proj" in tree
-                else _with_gate_norm(v, rng) for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        return tuple(_with_gate_norm(v, rng) for v in tree)
-    return tree
-
-
 def _force(cfg, force):
     return cfg.replace(geometry=dataclasses.replace(cfg.geometry,
                                                     kernel_force=force))
@@ -161,7 +214,7 @@ def _force(cfg, force):
 def ssm_pair():
     jcfg = j_reduced(j_get_config("mamba2-370m")).replace(dtype="float32")
     jmodel = j_get_model(jcfg)
-    tree = _with_gate_norm(
+    tree = with_norms_near_one(
         jax.tree.map(np.asarray, jmodel.init(jax.random.PRNGKey(0))),
         np.random.default_rng(0))
     jparams = jax.tree.map(jnp.asarray, tree)
@@ -246,11 +299,3 @@ def test_ssm_short_prompt_refused(ssm_pair):
         model.prefill(params, {"tokens": torch.zeros((1, 2),
                                                      dtype=torch.int32)}, 8)
 
-
-def test_hybrid_refusal_names_what_is_not_ported():
-    """zamba2's head dim (112) is one the attention kernels take; what the
-    port lacks is the shared attention block and the hybrid stage path."""
-    with pytest.raises(NotImplementedError,
-                       match=r"shared attention block and hybrid stage "
-                             r"path are not ported\).*Queue 1 item 5"):
-        Model(get_config("zamba2-7b"), device="cpu")
