@@ -29,8 +29,11 @@ lines.jsonl):
    padding copies alone). Decode and paged decode (fp32, bf16, int8) and
    flash (fp32, bf16) at the remaining families' heads
    (``FAMILY2_HEADS``): qwen3-moe (32 / 4 of 128, g 8, flash S=1024),
-   llava (56 / 8 of 128, g 7, S=1176) and whisper-tiny (6 / 6 of 64, S=448). Paged decode (fp32, bf16) also at the harness
-   phases' engines: B=4, L=64, pages of 4 and 8, one slot idle. The
+   llava (56 / 8 of 128, g 7, S=1176) and whisper-tiny (6 / 6 of 64,
+   S=448). Paged decode (fp32, bf16) also at the harness phases' engines:
+   B=4, L=64, pages of 4 and 8, one slot idle; and (fp32, bf16, int8; bf16
+   at B=1) at the tuner's pages 32 and 64 (``TUNER_PAGES``), at the
+   serving shape, each split of whole pages. The
    fp32 flash bound is operations over 3xTF32's rate (495 / 3 TFLOP/s),
    with the fp32 CUDA-core bound beside it (``bound_cuda_core_ms``).
    The streaming matmul on
@@ -96,7 +99,9 @@ lines.jsonl):
    Table I's pair on the serving program
    (the first engine's configure against the other engines' PR swaps).
 5c. the traffic and tenant-isolation harnesses through the port's fleet and
-   gateway, smollm-135m at full width and depth, with the same launch
+   gateway, smollm-135m at full width, cut to ``HARNESS_LAYERS`` (10) of
+   its 30 layers (chip time; records and reports depend on neither depth
+   nor weights), seeded weights of their own, with the same launch
    accounting (``harness_watch`` observes ``replay_trace`` and
    ``run_scenario`` from outside): ``scale_soak_presets``: bf16,
    ``smoke_cell()`` and the seed-0 chaos cells of both preset traces on
@@ -123,6 +128,26 @@ lines.jsonl):
    with at least one request admitted; then the solo run and
    ``CancelChurn`` at the serving shape (8 slots, max_len 2048, page 16,
    victim prompts of 256), victim p95 against solo.
+5d. ``autotune`` (the design-space auto-tuner, ``repro_torch.tuning``),
+   smollm-135m at full width and depth in bf16: ``autotune_registry``, the
+   registry's card (132 SMs, 80 GiB, 227 / 228 KiB of shared memory a
+   block / an SM, 64 Ki registers an SM) against
+   ``torch.cuda.get_device_properties``; ``autotune_tune``, ``tune``'s
+   winner, win, candidates, prunes and census for smollm-135m and
+   gemma3-1b at 2048, classes 1.0 and 0.25, dense and paged;
+   ``autotune_measure``, the measure hook: the modeled top 4 of smollm at
+   class 1.0, dense and paged, each timed as wall ms a generated token
+   through a ``BatchingEngine`` (8 requests of 64 prompt tokens, 16 new,
+   ``step_async`` at the candidate's prefill chunk), 3 rounds alternating
+   the candidates, the modeled rank beside the measured one and
+   ``tune(..., measure=...)``'s winner; ``autotune_fleet_lockstep`` /
+   ``_event``: an autotuned paged ``GatewayFleet`` on a 1.0 / 0.25 class
+   pair (tenants of 2, 1, 1 slots, 8 requests of 96 prompt tokens, 16 new),
+   each class bound to its ``tune`` winner, tenant c moved to the other
+   class mid-decode (page sizes differ: 0 pages copied, 1 request
+   replayed), the invariants after every round, streams against the same
+   fleet at the default geometry (near-ties counted), every launch
+   accounted for.
 6. ``fp32_*_engine``: the same two engines in float32, where the streams
    are held to the fp32 logit tolerance; ``int8_*_engine``: both layouts
    with ``kv_quant`` at 4 layers.
@@ -183,17 +208,21 @@ lines.jsonl):
    8 over 1500 frames + 4 decode steps, the kernel path fed the plain
    path's tokens; a MoE row outside the tolerance counts only at a plain
    router top-k near-tie within ``ROUTER_TIE``). Each accounts for every
-   launch (``kernel_sites``).
+   launch (``kernel_sites``). Then ``whisper_engine``: whisper-tiny in
+   fp32 through the dense ``BatchingEngine`` (prompts [3, 5, 7, 9] and
+   [11, 2], 32 new tokens), kernel path against plain path, the logs
+   equal, and a longer context failing with ``KeyError('frames')`` as
+   the reference's engine does.
 11. the ``kernels`` summary line (launches of the attention kernels from
-   the smollm, the families', the fleet phases', the harness phases' and
-   the remaining families' serving paths, ``launches_by_path``; the flash row's ``fp32`` entry:
+   the smollm, the families', the fleet phases', the harness phases', the
+   autotuned fleets', the remaining families' and whisper_engine's
+   serving paths, ``launches_by_path``; the flash row's ``fp32`` entry:
    the fp32 S=512 case and fp32 flash's launches on the fp32 engines,
    ``families_model``, ``launch_serve``, ``fleet_chaos`` and
-   ``scale_soak_long``; the streaming
-   matmul's from the rc3e path, the SSD scan's from the SSM path and
-   zamba2's), the
-   GPU's name and power limit, and ``{"ok": true, ...}`` last. Any failed
-   check exits non-zero.
+   ``scale_soak_long``; the streaming matmul's from the rc3e path, the
+   SSD scan's from the SSM path and zamba2's), the GPU's name and power
+   limit, and ``{"ok": true, ...}`` last. Any failed check exits
+   non-zero.
 """
 import contextlib
 import dataclasses
@@ -223,6 +252,10 @@ B, HQ, HKV, D, L, PS = 8, 9, 3, 64, 2048, 16
 # the paged engines of the soak presets (page 4) and of the adversary's
 # reference shape (page 8): 4 slots x 64
 HARNESS_B, HARNESS_L, HARNESS_PAGES = 4, 64, (4, 8)
+HARNESS_LAYERS = 10        # smollm's depth in the harness phases (of 30)
+# the page sizes of the tuner's sweep past the serving path's 16 (its
+# winners on the card's classes take 64 and 32)
+TUNER_PAGES = (32, 64)
 SEED = 0
 DEV = "cuda"
 MM_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}   # x sqrt(K) atol
@@ -266,6 +299,7 @@ FAMILY2_LAYERS = {"qwen3-moe-30b-a3b": 6, "llava-next-34b": 4,
 # probabilities closer than this may swap between two summation orders
 ROUTER_TIE = 1e-5
 WHISPER_B, WHISPER_PROMPT, WHISPER_STEPS = 4, 4, 64
+WHISPER_ENGINE_NEW = 32                # whisper_engine: tokens a request
 
 
 class SmokeFailure(Exception):
@@ -613,6 +647,49 @@ def kernel_phase(results):
                            q, kp, vp, kpp, bt, cur_t)),
                        plain_ms=time_ms(lambda: da.paged_decode_attention_ref(
                            q, kp, vp, kpp, bt, cur_t)),
+                       bound_ms=b_ms, bound_by=b_by, library_ms=None)
+            emit(rec)
+            results["paged_decode_attention"].append(rec)
+
+    # the tuner's page sizes at the serving shape (B=8, L=2048; and B=1,
+    # where split_plan cuts the most splits): split rows must be whole
+    # pages (split_plan's unit), held against the plain version
+    for ps in TUNER_PAGES:
+        for kind, dtype, quant, cur_c, fill_c in (
+                ("fp32", torch.float32, False, cur, fill),
+                ("bf16", torch.bfloat16, False, cur, fill),
+                ("int8", torch.bfloat16, True, cur, fill),
+                ("bf16/B1", torch.bfloat16, False, cur1, fill1)):
+            q, k, v, kpos, cur_t, ks, vs = decode_inputs(
+                gen, dtype, quant, cur_c, fill_c)
+            kp, vp, kpp, ksp, vsp, bt = to_pool(gen, k, v, kpos, ks, vs, ps)
+            got = da.paged_decode_attention_cuda(q, kp, vp, kpp, bt, cur_t,
+                                                 k_scale=ksp, v_scale=vsp)
+            n_split, rows = _lib.last_plan["paged_decode_attention"]
+            ref = da.paged_decode_attention_ref(q, kp, vp, kpp, bt, cur_t,
+                                                k_scale=ksp, v_scale=vsp)
+            torch.cuda.synchronize()
+            tol = TOL[dtype]
+            err = float((got.float() - ref.float()).abs().max())
+            require(torch.allclose(got.float(), ref.float(), **tol),
+                    f"paged_decode_attention ps{ps}/{kind}: max err {err}")
+            require(rows % ps == 0, f"paged_decode_attention ps{ps}/{kind}: "
+                    f"split rows {rows} are not whole pages")
+            nbytes, flops = decode_cost(q, kpos, cur_t, 0, k.element_size(),
+                                        HKV, paged_nb=bt.shape[1])
+            b_ms, b_by = bound(nbytes, flops, dtype)
+            rec = dict(phase="kernel", name="paged_decode_attention",
+                       case=f"ps{ps}/{kind}",
+                       shape=dict(B=len(cur_c), Hq=HQ, Hkv=HKV, D=D, L=L,
+                                  ps=ps),
+                       n_split=n_split, split_rows=rows, max_abs_err=err,
+                       tol=tol,
+                       ms=time_ms(lambda: da.paged_decode_attention_cuda(
+                           q, kp, vp, kpp, bt, cur_t, k_scale=ksp,
+                           v_scale=vsp)),
+                       plain_ms=time_ms(lambda: da.paged_decode_attention_ref(
+                           q, kp, vp, kpp, bt, cur_t, k_scale=ksp,
+                           v_scale=vsp)),
                        bound_ms=b_ms, bound_by=b_by, library_ms=None)
             emit(rec)
             results["paged_decode_attention"].append(rec)
@@ -2680,6 +2757,312 @@ def adversary_phase(cfg, params):
     return got
 
 
+# ---------------------------------------------------------------------------
+# The design-space auto-tuner on the card
+# ---------------------------------------------------------------------------
+
+TUNER_ARCHS = ("smollm-135m", "gemma3-1b")
+TUNER_SPEEDS = (1.0, 0.25)
+TUNER_MAX_LEN = 2048
+# the measure hook: the modeled top 4, each served MEASURE_REQS requests of
+# MEASURE_PROMPT prompt tokens and MEASURE_NEW new tokens through
+# ``step_async`` at its prefill chunk; MEASURE_ROUNDS rounds alternating
+# the candidates, the median ms a token kept
+MEASURE_TOP, MEASURE_ROUNDS = 4, 3
+MEASURE_REQS, MEASURE_PROMPT, MEASURE_NEW = 8, 64, 16
+# the autotuned fleet: tenants (slots) filling the first device of a 1.0 /
+# 0.25 class pair; tenant c moves to the other class once its first request
+# has AUTOTUNE_MIGRATE_AFTER tokens (mid-decode: an overlapped hand-off of a
+# request still in chunked prefill adopts wrong pages in both packages,
+# ROADMAP Queue 3)
+AUTOTUNE_TENANTS = (("a", 2), ("b", 1), ("c", 1))
+AUTOTUNE_REQS, AUTOTUNE_PROMPT, AUTOTUNE_NEW = 8, 96, 16
+AUTOTUNE_MIGRATE_AFTER = 2
+
+
+def autotune_card_line():
+    """The registry's card against ``torch.cuda.get_device_properties``:
+    the SM count must be equal and the memory within 3% (80 GiB declared;
+    the card keeps some); the shared memory and registers are
+    compared where this torch reports them."""
+    from repro_torch.kernels import registry as kreg
+    props = torch.cuda.get_device_properties(0)
+    card = dict(sm_count=props.multi_processor_count,
+                total_memory=props.total_memory)
+    reg = dict(sm_count=kreg.SM_COUNT, total_memory=kreg.HBM_BYTES)
+    for key, attr, want in (
+            ("smem_per_block", "shared_memory_per_block_optin",
+             kreg.SMEM_PER_BLOCK),
+            ("smem_per_sm", "shared_memory_per_multiprocessor",
+             kreg.SMEM_PER_SM),
+            ("regs_per_sm", "regs_per_multiprocessor", kreg.REGS_PER_SM)):
+        got = getattr(props, attr, None)
+        card[key], reg[key] = got, want
+        require(got is None or got == want,
+                f"autotune: the card's {attr} {got} != the registry's {want}")
+    require(card["sm_count"] == kreg.SM_COUNT,
+            f"autotune: {card['sm_count']} SMs, the registry declares "
+            f"{kreg.SM_COUNT}")
+    require(abs(card["total_memory"] - kreg.HBM_BYTES)
+            <= 0.03 * kreg.HBM_BYTES,
+            f"autotune: card memory {card['total_memory']} bytes against "
+            f"the registry's {kreg.HBM_BYTES}")
+    fp = kreg.kernel_footprints()
+    big = max(fp, key=fp.get)
+    return dict(card=card, registry=reg, largest_smem_kernel=big,
+                largest_smem_bytes=fp[big])
+
+
+def measure_candidates(model, params, prompts, cands, paged):
+    """Wall ms a generated token of each candidate through a
+    ``BatchingEngine`` at its slots and page size, driven by ``step_async``
+    at its prefill chunk: MEASURE_REQS requests to completion, in
+    MEASURE_ROUNDS rounds alternating the candidates. Returns {candidate:
+    [ms a token, a round]}."""
+    from repro_torch.runtime import BatchingEngine
+    out = {c: [] for c in cands}
+    for _ in range(MEASURE_ROUNDS):
+        for c in cands:
+            eng = BatchingEngine(model, params, n_slots=c.n_slots,
+                                 max_len=TUNER_MAX_LEN, paged=paged,
+                                 page_size=c.page_size)
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            reqs = [eng.submit(p[:MEASURE_PROMPT], max_new_tokens=MEASURE_NEW,
+                               tenant=t) for p, t in prompts[:MEASURE_REQS]]
+            for _ in range(100000):
+                eng.step_async(prefill_chunk=c.prefill_chunk)
+                if eng.idle():
+                    break
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            n = sum(len(r.out_tokens) for r in reqs)
+            require(n == MEASURE_NEW * len(reqs),
+                    f"autotune measure {c.geometry_key()}: short streams")
+            out[c].append(wall * 1e3 / n)
+            del eng
+    return out
+
+
+def autotune_fleet(model, params, prompts, loop, autotune, top8=None):
+    """``prompts`` through a paged ``GatewayFleet`` (max_len 2048; default
+    geometry 8 slots, page 16) on two device classes (1.0 / 0.25), lockstep
+    or under ``EventLoop``; tenant c is moved to the other class once its
+    first request has AUTOTUNE_MIGRATE_AFTER tokens. Invariants checked
+    every round. Returns (streams, hv, fleet, engine calls, the hand-off)."""
+    from repro_torch.core import ClusterSpec, Hypervisor
+    from repro_torch.runtime import EventLoop, GatewayFleet
+    calls = {"decode": 0, "prefill": 0}
+    with engine_calls(calls, top8):
+        hv = Hypervisor(ClusterSpec(n_nodes=1, devices_per_node=2,
+                                    device_speeds=TUNER_SPEEDS), device=DEV)
+        fleet = GatewayFleet(hv, model, params, n_slots=8,
+                             max_len=TUNER_MAX_LEN, paged=True, page_size=16,
+                             autotune=autotune)
+        ev = EventLoop(fleet) if loop == "event" else None
+        for t, slots in AUTOTUNE_TENANTS:
+            fleet.open_session(t, slots=slots)
+        reqs = [fleet.submit(AUTOTUNE_TENANTS[i % 3][0],
+                             p[:AUTOTUNE_PROMPT], max_new_tokens=AUTOTUNE_NEW)
+                for i, (p, _) in enumerate(prompts[:AUTOTUNE_REQS])]
+        first_c, moved = reqs[2], False
+        for _ in range(100000):
+            if not moved and len(first_c.out_tokens) >= \
+                    AUTOTUNE_MIGRATE_AFTER:
+                moved = True
+                src = fleet.device_of("c")
+                dst = next(d for d in sorted(hv.db.devices) if d != src)
+                require(hv.migrate_slice(fleet.session("c").slice_id,
+                                         target_device=dst, reason="ops")
+                        is not None, "autotune fleet: migration refused")
+            fleet.step() if ev is None else ev.run_ticks(1)
+            fleet.verify_invariants()
+            if all(r.done.is_set() for r in reqs) and (
+                    ev is None or not fleet._inflight_handoffs):
+                break
+        torch.cuda.synchronize()
+    require(all(r.done.is_set() for r in reqs), "autotune fleet: not drained")
+    require(sum(len(r.out_tokens) for r in reqs)
+            == AUTOTUNE_NEW * len(reqs), "autotune fleet: short streams")
+    for eng in fleet._engines.values():
+        eng.pool.verify()
+        require(eng.pool.used_pages == 0,
+                f"autotune fleet: {eng.pool.used_pages} pages still held")
+    handoff = fleet.handoffs[-1] if fleet.handoffs else None
+    return [r.out_tokens for r in reqs], hv, fleet, calls, handoff
+
+
+def autotune_phase(cfg, params, prompts):
+    """The design-space auto-tuner (``repro_torch.tuning``) at full width:
+    the registry's card against the card's properties; ``tune``'s results
+    for the pinned archs, classes and layouts; the measure hook on the
+    card (the modeled top 4 of smollm-135m, class 1.0, dense and paged,
+    timed as wall ms a token, modeled rank beside measured rank, and
+    ``tune(..., measure=...)``'s winner); an autotuned two-class paged
+    fleet, lockstep and under the event loop, against the default-geometry
+    fleet (near-ties counted), each class bound to its winner, the cross-
+    class hand-off declining the source's pages (page sizes differ) and
+    replaying, and every launch accounted for. Returns the launches of the
+    autotuned fleets' runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import _lib
+    from repro_torch.models import Model
+    from repro_torch.tuning import (cost_model, device_class,
+                                    profile_for_speed, tune)
+    t_phase = time.monotonic()
+    emit(dict(phase="autotune_registry", **autotune_card_line()))
+
+    tunes = []
+    for arch in TUNER_ARCHS:
+        acfg = get_config(arch)
+        for speed in TUNER_SPEEDS:
+            for paged in (False, True):
+                rep = tune(acfg, profile_for_speed(speed),
+                           max_len=TUNER_MAX_LEN, paged=paged)
+                tunes.append(dict(
+                    arch=arch, device_class=device_class(speed),
+                    paged=paged, winner=rep.best.geometry_key(),
+                    win=rep.win, candidates=rep.n_candidates,
+                    pruned=rep.n_pruned, census=rep.prune_census,
+                    modeled_us_per_token=rep.best_cost.us_per_token,
+                    default_us_per_token=rep.default_cost.us_per_token,
+                    terms=rep.best_cost.terms))
+    emit(dict(phase="autotune_tune", max_len=TUNER_MAX_LEN, tunes=tunes,
+              launch_host_s=cost_model.LAUNCH_HOST_S))
+
+    model = Model(cfg, device=DEV)
+    prof = profile_for_speed(1.0)
+    for paged in (False, True):
+        rep = tune(cfg, prof, max_len=TUNER_MAX_LEN, paged=paged,
+                   top_k=MEASURE_TOP)
+        cands = [c for c, _ in rep.table]
+        ms = measure_candidates(model, params, prompts, cands, paged)
+        med = {c: float(np.median(v)) for c, v in ms.items()}
+        won = tune(cfg, prof, max_len=TUNER_MAX_LEN, paged=paged,
+                   top_k=MEASURE_TOP, measure=med.__getitem__).best
+        emit(dict(phase="autotune_measure", arch=cfg.name, dtype=cfg.dtype,
+                  device_class=device_class(1.0), paged=paged,
+                  requests=MEASURE_REQS, prompt=MEASURE_PROMPT,
+                  new_tokens=MEASURE_NEW, rounds=MEASURE_ROUNDS,
+                  modeled_rank=[c.geometry_key() for c in cands],
+                  modeled_us_per_token=[k.us_per_token for _, k in rep.table],
+                  measured_rank=[c.geometry_key()
+                                 for c in sorted(cands, key=med.get)],
+                  measured_ms_per_token={c.geometry_key(): ms[c]
+                                         for c in cands},
+                  modeled_winner=rep.best.geometry_key(),
+                  measured_winner=won.geometry_key()))
+
+    got_all = {k: 0 for k in _lib.launches}
+    for loop in ("lockstep", "event"):
+        top8 = {}
+        base, _, bfleet, bcalls, _ = autotune_fleet(
+            model, params, prompts, loop, False, top8=top8)
+        bfleet.close()
+        _lib.launches.reset()               # the autotuned fleet's path
+        auto, hv, fleet, calls, handoff = autotune_fleet(
+            model, params, prompts, loop, True)
+        got = dict(_lib.launches)
+        configures = sum(1 for e in hv.log if e["kind"] in ("fleet_up",
+                                                             "engine_up")
+                         and not e["cache_hit"])
+        need = program_launches(f"autotune_{loop}", cfg, calls, configures,
+                                True, got)
+        binds = {e["device_class"]: e for e in hv.log
+                 if e["kind"] == "autotune_bind"}
+        winners = {device_class(s): tune(cfg, profile_for_speed(s),
+                                         max_len=TUNER_MAX_LEN,
+                                         paged=True).best
+                   for s in TUNER_SPEEDS}
+        require(sorted(binds) == sorted(winners) and all(
+            binds[c]["geometry"] == w.geometry_key()
+            for c, w in winners.items()),
+            f"autotune {loop}: bound {binds}, winners {winners}")
+        for dev, eng in fleet._engines.items():
+            w = winners[device_class(hv.db.devices[dev].speed)]
+            require((eng.n_slots, eng.page_size) == (w.n_slots, w.page_size)
+                    and fleet.prefill_chunk_for(dev, 4)
+                    == w.prefill_chunk,
+                    f"autotune {loop}: {dev} runs ({eng.n_slots}, "
+                    f"{eng.page_size}), its class's winner {w}")
+        require(handoff is not None and handoff["page_copied"] == 0,
+                f"autotune {loop}: the cross-class hand-off {handoff}")
+        if loop == "lockstep":
+            require(handoff["replayed_inflight"] == 1
+                    and handoff["src_geometry"] != handoff["dst_geometry"],
+                    f"autotune lockstep: the hand-off {handoff}")
+        fleet.close()
+        streams = compare_streams(auto, base, top8, TOL[torch.bfloat16])
+        for k in got_all:
+            got_all[k] += got[k]
+        emit(dict(phase=f"autotune_fleet_{loop}", arch=cfg.name,
+                  dtype=cfg.dtype, classes=list(TUNER_SPEEDS),
+                  tenants=dict(AUTOTUNE_TENANTS), bound={
+                      c: b["geometry"] for c, b in binds.items()},
+                  launches=got, launches_needed=need, engine_calls=calls,
+                  default_engine_calls=bcalls, configures=configures,
+                  handoff=handoff, **streams))
+    emit(dict(phase="autotune", wall_s=time.monotonic() - t_phase))
+    return got_all
+
+
+def whisper_engine_phase(get_config):
+    """whisper-tiny (full width and depth, fp32) through the dense
+    ``BatchingEngine`` on the kernel path and on the plain path: the two
+    prompts' token logs must be equal (contexts under PREFILL_MIN_TOKENS
+    run through the decode step; the cross K/V is the engine's empty
+    cache, as the reference's engine has no encoder input), decode once a
+    decoder layer a step; and a context of PREFILL_MIN_TOKENS or more
+    fails as the reference's engine does (KeyError 'frames'). Returns the
+    kernel path's launches."""
+    from repro_torch.kernels import launches
+    from repro_torch.models import Model
+    from repro_torch.runtime import BatchingEngine
+    cfg = get_config("whisper-tiny").replace(dtype="float32")
+    params = seeded_params(Model(cfg, device=DEV), SEED + 41)
+    prompts = ([3, 5, 7, 9], [11, 2])
+    runs = {}
+    for tag, c in (("kernel", cfg), ("plain", plain_cfg(cfg))):
+        calls, top8 = {"decode": 0, "prefill": 0}, {}
+        before = dict(launches)
+        eng = BatchingEngine(Model(c, device=DEV), params, n_slots=2,
+                             max_len=cfg.encoder.max_frames)
+        with engine_calls(calls, top8):
+            reqs = [eng.submit(p, max_new_tokens=WHISPER_ENGINE_NEW)
+                    for p in prompts]
+            require(eng.run_until_idle(), f"whisper_engine {tag}: not idle")
+        runs[tag] = ([r.out_tokens for r in reqs], top8, calls,
+                     {k: launches[k] - before[k] for k in launches})
+    kern, _, kcalls, got = runs["kernel"]
+    plain, top8, _, plain_got = runs["plain"]
+    require(not any(plain_got.values()),
+            f"whisper_engine: the plain path launched {plain_got}")
+    need = {k: 0 for k in launches}
+    need["decode_attention"] = cfg.n_layers * kcalls["decode"]
+    require(got == need, f"whisper_engine: launches {got} != {need}")
+    streams = compare_streams(kern, plain, top8, TOL[torch.float32])
+    require(streams["streams_equal"],
+            f"whisper_engine: kernel logs {kern} != plain logs {plain}")
+    eng = BatchingEngine(Model(cfg, device=DEV), params, n_slots=2,
+                         max_len=cfg.encoder.max_frames)
+    eng.submit(list(range(1, BatchingEngine.PREFILL_MIN_TOKENS + 2)),
+               max_new_tokens=2)
+    err = None
+    try:
+        eng.step()
+    except KeyError as e:
+        err = e.args
+    require(err == ("frames",),
+            f"whisper_engine: a long context raised {err}, not "
+            "KeyError('frames')")
+    emit(dict(phase="whisper_engine", arch=cfg.name, dtype=cfg.dtype,
+              layers=cfg.n_layers, prompts=[list(p) for p in prompts],
+              logs=kern, launches=got, launches_needed=need,
+              long_context_error="KeyError('frames')", **streams))
+    del params
+    return got
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2773,17 +3156,31 @@ def main():
     fp32_path["fleet_chaos"] = chaos_path["flash_attention"]
 
     # the traffic and tenant-isolation harnesses through the port's fleet
-    # and gateway (paged: dense decode has no launch there)
-    harness_path = {"scale_soak_presets": scale_soak_presets_phase(cfg,
-                                                                   params)}
-    harness_path["scale_soak_long"], long32 = scale_soak_long_phase(cfg,
-                                                                    params)
-    harness_path["adversary"] = adversary_phase(cfg, params)
+    # and gateway (paged: dense decode has no launch there), at full width
+    # and HARNESS_LAYERS of the 30 layers (chip time: their records and
+    # reports depend on neither depth nor weights)
+    hcfg = cfg.replace(n_layers=HARNESS_LAYERS)
+    hparams = Model(hcfg, device=DEV).init(
+        torch.Generator(device=DEV).manual_seed(SEED + 13))
+    harness_path = {"scale_soak_presets": scale_soak_presets_phase(hcfg,
+                                                                   hparams)}
+    harness_path["scale_soak_long"], long32 = scale_soak_long_phase(hcfg,
+                                                                    hparams)
+    harness_path["adversary"] = adversary_phase(hcfg, hparams)
+    del hparams
     for phase, got in harness_path.items():
         require(all(got[k] > 0 for k in ("paged_decode_attention",
                                          "flash_attention")),
                 f"{phase}: a kernel of its path never launched: {got}")
     fp32_path["scale_soak_long"] = long32["flash_attention"]
+
+    # the auto-tuner: the registry against the card, tune's results, the
+    # measure hook, and an autotuned two-class fleet (its counts zeroed
+    # before each autotuned run and read after it)
+    autotune_path = autotune_phase(cfg, params, prompts)
+    require(all(autotune_path[k] > 0 for k in ("paged_decode_attention",
+                                               "flash_attention")),
+            f"autotune: a kernel of its path never launched: {autotune_path}")
 
     qcfg = cfg.replace(kv_quant=True, n_layers=4)
     gen = torch.Generator(device=DEV).manual_seed(SEED + 2)
@@ -2828,6 +3225,8 @@ def main():
 
     # the remaining families: MoE, MLA, VLM, hybrid, encoder-decoder
     families2_path = families2_phases(get_config, fp32_path)
+    _lib.launches.reset()                   # whisper through the engine
+    whisper_engine_path = whisper_engine_phase(get_config)
 
     rc3e_path = rc3e_phase()
 
@@ -2855,7 +3254,8 @@ def main():
     fleet_main = dict(fleet_path,
                       flash_attention=gateway_path["flash_attention"])
     path_launches = {k: serving_path[k] + families_path[k] + fleet_main[k]
-                     + families2_path[k]
+                     + families2_path[k] + autotune_path[k]
+                     + whisper_engine_path[k]
                      + sum(got[k] for got in harness_path.values())
                      for k in SERVING_KERNELS}
     path_launches["stream_matmul"] = (rc3e_path["stream_matmul"]
@@ -2894,7 +3294,9 @@ def main():
                 "families_serving": families_path[name],
                 "fleet_serving": fleet_main[name],
                 **{p: got[name] for p, got in harness_path.items()},
-                "families2": families2_path[name]}
+                "families2": families2_path[name],
+                "autotune": autotune_path[name],
+                "whisper_engine": whisper_engine_path[name]}
         if name == "ssd_chunk_scan":
             row["launches_by_path"] = {
                 "ssm_serve": ssm_path[name],

@@ -67,14 +67,16 @@ class EncoderConfig:
 
 @dataclass(frozen=True)
 class GeometryConfig:
-    """Kernel geometry for the serving dataplane — set by the auto-tuner
-    (``repro.tuning``) per device class. Defaults are literal copies of the
-    hand-picked constants in ``kernels/registry.py`` (this module stays
-    jax-free, so it cannot import them; a test pins the two in sync).
+    """The reference's kernel geometry, copied field for field so that the
+    configs stay equal to the reference's. The block fields are the
+    reference's Pallas tiles: the port reads none of them (its CUDA tiles
+    are compiled constants, ``kernels/registry.py``, and its auto-tuner,
+    ``repro_torch.tuning``, sweeps the serving geometry instead).
 
-    ``kernel_force`` overrides the Pallas-vs-reference dispatch in the
-    attention layers ("kernel" | "interpret" | "ref"; "" = by backend).
-    Serving-only: the Pallas paths define no VJP."""
+    ``kernel_force`` is read: "" runs the CUDA kernels on CUDA tensors and
+    the plain versions on CPU tensors; "ref" forces the plain versions on
+    any device. The reference's "kernel" and "interpret" are TPU modes,
+    which the port refuses."""
 
     decode_block_k: int = 512
     flash_block_q: int = 256

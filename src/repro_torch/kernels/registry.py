@@ -1,0 +1,280 @@
+"""Legal-geometry registry for the port's Hopper kernels and serving pool.
+
+The counterpart of the reference's ``kernels/registry.py``: the one place
+that declares, for the auto-tuner (``repro_torch.tuning``) and the
+rc3e-check kernel pass (``repro_torch.analysis.kernelpass``),
+
+  * the card: an H100 SXM's SMs, shared memory, registers and HBM, and its
+    peak rates (the cost model's ceilings);
+  * what the CUDA kernels take: their compiled tiles, the head dims and
+    state dims they are built for, the query-head group, the split-K
+    constants, and each kernel's shared memory a block at every head dim
+    and state dim it is built for;
+  * the axes the tuner may sweep (page size, decode slots, prefill chunk)
+    with their legal ranges and defaults;
+  * the divisibility and fit rules, each returning ``None`` when legal,
+    else a reason (the tuner prunes on it; the analysis pass fails on it).
+
+The kernel modules keep their own constants (``decode_attention.HEAD_DIMS``,
+``mamba2_chunk.STATE_DIMS``, ``stream_matmul.MM_TILE``, ...) and the CUDA
+sources their ``constexpr`` tiles; tests pin those to the values here. No
+kernel tile is a sweep axis: the tiles are compiled constants, and
+``split_plan`` derives the split count from the live shape and the SM count.
+
+Pure Python: importing it builds and touches nothing.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+# ---------------------------------------------------------------------------
+# The card: NVIDIA H100 SXM5 80 GB (compute capability 9.0)
+# ---------------------------------------------------------------------------
+SM_COUNT = 132
+SMEM_PER_BLOCK = 227 * 1024          # opt-in dynamic shared memory a block
+SMEM_PER_SM = 228 * 1024
+STATIC_SMEM_PER_BLOCK = 48 * 1024    # static __shared__ arrays a block
+REGS_PER_SM = 64 * 1024
+REGS_PER_THREAD = 255
+HBM_BYTES = 80 * 1024 ** 3
+HBM_BW = 3.35e12                     # bytes/s
+PEAK_FLOPS: Dict[str, float] = {     # dense, per second
+    "bfloat16": 989e12,              # tensor cores
+    "tf32": 495e12,                  # tensor cores
+    "float32": 67e12,                # CUDA cores
+}
+
+# ---------------------------------------------------------------------------
+# What the kernels take
+# ---------------------------------------------------------------------------
+# the attention kernels' head dims; another multiple of HEAD_ALIGN up to
+# the largest is zero-padded to the next of them
+HEAD_DIMS: Tuple[int, ...] = (32, 64, 96, 112, 128, 256)
+HEAD_ALIGN = 8
+MAX_GROUP = 8                        # query heads a kv head (decode)
+STATE_DIMS: Tuple[int, ...] = (16, 64, 128)   # the SSD's d_state
+
+# split-K decode (decode_attention.split_plan)
+MIN_SPLIT_ROWS = 64
+SPLIT_WAVES = 2
+MAX_SPLITS = 128
+
+# compiled tiles (csrc/*.cu constexprs)
+DECODE_WARPS = 8                     # warps of a split block (kWarps)
+DECODE_LOADS = 2                     # row loads a lane an iteration (kLoads)
+DECODE_GROUPS: Tuple[int, ...] = (4, 8)   # G the split kernel is built for
+DECODE_MERGE_THREADS = 256           # kMergeThreads
+FLASH_BQ = 64                        # query rows a block
+FLASH_STAGES = 2                     # groups of K/V tiles in flight
+MM_TILE = 128                        # 2-D matmul output tile (kMmBM/kMmBN)
+MM_BK: Dict[str, int] = {"float32": 16, "bfloat16": 64}
+MM_STAGES: Dict[str, int] = {"float32": 4, "bfloat16": 3}
+MM_BATCHED_TILE = 64                 # batched tiled kernel (BM = BN)
+MM_BATCHED_BK = 16
+SSD_CHUNK = 32                       # steps a chunk (kChunk)
+
+# ---------------------------------------------------------------------------
+# The sweep axes: legal ranges and the defaults that shipped before the tuner
+# ---------------------------------------------------------------------------
+PAGE_SIZE_DEFAULT = 16
+SLOTS_DEFAULT = 4
+PREFILL_CHUNK_DEFAULT = 4
+PAGE_SIZE_CHOICES: Tuple[int, ...] = (8, 16, 32, 64)
+SLOTS_CHOICES: Tuple[int, ...] = (2, 4, 8)
+PREFILL_CHUNK_CHOICES: Tuple[int, ...] = (2, 4, 8, 16)
+
+
+def dtype_bytes(dtype: str) -> int:
+    if "int8" in dtype:
+        return 1
+    if "bfloat16" in dtype or "float16" in dtype:
+        return 2
+    if "float64" in dtype or "int64" in dtype:
+        return 8
+    return 4
+
+
+# ---------------------------------------------------------------------------
+# Divisibility and range rules
+# ---------------------------------------------------------------------------
+
+def padded_head_dim(head_dim: int) -> Optional[int]:
+    """The head dim the attention kernels run ``head_dim`` at: itself when
+    it is in ``HEAD_DIMS``, the next member for another multiple of
+    ``HEAD_ALIGN`` up to the largest, else ``None`` (no kernel takes it)."""
+    if head_dim in HEAD_DIMS:
+        return head_dim
+    if head_dim % HEAD_ALIGN or head_dim > HEAD_DIMS[-1] or head_dim < 1:
+        return None
+    return next(d for d in HEAD_DIMS if d > head_dim)
+
+
+def check_head_dim(head_dim: int) -> Optional[str]:
+    if padded_head_dim(head_dim) is None:
+        return (f"head_dim={head_dim} is neither in {HEAD_DIMS} nor a "
+                f"multiple of {HEAD_ALIGN} up to {HEAD_DIMS[-1]}")
+    return None
+
+
+def check_group(n_heads: int, n_kv_heads: int) -> Optional[str]:
+    """Decode holds at most ``MAX_GROUP`` query heads a kv head."""
+    if n_kv_heads < 1 or n_heads % n_kv_heads:
+        return f"n_heads={n_heads} not a multiple of n_kv_heads={n_kv_heads}"
+    if n_heads // n_kv_heads > MAX_GROUP:
+        return (f"group {n_heads // n_kv_heads} > {MAX_GROUP} query heads "
+                "a kv head")
+    return None
+
+
+def check_state_dim(d_state: int) -> Optional[str]:
+    if d_state not in STATE_DIMS:
+        return f"d_state={d_state} not in {STATE_DIMS}"
+    return None
+
+
+def check_page_size(max_len: int, page_size: int) -> Optional[str]:
+    """The paged pool carves max_len into whole pages; the engine raises
+    unless ``max_len % page_size == 0`` (runtime/serve.py)."""
+    if page_size < 1:
+        return f"page_size={page_size} < 1"
+    if max_len % page_size != 0:
+        return f"max_len={max_len} not divisible by page_size={page_size}"
+    return None
+
+
+def check_slots(max_len: int, n_slots: int) -> Optional[str]:
+    if n_slots < 1:
+        return f"n_slots={n_slots} < 1"
+    if n_slots > max_len:
+        return f"n_slots={n_slots} > max_len={max_len}"
+    return None
+
+
+def check_prefill_chunk(prefill_chunk: int) -> Optional[str]:
+    if prefill_chunk < 1:
+        return f"prefill_chunk={prefill_chunk} < 1"
+    return None
+
+
+# ---------------------------------------------------------------------------
+# Shared memory a block (bytes), mirroring each kernel's arrays
+# ---------------------------------------------------------------------------
+
+def _lanes_a_row(head_dim: int, kv_dtype: str) -> int:
+    """Lanes that read one K/V row in decode (``Row<KT, D>::kLpr``)."""
+    per = 4 if dtype_bytes(kv_dtype) == 4 else 8     # elements a vector
+    n = head_dim // per
+    lanes = 1
+    while lanes < min(n, 32):
+        lanes *= 2
+    return lanes
+
+
+def decode_split_smem_bytes(head_dim: int, group: int) -> int:
+    """``decode_split_kernel``'s static arrays: the idle-slot V sums
+    (kWarps x D) and the warps' (m, l, acc) buffer of kBuf warps (all
+    kWarps while their acc fits 32 KB, else half)."""
+    acc = DECODE_WARPS * group * head_dim * 4
+    buf = DECODE_WARPS if acc <= 32768 else DECODE_WARPS // 2
+    return 4 * (DECODE_WARPS * head_dim + buf * group * (head_dim + 2))
+
+
+def decode_merge_smem_bytes(head_dim: int, kv_dtype: str) -> int:
+    """``decode_merge_kernel``'s static arrays: split weights (MAX_GROUP x
+    MAX_SPLITS), the heads' maxima, and the V row sums of one pass."""
+    rows = DECODE_MERGE_THREADS // _lanes_a_row(head_dim, kv_dtype)
+    return 4 * (MAX_GROUP * MAX_SPLITS + MAX_GROUP + rows * head_dim)
+
+
+def flash_smem_bytes(head_dim: int, dtype: str) -> int:
+    """Dynamic shared memory of a flash block: the Q tile and
+    ``FLASH_STAGES`` x sets K and V tiles. bf16 (``MmaCfg``): tiles of 64
+    keys (32 at D 256), rows padded to a multiple of 64 elements (32 at
+    D 32); fp32 3xTF32 (``Tf32Cfg``): tiles of 64 keys at D <= 64 else 32,
+    one set at D 256, rows of D + 4 floats."""
+    if dtype == "bfloat16":
+        bk, sets = (32 if head_dim >= 256 else 64), 2
+        ld = 32 if head_dim <= 32 else -(-head_dim // 64) * 64
+        return (FLASH_BQ + 2 * FLASH_STAGES * sets * bk) * ld * 2
+    bk = 64 if head_dim <= 64 else 32
+    sets = 1 if head_dim >= 256 else 2
+    return (FLASH_BQ + 2 * FLASH_STAGES * sets * bk) * (head_dim + 4) * 4
+
+
+def matmul_smem_bytes(dtype: str) -> int:
+    """Dynamic shared memory of a 2-D ``mm_kernel`` block (``MmCfg``):
+    ``MM_STAGES`` A and B k tiles; fp32 adds its two split (hi, lo) tiles."""
+    bk, stages = MM_BK[dtype], MM_STAGES[dtype]
+    stage = 2 * MM_TILE * bk * dtype_bytes(dtype)
+    if dtype == "bfloat16":
+        return stages * stage
+    split = (MM_TILE * (bk // 2 + 4) + bk // 2 * (MM_TILE + 2)) * 16
+    return stages * stage + 2 * split
+
+
+def matmul_batched_smem_bytes(size: int) -> int:
+    """Static arrays of the batched entry: ``small_batched_kernel`` at S 16
+    or 32 (256 threads, 4 x 4 outputs a thread), else ``tiled_kernel``."""
+    if size in (16, 32):
+        mats = 256 // ((size // 4) ** 2)
+        return 4 * (mats * size * (size + 1) + mats * size * size)
+    return 4 * MM_BATCHED_BK * (MM_BATCHED_TILE + 4 + MM_BATCHED_TILE)
+
+
+def ssd_smem_bytes(d_state: int, dtype: str, wp: int, ns: int) -> int:
+    """Dynamic shared memory of an ``ssd_chunk_kernel`` block (``SsdCfg``):
+    two stages of x, B, C, C B^T and the decay vectors, and the y tiles."""
+    el = dtype_bytes(dtype)
+    e = 16 // el
+    q, pt = SSD_CHUNK, 16 * wp
+    stage = (q * (pt + e) * el + q * (d_state + e) * el
+             + q * (d_state + 8) * el + q * (q + 8) * 4 + 4 * q * 4)
+    return 2 * stage + ns * q * (pt + 4) * 4
+
+
+def ssd_blocks(d_state: int) -> Tuple[Tuple[int, int], ...]:
+    """The (wp, ns) block shapes the SSD is built for at ``d_state``: 64
+    rows of 4 x 2 warps, and 16 rows of 1 x 8 warps (1 x 2 at N 16)."""
+    return ((4, 2), (1, 8 if d_state >= 64 else 2))
+
+
+def ssd_prep_smem_bytes(d_state: int, dtype: str) -> int:
+    """``ssd_prep_kernel``: a chunk's C and B rows."""
+    return 2 * SSD_CHUNK * (d_state + 8) * dtype_bytes(dtype)
+
+
+def kernel_footprints() -> Dict[str, int]:
+    """Shared memory a block of every kernel instantiation the sources
+    build, keyed ``kernel/variant``: decode at each head dim and group (and
+    its merge at each K/V dtype), flash at each head dim and dtype, the 2-D
+    matmul per dtype, the batched entry per shape, the SSD at each state
+    dim, dtype and block shape."""
+    out: Dict[str, int] = {}
+    for d in HEAD_DIMS:
+        for g in DECODE_GROUPS:
+            out[f"decode_split/D{d}/G{g}"] = decode_split_smem_bytes(d, g)
+        for kv in ("float32", "bfloat16", "int8"):
+            out[f"decode_merge/D{d}/{kv}"] = decode_merge_smem_bytes(d, kv)
+        for dt in ("float32", "bfloat16"):
+            out[f"flash/D{d}/{dt}"] = flash_smem_bytes(d, dt)
+    for dt in ("float32", "bfloat16"):
+        out[f"mm/{dt}"] = matmul_smem_bytes(dt)
+        for n in STATE_DIMS:
+            out[f"ssd_prep/N{n}/{dt}"] = ssd_prep_smem_bytes(n, dt)
+            for wp, ns in ssd_blocks(n):
+                out[f"ssd/N{n}/{dt}/{wp}x{ns}"] = ssd_smem_bytes(n, dt, wp, ns)
+    for s in (16, 32, 64):
+        out[f"mm_batched/S{s}"] = matmul_batched_smem_bytes(s)
+    return out
+
+
+def check_smem(name: str, nbytes: int) -> Optional[str]:
+    """A block's shared memory against the card: static arrays (the decode
+    and batched kernels) within 48 KB, dynamic within the opt-in 227 KB."""
+    static = name.startswith(("decode_", "mm_batched"))
+    limit = STATIC_SMEM_PER_BLOCK if static else SMEM_PER_BLOCK
+    if nbytes > limit:
+        return (f"{name}: {nbytes} bytes of "
+                f"{'static' if static else 'dynamic'} shared memory > "
+                f"{limit}")
+    return None

@@ -74,8 +74,13 @@ class Model:
         """Empty decode caches; for the audio family ``max_len`` is the
         encoder length of the cross-attention K/V."""
         if self.audio:
-            return encdec.make_encdec_caches(self.cfg, batch, max_len,
-                                             self.dev)
+            # the reference zero-fills the whole tree here (self-cache pos
+            # 0, unlike the prefill's caches, which start at -1)
+            caches = encdec.make_encdec_caches(self.cfg, batch, max_len,
+                                               self.dev)
+            for leaf in caches["self"].values():
+                leaf.zero_()
+            return caches
         return lm.make_decode_caches(self.cfg, batch, max_len, self.dev)
 
     def make_paged_caches(self, n_pages: int, page_size: int):

@@ -232,7 +232,12 @@ class EventLoop:
         if dev not in self.fleet._engines:
             self._engine_events.pop(dev, None)
             return
-        self.fleet.step_engine(dev, prefill_chunk=self.prefill_chunk)
+        # chunk length follows the device's class: an autotuned fleet may
+        # admit prompts in bigger (fast class) or smaller (slow class)
+        # prefill chunks than the loop-wide default
+        self.fleet.step_engine(
+            dev, prefill_chunk=self.fleet.prefill_chunk_for(
+                dev, self.prefill_chunk))
         self._engine_events[dev] = self.queue.after(
             self._period(dev), lambda d=dev: self._on_engine(d),
             kind=f"engine:{dev}")

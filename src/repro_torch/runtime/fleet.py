@@ -29,10 +29,10 @@ everyone on ONE engine, so a migration only moved bookkeeping. The
     ``runtime/faults.py``'s seeded ``FaultInjector`` drives it all under
     test.
 
-Ported from ``repro.runtime.fleet``, except per-device-class tuned
-geometries (the reference's ``autotune=True``): they need the auto-tuner,
-which the port does not have yet, so ``autotune=True`` raises and every
-engine binds the one default program.
+Ported from ``repro.runtime.fleet``. With ``autotune=True`` each device
+class binds the serving geometry (slots, page size, prefill chunk) that
+``repro_torch.tuning`` picks for it; the model and its kernels are the
+same in every geometry.
 """
 from __future__ import annotations
 
@@ -54,6 +54,7 @@ from repro_torch.runtime.gateway import (TenantSession, check_program_device,
 from repro_torch.runtime.paged import default_pool_pages
 from repro_torch.runtime.serve import (BatchingEngine, Request, _req_event,
                                       make_paged_serve_step, make_serve_step)
+from repro_torch.tuning import TunedConfig, device_class, resolve_tuned
 
 
 def _mark_cancelled(req: Request) -> None:
@@ -63,6 +64,26 @@ def _mark_cancelled(req: Request) -> None:
     req.finish_reason = "cancelled"
     req.finished_at = time.monotonic()
     req.done.set()
+
+
+@dataclasses.dataclass
+class _ProgramBundle:
+    """One serving geometry's configure-ready program: its serve-step fn,
+    the example (meta tensors) the reconfigurator keys on, and the pool
+    dimensions the engines built for this geometry must use (``pages``: 0
+    on a dense fleet). ``tuned is None`` is the fleet's default
+    (constructor args); autotuned fleets hold one bundle per device class.
+    ``fingerprint`` is stamped at first configure (``_ensure_engine``) so
+    failover can re-mark slices with the program they actually run."""
+    tuned: Optional[TunedConfig]
+    decode_fn: object
+    example: tuple
+    desc: str
+    geometry: str
+    n_slots: int
+    page_size: int
+    pages: int
+    fingerprint: Optional[str] = None
 
 
 @dataclasses.dataclass
@@ -108,11 +129,6 @@ class GatewayFleet:
             raise ValueError("paged KV caches support plain-attention "
                              "models (MLA latents are not paged)")
         check_program_device(hv, model)
-        if autotune:
-            raise ValueError("GatewayFleet(autotune=True): per-device-class "
-                             "tuned geometries need the auto-tuner "
-                             "(repro.tuning), which the port does not have "
-                             "yet")
         self.hv = hv
         self.model = model
         self.params = params
@@ -185,32 +201,96 @@ class GatewayFleet:
         self.steps = 0
         self.last_round_ms: Dict[str, float] = {}        # per-device step wall
 
+        # Per-device-class auto-tuning (opt-in): when set, each engine
+        # binds the geometry the design-space tuner picked for ITS
+        # device's class — slot count, KV page size, prefill chunk —
+        # resolved through the ProgramCache's tuned-config store. Off by
+        # default so every engine shares ONE program (one fingerprint,
+        # PR cache hits fleet-wide — the paper's shared-bitstream case).
+        self.autotune = autotune
+        self._bundles: Dict[str, _ProgramBundle] = {}   # device class -> b
+
         # Configure the decode step ONCE through the hypervisor's
         # reconfigurator (full configuration); every engine spun up after
-        # that binds the same program — a PR cache hit per device (one
-        # fingerprint fleet-wide: the paper's shared-bitstream case).
+        # that binds the same program — a PR cache hit per device.
+        # (Autotuned fleets still configure this default bundle: it is the
+        # failover fallback and the geometry control arm.)
         if paged and max_len % page_size:
             raise ValueError(f"max_len {max_len} must be a multiple of "
                              f"page_size {page_size}")
-        self._decode_fn = make_paged_serve_step(model) if paged \
-            else make_serve_step(model)
-        # every engine's pool size (0 on dense engines)
-        self._pool_pages = 0 if not paged else (
-            cache_pages if cache_pages is not None
-            else default_pool_pages(n_slots, max_len // page_size))
-        self._example = serve_example(model, params, n_slots, max_len, paged,
-                                      page_size, self._pool_pages)
-        self._desc = f"serve:{model.cfg.name}:slots{n_slots}:len{max_len}" \
-            + (f":paged{page_size}" if paged else "")
+        bundle = self._default_bundle = self._make_bundle(None)
         entry, dt, hit = hv.reconfig.partial_reconfigure(
-            self._decode_fn, self._example, static_desc=self._desc)
-        self.program_fingerprint = entry.fingerprint
+            bundle.decode_fn, bundle.example, static_desc=bundle.desc)
+        self.program_fingerprint = bundle.fingerprint = entry.fingerprint
         hv._log("fleet_up", model=model.cfg.name, n_slots=n_slots,
                 fingerprint=entry.fingerprint, compile_s=dt, cache_hit=hit,
-                paged=paged, autotune=False)
+                paged=paged, autotune=autotune)
         # register LAST: a constructor failure above must not leave a
         # dead fleet's listener on the shared hypervisor
         hv.migration_listeners.append(self._on_migration)
+
+    # ------------------------------------------------------------------
+    # Program bundles (one geometry = one configured program)
+    # ------------------------------------------------------------------
+    def _make_bundle(self, tuned: Optional[TunedConfig]) -> _ProgramBundle:
+        """Build the configure-ready program for one geometry. ``None`` is
+        the fleet default (constructor args); a ``TunedConfig`` sizes the
+        serve-step example with the tuned slot count / page size, so each
+        geometry configures (and caches) as its own program. The model is
+        the same in every geometry: the port's kernels take no block
+        sizes."""
+        if tuned is None:
+            n_slots, page_size, geometry = self.n_slots, self.page_size, ""
+        else:
+            n_slots, page_size = tuned.n_slots, tuned.page_size
+            geometry = tuned.geometry_key()
+        pages = 0
+        if self.paged:
+            pages = self.cache_pages if self.cache_pages is not None \
+                else default_pool_pages(n_slots, self.max_len // page_size)
+        decode_fn = make_paged_serve_step(self.model) if self.paged \
+            else make_serve_step(self.model)
+        example = serve_example(self.model, self.params, n_slots,
+                                self.max_len, self.paged, page_size, pages)
+        desc = f"serve:{self.model.cfg.name}:slots{n_slots}" \
+            f":len{self.max_len}" \
+            + (f":paged{page_size}" if self.paged else "") \
+            + (f":geom{geometry}" if geometry else "")
+        return _ProgramBundle(tuned, decode_fn, example, desc, geometry,
+                              n_slots, page_size, pages)
+
+    def _bundle_for(self, device_id: str) -> _ProgramBundle:
+        """The program bundle a device binds: the tuned geometry of its
+        device class when autotuning, the shared default otherwise. Tuned
+        configs persist in the ProgramCache keyed (model fp, class), so a
+        class's sweep runs once per cache lifetime — every later bind
+        (including cross-class hand-off destinations) is a lookup."""
+        if not self.autotune:
+            return self._default_bundle
+        speed = self.hv.db.devices[device_id].speed
+        cls = device_class(speed)
+        bundle = self._bundles.get(cls)
+        if bundle is None:
+            tuned = resolve_tuned(self.hv.reconfig.cache, self.model.cfg,
+                                  speed, max_len=self.max_len,
+                                  paged=self.paged)
+            bundle = self._make_bundle(tuned)
+            self._bundles[cls] = bundle
+            self.hv._log("autotune_bind", device_class=cls,
+                         geometry=bundle.geometry, n_slots=bundle.n_slots,
+                         page_size=bundle.page_size)
+        return bundle
+
+    def prefill_chunk_for(self, device_id: str,
+                          default: Optional[int]) -> Optional[int]:
+        """Tuned prefill chunk length for a device's class (the event
+        loop's chunked-prefill cadence); the caller's default when
+        autotuning is off or the caller runs lockstep (``None``)."""
+        if default is None or not self.autotune:
+            return default
+        bundle = self._bundle_for(device_id)
+        return bundle.tuned.prefill_chunk if bundle.tuned is not None \
+            else default
 
     # ------------------------------------------------------------------
     # Engine lifecycle (one per active device)
@@ -219,13 +299,17 @@ class GatewayFleet:
         eng = self._engines.get(device_id)
         if eng is not None:
             return eng
-        eng = BatchingEngine(self.model, self.params, n_slots=self.n_slots,
+        bundle = self._bundle_for(device_id)
+        eng = BatchingEngine(self.model, self.params,
+                             n_slots=bundle.n_slots,
                              max_len=self.max_len, eos_id=self.eos_id,
                              id_counter=self._req_ids, paged=self.paged,
-                             page_size=self.page_size,
+                             page_size=bundle.page_size,
                              cache_pages=self.cache_pages)
         entry, dt, hit = self.hv.reconfig.partial_reconfigure(
-            self._decode_fn, self._example, static_desc=self._desc)
+            bundle.decode_fn, bundle.example, static_desc=bundle.desc,
+            geometry=bundle.geometry)
+        bundle.fingerprint = entry.fingerprint
         eng.use_program(entry.compiled)
         eng.on_step = lambda active, ms, dev=device_id: \
             self._on_step(dev, active, ms)
@@ -233,7 +317,7 @@ class GatewayFleet:
         self._engines[device_id] = eng
         self.hv._log("engine_up", device=device_id,
                      fingerprint=entry.fingerprint, swap_s=dt, cache_hit=hit,
-                     geometry="default")
+                     geometry=bundle.geometry or "default")
         return eng
 
     def park_idle_engines(self) -> List[str]:
@@ -264,7 +348,8 @@ class GatewayFleet:
         memory dimension)."""
         if not self.paged:
             return 0
-        return max(1, (self._pool_pages - 1) * slots // self.n_slots)
+        return max(1, (self._default_bundle.pages - 1) * slots
+                   // self.n_slots)
 
     def open_session(self, tenant: str, slots: int = 1,
                      service_model: str = "baas") -> TenantSession:
@@ -275,9 +360,13 @@ class GatewayFleet:
             cache_pages=self._session_page_grant(slots))
         try:
             engine = self._ensure_engine(vs.device_id)
-            # PR-swap the decode program onto this tenant's slice
-            self.hv.program_slice(vs.slice_id, self._decode_fn,
-                                  self._example, static_desc=self._desc)
+            # PR-swap the decode program onto this tenant's slice — the
+            # bundle of the device's class, so an autotuned fleet binds
+            # tuned geometry with zero operator input
+            bundle = self._bundle_for(vs.device_id)
+            self.hv.program_slice(vs.slice_id, bundle.decode_fn,
+                                  bundle.example, static_desc=bundle.desc,
+                                  geometry=bundle.geometry)
             engine.set_tenant_share(tenant, slots)
             engine.set_tenant_weight(tenant, slots)
             if self.paged:
@@ -621,6 +710,12 @@ class GatewayFleet:
                  "old_device": old_dev, "new_device": new_dev,
                  "moved_requests": len(moved), "page_copied": page_copied,
                  "replayed_inflight": replayed}
+        if self.autotune:
+            # cross-class hand-off: geometry was re-resolved for the
+            # DESTINATION class when its engine came up; record both ends
+            event["dst_geometry"] = self._bundle_for(new_dev).geometry
+            event["src_geometry"] = ("" if old_dev is None
+                                     else self._bundle_for(old_dev).geometry)
         self.handoffs.append(event)
         self.hv._log("handoff", **event)
 
@@ -714,8 +809,13 @@ class GatewayFleet:
             sess.slice_id = vs.slice_id
             self._device_of[tenant] = vs.device_id
             target = self._ensure_engine(vs.device_id)
-            self.hv.db.set_slice_state(vs.slice_id, SliceState.CONFIGURED,
-                                       program=self.program_fingerprint)
+            # the surviving device may be a different class: mark the
+            # slice with the program fingerprint its class actually runs
+            # (stamped by _ensure_engine's configure just above)
+            self.hv.db.set_slice_state(
+                vs.slice_id, SliceState.CONFIGURED,
+                program=self._bundle_for(vs.device_id).fingerprint
+                or self.program_fingerprint)
             target.set_tenant_share(tenant, vs.slots)
             target.set_tenant_weight(tenant, vs.slots)
             if self.paged:

@@ -70,7 +70,13 @@ def make_prefill_step(model: Model, max_len: int, clamp_window: bool = True):
 # ---------------------------------------------------------------------------
 
 def _site_caches(caches):
-    """Yield every site's cache dict of a stage-structured cache tree."""
+    """Yield every site's cache dict of a stage-structured cache tree; the
+    audio family's ``{"self", "cross_k", "cross_v"}`` tree gives its self-
+    attention cache and then its cross K/V as one dict."""
+    if isinstance(caches, dict):
+        yield caches["self"]
+        yield {k: v for k, v in caches.items() if k != "self"}
+        return
     for st in caches:
         if isinstance(st, dict):
             yield st
@@ -300,12 +306,19 @@ class BatchingEngine:
         hypervisor's device)."""
         self._decode_fn = compiled
 
+    def _upload(self, x: np.ndarray) -> torch.Tensor:  # rc3e: allow-host-sync
+        """A host array on the engine's device. The hot path's uploads: the
+        decode step's (n_slots, 1) tokens and (n_slots,) positions, the
+        prefill prompt once an admission, the block tables when the pool's
+        version moved, page lists at admission, growth or flush."""
+        return torch.from_numpy(x).to(self.device)
+
     def _decode(self, tokens: np.ndarray, pos: np.ndarray):
         """One decode step over all slots; the caches update in place.
         The two small per-step uploads ((n_slots, 1) tokens and (n_slots,)
         positions) are the step's inputs."""
-        tok = torch.from_numpy(tokens).to(self.device)
-        posd = torch.from_numpy(pos.copy()).to(self.device)
+        tok = self._upload(tokens)
+        posd = self._upload(pos.copy())
         extra = (self._block_tables_dev(),) if self.paged else ()
         logits, _ = self._decode_fn(self.params, self.caches, tok, posd,
                                     *extra)
@@ -490,9 +503,8 @@ class BatchingEngine:
     def _pages_dev(self, pages) -> torch.Tensor:
         """Upload a page-index list (block order kept) at admission, growth
         or flush time — never per decode step."""
-        return torch.as_tensor(
-            np.asarray(pages, np.int64),             # rc3e: allow-host-sync
-            device=self.device)
+        return self._upload(
+            np.asarray(pages, np.int64))             # rc3e: allow-host-sync
 
     def _invalidate_pages(self, pages) -> None:
         """Reset recycled pages' stale ``pos`` metadata before first use by
@@ -691,16 +703,14 @@ class BatchingEngine:
         pad = max(n, min(bucket, self._min_cache_len))
         toks = np.zeros((1, pad), np.int32)
         toks[0, :n] = ctx
-        # prefill prompt upload: once per admission, not per step
-        return torch.from_numpy(toks).to(self.device)
+        return self._upload(toks)      # once per admission, not per step
 
     def _block_tables_dev(self) -> torch.Tensor:
         """Device copy of the pool block tables, re-uploaded only when the
         pool's ``version`` counter moved."""
         if self._bt_version != self.pool.version:
-            self._bt_cache = torch.from_numpy(
-                np.ascontiguousarray(self.pool.block_tables, np.int32)
-            ).to(self.device)
+            self._bt_cache = self._upload(
+                np.ascontiguousarray(self.pool.block_tables, np.int32))
             self._bt_version = self.pool.version
         return self._bt_cache
 

@@ -334,3 +334,61 @@ def test_dead_device_sweep_clears_traffic_windows():
     assert not hv.db.nodes["node-1"].alive
     assert mon.device_completion_rate("dev-1-0") is None
     assert mon.device_completion_rate("dev-0-0") is not None
+
+
+def _mid_prefill_run(hv, fleet_cls, loop_cls, model, params, cfg, migrate):
+    """One tenant's 40-token prompt on a two-device fleet under the event
+    loop (prefill chunk 4: 10 chunk events); with ``migrate`` the tenant
+    moves to the other device two ticks in, while the request is still in
+    chunked prefill (an overlapped hand-off that snapshots its pages)."""
+    fleet = fleet_cls(hv, model, params, n_slots=2, max_len=128, paged=True,
+                      page_size=16)
+    ev = loop_cls(fleet)
+    sess = fleet.open_session("t", slots=1)
+    req = fleet.submit("t", _prompt(cfg, n=40, seed=3), max_new_tokens=6)
+    src = fleet.device_of("t")
+    for tick in range(400):
+        if migrate and tick == 2:
+            assert not req.out_tokens            # still prefilling
+            dst = next(d for d in sorted(hv.db.devices) if d != src)
+            hv.migrate_slice(sess.slice_id, target_device=dst, reason="ops")
+        ev.run_ticks(1)
+        if req.done.is_set() and not fleet._inflight_handoffs:
+            break
+    assert req.done.is_set()
+    handoffs = list(fleet.handoffs)
+    fleet.close()
+    return list(req.out_tokens), handoffs
+
+
+def test_overlapped_handoff_mid_prefill_mirrors_reference(served_model):
+    """An overlapped hand-off of a request still in chunked prefill adopts
+    the snapshot's pages on the target (one page copied), and the stream
+    then differs from the unmigrated run's: a fault of the reference
+    (``src/repro/runtime/events.py``, ``_begin_handoff`` exports the pages
+    of a request whose prefill has not completed), recorded in ROADMAP
+    Queue 3 and mirrored here, not fixed: the port's log equals the
+    reference's, migrated and not."""
+    from repro.core import ClusterSpec as JClusterSpec
+    from repro.core import Hypervisor as JHypervisor
+    from repro.runtime import EventLoop as JEventLoop
+    from repro.runtime import GatewayFleet as JGatewayFleet
+    cfg, model, params = served_model
+    jcfg = j_reduced(j_get_config("smollm-135m")).replace(dtype="float32")
+    jmodel = j_get_model(jcfg)
+    jparams = jmodel.init(jax.random.PRNGKey(0))
+    logs = {}
+    for migrate in (False, True):
+        got, handoffs = _mid_prefill_run(
+            Hypervisor(ClusterSpec(n_nodes=1, devices_per_node=2),
+                       device="cpu"), GatewayFleet, EventLoop, model,
+            params, cfg, migrate)
+        want, jhandoffs = _mid_prefill_run(
+            JHypervisor(JClusterSpec(n_nodes=1, devices_per_node=2)),
+            JGatewayFleet, JEventLoop, jmodel, jparams, cfg, migrate)
+        assert got == want
+        assert [(h["page_copied"], h["replayed_inflight"]) for h in handoffs] \
+            == [(h["page_copied"], h["replayed_inflight"])
+                for h in jhandoffs] == ([(1, 0)] if migrate else [])
+        logs[migrate] = want
+    assert logs[True] != logs[False]        # the reference's fault

@@ -2,14 +2,13 @@
 
 Mirror: the tests of ``tests/test_fleet.py`` and the fleet/gateway cases of
 ``tests/test_paged.py``, run on the port with the same assertions
-(``Hypervisor(device="cpu")``, ``Model(device="cpu")``). The reference's
-``test_cross_class_handoff_reresolves_geometry`` needs the auto-tuner,
-which the port does not have: in its place, ``autotune=True`` must raise
-naming it. Parity: a paged hand-off run (a directed migration mid-decode,
-pages copied) through the JAX package's fleet and the port's, compared on
-the token logs (exactly), ``fleet_stats()`` after every step (with
-``page_stats()``, less its wall-clock ``scrub_ms``), the journal and the
-hand-off records.
+(``Hypervisor(device="cpu")``, ``Model(device="cpu")``), the cross-class
+hand-off of an autotuned fleet among them (its log held against the
+reference's run of the same scenario). Parity: a paged hand-off run (a
+directed migration mid-decode, pages copied) through the JAX package's
+fleet and the port's, compared on the token logs (exactly),
+``fleet_stats()`` after every step (with ``page_stats()``, less its
+wall-clock ``scrub_ms``), the journal and the hand-off records.
 
 Weights: reduced smollm-135m in fp32, the JAX init carried across
 (``params_from_numpy``); the token-margin premise is asserted as in
@@ -148,17 +147,86 @@ def test_fleet_empty_prompt_rejected(served_model):
     fleet.close()
 
 
-def test_autotune_refused_naming_the_tuner(served_model):
-    """The reference's tuned per-device-class geometries need the
-    auto-tuner; the port refuses ``autotune=True`` at construction (no
-    session, no slice) instead of accepting and ignoring it."""
+def _cross_class_run(hv, fleet_cls, model, params, tuned_cls, cfg):
+    """The reference's cross-class hand-off scenario on either package:
+    two device classes (1.0 / 0.25) whose tuned store is seeded with two
+    different geometries, a request decoding 3 rounds on the fast class,
+    then a directed migration to the slow one. Returns (request, source
+    device, destination device, fleet)."""
+    from repro.tuning import device_class, model_fingerprint
+    fp = model_fingerprint(cfg, 64, True)
+    hv.reconfig.cache.put_tuned(
+        fp, device_class(1.0), tuned_cls(page_size=8, n_slots=4).to_dict())
+    hv.reconfig.cache.put_tuned(
+        fp, device_class(0.25), tuned_cls(page_size=16, n_slots=2).to_dict())
+    fleet = fleet_cls(hv, model, params, n_slots=2, max_len=64, paged=True,
+                      page_size=8, autotune=True)
+    t = fleet.open_session("t", slots=1)
+    src = fleet.device_of("t")
+    req = fleet.submit("t", _prompt(cfg), max_new_tokens=8)
+    for _ in range(3):
+        fleet.step()
+    dst = next(d for d in hv.db.devices if d != src)
+    hv.migrate_slice(t.slice_id, target_device=dst, reason="ops")
+    return req, src, dst, fleet
+
+
+def test_cross_class_handoff_reresolves_geometry(served_model, jax_model):
+    """A hand-off between device CLASSES re-resolves the tuned geometry on
+    the destination: the target engine binds ITS class's winner from the
+    ProgramCache tuned store (seeded with two different geometries), pages
+    cut at the source's page size are declined by the import guard (prefix
+    replay instead), and the token log equals the reference's run of the
+    same scenario and an unmigrated default run of either package."""
+    from repro.tuning import TunedConfig as JTunedConfig
+    from repro_torch.tuning import TunedConfig, device_class
+    from repro_torch.tuning import model_fingerprint
     cfg, model, params = served_model
-    hv = _hv()
-    with pytest.raises(ValueError, match="auto-tuner"):
-        GatewayFleet(hv, model, params, n_slots=2, max_len=64, paged=True,
-                     page_size=8, autotune=True)
-    assert all(u == 0.0 for u in hv.db.utilization().values())
-    assert not hv.migration_listeners and not hv.reconfig.cache._entries
+    hv = _hv(device_speeds=(1.0, 0.25))
+    fp = model_fingerprint(model.cfg, 64, True)
+    req, src, dst, fleet = _cross_class_run(hv, GatewayFleet, model, params,
+                                            TunedConfig, cfg)
+    assert hv.db.devices[src].speed != hv.db.devices[dst].speed
+    assert fleet._engines[src].page_size == 8          # fast-class winner
+    assert fleet.device_of("t") == dst
+    # destination bound the 0.25x-class geometry, not the source's
+    assert fleet._engines[dst].page_size == 16
+    assert fleet._engines[dst].n_slots == 2
+    assert hv.reconfig.cache.get_tuned(fp, device_class(0.25)) == \
+        TunedConfig(page_size=16, n_slots=2).to_dict()
+    binds = [e for e in hv.log if e["kind"] == "autotune_bind"]
+    assert {e["geometry"] for e in binds} == {"ps8.s4.pc4", "ps16.s2.pc4"}
+    ev = fleet.handoffs[-1]
+    assert ev["src_geometry"] == "ps8.s4.pc4"
+    assert ev["dst_geometry"] == "ps16.s2.pc4"
+    # page snapshot was cut at ps=8 — the ps=16 pool must decline it and
+    # fall back to prefix replay (bit-exact greedy), never adopt raggedly
+    assert ev["page_copied"] == 0 and ev["replayed_inflight"] == 1
+    fleet.run_until_idle()
+    assert len(req.out_tokens) == 8
+    fleet.verify_invariants()
+    fleet.close()
+
+    jmodel, jparams = jax_model
+    jhv = JHypervisor(JClusterSpec(n_nodes=1, devices_per_node=2,
+                                   device_speeds=(1.0, 0.25)))
+    jreq, _, _, jfleet = _cross_class_run(jhv, JGatewayFleet, jmodel,
+                                          jparams, JTunedConfig, cfg)
+    jev = jfleet.handoffs[-1]
+    jfleet.run_until_idle()
+    jfleet.close()
+    assert (jev["page_copied"], jev["replayed_inflight"]) == (0, 1)
+    assert list(req.out_tokens) == list(jreq.out_tokens)
+
+    # bit-exactness across the migration + both tuned geometries
+    hv2 = _hv(devices_per_node=1)
+    fleet2 = GatewayFleet(hv2, model, params, n_slots=2, max_len=64,
+                          paged=True, page_size=8)
+    fleet2.open_session("t", slots=1)
+    ref = fleet2.submit("t", _prompt(cfg), max_new_tokens=8)
+    fleet2.run_until_idle()
+    fleet2.close()
+    assert list(req.out_tokens) == list(ref.out_tokens)
 
 
 # ---------------------------------------------------------------------------
