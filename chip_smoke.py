@@ -213,6 +213,22 @@ lines.jsonl):
    [11, 2], 32 new tokens), kernel path against plain path, the logs
    equal, and a longer context failing with ``KeyError('frames')`` as
    the reference's engine does.
+10c. training (``training_phases``; fp32, TF32 off; every phase must
+   launch no kernel, as the reference's training reaches no Pallas
+   kernel): ``train_smollm`` (``repro_torch.launch.train.main`` on
+   full-width, full-depth smollm-135m, B 8, S 1024, 30 steps, warmup 10:
+   losses finite and falling; step ms p50/p95 after 3 warm-up steps,
+   tokens/s, peak memory, one step under the profiler: device busy ms,
+   idle share, top-5 device ops), ``train_remat_micro`` (one step plain /
+   remat / 2 microbatches from one state: loss within 1e-5 relative,
+   grad_norm within 1e-4; peak memory of each), ``train_device_parity``
+   (2 layers, B 2, S 256: loss and every gradient leaf against the CPU),
+   ``train_restart`` (4 layers, B 4, S 256, deterministic algorithms: 6
+   steps straight against 3 + save + restore + 3, bit for bit),
+   ``train_families`` (one step each of qwen3-moe at 2 layers, mamba2-370m
+   at 4, whisper-tiny in full: finite loss, MoE aux > 0, every gradient
+   leaf finite and nonzero) and ``train_dp_nccl`` (``make_dp_train_step``
+   on an NCCL world of 1, compressed and not, 5 steps, 4 layers).
 11. the ``kernels`` summary line (launches of the attention kernels from
    the smollm, the families', the fleet phases', the harness phases', the
    autotuned fleets', the remaining families' and whisper_engine's
@@ -220,7 +236,8 @@ lines.jsonl):
    the fp32 S=512 case and fp32 flash's launches on the fp32 engines,
    ``families_model``, ``launch_serve``, ``fleet_chaos`` and
    ``scale_soak_long``; the streaming matmul's from the rc3e path, the
-   SSD scan's from the SSM path and zamba2's), the GPU's name and power
+   SSD scan's from the SSM path and zamba2's; every row's
+   ``launches_by_path`` has ``training``: 0), the GPU's name and power
    limit, and ``{"ok": true, ...}`` last. Any failed check exits
    non-zero.
 """
@@ -228,14 +245,20 @@ import contextlib
 import dataclasses
 import io
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
 from pathlib import Path
 
-import numpy as np
-import torch
+# cuBLAS's deterministic workspace (train_restart runs under
+# torch.use_deterministic_algorithms); set before the first CUDA call
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 ROOT = Path(__file__).resolve().parent
 OUT = ROOT / "chiprun_out" / "chip_smoke"
@@ -1176,7 +1199,7 @@ def router_watch(log):
 
     def watched(p, xf, opts):
         out = route(p, xf, opts)
-        sp, _, expert, pos, cap = out
+        sp, _, expert, pos, cap, _ = out
         k = opts.cfg.top_k
         log.append(dict(margin=sp[..., k - 1] - sp[..., k], expert=expert,
                         keep=(pos < cap).reshape(expert.shape)))
@@ -3063,6 +3086,410 @@ def whisper_engine_phase(get_config):
     return got
 
 
+# ---------------------------------------------------------------------------
+# Training (repro_torch.launch.train, runtime.train): no kernel launches
+# ---------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_WARM = 8, 1024, 30, 3
+TRAIN_PROFILE_STEP = 5          # the launcher's step traced by the profiler
+TRAIN_PARITY = dict(layers=2, B=2, S=256)
+TRAIN_RESTART = dict(layers=4, B=4, S=256, steps=6)
+TRAIN_FAMILIES = (("qwen3-moe-30b-a3b", 2, 2, 256),   # arch, layers, B, S
+                  ("mamba2-370m", 4, 2, 256),
+                  ("whisper-tiny", 0, 2, 0))          # 0: full depth / S
+TRAIN_DP = dict(layers=4, B=8, S=256, steps=5)
+TRAIN_LR = dict(lr=1e-3, warmup_steps=10)             # the launcher's
+
+
+def _mem_reset():
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+
+def _mem_peak():
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated()
+
+
+def _no_launch(phase, before):
+    from repro_torch.kernels import launches
+    got = {k: launches[k] - before[k] for k in launches}
+    require(not any(got.values()),
+            f"{phase}: training launched kernels {got} (no kernel defines a "
+            "backward; training takes the plain paths)")
+    return got
+
+
+def _train_setup(cfg, B, S, seed, **opts_kw):
+    """Model (fp32 activations, as the launcher sets them), TrainOpts (the
+    launcher's schedule, loss chunk 64), a seeded state on the card with
+    SSM gate norms and MLA kv_norm at 1, and a batch of the synthetic
+    pipeline (patches or frames seeded too)."""
+    from repro_torch.data import DataConfig, DataPipeline
+    from repro_torch.models import get_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.train import TrainOpts, init_train_state
+    cfg = cfg.replace(dtype="float32")
+    model = get_model(cfg, device=DEV)
+    opts = TrainOpts(opt=AdamWConfig(total_steps=TRAIN_STEPS, **TRAIN_LR),
+                     loss_chunk=64, **opts_kw)
+    state = init_train_state(
+        model, torch.Generator(device=DEV).manual_seed(seed), opts)
+    norms_to_one(state["params"])
+    gen = torch.Generator(device=DEV).manual_seed(seed + 1)
+    if cfg.family == "audio":
+        data = DataPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                       seq_len=64, batch_size=B, seed=seed))
+        batch = {k: torch.from_numpy(v).to(DEV)
+                 for k, v in data.batch_at(0).items()}
+        batch["frames"] = torch.randn((B, S, cfg.d_model), generator=gen,
+                                      device=DEV)
+        return model, opts, state, batch
+    data = DataPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                   seq_len=S - cfg.n_patches, batch_size=B,
+                                   seed=seed))
+    return model, opts, state, {k: torch.from_numpy(v).to(DEV)
+                                for k, v in data.batch_at(0).items()}
+
+
+def _tree_cpu(tree):
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.detach().cpu(), tree)
+
+
+def train_smollm_phase(get_config):
+    """``repro_torch.launch.train.main`` on full-width, full-depth
+    smollm-135m (B 8, S 1024, 30 steps, warmup 10, fp32): the losses
+    finite and the last below the first, no kernel launched; step ms
+    p50/p95 after 3 warm-up steps (each step synchronised), tokens/s, the
+    peak memory, and one step traced by the profiler (device busy ms, idle
+    share against the unprofiled p50, top-5 device ops)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.kernels import launches
+    from repro_torch.launch import train as launch_train
+    t_phase = time.monotonic()
+    cfg = get_config("smollm-135m")
+    times, traced = [], {}
+    real = launch_train.make_train_step
+
+    def timed_factory(model, opts):
+        step = real(model, opts)
+
+        def timed(state, batch):
+            if len(times) == TRAIN_PROFILE_STEP and not traced:
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    t0 = time.monotonic()
+                    out = step(state, batch)
+                    torch.cuda.synchronize()
+                traced["wall_ms"] = (time.monotonic() - t0) * 1e3
+                traced["prof"] = prof
+                return out
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            out = step(state, batch)
+            torch.cuda.synchronize()
+            times.append(time.monotonic() - t0)
+            return out
+
+        return timed
+
+    before = dict(launches)
+    _mem_reset()
+    launch_train.make_train_step = timed_factory
+    printed = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(printed):
+            losses = launch_train.main(
+                ["--arch", cfg.name, "--steps", str(TRAIN_STEPS),
+                 "--batch", str(TRAIN_B), "--seq", str(TRAIN_S),
+                 "--device", DEV])
+    finally:
+        launch_train.make_train_step = real
+    peak = _mem_peak()
+    got = _no_launch("train_smollm", before)
+    require(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
+            f"train_smollm: losses {losses}")
+    require(losses[-1] < losses[0],
+            f"train_smollm: the loss did not fall: {losses[0]} -> "
+            f"{losses[-1]}")
+    steady = np.array(times[TRAIN_WARM:]) * 1e3
+    p50 = float(np.percentile(steady, 50))
+    dev = [e for e in traced["prof"].key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in dev) / 1e3
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:5]
+    emit(dict(phase="train_smollm", arch=cfg.name, layers=cfg.n_layers,
+              dtype="float32", batch=TRAIN_B, seq=TRAIN_S,
+              steps=TRAIN_STEPS, losses=losses,
+              step_ms_p50=p50, step_ms_p95=float(np.percentile(steady, 95)),
+              step_ms_first=times[0] * 1e3,
+              tokens_per_s=TRAIN_B * TRAIN_S / (p50 / 1e3),
+              profiled_step_wall_ms=traced["wall_ms"],
+              device_busy_ms_per_step=busy,
+              device_idle_share=1.0 - busy / p50 if busy else None,
+              device_ops_per_step=sum(e.count for e in dev),
+              top_device_ops_ms={e.key[:80]: e.self_device_time_total / 1e3
+                                 for e in top},
+              peak_memory_bytes=peak, launches=got,
+              launcher_lines=printed.getvalue().splitlines()[-4:],
+              wall_s=time.monotonic() - t_phase))
+    return got
+
+
+def train_remat_micro_phase(get_config):
+    """One step of full smollm (30 layers, B 8, S 1024) from one state and
+    batch: plain, ``remat=True`` and ``microbatches=2``; loss within 1e-5
+    relative and grad_norm within 1e-4 relative of the plain step's; the
+    peak memory of each."""
+    from repro_torch.kernels import launches
+    from repro_torch.runtime.train import TrainOpts, make_train_step
+    t_phase = time.monotonic()
+    cfg = get_config("smollm-135m")
+    model, opts, state, batch = _train_setup(cfg, TRAIN_B, TRAIN_S, SEED + 50)
+    before = dict(launches)
+    rec = {}
+    for tag, kw in (("plain", {}), ("remat", {"remat": True}),
+                    ("microbatches2", {"microbatches": 2})):
+        step = make_train_step(model, dataclasses.replace(opts, **kw))
+        _mem_reset()
+        t0 = time.monotonic()
+        new, m = step(state, batch)
+        peak = _mem_peak()
+        rec[tag] = dict(loss=float(m["loss"]),
+                        grad_norm=float(m["grad_norm"]),
+                        peak_memory_bytes=peak,
+                        step_ms=(time.monotonic() - t0) * 1e3)
+        del new, m
+    got = _no_launch("train_remat_micro", before)
+    for tag in ("remat", "microbatches2"):
+        r, p = rec[tag], rec["plain"]
+        require(abs(r["loss"] - p["loss"]) <= 1e-5 * abs(p["loss"]),
+                f"train_remat_micro: {tag} loss {r['loss']} vs {p['loss']}")
+        require(abs(r["grad_norm"] - p["grad_norm"])
+                <= 1e-4 * abs(p["grad_norm"]),
+                f"train_remat_micro: {tag} grad_norm {r['grad_norm']} vs "
+                f"{p['grad_norm']}")
+    emit(dict(phase="train_remat_micro", arch=cfg.name, layers=cfg.n_layers,
+              batch=TRAIN_B, seq=TRAIN_S, runs=rec,
+              remat_peak_memory_ratio=rec["remat"]["peak_memory_bytes"]
+              / rec["plain"]["peak_memory_bytes"],
+              launches=got, wall_s=time.monotonic() - t_phase))
+    del state
+    return got
+
+
+def train_device_parity_phase(get_config):
+    """Full-width smollm cut to 2 layers, B 2, S 256: the loss and every
+    gradient leaf of one step on the card against the CPU from the same
+    state (loss within 1e-5 relative; each leaf's max |card - cpu| within
+    1e-3 of the CPU leaf's max |g|)."""
+    from repro_torch.kernels import launches
+    from repro_torch.models import get_model
+    from repro_torch.runtime.train import _value_and_grad, make_loss_fn
+    from repro_torch.tree import flatten
+    t_phase = time.monotonic()
+    p = TRAIN_PARITY
+    cfg = get_config("smollm-135m").replace(n_layers=p["layers"])
+    model, opts, state, batch = _train_setup(cfg, p["B"], p["S"], SEED + 51)
+    before = dict(launches)
+    loss, _, grads = _value_and_grad(make_loss_fn(model, opts),
+                                     state["params"], batch)
+    got = _no_launch("train_device_parity", before)
+    cpu_model = get_model(model.cfg, device="cpu")
+    closs, _, cgrads = _value_and_grad(make_loss_fn(cpu_model, opts),
+                                       _tree_cpu(state["params"]),
+                                       _tree_cpu(batch))
+    rel = abs(float(loss) - float(closs)) / abs(float(closs))
+    require(rel <= 1e-5, f"train_device_parity: loss {float(loss)} vs the "
+            f"CPU's {float(closs)}")
+    errs = []
+    for i, (g, c) in enumerate(zip(flatten(grads)[0], flatten(cgrads)[0])):
+        scale = float(c.abs().max())
+        err = float((g.cpu() - c).abs().max())
+        errs.append(dict(leaf=i, shape=list(c.shape), max_abs_err=err,
+                         max_abs_grad=scale))
+        require(err <= 1e-3 * scale,
+                f"train_device_parity: leaf {i} {tuple(c.shape)} off by "
+                f"{err} (max |g| {scale})")
+    emit(dict(phase="train_device_parity", arch=cfg.name, layers=cfg.n_layers,
+              batch=p["B"], seq=p["S"], loss=float(loss),
+              cpu_loss=float(closs), loss_rel_err=rel, grad_errs=errs,
+              launches=got, wall_s=time.monotonic() - t_phase))
+    return got
+
+
+def train_restart_phase(get_config):
+    """Full width, 4 layers, B 4, S 256, under deterministic algorithms:
+    6 steps straight against 3 + ``save`` + ``restore`` + 3; the two
+    states bit for bit equal."""
+    from repro_torch.ckpt import restore, save
+    from repro_torch.data import DataConfig, DataPipeline
+    from repro_torch.kernels import launches
+    from repro_torch.runtime.train import make_train_step
+    from repro_torch.tree import flatten
+    t_phase = time.monotonic()
+    p = TRAIN_RESTART
+    cfg = get_config("smollm-135m").replace(n_layers=p["layers"])
+    model, opts, state, _ = _train_setup(cfg, p["B"], p["S"], SEED + 52)
+    data = DataPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                   seq_len=p["S"], batch_size=p["B"]))
+    ckpt = OUT / "train_restart_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    before = dict(launches)
+    torch.use_deterministic_algorithms(True)
+    try:
+        step = make_train_step(model, opts)
+        sa = state
+        for i in range(p["steps"]):
+            sa, _ = step(sa, data.batch_at(i))
+        sb = state
+        for i in range(p["steps"] // 2):
+            sb, _ = step(sb, data.batch_at(i))
+        save(sb, str(ckpt), step=p["steps"] // 2)
+        del sb
+        sb, at = restore(str(ckpt), state)
+        for i in range(at, p["steps"]):
+            sb, _ = step(sb, data.batch_at(i))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    got = _no_launch("train_restart", before)
+    diff = [i for i, (a, b) in enumerate(zip(flatten(sa)[0],
+                                             flatten(sb)[0]))
+            if not torch.equal(a, b)]
+    shutil.rmtree(ckpt, ignore_errors=True)      # the output dir stays small
+    require(not diff, f"train_restart: leaves {diff} differ after the "
+            "restart")
+    emit(dict(phase="train_restart", arch=cfg.name, layers=cfg.n_layers,
+              batch=p["B"], seq=p["S"], steps=p["steps"], restored_at=at,
+              leaves=len(flatten(sa)[0]), bitexact=True, launches=got,
+              wall_s=time.monotonic() - t_phase))
+    return got
+
+
+def train_families_phase(get_config):
+    """One step each, norms at 1: qwen3-moe full width cut to 2 layers,
+    mamba2-370m full width cut to 4, whisper-tiny in full: the loss
+    finite, the MoE aux > 0, no kernel launched (no ``ssd_chunk_scan``:
+    the SSM trains on ``ssd_scan``), every gradient leaf finite and nonzero
+    (as every leaf is in the CPU parity tests at these norms); loss, aux
+    and ms a step (the second step, synchronised)."""
+    from repro_torch.kernels import launches
+    from repro_torch.runtime.train import (_value_and_grad, make_loss_fn,
+                                           make_train_step)
+    from repro_torch.tree import flatten
+    t_phase = time.monotonic()
+    total = {k: 0 for k in launches}
+    for arch, layers, B, S in TRAIN_FAMILIES:
+        cfg = get_config(arch)
+        if layers:
+            cfg = cfg.replace(n_layers=layers)
+        S = S or cfg.encoder.max_frames
+        model, opts, state, batch = _train_setup(cfg, B, S, SEED + 53)
+        before = dict(launches)
+        loss, m, grads = _value_and_grad(make_loss_fn(model, opts),
+                                         state["params"], batch)
+        bad = [i for i, g in enumerate(flatten(grads)[0])
+               if not bool(torch.isfinite(g).all()) or
+               float(g.abs().max()) == 0.0]
+        del grads
+        require(not bad, f"train_families {arch}: gradient leaves {bad} "
+                "zero or not finite")
+        require(np.isfinite(float(loss)), f"train_families {arch}: loss "
+                f"{float(loss)}")
+        if cfg.moe is not None:
+            require(float(m["aux"]) > 0, f"train_families {arch}: aux "
+                    f"{float(m['aux'])}")
+        step = make_train_step(model, opts)
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        state, m2 = step(state, batch)
+        torch.cuda.synchronize()
+        ms = (time.monotonic() - t0) * 1e3
+        got = _no_launch(f"train_families {arch}", before)
+        total = {k: total[k] + got[k] for k in total}
+        emit(dict(phase="train_families", arch=arch, layers=cfg.n_layers,
+                  batch=B, seq=S, loss=float(loss), aux=float(m["aux"]),
+                  loss_step2=float(m2["loss"]), step_ms=ms,
+                  params=sum(t.numel() for t in flatten(state["params"])[0]),
+                  launches=got))
+        del state, batch, model
+        torch.cuda.empty_cache()
+    emit(dict(phase="train_families", wall_s=time.monotonic() - t_phase))
+    return total
+
+
+def train_dp_nccl_phase(get_config):
+    """``make_dp_train_step`` on an NCCL world of 1 (``file://``
+    rendezvous), full width, 4 layers, B 8, S 256, 5 steps compressed
+    (int8 all-gather with error feedback) and not: the loss falls in both,
+    the compressed run's last loss within 0.25 x the first of the
+    uncompressed; ms a step each."""
+    import torch.distributed as dist
+    from repro_torch.data import DataConfig, DataPipeline
+    from repro_torch.kernels import launches
+    from repro_torch.runtime.train import make_dp_train_step
+    t_phase = time.monotonic()
+    p = TRAIN_DP
+    cfg = get_config("smollm-135m").replace(n_layers=p["layers"])
+    data = DataPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                   seq_len=p["S"], batch_size=p["B"]))
+    rdv = OUT / "nccl_rendezvous"
+    if rdv.exists():
+        rdv.unlink()
+    dist.init_process_group("nccl" if DEV == "cuda" else "gloo",
+                            init_method=f"file://{rdv}", world_size=1,
+                            rank=0)
+    before = dict(launches)
+    runs = {}
+    try:
+        for tag, compress in (("uncompressed", False), ("compressed", True)):
+            model, opts, state, _ = _train_setup(
+                cfg, p["B"], p["S"], SEED + 54, compress_grads=compress)
+            step = make_dp_train_step(model, None, opts)
+            losses, times = [], []
+            for i in range(p["steps"]):
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                state, m = step(state, data.batch_at(i))
+                torch.cuda.synchronize()
+                times.append((time.monotonic() - t0) * 1e3)
+                losses.append(float(m["loss"]))
+            runs[tag] = dict(losses=losses, step_ms=times,
+                             step_ms_median=float(np.median(times[1:])))
+            del state
+    finally:
+        dist.destroy_process_group()
+    got = _no_launch("train_dp_nccl", before)
+    lu, lc = runs["uncompressed"]["losses"], runs["compressed"]["losses"]
+    require(lu[-1] < lu[0] and lc[-1] < lc[0],
+            f"train_dp_nccl: the loss did not fall: {lu} / {lc}")
+    require(abs(lc[-1] - lu[-1]) < 0.25 * lu[0],
+            f"train_dp_nccl: compressed {lc[-1]} vs uncompressed {lu[-1]}")
+    emit(dict(phase="train_dp_nccl", arch=cfg.name, layers=cfg.n_layers,
+              batch=p["B"], seq=p["S"], world=1, runs=runs, launches=got,
+              wall_s=time.monotonic() - t_phase))
+    return got
+
+
+def training_phases(get_config):
+    """Every training phase; returns the launches they made (all 0)."""
+    t0 = time.monotonic()
+    total = {}
+    for fn in (train_smollm_phase, train_remat_micro_phase,
+               train_device_parity_phase, train_restart_phase,
+               train_families_phase, train_dp_nccl_phase):
+        got = fn(get_config)
+        total = {k: total.get(k, 0) + v for k, v in got.items()}
+        torch.cuda.empty_cache()
+    emit(dict(phase="training", launches=total,
+              wall_s=time.monotonic() - t0))
+    return total
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3238,6 +3665,12 @@ def main():
     require(ssm_path["ssd_chunk_scan"] > 0,
             f"ssd_chunk_scan never launched on the SSM path: {ssm_path}")
     del sparams
+    torch.cuda.empty_cache()
+
+    # training: AdamW, chunked xent, remat, microbatches, checkpoints and
+    # the DP exchange through the port's entry points; no kernel launches
+    # (none defines a backward, as in the reference)
+    train_path = training_phases(get_config)
 
     main_case = {"decode_attention": "bf16", "paged_decode_attention": "bf16",
                  "flash_attention": "bf16/S1024",
@@ -3301,6 +3734,12 @@ def main():
             row["launches_by_path"] = {
                 "ssm_serve": ssm_path[name],
                 "families2": families2_path[name]}
+        if name == "stream_matmul":
+            row["launches_by_path"] = {"rc3e": path_launches[name]}
+        # every training phase: 0 (no kernel defines a backward)
+        row["launches_by_path"]["training"] = train_path[name] + (
+            train_path["stream_matmul_batched"]
+            if name == "stream_matmul" else 0)
         if name == "flash_attention":      # the fp32 (3xTF32) kernel
             f = next(r for r in recs if r["case"] == "fp32/S512")
             row["fp32"] = dict(

@@ -19,8 +19,13 @@ in the reference.
 The combine gathers each token's k outputs (T, k, d) and sums them in the
 order of its top-k list, so the result does not depend on the order of
 atomic adds. The reference's ``_ep_constrain`` sharding hint has no
-counterpart on one device. The load-balance aux loss is a training term and
-is not computed (this layer serves).
+counterpart on one device.
+
+``moe_forward`` also returns the Switch load-balance aux loss, E * sum_e
+f_e * P_e over every token of every shard (P_e: the mean fp32 router
+probability of expert e; f_e: the share of tokens whose top-1 expert is
+e), from the probabilities ``route`` computes. Training adds it to the
+loss; the serving steps drop it.
 """
 from __future__ import annotations
 
@@ -75,8 +80,8 @@ def route(p, xf, opts: MoEOpts):
 
     Returns (probs sorted descending (D, Tl, E) fp32, gates (D, Tl, k)
     fp32, experts (D, Tl, k), position of each assignment in its expert's
-    queue (D, Tl * k), capacity C). An assignment is kept when its position
-    is below C."""
+    queue (D, Tl * k), capacity C, the unsorted probs (D, Tl, E) fp32). An
+    assignment is kept when its position is below C."""
     c = opts.cfg
     Tl = xf.shape[1]
     logits = torch.einsum("dtc,ce->dte", xf.float(), p["router"].float())
@@ -89,13 +94,22 @@ def route(p, xf, opts: MoEOpts):
     flat_e = expert.reshape(xf.shape[0], Tl * c.top_k)
     onehot = torch.nn.functional.one_hot(flat_e, c.n_experts)
     pos = torch.cumsum(onehot, dim=1).gather(-1, flat_e[..., None])[..., 0] - 1
-    return sorted_p, gate, expert, pos, capacity(Tl, c)
+    return sorted_p, gate, expert, pos, capacity(Tl, c), probs
+
+
+def load_balance_loss(probs, expert, n_experts: int):
+    """Switch aux loss: E * sum_e mean(probs_e) * mean(top1 == e), the
+    means over every token of every shard."""
+    me = torch.mean(probs, dim=(0, 1))                              # (E,)
+    top1 = torch.nn.functional.one_hot(expert[..., 0], n_experts).float()
+    return n_experts * torch.sum(me * torch.mean(top1, dim=(0, 1)))
 
 
 def moe_forward(p, x, opts: MoEOpts):
-    """x (B, S, d) -> y (B, S, d). Dispatch is shard-local: tokens reshape
-    to (D, Tl) with D = cfg.dp_shards when it divides B * S (1 otherwise),
-    and capacity is per shard, as in the reference."""
+    """x (B, S, d) -> (y (B, S, d), aux loss, a 0-d fp32 tensor).
+    Dispatch is shard-local: tokens reshape to (D, Tl) with D =
+    cfg.dp_shards when it divides B * S (1 otherwise), and capacity is per
+    shard, as in the reference."""
     c = opts.cfg
     B, S, d = x.shape
     T = B * S
@@ -103,7 +117,8 @@ def moe_forward(p, x, opts: MoEOpts):
     Tl = T // D
     E, k = c.n_experts, c.top_k
     xf = x.reshape(D, Tl, d)
-    _, gate, expert, pos, C = route(p, xf, opts)
+    _, gate, expert, pos, C, probs = route(p, xf, opts)
+    aux = load_balance_loss(probs, expert, E)
     flat_e = expert.reshape(D, Tl * k)
     flat_g = gate.reshape(D, Tl * k).to(x.dtype)
     keep = pos < C
@@ -142,4 +157,4 @@ def moe_forward(p, x, opts: MoEOpts):
         xfl = xf.reshape(T, d)
         g = act(xfl @ sp["wg"].to(x.dtype)) * (xfl @ sp["wu"].to(x.dtype))
         out = out.reshape(T, d) + g @ sp["wd"].to(x.dtype)
-    return out.reshape(B, S, d)
+    return out.reshape(B, S, d), aux

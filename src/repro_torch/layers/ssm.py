@@ -13,7 +13,9 @@ Shapes (as in the reference): x (B, S, d_model); the SSD runs on xs
 The prompt's SSD goes through ``kernels.ops.ssd``: the hand-written CUDA
 kernel on a CUDA tensor, its plain sequential version on a CPU tensor.
 ``kernel_force="ref"`` selects ``ssd_scan``, the reference's chunked einsum
-form, on any device. Caches are filled and updated IN PLACE.
+form, on any device; so does a forward that records an autograd graph
+(training), since the kernel defines no backward (nor does the reference's,
+which trains on its own ``jnp`` scan). Caches are filled and updated IN PLACE.
 """
 from __future__ import annotations
 
@@ -166,7 +168,10 @@ def ssm_forward(p, x, opts: SSMOpts, init_state=None):
     """Full-sequence Mamba2 block. Returns (y, (ssd_state, conv_tail)):
     the conv tail is the last d_conv-1 rows of the pre-conv, pre-SiLU xbc,
     the decode cache's conv buffer."""
-    plain = _plain(opts)
+    # a forward that records a graph takes the chunked einsum form on every
+    # device: the kernel defines no backward (as attention's rule)
+    plain = _plain(opts) or (torch.is_grad_enabled() and (
+        x.requires_grad or any(w.requires_grad for w in p.values())))
     Bsz, S, d = x.shape
     c = opts.cfg
     zxbcdt = x @ p["in_proj"].to(x.dtype)

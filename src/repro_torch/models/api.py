@@ -1,10 +1,16 @@
-"""``Model``: init / prefill / decode for every family the JAX package
-serves (dense, MoE, MLA, SSM, hybrid, VLM through ``models.lm``; the
-whisper encoder-decoder through ``models.encdec``), on an explicit device
-(CUDA unless the caller asks for the CPU).
+"""``Model``: init / forward / prefill / decode for every family the JAX
+package serves (dense, MoE, MLA, SSM, hybrid, VLM through ``models.lm``;
+the whisper encoder-decoder through ``models.encdec``), on an explicit
+device (CUDA unless the caller asks for the CPU).
 
-Batch keys of ``prefill``: ``tokens``; ``patches`` (B, n_patches, d_model)
-for a VLM; ``frames`` (B, F, d_model) for the audio family.
+Batch keys of ``forward`` and ``prefill``: ``tokens``; ``patches`` (B,
+n_patches, d_model) for a VLM; ``frames`` (B, F, d_model) for the audio
+family. ``forward`` (training) records the autograd graph; the serving
+entry points run under ``torch.no_grad``.
+
+``input_specs(cfg, shape_cell)`` returns ``meta``-device tensors of the
+shapes and dtypes of every input of the corresponding step (no
+allocation): the reference's ``ShapeDtypeStruct`` stand-ins.
 """
 from __future__ import annotations
 
@@ -12,7 +18,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ShapeCell
 from repro_torch.models import encdec, lm
 
 
@@ -39,6 +45,15 @@ class Model:
         if self.audio:
             return encdec.init_encdec(self.cfg, generator, self.dev)
         return lm.init_lm(self.cfg, generator, self.dev)
+
+    def forward(self, params, batch, remat: bool = False):
+        """batch dict -> (hidden, aux), recording the autograd graph."""
+        cfg = self.cfg
+        if self.audio:
+            return encdec.encdec_forward(cfg, params, batch["frames"],
+                                         batch["tokens"], remat=remat)
+        return lm.lm_forward(cfg, params, batch["tokens"],
+                             patches=batch.get("patches"), remat=remat)
 
     def logits(self, params, hidden):
         if self.audio:
@@ -87,3 +102,66 @@ class Model:
         if self.audio:
             raise ValueError("paged caches support decoder-only LMs")
         return lm.make_paged_caches(self.cfg, n_pages, page_size, self.dev)
+
+
+def get_model(cfg: ModelConfig, device: str = "cuda") -> Model:
+    return Model(cfg, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Dry-run input specs (meta tensors, no allocation)
+# ---------------------------------------------------------------------------
+
+def _sds(shape, dtype):
+    dt = getattr(torch, dtype) if isinstance(dtype, str) else dtype
+    return torch.empty(shape, dtype=dt, device="meta")
+
+
+def train_input_specs(cfg: ModelConfig, cell: ShapeCell):
+    """Inputs of train_step: {tokens, labels[, patches | frames]}."""
+    B, S = cell.global_batch, cell.seq_len
+    if cfg.family == "audio":
+        return {
+            "frames": _sds((B, S, cfg.d_model), cfg.dtype),
+            "tokens": _sds((B, encdec.DEC_MAX_LEN), torch.int32),
+            "labels": _sds((B, encdec.DEC_MAX_LEN), torch.int32),
+        }
+    specs = {
+        "tokens": _sds((B, S - cfg.n_patches), torch.int32),
+        "labels": _sds((B, S - cfg.n_patches), torch.int32),
+    }
+    if cfg.n_patches:
+        specs["patches"] = _sds((B, cfg.n_patches, cfg.d_model), cfg.dtype)
+    return specs
+
+
+def prefill_input_specs(cfg: ModelConfig, cell: ShapeCell):
+    B, S = cell.global_batch, cell.seq_len
+    if cfg.family == "audio":
+        return {
+            "frames": _sds((B, S, cfg.d_model), cfg.dtype),
+            "tokens": _sds((B, encdec.DEC_MAX_LEN), torch.int32),
+        }
+    specs = {"tokens": _sds((B, S - cfg.n_patches), torch.int32)}
+    if cfg.n_patches:
+        specs["patches"] = _sds((B, cfg.n_patches, cfg.d_model), cfg.dtype)
+    return specs
+
+
+def decode_input_specs(cfg: ModelConfig, cell: ShapeCell):
+    """Inputs of serve_step: one new token + caches over cell.seq_len (the
+    caches built on the meta device)."""
+    B, S = cell.global_batch, cell.seq_len
+    return {
+        "tokens": _sds((B, 1), torch.int32),
+        "pos": _sds((B,), torch.int32),
+        "caches": get_model(cfg, device="meta").make_caches(B, S),
+    }
+
+
+def input_specs(cfg: ModelConfig, cell: ShapeCell):
+    if cell.kind == "train":
+        return train_input_specs(cfg, cell)
+    if cell.kind == "prefill":
+        return prefill_input_specs(cfg, cell)
+    return decode_input_specs(cfg, cell)

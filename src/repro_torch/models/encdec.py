@@ -27,7 +27,7 @@ from repro_torch.layers.embeddings import (embed, init_embedding,
                                            sinusoidal_positions)
 from repro_torch.layers.mlp import init_mlp, mlp_forward
 from repro_torch.layers.norms import rms_norm
-from repro_torch.models.stages import LayerSite, _index, _stack, attn_opts
+from repro_torch.models.stages import LayerSite, _stack, _unstack, attn_opts
 
 DEC_MAX_LEN = 448
 
@@ -92,8 +92,7 @@ def encode(cfg: ModelConfig, params, frames):
                                              frames.device)[None]
     pos = _arange(B, F, frames.device)
     opts = _cross_opts(cfg)
-    for i in range(cfg.encoder.n_layers):
-        p = _index(params["enc_layers"], i)
+    for p in _unstack(params["enc_layers"], cfg.encoder.n_layers):
         y, _ = attn_forward(p["attn"], rms_norm(x, p["norm1"]), pos, opts)
         x = x + y
         x = x + mlp_forward(p["mlp"], rms_norm(x, p["norm2"]), cfg.act)
@@ -116,8 +115,9 @@ def _decoder(cfg, params, tokens, enc_out, caches=None):
     pos = _arange(B, St, x.device)
     enc_pos = _arange(B, enc_out.shape[1], x.device)
     self_opts, cross_opts = _self_opts(cfg), _cross_opts(cfg)
-    for i in range(cfg.n_layers):
-        p = _index(params["dec_layers"], i)
+    self_caches = None if caches is None else \
+        _unstack(caches["self"], cfg.n_layers)
+    for i, p in enumerate(_unstack(params["dec_layers"], cfg.n_layers)):
         y, (k, v) = attn_forward(p["self_attn"], rms_norm(x, p["norm1"]),
                                  pos, self_opts)
         x = x + y
@@ -127,7 +127,7 @@ def _decoder(cfg, params, tokens, enc_out, caches=None):
         x = x + y
         x = x + mlp_forward(p["mlp"], rms_norm(x, p["norm3"]), cfg.act)
         if caches is not None:
-            fill_kv_cache(_index(caches["self"], i), k, v, pos)
+            fill_kv_cache(self_caches[i], k, v, pos)
             caches["cross_k"][i] = ck
             caches["cross_v"][i] = cv
     return rms_norm(x, params["final_norm"])
@@ -136,6 +136,15 @@ def _decoder(cfg, params, tokens, enc_out, caches=None):
 def decoder_forward(cfg: ModelConfig, params, tokens, enc_out):
     """Teacher-forced decoder. tokens (B, St). Returns hidden (B, St, d)."""
     return _decoder(cfg, params, tokens, enc_out)
+
+
+def encdec_forward(cfg: ModelConfig, params, frames, tokens,
+                   remat: bool = False):
+    """Full training forward. Returns (hidden, aux = 0). ``remat`` is
+    taken and ignored, as in the reference (its encoder-decoder is not
+    rematerialized)."""
+    h = decoder_forward(cfg, params, tokens, encode(cfg, params, frames))
+    return h, torch.zeros((), dtype=torch.float32, device=h.device)
 
 
 def encdec_logits(cfg: ModelConfig, params, h):
@@ -186,10 +195,10 @@ def encdec_decode(cfg: ModelConfig, params, caches, tokens, pos):
     self_opts, cross_opts = _self_opts(cfg), _cross_opts(cfg)
     F = caches["cross_k"].shape[2]
     cross_pos = _arange(B, F, x.device)
-    for i in range(cfg.n_layers):
-        p = _index(params["dec_layers"], i)
+    self_caches = _unstack(caches["self"], cfg.n_layers)
+    for i, p in enumerate(_unstack(params["dec_layers"], cfg.n_layers)):
         y, _ = attn_decode(p["self_attn"], rms_norm(x, p["norm1"]),
-                           positions, _index(caches["self"], i), self_opts)
+                           positions, self_caches[i], self_opts)
         x = x + y
         # cross attention: fixed cache, all positions valid
         cross = {"k": caches["cross_k"][i], "v": caches["cross_v"][i],

@@ -3,6 +3,8 @@ hybrid, VLM): plain functions over a parameter dict laid out as the
 reference's pytree.
 
   init_lm(cfg, generator, device)                 -> params
+  lm_forward(cfg, params, tokens, patches=None, remat=False)
+                                                  -> (hidden, aux)  [train]
   lm_logits(cfg, params, hidden)                  -> logits
   lm_prefill(cfg, params, tokens, max_len, patches=None)
                                                   -> (hidden, caches)
@@ -66,6 +68,16 @@ def _positions(x):
     B, S = x.shape[:2]
     return torch.arange(S, dtype=torch.int32,
                         device=x.device)[None, :].expand(B, S)
+
+
+def lm_forward(cfg: ModelConfig, params, tokens, patches=None,
+               remat: bool = False):
+    """Teacher-forced full-sequence forward (training). Returns (hidden,
+    the summed MoE aux loss)."""
+    x = _embed_tokens(cfg, params, tokens, patches)
+    x, aux = apply_stages(cfg, params, x, _positions(x), mode="train",
+                          remat=remat)
+    return rms_norm(x, params["final_norm"]), aux
 
 
 def lm_logits(cfg: ModelConfig, params, h):

@@ -18,8 +18,15 @@ parameter pytree maps onto them one to one (``repro_torch.interop``). A
 views ``leaf[i]`` of the stacked cache tensors (an SSM site's final state
 and conv tail are written into its view at prefill).
 
-This is the serving path: the MoE load-balance aux loss, a training term,
-is not computed.
+Modes: "prefill" and "decode" serve (caches filled or updated in place;
+the MoE load-balance aux loss is dropped); "train" runs the full sequence
+with no cache and returns the summed aux loss beside the hidden states.
+With ``remat`` each run-stage layer body, and each pattern-stage pattern
+body, is recomputed in the backward pass (non-reentrant
+``torch.utils.checkpoint``), where the reference puts ``jax.checkpoint``.
+The reference's Megatron-SP constraints on the remat residuals
+(``_seq_shard``/``_gather_act``) are sharding hints over a mesh's model
+axis; on one device they have no meaning and are left out.
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ import dataclasses
 from typing import Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (ATTN_LOCAL, MIXER_SHARED_ATTN,
                                       MIXER_SSM, ModelConfig)
@@ -261,29 +269,32 @@ def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int, dtype,
 def _attn_post(cfg, site, pp, p, x, y):
     """The attention output ``y``'s post-norm and residual, then the
     pre-norm MLP (dense or MoE) and its residual. ``pp``: the site's
-    weights or the shared block's; post-norms are the site's own."""
+    weights or the shared block's; post-norms are the site's own. Returns
+    (x, the MoE aux loss or None)."""
     if cfg.post_norm:
         y = rms_norm(y, p["norm1_post"])
     x = x + y
     h = rms_norm(x, pp["norm2"])
+    aux = None
     if site.mlp == "moe":
-        y = moe_forward(pp["moe"], h, moe_opts(cfg))
+        y, aux = moe_forward(pp["moe"], h, moe_opts(cfg))
     else:
         y = mlp_forward(pp["mlp"], h, cfg.act)
     if cfg.post_norm:
         y = rms_norm(y, p["norm2_post"])
-    return x + y
+    return x + y, aux
 
 
 def _apply_site_full(cfg, site, p, shared, x, positions, cache):
     """Full-sequence site application; fills ``cache`` (a layer's view of
-    the stacked prefill cache) in place when one is given."""
+    the stacked prefill cache) in place when one is given. Returns (x,
+    the MoE aux loss or None)."""
     if site.mixer == MIXER_SSM:
         h = rms_norm(x, p["norm1"])
         y, (state, conv_tail) = ssm_forward(p["ssm"], h, ssm_opts(cfg))
         if cache is not None:
             fill_ssm_cache(cache, state, conv_tail)
-        return x + y
+        return x + y, None
     pp = shared if site.mixer == MIXER_SHARED_ATTN else p
     h = rms_norm(x, pp["norm1"])
     if cfg.mla is not None:
@@ -304,7 +315,7 @@ def _apply_site_decode(cfg, site, p, shared, x, positions, cache,
     if site.mixer == MIXER_SSM:
         h = rms_norm(x, p["norm1"])
         y, _ = ssm_decode(p["ssm"], h, cache, ssm_opts(cfg))
-        return x + y
+        return x + y, None
     pp = shared if site.mixer == MIXER_SHARED_ATTN else p
     h = rms_norm(x, pp["norm1"])
     if cfg.mla is not None:
@@ -322,11 +333,17 @@ def _apply_site_decode(cfg, site, p, shared, x, positions, cache,
 # Stage execution
 # ---------------------------------------------------------------------------
 
-def _index(tree, i: int):
-    """Layer ``i`` of a stacked dict: views, so cache writes land in the
-    stacked tensors."""
-    return {k: _index(v, i) if isinstance(v, dict) else v[i]
-            for k, v in tree.items()}
+def _unstack(tree, n: int):
+    """The ``n`` layers of a stacked dict, as a list of views through one
+    ``unbind`` a leaf: a cache write lands in the stacked tensor, and under
+    autograd a parameter's gradient is one stack of its layers' gradients
+    (indexing a layer at a time would give each layer's backward a
+    full-size zero tensor, summed ``n`` times)."""
+    if not tree:
+        return [{} for _ in range(n)]
+    parts = {k: _unstack(v, n) if isinstance(v, dict) else v.unbind(0)
+             for k, v in tree.items()}
+    return [{k: v[i] for k, v in parts.items()} for i in range(n)]
 
 
 def _layers(stage: Stage, sp, sc):
@@ -334,30 +351,66 @@ def _layers(stage: Stage, sp, sc):
     (``sc`` None: no cache)."""
     if stage.kind == "run":
         sp, sc = (sp,), (None if sc is None else (sc,))
+    per_pos = [_unstack(t, stage.repeats) for t in sp]
+    caches = None if sc is None else [_unstack(t, stage.repeats)
+                                      for t in sc]
     for r in range(stage.repeats):
         for pos, site in enumerate(stage.sites):
-            yield (site, _index(sp[pos], r),
-                   None if sc is None else _index(sc[pos], r))
+            yield (site, per_pos[pos][r],
+                   None if caches is None else caches[pos][r])
+
+
+def _train_stage(cfg, stage: Stage, sp, shared, x, positions, aux, remat):
+    """One stage of the training forward: a body a layer (run stage) or a
+    pattern period (pattern stage), each recomputed in the backward pass
+    when ``remat``. Returns (x, aux)."""
+    layers = list(_layers(stage, sp, None))
+    period = len(stage.sites)
+
+    def body(xx, aa, sites):
+        for site, p_i, _ in sites:
+            xx, a = _apply_site_full(cfg, site, p_i, shared, xx, positions,
+                                     None)
+            if a is not None:
+                aa = aa + a
+        return xx, aa
+
+    for r in range(stage.repeats):
+        sites = layers[r * period:(r + 1) * period]
+        if remat:
+            x, aux = checkpoint(body, x, aux, sites, use_reentrant=False)
+        else:
+            x, aux = body(x, aux, sites)
+    return x, aux
 
 
 def apply_stages(cfg: ModelConfig, params, x, positions, *,
-                 mode: str, caches=None, block_tables=None):
-    """Run all stages. mode: prefill | decode.
+                 mode: str, caches=None, block_tables=None,
+                 remat: bool = False):
+    """Run all stages. mode: train | prefill | decode.
 
-    prefill: ``caches`` (from ``init_cache``, batch and length of the
-    prompt's cache) are filled in place. decode: ``caches`` are updated in
-    place; ``block_tables`` (B, nb) switches to the paged-pool path (caches
-    from ``init_paged_cache``). ``params["shared"]`` holds the shared
-    block's weights where the pattern has ``shared_attn`` sites. Returns
-    x."""
+    train: no cache; returns (x, the summed MoE aux loss, a 0-d fp32
+    tensor); ``remat`` recomputes each layer (run stage) or pattern period
+    (pattern stage) in the backward pass. prefill: ``caches`` (from
+    ``init_cache``, batch and length of the prompt's cache) are filled in
+    place. decode: ``caches`` are updated in place; ``block_tables`` (B,
+    nb) switches to the paged-pool path (caches from ``init_paged_cache``).
+    ``params["shared"]`` holds the shared block's weights where the pattern
+    has ``shared_attn`` sites. prefill and decode return x."""
     shared = params.get("shared")
+    if mode == "train":
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for si, st in enumerate(plan_stages(cfg)):
+            x, aux = _train_stage(cfg, st, params["stages"][si], shared, x,
+                                  positions, aux, remat)
+        return x, aux
     for si, st in enumerate(plan_stages(cfg)):
         sc = caches[si] if caches is not None else None
         for site, p_i, c_i in _layers(st, params["stages"][si], sc):
             if mode == "decode":
-                x = _apply_site_decode(cfg, site, p_i, shared, x, positions,
-                                       c_i, block_tables)
+                x, _ = _apply_site_decode(cfg, site, p_i, shared, x,
+                                          positions, c_i, block_tables)
             else:
-                x = _apply_site_full(cfg, site, p_i, shared, x, positions,
-                                     c_i)
+                x, _ = _apply_site_full(cfg, site, p_i, shared, x, positions,
+                                        c_i)
     return x

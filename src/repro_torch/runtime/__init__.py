@@ -9,7 +9,11 @@ from repro_torch.runtime.gateway import ServingGateway, TenantSession
 from repro_torch.runtime.loadgen import (Arrival, FleetSpec, SoakMatrix,
                                          TraceSpec, replay_trace, synthesize,
                                          tenant_shares)
+from repro_torch.runtime.losses import chunked_xent, full_xent
 from repro_torch.runtime.paged import PagePoolManager
 from repro_torch.runtime.serve import (BatchingEngine, Request,
                                       make_paged_serve_step,
                                       make_prefill_step, make_serve_step)
+from repro_torch.runtime.train import (TrainOpts, init_train_state,
+                                      make_dp_train_step, make_loss_fn,
+                                      make_train_step)

@@ -1,0 +1,188 @@
+"""Training step factories (the reference's ``runtime/train.py``).
+
+``make_train_step``    — one process: gradients by autograd over the
+                         parameter leaves, microbatch accumulation (the
+                         reference's ``lax.scan`` over ``_split_micro``) and
+                         optional remat, then AdamW.
+``make_dp_train_step`` — explicit data parallelism over a
+                         ``torch.distributed`` group: each rank takes its
+                         rows of the global batch, and the gradients are
+                         averaged by an fp32 all-reduce or by the int8
+                         all-gather with error feedback
+                         (``optim.compress.compressed_psum``).
+
+TrainState is the reference's plain dict: {params, opt_state: {mu, nu,
+count}, step[, residuals]}. A step returns (new_state, metrics {loss, xent,
+aux, grad_norm, lr}); the metrics are 0-d tensors on the state's device and
+the step syncs nothing with the host, as the reference's jitted step.
+Gradients come from ``torch.autograd.grad`` over the flattened parameter
+leaves (``torch.func`` transforms are not used: they need not compose with
+the non-reentrant ``torch.utils.checkpoint`` that remat and the chunked
+loss use). The reference's ``jit_train_step`` binds the step to a device
+mesh and waits for the port's mesh slice (ROADMAP).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.models.api import Model
+from repro_torch.optim.adamw import AdamWConfig, adamw_update, init_opt_state
+from repro_torch.optim.compress import compressed_psum, init_residuals
+from repro_torch.runtime.losses import chunked_xent
+from repro_torch.tree import flatten, tree_map, unflatten
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainOpts:
+    opt: AdamWConfig = AdamWConfig()
+    microbatches: int = 1          # gradient-accumulation splits
+    remat: bool = False
+    loss_chunk: int = 512
+    aux_weight: float = 0.001      # MoE load-balance weight
+    compress_grads: bool = False   # int8 DP exchange (make_dp_train_step)
+
+
+def make_loss_fn(model: Model, opts: TrainOpts):
+    cfg = model.cfg
+
+    def loss_fn(params, batch):
+        h, aux = model.forward(params, batch, remat=opts.remat)
+        loss = chunked_xent(cfg, params, h, batch["labels"],
+                            chunk=opts.loss_chunk)
+        return loss + opts.aux_weight * aux, {"xent": loss, "aux": aux}
+
+    return loss_fn
+
+
+def init_train_state(model: Model, generator: torch.Generator,
+                     opts: Optional[TrainOpts] = None):
+    opts = opts if opts is not None else TrainOpts()
+    params = model.init(generator)
+    state = {"params": params, "opt_state": init_opt_state(params),
+             "step": torch.zeros((), dtype=torch.int32, device=model.dev)}
+    if opts.compress_grads:
+        state["residuals"] = init_residuals(params)
+    return state
+
+
+def _batch_to(batch, device):
+    """Numpy arrays (the data pipeline's) or tensors -> tensors on
+    ``device``."""
+    return {k: (torch.from_numpy(v) if isinstance(v, np.ndarray) else v)
+            .to(device) for k, v in batch.items()}
+
+
+def _value_and_grad(loss_fn, params, batch):
+    """(loss, metrics, grads): the gradient of ``loss_fn`` with respect to
+    every parameter leaf (zeros for a leaf the loss does not reach)."""
+    flat, spec = flatten(params)
+    leaves = [p.detach().requires_grad_(True) for p in flat]
+    with torch.enable_grad():
+        loss, metrics = loss_fn(unflatten(spec, leaves), batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g
+             for g, p in zip(grads, leaves)]
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, \
+        unflatten(spec, grads)
+
+
+def _apply(opts: TrainOpts, state, grads, loss, metrics, **extra):
+    new_params, new_opt, om = adamw_update(
+        opts.opt, grads, state["opt_state"], state["params"])
+    new_state = dict(state, params=new_params, opt_state=new_opt,
+                     step=state["step"] + 1, **extra)
+    return new_state, {"loss": loss, **metrics, **om}
+
+
+def make_train_step(model: Model, opts: Optional[TrainOpts] = None):
+    """One-process train step: ``train_step(state, batch) -> (state,
+    metrics)``. ``batch``: numpy arrays or tensors, the global batch."""
+    opts = opts if opts is not None else TrainOpts()
+    loss_fn = make_loss_fn(model, opts)
+    n = opts.microbatches
+
+    def train_step(state, batch):
+        batch = _batch_to(batch, model.dev)
+        params = state["params"]
+        if n > 1:
+            # (B, ...) -> n slices of B/n rows, accumulated in fp32 from
+            # zeros in order, as the reference's scan
+            gsum = tree_map(lambda p: torch.zeros(
+                p.shape, dtype=torch.float32, device=p.device), params)
+            lsum = torch.zeros((), dtype=torch.float32, device=model.dev)
+            ms = []
+            for i in range(n):
+                mb = {k: v.reshape((n, v.shape[0] // n) + v.shape[1:])[i]
+                      for k, v in batch.items()}
+                l, m, g = _value_and_grad(loss_fn, params, mb)
+                gsum = tree_map(torch.add, gsum, g)
+                lsum = lsum + l
+                ms.append(m)
+            grads = tree_map(lambda g: g / n, gsum)
+            loss = lsum / n
+            metrics = {k: torch.mean(torch.stack([m[k] for m in ms]))
+                       for k in ms[0]}
+        else:
+            loss, metrics, grads = _value_and_grad(loss_fn, params, batch)
+        return _apply(opts, state, grads, loss, metrics)
+
+    return train_step
+
+
+# ---------------------------------------------------------------------------
+# Explicit-DP path with compressed gradient exchange
+# ---------------------------------------------------------------------------
+
+def _all_reduce_mean(tensors, group, n: int):
+    import torch.distributed as dist
+    out = []
+    for t in tensors:
+        t = t.clone()
+        dist.all_reduce(t, group=group)
+        out.append(t / n)
+    return out
+
+
+def make_dp_train_step(model: Model, group=None,
+                       opts: Optional[TrainOpts] = None):
+    """Data-parallel step over ``group`` (the default group when None):
+    ``step(state, global_batch) -> (state, metrics)``. Every rank holds
+    the same parameters and optimiser state and takes its rows of the
+    global batch (the reference's ``shard_map`` over the data axis);
+    gradients are averaged through ``compressed_psum`` when
+    ``opts.compress_grads`` (each rank keeps its own residuals), else by
+    an fp32 all-reduce mean; loss and metrics are averaged over the
+    group."""
+    import torch.distributed as dist
+    opts = opts if opts is not None else TrainOpts()
+    loss_fn = make_loss_fn(model, opts)
+
+    def step(state, batch):
+        n, rank = dist.get_world_size(group), dist.get_rank(group)
+        rows = {v.shape[0] for v in batch.values()}.pop()
+        if rows % n:
+            raise ValueError(f"global batch of {rows} rows does not split "
+                             f"over {n} ranks")
+        lo, hi = rank * (rows // n), (rank + 1) * (rows // n)
+        local = _batch_to({k: v[lo:hi] for k, v in batch.items()},
+                          model.dev)
+        loss, metrics, grads = _value_and_grad(loss_fn, state["params"],
+                                               local)
+        extra = {}
+        if opts.compress_grads:
+            grads, extra["residuals"] = compressed_psum(
+                grads, state["residuals"], group)
+        else:
+            flat, spec = flatten(grads)
+            grads = unflatten(spec, _all_reduce_mean(flat, group, n))
+        keys = sorted(metrics)
+        means = _all_reduce_mean(
+            [torch.stack([loss] + [metrics[k] for k in keys])], group, n)[0]
+        loss, metrics = means[0], dict(zip(keys, means[1:]))
+        return _apply(opts, state, grads, loss, metrics, **extra)
+
+    return step

@@ -962,3 +962,46 @@ def test_ssd_kernel_refuses_what_it_cannot_take(cuda):
                       xbc[..., 32:48].reshape(1, 8, 1, 16),
                       xbc[..., 48:].reshape(1, 8, 1, 16), D)
     assert launches["ssd_chunk_scan"] == n
+
+
+def _wrapper_call(name, cuda):
+    """A small call of kernel wrapper ``name`` on the card (its first
+    operand the one returned for ``requires_grad``)."""
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    rnd = lambda *s: torch.randn(s, generator=gen, device=cuda)
+    if name in ("decode_attention", "paged_decode_attention"):
+        q, k, v, kpos, cur = (t.to(cuda) for t in _decode_inputs(
+            2, 4, 2, 64, 64, [40, 10], fill=0, seed=5))
+        if name == "decode_attention":
+            return q, lambda q: ops.decode_attention(q, k, v, kpos, cur)
+        kp, vp, kpp, bt, _ = _to_pool(k.cpu(), v.cpu(), kpos.cpu(), 16, 6)
+        return q, lambda q: ops.paged_decode_attention(
+            q, kp.to(cuda), vp.to(cuda), kpp.to(cuda), bt.to(cuda), cur)
+    if name == "flash_attention":
+        k, v = rnd(1, 2, 64, 64), rnd(1, 2, 64, 64)
+        return rnd(1, 4, 64, 64), lambda q: ops.flash_attention(q, k, v)
+    if name == "stream_matmul":
+        b = rnd(64, 32)
+        return rnd(16, 64), lambda a: ops.matmul(a, b)
+    xs, dt, A, Bm, Cm, D = _ssd_layer_inputs(gen, cuda, 1, 32, 2, 64, 1,
+                                             64, torch.float32)
+    return xs, lambda x: ops.ssd(x, dt, A, Bm, Cm, D)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["decode_attention",
+                                  "paged_decode_attention",
+                                  "flash_attention", "stream_matmul",
+                                  "ssd_chunk_scan"])
+def test_kernel_wrappers_refuse_autograd_inputs(cuda, name):
+    """No kernel defines a backward (nor does the reference's): a CUDA
+    dispatch that would record a graph raises and launches nothing; the
+    same call with no input requiring grad launches once."""
+    x, call = _wrapper_call(name, cuda)
+    before = dict(launches)
+    with pytest.raises(RuntimeError, match="defines no backward"):
+        call(x.detach().requires_grad_(True))
+    assert dict(launches) == before
+    call(x)
+    assert launches[name] == before[name] + 1

@@ -53,7 +53,11 @@ def test_port_imports_without_jax_or_reference():
             ("space", "cost_model", "explorer")} | {
         f"repro_torch.analysis.{m}" for m in
             ("common", "ownership", "determinism", "hostsync", "kernelpass",
-             "__main__", "lifecycle")} <= walked
+             "__main__", "lifecycle")} | {
+        "repro_torch.optim.adamw", "repro_torch.optim.compress",
+        "repro_torch.runtime.train", "repro_torch.runtime.losses",
+        "repro_torch.data.synthetic", "repro_torch.ckpt.checkpoint",
+        "repro_torch.launch.train", "repro_torch.tree"} <= walked
 
 
 def test_chip_smoke_imports_neither_jax_nor_reference():

@@ -82,11 +82,12 @@ def test_moe_forward_matches_reference(arch, factor):
     reference's probabilities."""
     jopts, jp, opts, tp = _layer(arch, factor)
     x = _routed_alike(2, 64, seed=1)
-    jy, _ = jmoe.moe_forward(jp, jnp.asarray(x), jopts)
-    ty = moe.moe_forward(tp, torch.from_numpy(x), opts)
+    jy, jaux = jmoe.moe_forward(jp, jnp.asarray(x), jopts)
+    ty, taux = moe.moe_forward(tp, torch.from_numpy(x), opts)
     np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **TOL)
+    np.testing.assert_allclose(taux.numpy(), np.asarray(jaux), rtol=1e-6)
     xf = torch.from_numpy(x).reshape(1, 128, 128)
-    _, _, expert, pos, C = moe.route(tp, xf, opts)
+    _, _, expert, pos, C, _ = moe.route(tp, xf, opts)
     jprobs = jax.nn.softmax(jnp.einsum("dtc,ce->dte", jnp.asarray(
         xf.numpy()), jp["router"]), axis=-1)
     _, jexpert = jax.lax.top_k(jprobs, opts.cfg.top_k)
@@ -115,7 +116,7 @@ def test_topk_order_on_ties(case):
     x = np.abs(x) if case == "two_tied_on_top" else x
     if case == "two_tied_on_top":      # x . col > 0: experts 2 and 5 lead
         x = x * np.sign(router[:, 2])[None, None]
-    _, _, expert, pos, C = moe.route(tp, torch.from_numpy(x), opts)
+    _, _, expert, pos, C, _ = moe.route(tp, torch.from_numpy(x), opts)
     first = (0, 1) if case == "all_tied" else (2, 5)
     assert (expert.numpy()[..., :2] == np.array(first)).all()
     jprobs = jax.nn.softmax(jnp.einsum("dtc,ce->dte", jnp.asarray(x),
@@ -123,9 +124,10 @@ def test_topk_order_on_ties(case):
     assert np.array_equal(expert.numpy(),
                           np.asarray(jax.lax.top_k(jprobs, 2)[1]))
     assert int((pos >= C).sum()) > 0
-    jy, _ = jmoe.moe_forward(jp, jnp.asarray(x), jopts)
-    ty = moe.moe_forward(tp, torch.from_numpy(x), opts)
+    jy, jaux = jmoe.moe_forward(jp, jnp.asarray(x), jopts)
+    ty, taux = moe.moe_forward(tp, torch.from_numpy(x), opts)
     np.testing.assert_allclose(ty.numpy(), np.asarray(jy), **TOL)
+    np.testing.assert_allclose(taux.numpy(), np.asarray(jaux), rtol=1e-6)
 
 
 def test_router_stays_fp32_under_bf16_params():

@@ -121,3 +121,109 @@ def serve_logs(engine, spec, vocab):
             break
     assert engine.idle()
     return [r.out_tokens for r in reqs]
+
+
+# ---------------------------------------------------------------------------
+# Training (the tenth slice)
+# ---------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_S = 2, 32
+
+
+def train_batch(cfg, seed=1):
+    """A seeded numpy batch at the reference's keys (``api.py``'s
+    train_input_specs): tokens and labels; ``patches`` for a VLM (S
+    covers patches and tokens); ``frames`` for the audio family (its
+    decoder takes S/2 tokens)."""
+    rng = np.random.default_rng(seed)
+    ints = lambda n: rng.integers(0, cfg.vocab_size, (TRAIN_B, n)) \
+        .astype(np.int32)
+    if cfg.family == "audio":
+        return {"frames": rng.standard_normal(
+                    (TRAIN_B, TRAIN_S, cfg.d_model)).astype(np.float32),
+                "tokens": ints(TRAIN_S // 2), "labels": ints(TRAIN_S // 2)}
+    n = TRAIN_S - cfg.n_patches
+    batch = {"tokens": ints(n), "labels": ints(n)}
+    if cfg.n_patches:
+        batch["patches"] = rng.standard_normal(
+            (TRAIN_B, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def train_chunk(cfg):
+    """The loss chunk: 16; 8 for the VLM, whose labels (16 tokens) are
+    shorter than h (16 patches + 16 tokens): a chunk must divide h's
+    positions and fit the labels (the reference's slicing;
+    tests/test_torch_train_parts.py)."""
+    return 8 if cfg.n_patches else 16
+
+
+def router_margins(monkeypatch, jmodel, jparams, batch):
+    """The reference's fp32 router probabilities at every MoE layer of one
+    forward over ``batch``: each token's top-k margin (the k-th sorted
+    probability less the (k+1)-th), read out of the layers' scan with
+    ``jax.debug.callback``."""
+    from repro.models import stages
+    out = []
+    real = stages.moe_forward
+
+    def watched(p, x, opts):
+        logits = jnp.einsum("tc,ce->te", x.reshape(-1, x.shape[-1])
+                            .astype(jnp.float32), p["router"])
+        top = jax.lax.top_k(jax.nn.softmax(logits, -1), opts.cfg.top_k + 1)[0]
+        jax.debug.callback(lambda m: out.append(np.asarray(m)),
+                           top[:, -2] - top[:, -1])
+        return real(p, x, opts)
+
+    monkeypatch.setattr(stages, "moe_forward", watched)
+    jmodel.forward(jparams, {k: jnp.asarray(v) for k, v in batch.items()})
+    monkeypatch.setattr(stages, "moe_forward", real)
+    return out
+
+
+def check_step0_gradients(arch, monkeypatch):
+    """Reduced ``arch`` in fp32, the JAX init carried across with MLA
+    ``kv_norm`` and SSM gate norms near 1 (else those gradients are zero
+    against zero): ``make_loss_fn``'s loss, xent and aux within rtol 1e-5
+    of the reference's, every gradient leaf within rtol 1e-4 / atol 1e-5
+    x that leaf's max |g|, leaf for leaf in the reference's order; every
+    leaf's gradient is nonzero at these norms (the card's train_families
+    phase gates on the same)."""
+    from repro.runtime.train import TrainOpts as JTrainOpts
+    from repro.runtime.train import make_loss_fn as j_make_loss_fn
+    from repro_torch.models import get_model
+    from repro_torch.runtime.train import (TrainOpts, _value_and_grad,
+                                           make_loss_fn)
+    from repro_torch.tree import flatten
+    import torch
+    jmodel, jparams, cfg, params = family_pair(arch)
+    jmodel = jmodel.model
+    batch = train_batch(cfg)
+    if cfg.moe is not None:
+        margins = router_margins(monkeypatch, jmodel, jparams, batch)
+        n_moe = cfg.n_layers - cfg.moe.first_k_dense
+        assert len(margins) == n_moe
+        assert min(float(m.min()) for m in margins) > 1e-5, \
+            "a router near-tie: pick other inputs"
+    chunk = train_chunk(cfg)
+    (jl, jm), jg = jax.value_and_grad(
+        j_make_loss_fn(jmodel, JTrainOpts(loss_chunk=chunk)),
+        has_aux=True)(jparams, {k: jnp.asarray(v) for k, v in batch.items()})
+    tl, tm, tg = _value_and_grad(
+        make_loss_fn(get_model(cfg, device="cpu"),
+                     TrainOpts(loss_chunk=chunk)),
+        params, {k: torch.from_numpy(v) for k, v in batch.items()})
+    for got, want in ((tl, jl), (tm["xent"], jm["xent"]),
+                      (tm["aux"], jm["aux"])):
+        np.testing.assert_allclose(float(got), float(want), rtol=1e-5)
+    if cfg.moe is not None:
+        assert float(tm["aux"]) > 0
+    ref, mine = jax.tree.leaves(jg), flatten(tg)[0]
+    assert len(ref) == len(mine)
+    for i, (a, b) in enumerate(zip(ref, mine)):
+        a = np.asarray(a)
+        assert a.shape == tuple(b.shape), i
+        assert np.abs(a).max() > 0, f"gradient leaf {i} is zero"
+        np.testing.assert_allclose(b.numpy(), a, rtol=1e-4,
+                                   atol=1e-5 * float(np.abs(a).max()),
+                                   err_msg=f"gradient leaf {i}")
