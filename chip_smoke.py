@@ -33,7 +33,11 @@ lines.jsonl):
    S=448). Paged decode (fp32, bf16) also at the harness phases' engines:
    B=4, L=64, pages of 4 and 8, one slot idle; and (fp32, bf16, int8; bf16
    at B=1) at the tuner's pages 32 and 64 (``TUNER_PAGES``), at the
-   serving shape, each split of whole pages. The
+   serving shape, each split of whole pages. Every dense decode case also
+   asks for the merge pass's log-sum-exp (``return_lse``, what a mesh
+   decode over a length-sharded cache merges the ranks by): the output
+   must be unchanged and the log-sum-exp within ``LSE_TOL`` of the plain
+   version's (``lse_max_abs_err``). The
    fp32 flash bound is operations over 3xTF32's rate (495 / 3 TFLOP/s),
    with the fp32 CUDA-core bound beside it (``bound_cuda_core_ms``).
    The streaming matmul on
@@ -243,6 +247,7 @@ lines.jsonl):
 """
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import os
@@ -271,6 +276,9 @@ PEAK_FLOPS_3XTF32 = 495e12 / 3
 PEAK_FLOPS_2XTF32 = 495e12 / 2
 TOL = {torch.float32: dict(atol=2e-5, rtol=2e-4),
        torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+# the decode kernel's log-sum-exp: fp32 in both, from the same scores
+# (the kernel's ex2.approx and its split sums in another order)
+LSE_TOL = dict(atol=1e-3, rtol=1e-5)
 B, HQ, HKV, D, L, PS = 8, 9, 3, 64, 2048, 16
 # the paged engines of the soak presets (page 4) and of the adversary's
 # reference shape (page 8): 4 slots x 64
@@ -582,6 +590,23 @@ def kernel_phase(results):
                                    mean_v.to(dtype).float(), **tol),
                     f"decode_attention {name}: idle row is not the mean "
                     "of V")
+        # the merge pass's log-sum-exp (a mesh decode over a length-sharded
+        # cache merges the ranks' outputs by it): the output unchanged,
+        # the log-sum-exp against the plain version's
+        got_l, lse = da.decode_attention_cuda(
+            q, k, v, kpos, cur_t, window=window, k_scale=ks, v_scale=vs,
+            return_lse=True)
+        _, ref_l = da.decode_attention_ref(q, k, v, kpos, cur_t,
+                                           window=window, k_scale=ks,
+                                           v_scale=vs, return_lse=True)
+        torch.cuda.synchronize()
+        fin = ~torch.isinf(ref_l)
+        lse_err = float((lse[fin] - ref_l[fin]).abs().max()) \
+            if fin.any() else 0.0
+        require(torch.equal(got_l, got)
+                and torch.equal(torch.isinf(lse), ~fin)
+                and torch.allclose(lse[fin], ref_l[fin], **LSE_TOL),
+                f"decode_attention {name}: log-sum-exp max err {lse_err}")
         nbytes, flops = decode_cost(q, kpos, cur_t, window, kvbytes, hkv)
         b_ms, b_by = bound(nbytes, flops, dtype)
         lib = None if quant else time_ms(sdpa_decode(q, k, v, kpos, cur_t,
@@ -589,7 +614,7 @@ def kernel_phase(results):
         rec = dict(phase="kernel", name="decode_attention", case=name,
                    shape=dict(B=Bc, Hq=hq, Hkv=hkv, D=d, L=Lc),
                    n_split=n_split,
-                   max_abs_err=err, tol=tol,
+                   max_abs_err=err, tol=tol, lse_max_abs_err=lse_err,
                    ms=time_ms(lambda: da.decode_attention_cuda(
                        q, k, v, kpos, cur_t, window=window, k_scale=ks,
                        v_scale=vs)),
@@ -3490,6 +3515,335 @@ def training_phases(get_config):
     return total
 
 
+# ---------------------------------------------------------------------------
+# The mesh slice: jit_serve_step / jit_train_step on a one-rank NCCL mesh,
+# the checkpoint restored by placements, the dry run against the card
+# ---------------------------------------------------------------------------
+
+MESH_SERVE = dict(B=8, prompt=64, new=32)
+MESH_TRAIN = dict(B=8, S=1024, steps=3)
+
+
+def _clone_tree(tree):
+    from repro_torch.tree import tree_map
+    return tree_map(lambda t: t.clone(), tree)
+
+
+def _card_bytes(make):
+    """``make()``'s tensors' bytes on the card: memory_allocated after it
+    (the caller drops what it does not keep) minus before."""
+    torch.cuda.synchronize()
+    gc.collect()
+    base = torch.cuda.memory_allocated()
+    kept = make()
+    gc.collect()
+    torch.cuda.synchronize()
+    return kept, torch.cuda.memory_allocated() - base
+
+
+def _flops_of(fn):
+    from torch.utils.flop_counter import FlopCounterMode
+    fc = FlopCounterMode(display=False)
+    with fc:
+        out = fn()
+    return out, float(fc.get_total_flops())
+
+
+def mesh_serve_phase(get_config, mesh, card):
+    """Full smollm-135m, bf16: 8 prompts of 64 tokens prefilled through
+    ``make_prefill_step``, then 32 decode steps through ``jit_serve_step``
+    on the one-rank mesh and through ``make_serve_step`` from a copy of the
+    same caches: the tokens bitwise equal, decode_attention launched 30 x
+    32 times by the mesh path (counts zeroed just before it), step p50 of
+    both (the difference is DTensor's host dispatch)."""
+    from repro_torch.kernels import _lib
+    from repro_torch.models import get_model
+    from repro_torch.runtime import (jit_serve_step, make_prefill_step,
+                                     make_serve_step)
+    from repro_torch.runtime.sharding import place
+    t_phase = time.monotonic()
+    p = MESH_SERVE
+    cfg = get_config("smollm-135m")
+    model = get_model(cfg, device=DEV)
+    params = model.init(torch.Generator(device=DEV).manual_seed(SEED + 60))
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 61)
+    prompts = torch.randint(0, cfg.vocab_size, (p["B"], p["prompt"]),
+                            generator=gen, device=DEV, dtype=torch.int32)
+    max_len = p["prompt"] + p["new"]
+    h, caches = make_prefill_step(model, max_len)(params,
+                                                  {"tokens": prompts})
+    first = model.logits(params, h[:, -1:]).argmax(-1).to(torch.int32)
+    mstep, specs = jit_serve_step(model, mesh, p["B"], max_len, params,
+                                  caches)
+
+    mparams = place(params, mesh, specs["params"])
+    mcaches = place(_clone_tree(caches), mesh, specs["caches"])
+    # the placed params and caches alone, made afresh (a one-rank mesh
+    # places a tensor without copying it)
+    _, arg_bytes = _card_bytes(lambda: (
+        place(model.init(torch.Generator(device=DEV).manual_seed(SEED + 60)),
+              mesh, specs["params"]),
+        place(model.make_caches(p["B"], max_len), mesh, specs["caches"])))
+    plain = make_serve_step(model)
+
+    def decode(step, prm, cch, mesh_path):
+        tok, pos = first.clone(), torch.full((p["B"],), p["prompt"],
+                                             dtype=torch.int32, device=DEV)
+        toks, times = [], []
+        for _ in range(p["new"]):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            logits, cch = step(prm, cch, tok, pos)
+            if mesh_path:
+                logits = logits.to_local()
+            tok = logits[:, -1:].argmax(-1).to(torch.int32)
+            torch.cuda.synchronize()
+            times.append((time.monotonic() - t0) * 1e3)
+            toks.append(tok[:, 0].cpu())
+            pos = pos + 1
+        return torch.stack(toks, 1), times
+
+    want, plain_ms = decode(plain, params, _clone_tree(caches), False)
+    _lib.launches.reset()                  # the mesh serving path
+    got, mesh_ms = decode(mstep, mparams, mcaches, True)
+    launched = dict(_lib.launches)
+    require(torch.equal(got, want),
+            "mesh_serve: jit_serve_step's tokens differ from "
+            "make_serve_step's")
+    need = cfg.n_layers * p["new"]
+    require(launched["decode_attention"] == need,
+            f"mesh_serve: decode_attention launched "
+            f"{launched['decode_attention']} times, the path needs {need}")
+    # one card step of each kind for the dry run: the flops of the mesh
+    # step on the plain attention (FlopCounterMode cannot see inside a
+    # kernel; the dry run counts the plain version's products), the peak
+    pcfg = cfg.replace(geometry=dataclasses.replace(cfg.geometry,
+                                                    kernel_force="ref"))
+    pmodel = get_model(pcfg, device=DEV)
+    pstep, _ = jit_serve_step(pmodel, mesh, p["B"], max_len, params, caches)
+    pos = torch.full((p["B"],), p["prompt"], dtype=torch.int32, device=DEV)
+    _, flops = _flops_of(lambda: pstep(mparams, mcaches, first, pos))
+    _mem_reset()
+    base = torch.cuda.memory_allocated()
+    mstep(mparams, mcaches, first, pos)
+    peak = _mem_peak() - base + arg_bytes
+    card["decode"] = dict(arguments=arg_bytes, peak=peak, flops=flops,
+                          step_ms=float(np.percentile(mesh_ms[1:], 50)),
+                          max_len=max_len)
+    emit(dict(phase="mesh_serve", arch=cfg.name, layers=cfg.n_layers,
+              dtype=cfg.dtype, batch=p["B"], prompt=p["prompt"],
+              new_tokens=p["new"], mesh="1x1 nccl", tokens_equal=True,
+              launches=launched,
+              mesh_step_ms_p50=float(np.percentile(mesh_ms[1:], 50)),
+              plain_step_ms_p50=float(np.percentile(plain_ms[1:], 50)),
+              dtensor_host_ms=float(np.percentile(mesh_ms[1:], 50)
+                                    - np.percentile(plain_ms[1:], 50)),
+              wall_s=time.monotonic() - t_phase))
+    del params, mparams, caches, mcaches
+    torch.cuda.empty_cache()
+    return launched
+
+
+def mesh_train_phase(get_config, mesh, card):
+    """Full smollm-135m, fp32, B 8, S 1024: three ``jit_train_step`` steps
+    on the one-rank mesh against three ``make_train_step`` steps on the
+    same state and batches; the losses within 1e-6 relative, every state
+    leaf within 1e-6 x its max; step p50 of both; no kernel launched.
+    Returns (launches, the mesh state, its specs, the step, the data)."""
+    from repro_torch.data import DataConfig, DataPipeline
+    from repro_torch.kernels import launches
+    from repro_torch.runtime.train import jit_train_step, make_train_step
+    from repro_torch.runtime.sharding import place
+    from repro_torch.tree import flatten
+    t_phase = time.monotonic()
+    p = MESH_TRAIN
+    cfg = get_config("smollm-135m")
+    model, opts, state, _ = _train_setup(cfg, p["B"], p["S"], SEED + 62)
+    data = DataPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=p["S"],
+                                   batch_size=p["B"], seed=SEED + 62))
+    mstep, sspecs, bspecs = jit_train_step(model, mesh, opts, state,
+                                           data.batch_at(0))
+
+    mstate = place(_clone_tree(state), mesh, sspecs)
+    # the placed state and batch alone, made afresh
+    _, arg_bytes = _card_bytes(lambda: (
+        place(_clone_tree(state), mesh, sspecs),
+        place({k: torch.from_numpy(v).to(DEV) for k, v in
+               data.batch_at(0).items()}, mesh, bspecs)))
+    plain = make_train_step(model, opts)
+    before = dict(launches)
+    runs = {}
+    for tag, step, st in (("plain", plain, state), ("mesh", mstep, mstate)):
+        losses, times = [], []
+        for i in range(p["steps"]):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            st, m = step(st, data.batch_at(i))
+            torch.cuda.synchronize()
+            times.append((time.monotonic() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+        runs[tag] = dict(losses=losses, step_ms=times, state=st)
+    got = _no_launch("mesh_train", before)
+    lp, lm = runs["plain"]["losses"], runs["mesh"]["losses"]
+    rel = max(abs(a - b) / abs(a) for a, b in zip(lp, lm))
+    require(rel <= 1e-6, f"mesh_train: losses {lm} vs plain {lp}")
+    worst = 0.0
+    for a, b in zip(flatten(runs["plain"]["state"])[0],
+                    flatten(runs["mesh"]["state"])[0]):
+        b = b.to_local()
+        scale = float(a.abs().max()) if a.numel() else 0.0
+        err = float((a.double() - b.double()).abs().max()) if a.numel() \
+            else 0.0
+        require(err <= 1e-6 * max(scale, 1e-30),
+                f"mesh_train: a state leaf differs by {err} (max {scale})")
+        worst = max(worst, err / scale if scale else 0.0)
+    # the card step for the dry run: its flops and peak
+    _, flops = _flops_of(lambda: mstep(runs["mesh"]["state"],
+                                       data.batch_at(0)))
+    _mem_reset()
+    base = torch.cuda.memory_allocated()
+    mstep(runs["mesh"]["state"], data.batch_at(0))
+    peak = _mem_peak() - base + arg_bytes
+    p50 = {t: float(np.percentile(runs[t]["step_ms"][1:], 50))
+           for t in runs}
+    card["train"] = dict(arguments=arg_bytes, peak=peak, flops=flops,
+                         step_ms=p50["mesh"], opts=opts)
+    emit(dict(phase="mesh_train", arch=cfg.name, layers=cfg.n_layers,
+              dtype="float32", batch=p["B"], seq=p["S"], steps=p["steps"],
+              mesh="1x1 nccl", losses=lm, plain_losses=lp,
+              loss_max_rel_diff=rel, state_max_rel_diff=worst,
+              mesh_step_ms_p50=p50["mesh"], plain_step_ms_p50=p50["plain"],
+              dtensor_host_ms=p50["mesh"] - p50["plain"], launches=got,
+              wall_s=time.monotonic() - t_phase))
+    return got, runs["mesh"]["state"], sspecs, mstep, data
+
+
+def mesh_ckpt_phase(mesh, state, sspecs, step, data):
+    """``save`` after mesh_train, ``restore(shardings=named(mesh,
+    state_specs))``, one more step: bit-equal to the step taken from the
+    state in memory (deterministic algorithms for both)."""
+    from repro_torch.ckpt import restore, save
+    from repro_torch.kernels import launches
+    from repro_torch.runtime.sharding import named
+    from repro_torch.tree import flatten
+    t_phase = time.monotonic()
+    ckpt = OUT / "mesh_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    before = dict(launches)
+    at = MESH_TRAIN["steps"]
+    torch.use_deterministic_algorithms(True)
+    try:
+        save(state, str(ckpt), step=at)
+        sa, _ = step(state, data.batch_at(at))
+        rs, got_at = restore(str(ckpt), state,
+                             shardings=named(mesh, sspecs))
+        sb, _ = step(rs, data.batch_at(got_at))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    got = _no_launch("mesh_ckpt", before)
+    diff = [i for i, (a, b) in enumerate(zip(flatten(sa)[0],
+                                             flatten(sb)[0]))
+            if not torch.equal(a.to_local(), b.to_local())]
+    placed = all(tuple(a.placements) == tuple(b.placements)
+                 for a, b in zip(flatten(sa)[0], flatten(rs)[0]))
+    shutil.rmtree(ckpt, ignore_errors=True)
+    require(got_at == at, f"mesh_ckpt: restored step {got_at}, saved {at}")
+    require(placed, "mesh_ckpt: a restored leaf lost its placements")
+    require(not diff, f"mesh_ckpt: leaves {diff} differ after the restart")
+    emit(dict(phase="mesh_ckpt", restored_at=got_at,
+              leaves=len(flatten(sa)[0]), bitexact=True, launches=got,
+              wall_s=time.monotonic() - t_phase))
+    return got
+
+
+def dryrun_vs_card_phase(get_config, card):
+    """The port's dry run of smollm-135m on a one-rank fake mesh at
+    mesh_train's shape (fp32, its options) and at mesh_serve's decode
+    shape (bf16), against the card's runs of the same steps: arguments
+    bytes against memory_allocated of the placed state/params, batch and
+    caches (gate 1%), the predicted peak against max_memory_allocated (the
+    ratio), the counted flops against FlopCounterMode over the card step
+    (gate 2%), and the compute-bound time against the measured step."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import PEAK_FLOPS_BF16, fake_world
+    from repro_torch.kernels.registry import PEAK_FLOPS
+    t_phase = time.monotonic()
+    fake_world(1)
+    try:
+        mesh = init_device_mesh("cpu", (1, 1),
+                                mesh_dim_names=("data", "model"))
+        cfg = get_config("smollm-135m")
+        tr, dec = card["train"], card["decode"]
+        pred = {
+            "train": dryrun.measure(
+                cfg.replace(dtype="float32"),
+                ShapeCell("mesh_train", MESH_TRAIN["S"], MESH_TRAIN["B"],
+                          "train"), mesh, "fake1x1", opts=tr["opts"]),
+            "decode": dryrun.measure(
+                cfg, ShapeCell("mesh_serve", dec["max_len"],
+                               MESH_SERVE["B"], "decode"), mesh, "fake1x1")}
+    finally:
+        dist.destroy_process_group()
+    out = {}
+    for kind, meas in (("train", tr), ("decode", dec)):
+        r = pred[kind]
+        args_err = abs(r["memory"]["arguments"] - meas["arguments"]) \
+            / meas["arguments"]
+        flops_err = abs(r["per_device"]["flops"] - meas["flops"]) \
+            / meas["flops"]
+        rate = PEAK_FLOPS["float32"] if kind == "train" else PEAK_FLOPS_BF16
+        out[kind] = dict(
+            arguments_pred=r["memory"]["arguments"],
+            arguments_card=meas["arguments"], arguments_rel_err=args_err,
+            peak_pred=r["memory"]["per_device_bytes"],
+            peak_card=meas["peak"],
+            peak_ratio=r["memory"]["per_device_bytes"] / meas["peak"],
+            flops_pred=r["per_device"]["flops"], flops_card=meas["flops"],
+            flops_rel_err=flops_err,
+            compute_bound_ms=r["per_device"]["flops"] / rate * 1e3,
+            compute_rate="float32 CUDA cores" if kind == "train"
+            else "bf16 tensor cores",
+            step_ms=meas["step_ms"],
+            roofline_fraction=r["per_device"]["flops"] / rate * 1e3
+            / meas["step_ms"], trace_s=r["trace_s"])
+        require(args_err <= 0.01, f"dryrun_vs_card: {kind} arguments "
+                f"{r['memory']['arguments']} vs the card's "
+                f"{meas['arguments']}")
+        require(flops_err <= 0.02, f"dryrun_vs_card: {kind} flops "
+                f"{r['per_device']['flops']} vs the card's {meas['flops']}")
+    emit(dict(phase="dryrun_vs_card", arch="smollm-135m", **out,
+              wall_s=time.monotonic() - t_phase))
+
+
+def mesh_phases(get_config):
+    """The mesh slice's phases on a world of 1 over NCCL
+    (``make_host_mesh(1, 1)``); returns the mesh path's launches (the
+    counts zeroed just before jit_serve_step's decode loop and read just
+    after; the training phases launch nothing)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    t0 = time.monotonic()
+    mesh = make_host_mesh(1, 1, device=DEV)
+    card = {}
+    try:
+        path = mesh_serve_phase(get_config, mesh, card)
+        got, state, sspecs, step, data = mesh_train_phase(get_config, mesh,
+                                                          card)
+        got2 = mesh_ckpt_phase(mesh, state, sspecs, step, data)
+        del state
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    require(not any(got.values()) and not any(got2.values()),
+            f"mesh: training launched kernels {got} {got2}")
+    dryrun_vs_card_phase(get_config, card)
+    emit(dict(phase="mesh", launches=path, wall_s=time.monotonic() - t0))
+    return path
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3672,6 +4026,10 @@ def main():
     # (none defines a backward, as in the reference)
     train_path = training_phases(get_config)
 
+    # the mesh slice: jit_serve_step / jit_train_step on a one-rank NCCL
+    # mesh, the checkpoint restored by placements, the dry run vs the card
+    mesh_path = mesh_phases(get_config)
+
     main_case = {"decode_attention": "bf16", "paged_decode_attention": "bf16",
                  "flash_attention": "bf16/S1024",
                  "stream_matmul": "fp32/s16/G100000",
@@ -3740,6 +4098,11 @@ def main():
         row["launches_by_path"]["training"] = train_path[name] + (
             train_path["stream_matmul_batched"]
             if name == "stream_matmul" else 0)
+        # jit_serve_step's decode: decode_attention only
+        row["launches_by_path"]["mesh"] = mesh_path[name] + (
+            mesh_path["stream_matmul_batched"]
+            if name == "stream_matmul" else 0)
+        row["launches"] += row["launches_by_path"]["mesh"]
         if name == "flash_attention":      # the fp32 (3xTF32) kernel
             f = next(r for r in recs if r["case"] == "fp32/S512")
             row["fp32"] = dict(

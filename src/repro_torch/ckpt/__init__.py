@@ -1,2 +1,2 @@
 from repro_torch.ckpt.checkpoint import (available_steps, latest_step,
-                                         restore, save, save_async)
+                                         reshard, restore, save, save_async)

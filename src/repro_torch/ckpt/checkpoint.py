@@ -11,9 +11,14 @@ keys sorted, tuples in order), so a port checkpoint and a reference
 checkpoint of the same state hold the same ``leaf_<i>.npy``. The manifest's
 ``treedef`` is the port's own description (the reference writes JAX's).
 A bfloat16 leaf is stored as its raw 16-bit words (numpy has no bfloat16)
-and its manifest dtype says "bfloat16". The reference's ``reshard`` and
-``restore(shardings=...)`` place leaves on a JAX device mesh; they wait for
-the port's mesh slice (ROADMAP).
+and its manifest dtype says "bfloat16".
+
+A DTensor state (a mesh step's) is saved as its full leaves: every rank
+calls ``save`` (the gather is a collective) and rank 0 writes, so the
+files are those of a one-device save. ``restore(shardings=...)`` places
+each leaf on a ``DeviceMesh`` by a placements tree (``sharding.named``)
+and ``reshard`` moves a state onto another mesh: the elastic grow/shrink
+path.
 """
 from __future__ import annotations
 
@@ -26,6 +31,7 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.placement import NamedSharding, _full, place
 from repro_torch.tree import describe, flatten, unflatten
 
 MANIFEST = "manifest.json"
@@ -41,6 +47,12 @@ def _dtype_name(t) -> str:
     return str(np.asarray(t).dtype)
 
 
+def _writes() -> bool:
+    """Rank 0 of a process group (or a process without one) writes."""
+    import torch.distributed as dist
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 def _to_numpy(t) -> np.ndarray:
     if not isinstance(t, torch.Tensor):
         return np.asarray(t)
@@ -53,13 +65,16 @@ def _to_numpy(t) -> np.ndarray:
 def save(state, directory: str, step: int, keep: int = 3,
          extra: Optional[dict] = None) -> str:
     """Atomic synchronous save. Returns the final path."""
-    os.makedirs(directory, exist_ok=True)
     final = _step_dir(directory, step)
+    leaves, spec = flatten(state)
+    leaves = [_full(l) for l in leaves]       # a DTensor: every rank gathers
+    if not _writes():
+        return final
+    os.makedirs(directory, exist_ok=True)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-    leaves, spec = flatten(state)
     manifest = {
         "step": step,
         "n_leaves": len(leaves),
@@ -84,7 +99,7 @@ def save_async(state, directory: str, step: int, keep: int = 3,
     """Snapshot to host memory synchronously (cheap), write in background.
     bfloat16 leaves are snapshotted as bfloat16 tensors on the host."""
     leaves, spec = flatten(state)
-    host = unflatten(spec, [l.detach().to("cpu", copy=True)
+    host = unflatten(spec, [_full(l).detach().to("cpu", copy=True)
                             if isinstance(l, torch.Tensor) else np.asarray(l)
                             for l in leaves])
     t = threading.Thread(target=save,
@@ -117,11 +132,14 @@ def latest_step(directory: str) -> Optional[int]:
 
 
 def restore(directory: str, like, step: Optional[int] = None,
-            device=None) -> Tuple[Any, int]:
+            shardings=None, device=None) -> Tuple[Any, int]:
     """Restore into the structure of ``like`` (a state tree; its leaves may
     be ``meta`` tensors). Each leaf lands on ``device``, or where its
     ``like`` leaf lives when ``device`` is None (a ``meta`` leaf then needs
-    ``device``). Returns (state, step)."""
+    ``device``). ``shardings``: a matching tree of ``NamedSharding``
+    (``sharding.named(mesh, specs)``); each leaf is then distributed on
+    its mesh by its placements (the elastic remesh path). Returns (state,
+    step)."""
     if step is None:
         step = latest_step(directory)
         if step is None:
@@ -134,6 +152,10 @@ def restore(directory: str, like, step: Optional[int] = None,
         raise ValueError(
             f"checkpoint has {manifest['n_leaves']} leaves, expected "
             f"{len(leaves_like)} — architecture mismatch")
+    shard_leaves = None
+    if shardings is not None:
+        shard_leaves = flatten(shardings, lambda x: isinstance(
+            x, NamedSharding))[0]
     out = []
     for i, ref in enumerate(leaves_like):
         arr = np.load(os.path.join(path, f"leaf_{i}.npy"))
@@ -143,9 +165,22 @@ def restore(directory: str, like, step: Optional[int] = None,
         t = torch.from_numpy(arr)
         if manifest["dtypes"][i] == "bfloat16":
             t = t.view(torch.bfloat16)
+        if shard_leaves is not None:           # every rank read the file
+            shd = shard_leaves[i]
+            out.append(place(t if device is None else t.to(device),
+                             shd.mesh, shd.spec))
+            continue
         dev = device if device is not None else getattr(ref, "device", "cpu")
         if torch.device(dev).type == "meta":
             raise ValueError(f"leaf {i}: its like leaf is on the meta "
                              "device; pass device=")
         out.append(t.to(dev))
     return unflatten(spec, out), step
+
+
+def reshard(state, mesh, spec_tree):
+    """Move a (host, device or DTensor) state onto ``mesh`` with
+    ``spec_tree`` specs — the elastic grow/shrink primitive: ``place``,
+    which gathers a DTensor leaf first (``full_tensor``), then distributes
+    it (``distribute_tensor``)."""
+    return place(state, mesh, spec_tree)

@@ -52,9 +52,12 @@ MAX_SPLITS = 128               # the merge pass's limit
 # ---------------------------------------------------------------------------
 
 def decode_attention_ref(q, k, v, kpos, cur, *, window: int = 0,
-                         scale: float = 0.0, k_scale=None, v_scale=None):
+                         scale: float = 0.0, k_scale=None, v_scale=None,
+                         return_lse: bool = False):
     """q (B, Hq, D); k/v (B, Hkv, L, D) (int8 with ``k_scale``/``v_scale``
-    (B, Hkv, L)); kpos (B, L); cur (B,). Returns (B, Hq, D) in q's dtype."""
+    (B, Hkv, L)); kpos (B, L); cur (B,). Returns (B, Hq, D) in q's dtype;
+    with ``return_lse`` also each row's log-sum-exp of its scaled scores
+    over the valid keys, (B, Hq) fp32 (-inf where there is none)."""
     B, Hq, D = q.shape
     Hkv = k.shape[1]
     g = Hq // Hkv
@@ -71,9 +74,12 @@ def decode_attention_ref(q, k, v, kpos, cur, *, window: int = 0,
     mask = (kpos >= 0) & (kpos <= cur)
     if window:
         mask &= (cur - kpos) < window
-    s = s.masked_fill(~mask[:, None, :], -1e30)
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bhl,bhld->bhd", p, vv).to(q.dtype)
+    out = torch.einsum("bhl,bhld->bhd", torch.softmax(
+        s.masked_fill(~mask[:, None, :], -1e30), dim=-1), vv).to(q.dtype)
+    if not return_lse:
+        return out
+    return out, torch.logsumexp(
+        s.masked_fill(~mask[:, None, :], float("-inf")), dim=-1)
 
 
 def paged_decode_attention_ref(q, k_pool, v_pool, kpos_pool, block_tables,
@@ -183,6 +189,26 @@ def merge_partials_ref(acc, m, l, mean_v):
     return torch.where(idle, mean_v.float(), num / torch.where(idle, 1.0, den))
 
 
+def merge_by_lse(o, lse):
+    """Merge decode outputs computed on R pieces of each row's keys (a
+    cache whose length lies on R ranks): o (R, B, Hq, D), each piece's
+    output normalised over its own keys, lse (R, B, Hq) fp32 its
+    log-sum-exp (``return_lse``; -inf where the piece has no valid key).
+    o = sum_r e^(lse_r - m) o_r / sum_r e^(lse_r - m); a row with no valid
+    key in any piece takes the mean of the pieces' outputs, each the mean
+    of its own V rows, which is the mean of all of them for equal pieces.
+    Returns (o (B, Hq, D) fp32, lse (B, Hq))."""
+    o = o.float()
+    m = lse.amax(0)
+    idle = torch.isinf(m)
+    w = torch.exp(lse - torch.where(idle, 0.0, m))
+    den = w.sum(0)
+    out = torch.where(idle[..., None], o.mean(0),
+                      (w[..., None] * o).sum(0)
+                      / torch.where(idle, 1.0, den)[..., None])
+    return out, torch.where(idle, m, m + torch.log(den))
+
+
 # ---------------------------------------------------------------------------
 # Head dims outside HEAD_DIMS
 # ---------------------------------------------------------------------------
@@ -227,9 +253,12 @@ def pads_head_dim(name: str):
                 if k.shape[-1] == v.shape[-1] == D else D
             if Dp == D:
                 return fn(q, k, v, *args, scale=scale, **kw)
-            return fn(pad_head_dim(q, Dp), pad_head_dim(k, Dp),
-                      pad_head_dim(v, Dp), *args, scale=scale or D ** -0.5,
-                      **kw)[..., :D]
+            out = fn(pad_head_dim(q, Dp), pad_head_dim(k, Dp),
+                     pad_head_dim(v, Dp), *args, scale=scale or D ** -0.5,
+                     **kw)
+            if isinstance(out, tuple):      # (output, log-sum-exp)
+                return (out[0][..., :D],) + out[1:]
+            return out[..., :D]
         return padded
     return wrap
 
@@ -249,7 +278,7 @@ class _Args(ctypes.Structure):
         "B", "Hq", "Hkv", "D", "nb", "ps", "ps_shift", "window", "n_split",
         "split_rows")] + [
         ("scale", ctypes.c_float), ("dtype", ctypes.c_int),
-        ("quant", ctypes.c_int)]
+        ("quant", ctypes.c_int), ("lse", ctypes.c_void_p)]
 
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -310,7 +339,7 @@ def _check_common(name, q, k, v, kpos, cur, k_scale, v_scale):
 
 
 def _launch(name, q, k, v, kpos, cur, bt, k_scale, v_scale, window, scale,
-            nb, ps):
+            nb, ps, lse=None):
     quant = k_scale is not None
     B, Hq, D = q.shape
     out = torch.empty((B, Hq, D), dtype=q.dtype, device=q.device)
@@ -347,7 +376,7 @@ def _launch(name, q, k, v, kpos, cur, bt, k_scale, v_scale, window, scale,
         ps_shift=ps.bit_length() - 1 if ps & (ps - 1) == 0 else -1,
         window=int(window), n_split=n_split, split_rows=rows,
         scale=float(scale or D ** -0.5), dtype=_DTYPES[q.dtype],
-        quant=int(quant))
+        quant=int(quant), lse=lse.data_ptr() if lse is not None else None)
     lib, fn = _entry()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = fn(ctypes.byref(a), stream)      # the split and the merge pass
@@ -359,9 +388,11 @@ def _launch(name, q, k, v, kpos, cur, bt, k_scale, v_scale, window, scale,
 
 @pads_head_dim("decode_attention")
 def decode_attention_cuda(q, k, v, kpos, cur, *, window: int = 0,
-                          scale: float = 0.0, k_scale=None, v_scale=None):
-    """The CUDA kernel on a dense cache; arguments as ``decode_attention_ref``.
-    A head dim outside ``HEAD_DIMS`` runs zero-padded (``pads_head_dim``)."""
+                          scale: float = 0.0, k_scale=None, v_scale=None,
+                          return_lse: bool = False):
+    """The CUDA kernel on a dense cache; arguments and results as
+    ``decode_attention_ref`` (the merge pass writes the log-sum-exp). A
+    head dim outside ``HEAD_DIMS`` runs zero-padded (``pads_head_dim``)."""
     name = "decode_attention"
     quant = _check_common(name, q, k, v, kpos, cur, k_scale, v_scale)
     B, _, D = q.shape
@@ -372,8 +403,12 @@ def decode_attention_cuda(q, k, v, kpos, cur, *, window: int = 0,
     if quant and (tuple(k_scale.shape) != (B, Hkv, L)
                   or tuple(v_scale.shape) != (B, Hkv, L)):
         raise ValueError(f"{name}: scales must be (B, Hkv, L)")
+    if not return_lse:
+        return _launch(name, q, k, v, kpos, cur, None, k_scale, v_scale,
+                       window, scale, nb=1, ps=L)
+    lse = torch.empty((B, q.shape[1]), dtype=torch.float32, device=q.device)
     return _launch(name, q, k, v, kpos, cur, None, k_scale, v_scale, window,
-                   scale, nb=1, ps=L)
+                   scale, nb=1, ps=L, lse=lse), lse
 
 
 @pads_head_dim("paged_decode_attention")

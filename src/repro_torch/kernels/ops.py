@@ -16,6 +16,7 @@ einsum attention, ``layers.ssm.ssd_scan``)."""
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import decode_attention as _da
 from repro_torch.kernels import flash_attention as _fa
@@ -25,7 +26,15 @@ from repro_torch.kernels import stream_matmul as _mm
 
 def _on_cuda(t, name: str, *inputs) -> bool:
     """True where ``t`` (the first input) asks for the CUDA kernel;
-    ``inputs``: every tensor argument, checked for autograd there."""
+    ``inputs``: every tensor argument, checked for autograd there. A
+    DTensor is refused on any device: a kernel takes local shards, handed
+    to it inside a ``local_map`` region (``runtime.sharding``), and is
+    never given a DTensor to unwrap."""
+    # only raises: a DTensor is refused, never sent elsewhere
+    if any(isinstance(x, DTensor)  # rc3e: allow-ops-dispatch
+           for x in (t,) + inputs):
+        raise TypeError(f"{name}: a DTensor input; the kernels take local "
+                        "shards (call them inside a local_map region)")
     if t.device.type == "cuda":
         # only raises: an autograd input is refused, never sent elsewhere
         if torch.is_grad_enabled() and any(  # rc3e: allow-ops-dispatch
@@ -57,12 +66,13 @@ def matmul_batched(a, b):
 
 
 def decode_attention(q, k, v, kpos, cur, *, window: int = 0,
-                     scale: float = 0.0, k_scale=None, v_scale=None):
+                     scale: float = 0.0, k_scale=None, v_scale=None,
+                     return_lse: bool = False):
     fn = _da.decode_attention_cuda \
         if _on_cuda(q, "decode_attention", k, v, k_scale, v_scale) \
         else _da.decode_attention_ref
     return fn(q, k, v, kpos, cur, window=window, scale=scale,
-              k_scale=k_scale, v_scale=v_scale)
+              k_scale=k_scale, v_scale=v_scale, return_lse=return_lse)
 
 
 def paged_decode_attention(q, k_pool, v_pool, kpos_pool, block_tables, cur,

@@ -3,10 +3,14 @@ AdamW, resuming from ``--ckpt-dir`` and saving there every 25 steps (the
 last two kept).
 
 Ported from ``repro.launch.train`` (same flags and prints, float32 as
-there), plus ``--device``. The reference's ``--data``/``--model`` mesh axes
-bind the step to a device mesh; the port trains on one device, and any
-other extent than 1 is refused until the port's mesh slice (ROADMAP).
-The port's seeded init (``torch.Generator``) draws other numbers than the
+there), plus ``--device``. ``--data D --model M`` other than 1 x 1 builds
+``make_host_mesh(D, M)`` over the process group (started from the
+environment that ``torchrun`` sets, or by the caller) and prints its
+shape; it raises where the world is smaller. As the reference does, the
+launcher then computes the parameter specs and trains the one-process
+step on every rank without placing anything on the mesh (the reference
+computes ``pspecs`` and never applies them; ROADMAP records it). The
+port's seeded init (``torch.Generator``) draws other numbers than the
 reference's ``PRNGKey(0)``, so the two launchers' losses differ. Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
       --reduce --device cpu --steps 50 --batch 8 --seq 128
@@ -23,12 +27,26 @@ import torch
 from repro_torch.ckpt import restore, save
 from repro_torch.configs import get_config, reduced
 from repro_torch.data import DataConfig, DataPipeline
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import get_model
 from repro_torch.optim import AdamWConfig
+from repro_torch.runtime.sharding import axis_sizes, param_specs
 from repro_torch.runtime.train import (TrainOpts, init_train_state,
                                        make_train_step)
 
 SAVE_EVERY = 25
+
+
+def _join_group(device: str) -> None:
+    """Join the process group that ``torchrun``'s environment describes
+    (WORLD_SIZE > 1), unless the caller has started one."""
+    import os
+
+    import torch.distributed as dist
+    if dist.is_initialized() or int(os.environ.get("WORLD_SIZE", "1")) <= 1:
+        return
+    dist.init_process_group("nccl" if str(device).startswith("cuda")
+                            else "gloo")
 
 
 def main(argv=None) -> list:
@@ -52,19 +70,21 @@ def main(argv=None) -> list:
                     help="cuda (default; raises where CUDA is absent) or "
                          "cpu")
     args = ap.parse_args(argv)
-    if (args.data, args.model) != (1, 1):
-        raise ValueError(
-            f"--data {args.data} --model {args.model}: the port trains on "
-            "one device; a device mesh waits for the port's mesh slice "
-            "(runtime/sharding.py, jit_train_step)")
 
     cfg = get_config(args.arch)
     if args.reduce:
         cfg = reduced(cfg)
     cfg = cfg.replace(dtype="float32")
     model = get_model(cfg, device=args.device)
-    print(f"training {cfg.name} ({cfg.param_count()/1e6:.1f}M params) on "
-          f"{model.dev}")
+    mesh = None
+    if (args.data, args.model) != (1, 1):
+        _join_group(args.device)
+        mesh = make_host_mesh(args.data, args.model, device=args.device)
+        print(f"training {cfg.name} ({cfg.param_count()/1e6:.1f}M params) "
+              f"on mesh {axis_sizes(mesh)}")
+    else:
+        print(f"training {cfg.name} ({cfg.param_count()/1e6:.1f}M params) "
+              f"on {model.dev}")
 
     opts = TrainOpts(opt=AdamWConfig(lr=args.lr, warmup_steps=10,
                                      total_steps=args.steps),
@@ -80,6 +100,9 @@ def main(argv=None) -> list:
         except FileNotFoundError:
             pass
 
+    if mesh is not None:
+        # computed and not applied, as the reference's launcher does
+        pspecs = param_specs(cfg, state["params"], mesh)  # noqa: F841
     step = make_train_step(model, opts)
     data = DataPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                                    batch_size=args.batch))

@@ -23,13 +23,19 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed._functional_collectives as funcol
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import ops
 from repro_torch.kernels.decode_attention import (decode_attention_ref,
+                                                  merge_by_lse,
                                                   paged_decode_attention_ref)
 from repro_torch.kernels.flash_attention import flash_attention_ref
 from repro_torch.layers.norms import rms_norm, softcap
 from repro_torch.layers.rope import apply_rope
+from repro_torch.placement import (P, _div, axis_names, constrain,
+                                   dp_spec_for, local_offset, local_region,
+                                   spec_of)
 
 NEG_INF = -2.3819763e38  # matches gemma reference
 
@@ -48,6 +54,8 @@ class AttnOpts:
     query_scale: float = 0.0     # 0 -> head_dim ** -0.5
     q_chunk: int = 256           # query-chunk size for long sequences
     kernel_force: str = ""       # "" = kernel on CUDA | "ref" = plain versions
+    attn_tp: str = "heads"       # "heads" | "seq" (query positions over
+                                 # "model") | "none" (pure DP): mesh hints
 
 
 def _plain(opts: AttnOpts) -> bool:
@@ -136,10 +144,12 @@ def _causal_mask(q_pos, k_pos, window: int, causal: bool, k_valid=None):
 # Kernel glue: the layer's layouts are handed to the kernels as strided views
 # ---------------------------------------------------------------------------
 
-def _decode_kernel_attend(q, cache, positions, opts: AttnOpts):
+def _decode_kernel_attend(q, cache, positions, opts: AttnOpts,
+                          return_lse: bool = False):
     """Dense-cache decode sweep. q (B,1,kv,g,hd) already query-scaled ->
     kernel scale=1. The cache's (B, L, kv, hd) rows are passed as a
-    (B, kv, L, hd) view: no copy, the kernel reads them through strides."""
+    (B, kv, L, hd) view: no copy, the kernel reads them through strides.
+    ``return_lse``: also each row's log-sum-exp, (B, kv * g) fp32."""
     B, _, kv, g, hd = q.shape
     qk = q[:, 0].reshape(B, kv * g, hd)
     ks = vs = None
@@ -149,7 +159,9 @@ def _decode_kernel_attend(q, cache, positions, opts: AttnOpts):
     fn = decode_attention_ref if _plain(opts) else ops.decode_attention
     o = fn(qk, cache["k"].permute(0, 2, 1, 3), cache["v"].permute(0, 2, 1, 3),
            cache["pos"], positions[:, 0], window=opts.window, scale=1.0,
-           k_scale=ks, v_scale=vs)
+           k_scale=ks, v_scale=vs, return_lse=return_lse)
+    if return_lse:
+        return o[0].reshape(B, 1, kv, g, hd), o[1]
     return o.reshape(B, 1, kv, g, hd)
 
 
@@ -176,6 +188,15 @@ def _flash_kernel_attend(q, k, v, opts: AttnOpts):
     q (B,S,kv,g,hd) is passed as a (B, Hq, S, hd) view; the output is
     written (B, S, Hq, hd)-major so the result reshapes back without a
     copy."""
+    if isinstance(q, DTensor):        # a local region: batch and kv heads
+        dp = dp_spec_for(q, q.shape[0])
+        hm = "model" if _div(q.shape[2], q.device_mesh) else None
+        return local_region(
+            lambda a, b, c: _flash_kernel_attend(a, b, c, opts),
+            q.device_mesh, in_specs=(P(dp, None, hm, None, None),
+                                     P(dp, None, hm, None),
+                                     P(dp, None, hm, None)),
+            out_specs=P(dp, None, hm, None, None))(q, k, v)
     B, S, kv, g, hd = q.shape
     qk = q.permute(0, 2, 3, 1, 4).reshape(B, kv * g, S, hd)
     fn = flash_attention_ref if _plain(opts) else ops.flash_attention
@@ -204,7 +225,17 @@ def attn_forward(p, x, positions, opts: AttnOpts,
         k_pos, k_valid = positions, None
 
     qc = opts.q_chunk
-    if opts.causal and kv_src is None and not q.requires_grad:
+    if opts.attn_tp == "seq":
+        # indivisible kv-heads: shard QUERY positions over the model axis
+        # so score compute is TP-distributed (heads replicated); k/v
+        # gathered (the reference's hint; no-op on plain tensors)
+        q = _shard_q_seq(q)
+        k = _gather_seq(k)
+        v = _gather_seq(v)
+        mask = _causal_mask(positions, k_pos, opts.window, opts.causal,
+                            k_valid)
+        y = _attend(q, k, v, mask, opts)
+    elif opts.causal and kv_src is None and not q.requires_grad:
         y = _flash_kernel_attend(q, k, v, opts)
     elif qc and S > qc and S % qc == 0:
         y = _chunked_attend(q, k, v, positions, k_pos, k_valid, opts)
@@ -216,11 +247,30 @@ def attn_forward(p, x, positions, opts: AttnOpts,
     return out, (k, v)
 
 
+def _shard_q_seq(q):
+    """The reference's hint: q (B, S, ...) with batch over the dp axes and
+    query positions over "model"."""
+    return constrain(q, P(dp_spec_for(q, q.shape[0]), "model",
+                          *([None] * (q.ndim - 2))))
+
+
+def _gather_seq(t):
+    """The reference's hint: k/v with batch-only sharding (sequence
+    gathered) before the query-chunk loop."""
+    return constrain(t, P(dp_spec_for(t, t.shape[0]),
+                          *([None] * (t.ndim - 1))))
+
+
 def _chunked_attend(q, k, v, q_pos, k_pos, k_valid, opts: AttnOpts):
     """Loop over query chunks; local layers slice keys to the window."""
     B, S = q.shape[:2]
     qc = opts.q_chunk
     w = opts.window
+    if opts.attn_tp == "heads":
+        # hoist the k/v seq-gather out of the chunk loop (the reference's
+        # hint for Megatron-SP residuals; "none" = pure DP)
+        k = _gather_seq(k)
+        v = _gather_seq(v)
     ys = []
     if bool(w) and w < S and k.shape[1] == S:
         # Pad keys on the left by `w` so chunk i reads keys [i*qc - w, i*qc + qc).
@@ -282,20 +332,81 @@ def _deq(k, scale, dtype):
     return (k.float() * scale[..., None]).to(dtype)
 
 
-def _write_rows(cache, rows, k, v, positions):
-    """Write k/v rows (N, kv, hd) and their positions (N,) at index tuple
-    ``rows`` of the cache leaves, quantizing for an int8 cache."""
+def _new_rows(cache, k, v, positions):
+    """The rows to write for k/v (…, kv, hd) and their positions, by cache
+    leaf (int8 values and their scales for a quantized cache)."""
+    new = {"pos": positions.to(torch.int32)}
     if "k_scale" in cache:
-        kq, ks = _quant_rows(k)
-        vq, vs = _quant_rows(v)
-        cache["k"][rows] = kq
-        cache["v"][rows] = vq
-        cache["k_scale"][rows] = ks
-        cache["v_scale"][rows] = vs
+        new["k"], new["k_scale"] = _quant_rows(k)
+        new["v"], new["v_scale"] = _quant_rows(v)
     else:
-        cache["k"][rows] = k.to(cache["k"].dtype)
-        cache["v"][rows] = v.to(cache["v"].dtype)
-    cache["pos"][rows] = positions.to(torch.int32)
+        new["k"], new["v"] = k, v
+    return new
+
+
+def write_cache(cache, values, positions):
+    """Write new rows into a dense (ring) cache in place: ``values`` maps a
+    cache leaf's name to its rows, (B, ...) with positions (B,) or
+    (B, S, ...) with positions (B, S), cast to the leaf's dtype; row b
+    lands at length index ``positions[b] % L``. On DTensor caches (a mesh
+    step) the same body runs as a local region on each rank's shards: each
+    leaf keeps its placements (the write is in place), and its rows and
+    positions are cut as its batch is, with its offset along its length
+    where the rules shard it."""
+    names = sorted(values)
+    leaves = [cache[n] for n in names]
+    L = leaves[0].shape[1]
+    n = len(names)
+    if not isinstance(leaves[0], DTensor):
+        _write_local(leaves, [values[k] for k in names], [positions] * n, L,
+                     [None] * n)
+        return
+    specs = [spec_of(t) for t in leaves]
+    offs = [None if sp[1] is None else local_offset(t, 1)
+            for t, sp in zip(leaves, specs)]
+    extra = (None,) * (positions.ndim - 1)      # a prefill's S dim
+
+    def local(*args):
+        _write_local(args[:n], args[n:2 * n], args[2 * n:], L, offs)
+    local_region(local, leaves[0].device_mesh,
+                 in_specs=tuple(specs)
+                 + tuple(P(sp[0], *extra, *sp[2:]) for sp in specs)
+                 + tuple(P(sp[0], *extra) for sp in specs),
+                 out_specs=None)(*leaves, *(values[k] for k in names),
+                                 *([positions] * n))
+
+
+def _write_local(leaves, values, positions, L: int, offs):
+    """``write_cache``'s body, on whole leaves or on one rank's shards:
+    ``positions[i]`` and ``offs[i]`` are leaf i's positions and its offset
+    along its sharded length (None: the leaf holds the whole length). A
+    write whose index falls outside a shard goes to the index of the row's
+    first write inside it, with that write's value (to the row's first
+    slot, with its own value, where none falls inside), so no two writes
+    to one index differ."""
+    last = None
+    for t, val, pos, lo in zip(leaves, values, positions, offs):
+        if pos is not last:             # the plain path: one for all leaves
+            last, B = pos, pos.shape[0]
+            pos = pos.reshape(B, -1)
+            idx = (pos % L).long()                # (B, S)
+            b = torch.arange(B, device=pos.device)[:, None]
+        val = val.reshape(idx.shape + tuple(t.shape[2:])).to(t.dtype)
+        li = idx
+        if lo is not None:
+            li = li - lo
+            ok = (li >= 0) & (li < t.shape[1])
+            some = ok.any(1, keepdim=True)
+            first = ok.to(torch.int32).argmax(1, keepdim=True)   # (B, 1)
+            li = torch.where(ok, li, torch.where(some, li.gather(1, first),
+                                                 0))
+            tail = (1,) * (val.ndim - 2)
+            first_val = torch.gather(val, 1, first.reshape(
+                (B, 1) + tail).expand((B, 1) + val.shape[2:]))
+            fill = torch.where(some.reshape((B, 1) + tail), first_val,
+                               t[:, :1])
+            val = torch.where(ok.reshape(ok.shape + tail), val, fill)
+        t[b, li] = val
 
 
 def fill_kv_cache(cache, k, v, positions):
@@ -305,11 +416,7 @@ def fill_kv_cache(cache, k, v, positions):
     S = k.shape[1]
     if S > L:                                     # keep last L entries (ring)
         k, v, positions = k[:, -L:], v[:, -L:], positions[:, -L:]
-    idx = (positions % L).long()                  # (B, S)
-    b = torch.arange(k.shape[0], device=k.device)[:, None].expand_as(idx)
-    _write_rows(cache, (b.reshape(-1), idx.reshape(-1)),
-                k.reshape((-1,) + k.shape[2:]), v.reshape((-1,) + v.shape[2:]),
-                positions.reshape(-1))
+    write_cache(cache, _new_rows(cache, k, v, positions), positions)
     return cache
 
 
@@ -338,11 +445,12 @@ def attn_decode_paged(p, x, positions, cache, block_tables, opts: AttnOpts):
     active = pos >= 0
     safe = pos.clamp(min=0)
     pid = torch.gather(block_tables, 1, (safe // ps)[:, None].long())[:, 0]
-    # inactive rows write the reserved scratch page with pos -1
     pid = torch.where(active, pid, torch.zeros_like(pid)).long()
     off = torch.where(active, safe % ps, torch.zeros_like(safe)).long()
-    _write_rows(cache, (pid, off), k[:, 0], v[:, 0],
-                torch.where(active, pos, torch.full_like(pos, -1)))
+    # inactive rows write the reserved scratch page with pos -1
+    for name, rows in _new_rows(cache, k[:, 0], v[:, 0], torch.where(
+            active, pos, torch.full_like(pos, -1))).items():
+        cache[name][pid, off] = rows.to(cache[name].dtype)
     if opts.causal and not opts.softcap:
         y = _paged_kernel_attend(q, cache, positions, block_tables, opts)
     else:
@@ -365,25 +473,81 @@ def attn_decode_paged(p, x, positions, cache, block_tables, opts: AttnOpts):
 
 def attn_decode(p, x, positions, cache, opts: AttnOpts, update_cache=True):
     """x (B,1,d); positions (B,1) absolute. Returns (y, cache) with the
-    cache updated in place."""
-    B = x.shape[0]
+    cache updated in place.
+
+    On DTensor caches (a mesh step) the write runs in a local region on
+    each rank's shard of the cache (``write_cache``), and so does the
+    decode kernel (``_decode_attend_mesh``)."""
     q, k, v = _qkv(p, x, positions, opts)        # k/v (B,1,kv,hd)
     if update_cache:
-        L = cache["k"].shape[1]
-        idx = (positions[:, 0] % L).long()
-        b = torch.arange(B, device=x.device)
-        _write_rows(cache, (b, idx), k[:, 0], v[:, 0], positions[:, 0])
+        write_cache(cache, _new_rows(cache, k[:, 0], v[:, 0],
+                                     positions[:, 0]), positions[:, 0])
+    if isinstance(cache["k"], DTensor):
+        y = _decode_attend_mesh(q, cache, positions, opts)
+    else:
+        y = _decode_attend(q, cache, positions, opts)
+    out = torch.einsum("bshgk,hgkd->bsd", y, p["wo"].to(x.dtype))
+    return out, cache
+
+
+def _decode_attend_mesh(q, cache, positions, opts: AttnOpts):
+    """``_decode_attend`` on DTensor caches. The kernel runs in a local
+    region on each rank's shards: batch over the dp axes, kv heads over
+    "model", and the cache length as the rules shard it. Where the length
+    is sharded each rank sweeps its own rows and the ranks merge their
+    outputs by their rows' log-sum-exps (``_merge_lse``), as the kernel's
+    merge pass merges its splits. The einsum path (a logit softcap, or no
+    causal mask) runs on the DTensors, whose softmax DTensor reduces
+    across the length shards, as GSPMD partitions the reference's."""
+    bd, ld, hm, _ = spec_of(cache["k"])
+    if not (opts.causal and not opts.softcap):
+        return _decode_attend(q, cache, positions, opts)
+    names = sorted(cache)
+    mesh = cache["k"].device_mesh
+    dims = [axis_names(mesh).index(a) for a in
+            (() if ld is None else ld if isinstance(ld, tuple) else (ld,))]
+
+    def local(qq, pos, *leaves):
+        leaves = dict(zip(names, leaves))
+        if not dims:
+            return _decode_attend(qq, leaves, pos, opts)
+        y, lse = _decode_kernel_attend(qq, leaves, pos, opts,
+                                       return_lse=True)
+        return _merge_lse(y, lse, mesh, dims)
+    return local_region(
+        local, mesh,
+        in_specs=(P(bd, None, hm, None, None), P(bd, None))
+        + tuple(P(bd, ld, *spec_of(cache[n])[2:]) for n in names),
+        out_specs=P(bd, None, hm, None, None))(
+            q, positions, *(cache[n] for n in names))
+
+
+def _merge_lse(y, lse, mesh, dims):
+    """Merge one decode step's outputs over the ranks of mesh ``dims``,
+    each computed on that rank's rows of the cache: y (B,1,kv,g,hd), lse
+    (B, kv * g) its rows' log-sum-exps (``merge_by_lse``)."""
+    shape, dtype = y.shape, y.dtype
+    o = y.reshape(lse.shape + shape[-1:])                    # (B, Hq, hd)
+    for d in dims:
+        group = (mesh, d)
+        o, lse = merge_by_lse(funcol.all_gather_tensor(o[None], 0, group),
+                              funcol.all_gather_tensor(lse[None], 0, group))
+    return o.to(dtype).reshape(shape)
+
+
+def _decode_attend(q, cache, positions, opts: AttnOpts):
+    """q (B,1,kv,g,hd) against the whole cache: the decode kernel where it
+    serves (causal, no softcap), else the einsum path."""
     if opts.causal and not opts.softcap:
         y = _decode_kernel_attend(q, cache, positions, opts)
     else:
         if "k_scale" in cache:
-            k_all = _deq(cache["k"], cache["k_scale"], x.dtype)
-            v_all = _deq(cache["v"], cache["v_scale"], x.dtype)
+            k_all = _deq(cache["k"], cache["k_scale"], q.dtype)
+            v_all = _deq(cache["v"], cache["v_scale"], q.dtype)
         else:
             k_all, v_all = cache["k"], cache["v"]
         kpos = cache["pos"]
         mask = _causal_mask(positions, kpos, opts.window, opts.causal,
                             k_valid=kpos >= 0)
         y = _attend(q, k_all, v_all, mask, opts)
-    out = torch.einsum("bshgk,hgkd->bsd", y, p["wo"].to(x.dtype))
-    return out, cache
+    return y

@@ -21,6 +21,7 @@ import dataclasses
 import torch
 
 from repro_torch.configs.base import MLAConfig
+from repro_torch.layers.attention import write_cache
 from repro_torch.layers.norms import rms_norm
 from repro_torch.layers.rope import apply_rope
 
@@ -133,19 +134,12 @@ def init_mla_cache(batch: int, cache_len: int, opts: MLAOpts, dtype,
     }
 
 
-def _write(cache, b, idx, c_kv, k_rope, positions):
-    cache["c_kv"][b, idx] = c_kv.to(cache["c_kv"].dtype)
-    cache["k_rope"][b, idx] = k_rope.to(cache["k_rope"].dtype)
-    cache["pos"][b, idx] = positions.to(torch.int32)
-
-
 def fill_mla_cache(cache, c_kv, k_rope, positions):
     """Write prefill latents (B,S,·) at ring index ``positions % L``, in
-    place. Returns the cache."""
-    L = cache["c_kv"].shape[1]
-    idx = (positions % L).long()
-    b = torch.arange(c_kv.shape[0], device=c_kv.device)[:, None]
-    _write(cache, b.expand_as(idx), idx, c_kv, k_rope, positions)
+    place (``write_cache``; on DTensor caches a local region a shard).
+    Returns the cache."""
+    write_cache(cache, {"c_kv": c_kv, "k_rope": k_rope, "pos": positions},
+                positions)
     return cache
 
 
@@ -153,13 +147,10 @@ def mla_decode(p, x, positions, cache, opts: MLAOpts):
     """Absorbed decode: scores and values in the compressed latent space.
     x (B,1,d); positions (B,1). Returns (y, cache) with the cache updated
     in place."""
-    B = x.shape[0]
     q_nope, q_rope = _project_q(p, x, positions, opts)      # (B,1,h,·)
     c_kv_t, k_rope_t = _latent(p, x, positions, opts)
-    L = cache["c_kv"].shape[1]
-    _write(cache, torch.arange(B, device=x.device),
-           (positions[:, 0] % L).long(), c_kv_t[:, 0], k_rope_t[:, 0],
-           positions[:, 0])
+    write_cache(cache, {"c_kv": c_kv_t[:, 0], "k_rope": k_rope_t[:, 0],
+                        "pos": positions[:, 0]}, positions[:, 0])
     # absorb W_uk into the query: q_lat (B,1,h,r)
     q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope, p["w_uk"].to(x.dtype))
     scores = (torch.einsum("bqhr,bsr->bhqs", q_lat.float(),

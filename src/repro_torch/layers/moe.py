@@ -18,8 +18,17 @@ in the reference.
 
 The combine gathers each token's k outputs (T, k, d) and sums them in the
 order of its top-k list, so the result does not depend on the order of
-atomic adds. The reference's ``_ep_constrain`` sharding hint has no
-counterpart on one device.
+atomic adds.
+
+On DTensors (a mesh step) the data-dependent parts run as two local
+regions (``torch.distributed.tensor.experimental.local_map``), each on
+its local shard of D (over the data-parallel axes when they divide D;
+otherwise every rank computes all of D, a replicated region): routing and
+dispatch (``_dispatch``: router, queue positions, the (D, E, C, d) gather)
+and the combine (``_combine``, on y gathered over "model"). Between them
+the expert einsums run on DTensors pinned by the reference's
+``_ep_constrain`` hint to (dp axes, "model"), so each rank computes its
+experts only. On plain tensors the hints do nothing.
 
 ``moe_forward`` also returns the Switch load-balance aux loss, E * sum_e
 f_e * P_e over every token of every shard (P_e: the mean fp32 router
@@ -32,9 +41,11 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.layers.mlp import _act
+from repro_torch.placement import P, constrain, dp_spec_for, local_region
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,12 +108,55 @@ def route(p, xf, opts: MoEOpts):
     return sorted_p, gate, expert, pos, capacity(Tl, c), probs
 
 
-def load_balance_loss(probs, expert, n_experts: int):
-    """Switch aux loss: E * sum_e mean(probs_e) * mean(top1 == e), the
-    means over every token of every shard."""
-    me = torch.mean(probs, dim=(0, 1))                              # (E,)
-    top1 = torch.nn.functional.one_hot(expert[..., 0], n_experts).float()
-    return n_experts * torch.sum(me * torch.mean(top1, dim=(0, 1)))
+def _ep_constrain(t, n_tail: int):
+    """The reference's hint: pin (D, E, ...) tensors to (dp axes, "model",
+    ...) (the dp axes only where they divide D). No-op on a plain
+    tensor."""
+    dp = dp_spec_for(t, t.shape[0])
+    return constrain(t, P(dp, "model", *([None] * n_tail)))
+
+
+def _dispatch(router, xf, opts: MoEOpts):
+    """Shard-local routing and dispatch of xf (D, Tl, d): (xg (D, E, C, d)
+    token rows by expert slot, gates (D, E, C), slot (D, Tl * k) each
+    assignment's row of the flattened (E * C) outputs (E * C when
+    dropped), probs (D, Tl, E) fp32, top-1 one-hot (D, Tl, E) fp32)."""
+    c = opts.cfg
+    D, Tl, d = xf.shape
+    E, k = c.n_experts, c.top_k
+    _, gate, expert, pos, C, probs = route({"router": router}, xf, opts)
+    flat_e = expert.reshape(D, Tl * k)
+    flat_g = gate.reshape(D, Tl * k).to(xf.dtype)
+    keep = pos < C
+    dev = xf.device
+    token_id = torch.arange(Tl, device=dev).repeat_interleave(k)
+    shard = torch.arange(D, device=dev)[:, None].expand(D, Tl * k)
+    # dropped assignments land in the spare row E, which is cut off
+    row = torch.where(keep, flat_e, E)
+    col = torch.where(keep, pos, 0)
+    disp = torch.full((D, E + 1, C), Tl, dtype=torch.long, device=dev)
+    disp[shard, row, col] = token_id.expand(D, -1)
+    gates_ec = torch.zeros((D, E + 1, C), dtype=xf.dtype, device=dev)
+    gates_ec[shard, row, col] = flat_g
+    disp, gates_ec = disp[:, :E], gates_ec[:, :E]
+    xpad = torch.cat([xf, xf.new_zeros((D, 1, d))], dim=1)
+    xg = xpad[torch.arange(D, device=dev)[:, None, None], disp]  # (D,E,C,d)
+    slot = torch.where(keep, flat_e * C + pos, E * C)
+    top1 = torch.nn.functional.one_hot(expert[..., 0], E).float()
+    return xg, gates_ec, slot, probs, top1
+
+
+def _combine(y, slot, k: int):
+    """Each assignment's row of y (D, E, C, d) (a zero row when dropped),
+    summed over the token's k assignments in top-k order -> (D, Tl, d)."""
+    D, E, C, d = y.shape
+    y = torch.cat([y.reshape(D, E * C, d), y.new_zeros((D, 1, d))], dim=1)
+    yk = torch.gather(y, 1, slot[..., None].expand(D, slot.shape[1], d))
+    yk = yk.reshape(D, -1, k, d)
+    out = yk[:, :, 0]
+    for j in range(1, k):
+        out = out + yk[:, :, j]
+    return out
 
 
 def moe_forward(p, x, opts: MoEOpts):
@@ -116,41 +170,28 @@ def moe_forward(p, x, opts: MoEOpts):
     D = c.dp_shards if T % c.dp_shards == 0 else 1
     Tl = T // D
     E, k = c.n_experts, c.top_k
+    if isinstance(x, DTensor):
+        # tokens flatten batch-major: the sequence gathered first (a
+        # sequence-sharded DTensor does not reshape across its shards)
+        x = constrain(x, P(dp_spec_for(x, B), None, None))
     xf = x.reshape(D, Tl, d)
-    _, gate, expert, pos, C, probs = route(p, xf, opts)
-    aux = load_balance_loss(probs, expert, E)
-    flat_e = expert.reshape(D, Tl * k)
-    flat_g = gate.reshape(D, Tl * k).to(x.dtype)
-    keep = pos < C
-    dev = x.device
-    token_id = torch.arange(Tl, device=dev).repeat_interleave(k)
-    shard = torch.arange(D, device=dev)[:, None].expand(D, Tl * k)
-    # dropped assignments land in the spare row E, which is cut off
-    row = torch.where(keep, flat_e, E)
-    col = torch.where(keep, pos, 0)
-    disp = torch.full((D, E + 1, C), Tl, dtype=torch.long, device=dev)
-    disp[shard, row, col] = token_id.expand(D, -1)
-    gates_ec = torch.zeros((D, E + 1, C), dtype=x.dtype, device=dev)
-    gates_ec[shard, row, col] = flat_g
-    disp, gates_ec = disp[:, :E], gates_ec[:, :E]
-
-    xpad = torch.cat([xf, xf.new_zeros((D, 1, d))], dim=1)
-    xg = xpad[torch.arange(D, device=dev)[:, None, None], disp]  # (D,E,C,d)
+    dispatch, combine = _dispatch, _combine
+    if isinstance(xf, DTensor):
+        dispatch, combine = _mesh_regions(xf, opts)
+    xg, gates_ec, slot, probs, top1 = dispatch(p["router"], xf, opts)
+    # Switch aux loss: E * sum_e mean(probs_e) * mean(top1 == e), the means
+    # over every token of every shard
+    aux = E * torch.sum(torch.mean(probs, dim=(0, 1))
+                        * torch.mean(top1, dim=(0, 1)))
+    xg = _ep_constrain(xg, 2)
     act = _act(opts.act)
     h = act(torch.einsum("xecd,edf->xecf", xg, p["wg"].to(x.dtype))) \
         * torch.einsum("xecd,edf->xecf", xg, p["wu"].to(x.dtype))
+    h = _ep_constrain(h, 2)
     y = torch.einsum("xecf,efd->xecd", h, p["wd"].to(x.dtype))
-    y = y * gates_ec[..., None]
-
-    # combine: each assignment's row of y (a zero row when dropped), summed
-    # over the token's k assignments in top-k order
-    y = torch.cat([y.reshape(D, E * C, d), y.new_zeros((D, 1, d))], dim=1)
-    slot = torch.where(keep, flat_e * C + pos, E * C)
-    yk = torch.gather(y, 1, slot[..., None].expand(D, Tl * k, d))
-    yk = yk.reshape(D, Tl, k, d)
-    out = yk[:, :, 0]
-    for j in range(1, k):
-        out = out + yk[:, :, j]
+    y = _ep_constrain(y, 2)
+    y = y * _ep_constrain(gates_ec, 1)[..., None]
+    out = combine(y, slot, k)
 
     if c.n_shared:
         sp = p["shared"]
@@ -158,3 +199,20 @@ def moe_forward(p, x, opts: MoEOpts):
         g = act(xfl @ sp["wg"].to(x.dtype)) * (xfl @ sp["wu"].to(x.dtype))
         out = out.reshape(T, d) + g @ sp["wd"].to(x.dtype)
     return out.reshape(B, S, d), aux
+
+
+def _mesh_regions(xf, opts: MoEOpts):
+    """``_dispatch`` and ``_combine`` as local regions on xf's mesh: D over
+    the dp axes where they divide it, else replicated (every rank routes
+    every token)."""
+    mesh = xf.device_mesh
+    dp = dp_spec_for(xf, xf.shape[0])
+    dispatch = local_region(
+        lambda r, x, o: _dispatch(r, x, o), mesh,
+        in_specs=(P(None, None), P(dp, None, None), None),
+        out_specs=(P(dp, None, None, None), P(dp, None, None),
+                   P(dp, None), P(dp, None, None), P(dp, None, None)))
+    combine = local_region(
+        _combine, mesh, in_specs=(P(dp, None, None, None), P(dp, None), None),
+        out_specs=P(dp, None, None))
+    return dispatch, combine

@@ -24,11 +24,13 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import SSMConfig
 from repro_torch.kernels import ops
 from repro_torch.layers.attention import _plain   # the kernel_force check
 from repro_torch.layers.norms import rms_norm
+from repro_torch.placement import P, _div, constrain, dp_spec_for, local_region
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,6 +38,7 @@ class SSMOpts:
     d_model: int
     cfg: SSMConfig
     kernel_force: str = ""       # "" = kernel on CUDA | "ref" = chunked einsum
+    tp: bool = False             # tensor-parallel hints (cfg.tp_mode "tp")
 
     @property
     def d_inner(self) -> int:
@@ -81,9 +84,30 @@ def init_ssm(generator: torch.Generator, opts: SSMOpts, dtype=torch.float32,
     }
 
 
+def _shard_tail(t, tail_axis_from_end: int):
+    """The reference's hint: a (B, S, ...) ssm tensor with batch over dp
+    and the channel/head dim (``tail_axis_from_end`` from the right) over
+    "model". No-op on a plain tensor."""
+    spec_tail = [None] * (t.ndim - 1)
+    spec_tail[-tail_axis_from_end] = "model"
+    return constrain(t, P(dp_spec_for(t, t.shape[0]), *spec_tail))
+
+
 def _causal_conv(x, w, b):
     """Depthwise causal conv. x (B,S,C), w (K,C). Returns (B,S,C),
-    contiguous."""
+    contiguous. On DTensors a local region over channel shards (a
+    depthwise conv is channel-local): DTensor has no rule for the grouped
+    conv of sharded channels."""
+    if isinstance(x, DTensor):
+        dp = dp_spec_for(x, x.shape[0])
+        return local_region(
+            _causal_conv_local, x.device_mesh,
+            in_specs=(P(dp, None, "model"), P(None, "model"), P("model")),
+            out_specs=P(dp, None, "model"))(x, w, b)
+    return _causal_conv_local(x, w, b)
+
+
+def _causal_conv_local(x, w, b):
     K, C = w.shape
     xt = F.pad(x.transpose(1, 2), (K - 1, 0))
     out = F.conv1d(xt, w.t()[:, None, :].to(x.dtype), groups=C)
@@ -164,6 +188,26 @@ def ssd_scan(xs, dt, A, Bm, Cm, D, chunk: int, init_state=None):
     return y, state
 
 
+def _ssd(xs, dt, A, Bm, Cm, D, init_state, chunk: int):
+    """``ops.ssd``; on DTensors a local region over (batch over the dp
+    axes, heads over "model" where they divide and one group serves all
+    heads), so the kernel sees local shards."""
+    if not isinstance(xs, DTensor):
+        return ops.ssd(xs, dt, A, Bm, Cm, D, init_state=init_state,
+                       chunk=chunk)
+    mesh = xs.device_mesh
+    dp = dp_spec_for(xs, xs.shape[0])
+    hm = "model" if Bm.shape[2] == 1 and _div(xs.shape[2], mesh) else None
+    return local_region(
+        lambda x_, dt_, A_, B_, C_, D_, s_: ops.ssd(
+            x_, dt_, A_, B_, C_, D_, init_state=s_, chunk=chunk), mesh,
+        in_specs=(P(dp, None, hm, None), P(dp, None, hm), P(hm),
+                  P(dp, None, None, None), P(dp, None, None, None), P(hm),
+                  None if init_state is None else P(dp, hm, None, None)),
+        out_specs=(P(dp, None, hm, None), P(dp, hm, None, None)))(
+            xs, dt, A, Bm, Cm, D, init_state)
+
+
 def ssm_forward(p, x, opts: SSMOpts, init_state=None):
     """Full-sequence Mamba2 block. Returns (y, (ssd_state, conv_tail)):
     the conv tail is the last d_conv-1 rows of the pre-conv, pre-SiLU xbc,
@@ -177,15 +221,20 @@ def ssm_forward(p, x, opts: SSMOpts, init_state=None):
     zxbcdt = x @ p["in_proj"].to(x.dtype)
     z, xbc, dt = _split_proj(zxbcdt, opts)
     conv_tail = xbc[:, -(c.d_conv - 1):, :]
+    if opts.tp:
+        xbc = _shard_tail(xbc, 1)                    # channels over model
     xbc = F.silu(_causal_conv(xbc, p["conv_w"], p["conv_b"]))
+    if opts.tp:
+        xbc = _shard_tail(xbc, 1)
     xs, Bm, Cm = _split_xbc(xbc, opts)
+    if opts.tp:
+        xs = _shard_tail(xs, 2)                      # ssd heads over model
     dt = F.softplus(dt.float() + p["dt_bias"])
     A = -torch.exp(p["A_log"])
     if plain:
         y, state = ssd_scan(xs, dt, A, Bm, Cm, p["D"], c.chunk, init_state)
     else:
-        y, state = ops.ssd(xs, dt, A, Bm, Cm, p["D"], init_state=init_state,
-                           chunk=c.chunk)
+        y, state = _ssd(xs, dt, A, Bm, Cm, p["D"], init_state, c.chunk)
     y = y.reshape(Bsz, S, opts.d_inner)
     y = rms_norm(y * F.silu(z), p["norm"], plus_one=False)
     out = y @ p["out_proj"].to(x.dtype)

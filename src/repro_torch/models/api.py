@@ -41,7 +41,12 @@ class Model:
     def audio(self) -> bool:
         return self.cfg.family == "audio"
 
-    def init(self, generator: torch.Generator) -> dict:
+    def init(self, generator) -> dict:
+        """Seeded weights drawn from ``generator``. On the meta device
+        (``generator`` None) the tree of meta tensors with the shapes and
+        dtypes of a seeded init, and no draws: ``jax.eval_shape(init)``."""
+        if self.dev.type == "meta":
+            generator = _MetaDraws()
         if self.audio:
             return encdec.init_encdec(self.cfg, generator, self.dev)
         return lm.init_lm(self.cfg, generator, self.dev)
@@ -102,6 +107,15 @@ class Model:
         if self.audio:
             raise ValueError("paged caches support decoder-only LMs")
         return lm.make_paged_caches(self.cfg, n_pages, page_size, self.dev)
+
+
+class _MetaDraws(torch.Generator):
+    """A generator whose draws land on the meta device: the layers draw on
+    ``generator.device``, and a meta draw allocates and computes nothing."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
 
 
 def get_model(cfg: ModelConfig, device: str = "cuda") -> Model:

@@ -27,6 +27,7 @@ from repro_torch.layers.embeddings import (embed, init_embedding,
                                            sinusoidal_positions)
 from repro_torch.layers.mlp import init_mlp, mlp_forward
 from repro_torch.layers.norms import rms_norm
+from repro_torch.models.lm import _place_caches
 from repro_torch.models.stages import LayerSite, _stack, _unstack, attn_opts
 
 DEC_MAX_LEN = 448
@@ -175,8 +176,8 @@ def encdec_prefill(cfg: ModelConfig, params, frames, prompt):
     """Encode + run the decoder prompt; build the self-attention caches
     and the cross-attention K/V. Returns (hidden, caches)."""
     enc_out = encode(cfg, params, frames)
-    caches = make_encdec_caches(cfg, frames.shape[0], enc_out.shape[1],
-                                frames.device)
+    caches = _place_caches(cfg, lambda: make_encdec_caches(
+        cfg, frames.shape[0], enc_out.shape[1], frames.device), enc_out)
     h = _decoder(cfg, params, prompt, enc_out, caches)
     return h, caches
 

@@ -18,10 +18,12 @@ embeddings; positions then run over patches and tokens together.
 from __future__ import annotations
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import MIXER_SHARED_ATTN, ModelConfig
 from repro_torch.layers.embeddings import embed, init_embedding
 from repro_torch.layers.norms import rms_norm, softcap
+from repro_torch.placement import place
 from repro_torch.models.stages import (apply_stages, init_cache,
                                        init_paged_cache, init_shared_block,
                                        init_stage, plan_stages)
@@ -94,11 +96,29 @@ def lm_prefill(cfg: ModelConfig, params, tokens, max_len: int, patches=None,
     ``clamp_window=False`` builds full-length (non-ring) caches even for
     windowed sites — the layout the paged page-splice expects."""
     x = _embed_tokens(cfg, params, tokens, patches)
-    caches = init_cache(cfg, x.shape[0], max_len, _dtype(cfg), x.device,
-                        clamp_window=clamp_window)
+    caches = _place_caches(cfg, lambda: init_cache(
+        cfg, x.shape[0], max_len, _dtype(cfg), x.device,
+        clamp_window=clamp_window), x)
     x = apply_stages(cfg, params, x, _positions(x), mode="prefill",
                      caches=caches)
     return rms_norm(x, params["final_norm"]), caches
+
+
+def _place_caches(cfg: ModelConfig, make, x):
+    """The caches a prefill builds (``make()``). On a DTensor prompt (a
+    mesh step) they are placed by the decode cells' rules (the reference
+    pins its prefill's output caches so) and filled shard by shard; the
+    whole caches are made outside any dispatch mode (a cost analysis
+    counts the shards a device holds, not a full copy that no device
+    would)."""
+    if not isinstance(x, DTensor):
+        return make()
+    from torch.utils._python_dispatch import _disable_current_modes
+    from repro_torch.runtime.sharding import cache_specs   # runtime: models
+    with _disable_current_modes():
+        caches = make()
+    mesh = x.device_mesh
+    return place(caches, mesh, cache_specs(cfg, caches, mesh, x.shape[0]))
 
 
 def lm_decode(cfg: ModelConfig, params, caches, tokens, pos):

@@ -24,9 +24,10 @@ with no cache and returns the summed aux loss beside the hidden states.
 With ``remat`` each run-stage layer body, and each pattern-stage pattern
 body, is recomputed in the backward pass (non-reentrant
 ``torch.utils.checkpoint``), where the reference puts ``jax.checkpoint``.
-The reference's Megatron-SP constraints on the remat residuals
-(``_seq_shard``/``_gather_act``) are sharding hints over a mesh's model
-axis; on one device they have no meaning and are left out.
+With ``remat`` and tensor parallelism (``cfg.tp_mode`` "tp") each body
+gathers its input over the sequence (``_gather_act``) and shards its
+output's sequence over "model" (``_seq_shard``): the reference's
+Megatron-SP hints, which do nothing on plain tensors.
 """
 from __future__ import annotations
 
@@ -34,6 +35,7 @@ import dataclasses
 from typing import Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (ATTN_LOCAL, MIXER_SHARED_ATTN,
@@ -47,6 +49,7 @@ from repro_torch.layers.mla import (MLAOpts, fill_mla_cache, init_mla,
 from repro_torch.layers.mlp import init_mlp, mlp_forward
 from repro_torch.layers.moe import MoEOpts, init_moe, moe_forward
 from repro_torch.layers.norms import rms_norm
+from repro_torch.placement import P, constrain, dp_spec_for
 from repro_torch.layers.ssm import (SSMOpts, fill_ssm_cache, init_ssm,
                                     init_ssm_cache, ssm_decode, ssm_forward)
 
@@ -132,7 +135,7 @@ def attn_opts(cfg: ModelConfig, site: LayerSite) -> AttnOpts:
         rope_theta=site.rope_theta, use_rope=cfg.use_rope,
         softcap=cfg.attn_softcap, qk_norm=cfg.qk_norm,
         query_scale=cfg.query_scale,
-        kernel_force=cfg.geometry.kernel_force)
+        kernel_force=cfg.geometry.kernel_force, attn_tp=cfg.attn_tp)
 
 
 def mla_opts(cfg: ModelConfig) -> MLAOpts:
@@ -142,7 +145,8 @@ def mla_opts(cfg: ModelConfig) -> MLAOpts:
 
 def ssm_opts(cfg: ModelConfig) -> SSMOpts:
     return SSMOpts(d_model=cfg.d_model, cfg=cfg.ssm,
-                   kernel_force=cfg.geometry.kernel_force)
+                   kernel_force=cfg.geometry.kernel_force,
+                   tp=cfg.tp_mode == "tp")
 
 
 def moe_opts(cfg: ModelConfig) -> MoEOpts:
@@ -341,9 +345,21 @@ def _unstack(tree, n: int):
     full-size zero tensor, summed ``n`` times)."""
     if not tree:
         return [{} for _ in range(n)]
-    parts = {k: _unstack(v, n) if isinstance(v, dict) else v.unbind(0)
+    parts = {k: _unstack(v, n) if isinstance(v, dict) else _unbind0(v)
              for k, v in tree.items()}
     return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+
+
+def _unbind0(t):
+    """``t.unbind(0)``; a DTensor sharded over its stack dim (the
+    reference's rule shards a shared expert's stack of layers over
+    "model") is gathered on that dim first, as a scan over it would."""
+    if isinstance(t, DTensor) and any(
+            isinstance(p, Shard) and p.dim == 0 for p in t.placements):
+        t = t.redistribute(t.device_mesh, [
+            Replicate() if isinstance(p, Shard) and p.dim == 0 else p
+            for p in t.placements])
+    return t.unbind(0)
 
 
 def _layers(stage: Stage, sp, sc):
@@ -366,13 +382,18 @@ def _train_stage(cfg, stage: Stage, sp, shared, x, positions, aux, remat):
     when ``remat``. Returns (x, aux)."""
     layers = list(_layers(stage, sp, None))
     period = len(stage.sites)
+    use_sp = remat and cfg.tp_mode == "tp"
 
     def body(xx, aa, sites):
+        if use_sp:
+            xx = _gather_act(xx)
         for site, p_i, _ in sites:
             xx, a = _apply_site_full(cfg, site, p_i, shared, xx, positions,
                                      None)
             if a is not None:
                 aa = aa + a
+        if use_sp:
+            xx = _seq_shard(xx)
         return xx, aa
 
     for r in range(stage.repeats):
@@ -382,6 +403,20 @@ def _train_stage(cfg, stage: Stage, sp, shared, x, positions, aux, remat):
         else:
             x, aux = body(x, aux, sites)
     return x, aux
+
+
+def _seq_shard(x):
+    """The reference's Megatron-SP hint at the end of a remat body: the
+    carried (B, S, d) activation to (dp axes, "model", None), so the saved
+    residual is sharded over the TP axis too. No-op on a plain tensor."""
+    return constrain(x, P(dp_spec_for(x, x.shape[0]), "model", None))
+
+
+def _gather_act(x):
+    """The reference's hint at the start of a remat body: re-gather the
+    sequence so the layer's products see (dp axes, None, None)
+    activations against model-sharded weights."""
+    return constrain(x, P(dp_spec_for(x, x.shape[0]), None, None))
 
 
 def apply_stages(cfg: ModelConfig, params, x, positions, *,

@@ -12,8 +12,9 @@ from repro_torch.runtime.loadgen import (Arrival, FleetSpec, SoakMatrix,
 from repro_torch.runtime.losses import chunked_xent, full_xent
 from repro_torch.runtime.paged import PagePoolManager
 from repro_torch.runtime.serve import (BatchingEngine, Request,
-                                      make_paged_serve_step,
+                                      jit_serve_step, make_paged_serve_step,
                                       make_prefill_step, make_serve_step)
 from repro_torch.runtime.train import (TrainOpts, init_train_state,
-                                      make_dp_train_step, make_loss_fn,
+                                      jit_train_step, make_dp_train_step,
+                                      make_loss_fn,
                                       make_train_step)

@@ -123,8 +123,7 @@ class GatewayFleet:
         # admitted tenant and its vSlice)
         if model.cfg.ssm is not None:
             raise ValueError("GatewayFleet serves attention-family models; "
-                             "use make_prefill_step and make_serve_step "
-                             "for SSM archs")
+                             "use jit_serve_step for SSM archs")
         if paged and model.cfg.mla is not None:
             raise ValueError("paged KV caches support plain-attention "
                              "models (MLA latents are not paged)")

@@ -28,9 +28,32 @@ def _vocab_weight(cfg: ModelConfig, params):
 def _xent_sum(h, w, labels, cap: float):
     """Sum over (B, c) of logsumexp - gold logit, fp32."""
     logits = softcap(h @ w.to(h.dtype), cap).float()
+    if _vocab_sharded(logits):
+        return torch.sum(_sharded_lse_minus_gold(logits, labels))
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     return torch.sum(lse - gold)
+
+
+def _vocab_sharded(t) -> bool:
+    from torch.distributed.tensor import DTensor, Shard
+    return isinstance(t, DTensor) and any(
+        isinstance(p, Shard) and p.dim == t.ndim - 1 for p in t.placements)
+
+
+def _sharded_lse_minus_gold(logits, labels):
+    """The same terms on vocab-sharded DTensor logits without gathering
+    the vocabulary: the row max and the sum of exponentials reduce as
+    partial values over the model axis, and the gold logit is a masked
+    sum (``gather`` on a sharded dim is a masked partial that DTensor
+    cannot reduce under the chunked loss)."""
+    m = logits.detach().amax(dim=-1, keepdim=True)
+    lse = torch.log(torch.sum(torch.exp(logits - m), dim=-1)) + m[..., 0]
+    vocab = torch.arange(logits.shape[-1], device=logits.device)
+    hit = labels[..., None].long() == vocab
+    gold = torch.sum(torch.where(hit, logits, torch.zeros_like(logits)),
+                     dim=-1)
+    return lse - gold
 
 
 def chunked_xent(cfg: ModelConfig, params, h, labels, *, chunk: int = 512):

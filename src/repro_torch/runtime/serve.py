@@ -4,9 +4,12 @@ dense per-slot KV rows or a paged KV pool, DRR fair-share admission,
 lockstep ``step`` and event-driven ``step_async``, preemption, copy-on-write
 prefix sharing, zero-on-free scrubbing and page hand-off.
 
-SSM models (mamba2) are served by ``make_prefill_step`` and
-``make_serve_step`` directly: the engine refuses them, as the reference's
-does, because slot recycling relies on position-masked KV caches.
+SSM models (mamba2) are served by ``jit_serve_step`` (or
+``make_prefill_step`` and ``make_serve_step``) directly: the engine
+refuses them, as the reference's does, because slot recycling relies on
+position-masked KV caches. ``jit_serve_step`` binds the decode step to a
+``DeviceMesh``: parameters and caches are DTensors placed by the sharding
+rules, and the caches are updated in place shard by shard.
 
 Greedy decoding (argmax on the device). Decode runs eagerly, one call per
 step; its attention goes through the hand-written CUDA kernels on a CUDA
@@ -53,6 +56,42 @@ def make_paged_serve_step(model: Model):
         return model.decode_paged(params, caches, tokens, pos, block_tables)
 
     return serve_step
+
+
+def jit_serve_step(model: Model, mesh, batch: int, cache_len: int,
+                   params_shape, caches_shape):
+    """The decode step over ``mesh`` (a ``DeviceMesh``); seq-sharding kicks
+    in for batch=1 long-context. Returns (step, {"params": pspecs,
+    "caches": cspecs}) as the reference. ``step(params, caches, tokens,
+    pos) -> (logits, caches)`` takes params and caches placed by those
+    specs (``sharding.place``), tokens (B, 1) and pos (B,) as tensors or
+    DTensors, and returns the logits as a DTensor; the caches are updated
+    in place (eager PyTorch has no buffer donation)."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.runtime.sharding import (P, axis_sizes, cache_specs,
+                                              dp_axes, param_specs, place)
+    cfg = model.cfg
+    pspecs = param_specs(cfg, params_shape, mesh)
+    sizes = axis_sizes(mesh)
+    dp_total = int(np.prod([sizes[a] for a in sizes if a in ("pod", "data")]))
+    seq_shard = batch % dp_total != 0
+    cspecs = cache_specs(cfg, caches_shape, mesh, batch, seq_shard=seq_shard)
+    dp = dp_axes(mesh)
+    tok_spec = P(dp, None) if batch % dp_total == 0 else P(None, None)
+    pos_spec = P(dp) if batch % dp_total == 0 else P(None)
+    inner = make_serve_step(model)
+
+    def step(params, caches, tokens, pos):
+        if not isinstance(tokens, DTensor):
+            tokens = place(tokens.to(model.dev), mesh, tok_spec)
+        if not isinstance(pos, DTensor):
+            pos = place(pos.to(model.dev), mesh, pos_spec)
+        with implicit_replication():
+            return inner(params, caches, tokens, pos)
+
+    return step, {"params": pspecs, "caches": cspecs}
 
 
 def make_prefill_step(model: Model, max_len: int, clamp_window: bool = True):
@@ -226,8 +265,7 @@ class BatchingEngine:
         # serving uses the step factories above.
         if model.cfg.ssm is not None:
             raise ValueError("BatchingEngine supports attention-family "
-                             "models; use make_prefill_step and "
-                             "make_serve_step for SSM archs")
+                             "models; use jit_serve_step for SSM archs")
         if prefill_mode not in ("batched", "legacy"):
             raise ValueError(f"unknown prefill_mode {prefill_mode!r}")
         self.model = model

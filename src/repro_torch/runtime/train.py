@@ -18,8 +18,14 @@ the step syncs nothing with the host, as the reference's jitted step.
 Gradients come from ``torch.autograd.grad`` over the flattened parameter
 leaves (``torch.func`` transforms are not used: they need not compose with
 the non-reentrant ``torch.utils.checkpoint`` that remat and the chunked
-loss use). The reference's ``jit_train_step`` binds the step to a device
-mesh and waits for the port's mesh slice (ROADMAP).
+loss use).
+
+``jit_train_step`` binds the step to a ``DeviceMesh``: the state is placed
+as DTensors by the sharding rules (``runtime.sharding``), the global batch
+is placed by ``batch_specs``, and ``make_train_step`` runs on DTensors
+under ``implicit_replication`` (tensors made inside the model count as
+replicated). Eager PyTorch has no buffer donation: the step returns a new
+state and the old one is freed when the caller drops it.
 """
 from __future__ import annotations
 
@@ -98,12 +104,26 @@ def _apply(opts: TrainOpts, state, grads, loss, metrics, **extra):
     return new_state, {"loss": loss, **metrics, **om}
 
 
-def make_train_step(model: Model, opts: Optional[TrainOpts] = None):
+def make_train_step(model: Model, opts: Optional[TrainOpts] = None,
+                    grad_specs=None):
     """One-process train step: ``train_step(state, batch) -> (state,
-    metrics)``. ``batch``: numpy arrays or tensors, the global batch."""
+    metrics)``. ``batch``: numpy arrays or tensors, the global batch.
+
+    ``grad_specs``: optional spec tree (usually the ZeRO-1 optimizer-state
+    specs) the gradients are constrained to before the update
+    (``sharding.constrain``; a no-op on plain tensors)."""
     opts = opts if opts is not None else TrainOpts()
     loss_fn = make_loss_fn(model, opts)
     n = opts.microbatches
+
+    def constrain_grads(grads):
+        if grad_specs is None:
+            return grads
+        from repro_torch.runtime.sharding import constrain, is_spec
+        flat_s = flatten(grad_specs, is_spec)[0]
+        flat_g, spec = flatten(grads)
+        return unflatten(spec, [constrain(g, s)
+                                for g, s in zip(flat_g, flat_s)])
 
     def train_step(state, batch):
         batch = _batch_to(batch, model.dev)
@@ -128,9 +148,41 @@ def make_train_step(model: Model, opts: Optional[TrainOpts] = None):
                        for k in ms[0]}
         else:
             loss, metrics, grads = _value_and_grad(loss_fn, params, batch)
-        return _apply(opts, state, grads, loss, metrics)
+        return _apply(opts, state, constrain_grads(grads), loss, metrics)
 
     return train_step
+
+
+def jit_train_step(model: Model, mesh, opts: TrainOpts, state_shape,
+                   batch_shape):
+    """The train step over ``mesh`` (a ``DeviceMesh``): returns (step,
+    state_specs, bspecs) as the reference. ``step(state, batch)`` takes a
+    state placed by ``state_specs`` (``sharding.place``) and a global
+    batch (numpy arrays or tensors), places the batch by ``bspecs`` and
+    returns (the new state with the same placements, metrics as plain 0-d
+    tensors)."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.runtime.sharding import (P, _full, batch_specs,
+                                              constrain, is_spec,
+                                              param_specs, place)
+    pspecs = param_specs(model.cfg, state_shape["params"], mesh)
+    opt_specs = {"mu": pspecs, "nu": pspecs, "count": P()}
+    state_specs = {"params": pspecs, "opt_state": opt_specs, "step": P()}
+    if "residuals" in state_shape:
+        state_specs["residuals"] = pspecs
+    bspecs = batch_specs(model.cfg, batch_shape, mesh)
+    inner = make_train_step(model, opts)
+
+    def step(state, batch):
+        batch = place(_batch_to(batch, model.dev), mesh, bspecs)
+        with implicit_replication():
+            new_state, metrics = inner(state, batch)
+        new_state = tree_map(lambda t, s: constrain(t, s, mesh), new_state,
+                             state_specs, is_leaf=is_spec)
+        return new_state, {k: _full(v) for k, v in metrics.items()}
+
+    return step, state_specs, bspecs
 
 
 # ---------------------------------------------------------------------------

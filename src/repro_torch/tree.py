@@ -14,14 +14,17 @@ from typing import Any, Callable, List, Tuple
 _LEAF = object()
 
 
-def _walk(node, leaves: List[Any]):
+def _walk(node, leaves: List[Any], is_leaf=None):
     if node is None:
         return None
+    if is_leaf is not None and is_leaf(node):
+        leaves.append(node)
+        return _LEAF
     if isinstance(node, dict):
         keys = sorted(node)
-        return (dict, keys, [_walk(node[k], leaves) for k in keys])
+        return (dict, keys, [_walk(node[k], leaves, is_leaf) for k in keys])
     if isinstance(node, (tuple, list)):
-        return (type(node), None, [_walk(v, leaves) for v in node])
+        return (type(node), None, [_walk(v, leaves, is_leaf) for v in node])
     leaves.append(node)
     return _LEAF
 
@@ -42,10 +45,12 @@ def _build(spec, it):
 # keep every tensor of the tree alive until the next garbage collection
 # (a whole optimiser state, step after step)
 
-def flatten(tree) -> Tuple[List[Any], Any]:
-    """(leaves, spec); ``unflatten(spec, leaves)`` rebuilds the tree."""
+def flatten(tree, is_leaf=None) -> Tuple[List[Any], Any]:
+    """(leaves, spec); ``unflatten(spec, leaves)`` rebuilds the tree.
+    ``is_leaf(node)`` true stops the walk at ``node`` (a sharding spec is
+    a tuple, yet a leaf of a spec tree)."""
     leaves: List[Any] = []
-    return leaves, _walk(tree, leaves)
+    return leaves, _walk(tree, leaves, is_leaf)
 
 
 def unflatten(spec, leaves):
@@ -71,11 +76,35 @@ def describe(spec) -> str:
     return f"[{inner}]" if kind is list else f"({inner})"
 
 
-def tree_map(fn: Callable, tree, *rest):
+def tree_map(fn: Callable, tree, *rest, is_leaf=None):
     """``fn`` over the leaves of ``tree`` and of the trees in ``rest``
     (same structure), leaf for leaf."""
-    flat, spec = flatten(tree)
-    others = [flatten(t)[0] for t in rest]
+    flat, spec = flatten(tree, is_leaf)
+    others = [flatten(t, is_leaf)[0] for t in rest]
     if any(len(o) != len(flat) for o in others):
         raise ValueError("trees of different structure")
     return unflatten(spec, [fn(*xs) for xs in zip(flat, *others)])
+
+
+def _paths(node, path, out: List[Tuple[str, ...]], is_leaf=None):
+    if node is None:
+        return
+    if is_leaf is not None and is_leaf(node):
+        out.append(path)
+    elif isinstance(node, dict):
+        for k in sorted(node):
+            _paths(node[k], path + (str(k),), out, is_leaf)
+    elif isinstance(node, (tuple, list)):
+        for i, v in enumerate(node):
+            _paths(v, path + (str(i),), out, is_leaf)
+    else:
+        out.append(path)
+
+
+def leaf_paths(tree, is_leaf=None) -> List[Tuple[str, ...]]:
+    """Each leaf's path of dict keys and sequence indices, as strings, in
+    ``flatten``'s order (the names ``jax.tree_util.tree_map_with_path``
+    gives the reference's rules)."""
+    out: List[Tuple[str, ...]] = []
+    _paths(tree, (), out, is_leaf)
+    return out

@@ -136,6 +136,50 @@ def test_decode_kernels_on_card(cuda, quant, window, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,L", [(3, 512), (1, 4096), (64, 512)])
+def test_decode_kernel_lse_and_pieces_on_card(cuda, quant, dtype, B, L):
+    """The merge pass's log-sum-exp (``return_lse``) against the plain
+    version's, the output unchanged by it, and the kernel on two halves of
+    the cache merged by ``merge_by_lse`` against the kernel on the whole
+    (one split, several, the most); row 1 idle, row 0's keys all in the
+    first half."""
+    Hq, Hkv, D = 9, 3, 64
+    cur = [min(300, L // 2 - 1)] + [-1] + [L - 90] * (B - 2)
+    q, k, v, kpos, cur = _decode_inputs(B, Hq, Hkv, L, D, cur[:B], fill=50,
+                                        seed=7)
+    q = q.to(dtype)
+    ks = vs = None
+    if quant:
+        k, ks = _quant(k)
+        v, vs = _quant(v)
+        ks, vs = ks.to(cuda), vs.to(cuda)
+    else:
+        k, v = k.to(dtype), v.to(dtype)
+    q, k, v, kpos, cur = (t.to(cuda) for t in (q, k, v, kpos, cur))
+    opt = dict(k_scale=ks, v_scale=vs)
+    plain = tda.decode_attention_cuda(q, k, v, kpos, cur, **opt)
+    got, lse = tda.decode_attention_cuda(q, k, v, kpos, cur, return_lse=True,
+                                         **opt)
+    assert torch.equal(got, plain)
+    _, want = tda.decode_attention_ref(q, k, v, kpos, cur, return_lse=True,
+                                       **opt)
+    assert torch.equal(torch.isinf(lse), torch.isinf(want))
+    torch.testing.assert_close(lse, want, atol=1e-3, rtol=1e-5)
+    h = L // 2
+    halves = [tda.decode_attention_cuda(
+        q, k[:, :, s], v[:, :, s], kpos[:, s], cur, return_lse=True,
+        k_scale=None if ks is None else ks[:, :, s],
+        v_scale=None if vs is None else vs[:, :, s])
+        for s in (slice(0, h), slice(h, L))]
+    merged, _ = tda.merge_by_lse(torch.stack([o for o, _ in halves]),
+                                 torch.stack([x for _, x in halves]))
+    tol = TOL if dtype == torch.float32 else TOL_BF16
+    torch.testing.assert_close(merged, plain.float(), **tol)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("ps", [4, 8])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_paged_decode_at_small_pages(cuda, ps, dtype):
@@ -1005,3 +1049,103 @@ def test_kernel_wrappers_refuse_autograd_inputs(cuda, name):
     assert dict(launches) == before
     call(x)
     assert launches[name] == before[name] + 1
+
+
+# ---------------------------------------------------------------------------
+# The mesh slice on the card: a one-rank NCCL mesh, in a spawned process
+# (the process group stays out of the test process)
+# ---------------------------------------------------------------------------
+
+def _mesh_on_card(out_file: str):
+    import json
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import _lib, ops
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import get_model
+    from repro_torch.runtime import (jit_serve_step, make_prefill_step,
+                                     make_serve_step)
+    from repro_torch.runtime.sharding import place
+    from repro_torch.tree import tree_map
+    mesh = make_host_mesh(1, 1, device="cuda")
+    try:
+        cfg = reduced(get_config("smollm-135m")).replace(dtype="bfloat16")
+        model = get_model(cfg, device="cuda")
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        prompts = torch.randint(0, cfg.vocab_size, (4, 16), device="cuda",
+                                generator=torch.Generator(
+                                    device="cuda").manual_seed(1),
+                                dtype=torch.int32)
+        h, caches = make_prefill_step(model, 32)(params, {"tokens": prompts})
+        tok0 = model.logits(params, h[:, -1:]).argmax(-1).to(torch.int32)
+        mstep, specs = jit_serve_step(model, mesh, 4, 32, params, caches)
+        runs = {}
+        for tag in ("plain", "mesh"):
+            cch = tree_map(torch.clone, caches)
+            prm, step = params, make_serve_step(model)
+            if tag == "mesh":
+                prm = place(params, mesh, specs["params"])
+                cch = place(cch, mesh, specs["caches"])
+                step = mstep
+            tok = tok0.clone()
+            pos = torch.full((4,), 16, dtype=torch.int32, device="cuda")
+            _lib.launches.reset()
+            toks = []
+            for _ in range(8):
+                logits, cch = step(prm, cch, tok, pos)
+                if tag == "mesh":
+                    logits = logits.to_local()
+                tok = logits[:, -1:].argmax(-1).to(torch.int32)
+                toks.append(tok[:, 0].tolist())
+                pos = pos + 1
+            runs[tag] = dict(tokens=toks,
+                             launches=_lib.launches["decode_attention"])
+        q = DTensor.from_local(torch.zeros(2, 4, 32, device="cuda"), mesh,
+                               [Replicate(), Replicate()])
+        try:
+            ops.flash_attention(q, q, q)
+            refused = False
+        except TypeError:
+            refused = True
+        runs["refused"] = refused
+        runs["layers"] = cfg.n_layers
+        with open(out_file, "w") as f:
+            json.dump(runs, f)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def mesh_card_run(tmp_path_factory):
+    import json
+    import multiprocessing
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels run only on the card)")
+    out = tmp_path_factory.mktemp("mesh") / "run.json"
+    p = multiprocessing.get_context("spawn").Process(
+        target=_mesh_on_card, args=(str(out),))
+    p.start()
+    p.join(600)
+    if p.is_alive():
+        p.kill()
+    assert p.exitcode == 0, p.exitcode
+    return json.loads(out.read_text())
+
+
+@pytest.mark.cuda
+def test_jit_serve_step_on_one_rank_nccl_mesh(mesh_card_run):
+    """jit_serve_step on a one-rank NCCL mesh: the tokens of
+    make_serve_step, and the decode kernel launched by the mesh path
+    (layers x steps) inside its local_map region."""
+    r = mesh_card_run
+    assert r["mesh"]["tokens"] == r["plain"]["tokens"]
+    assert r["mesh"]["launches"] == r["layers"] * 8
+    assert r["plain"]["launches"] == r["layers"] * 8
+
+
+@pytest.mark.cuda
+def test_kernel_wrapper_refuses_a_dtensor(mesh_card_run):
+    assert mesh_card_run["refused"]

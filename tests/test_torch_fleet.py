@@ -115,9 +115,16 @@ def test_fleet_rejects_ssm_before_any_allocation():
     cfg = reduced(get_config("mamba2-370m")).replace(dtype="float32")
     model = Model(cfg, device="cpu")
     hv = _hv(devices_per_node=1)
-    with pytest.raises(ValueError, match="attention-family"):
+    with pytest.raises(ValueError, match="attention-family") as e:
         GatewayFleet(hv, model, model.init(torch.Generator().manual_seed(0)))
     assert all(u == 0.0 for u in hv.db.utilization().values())
+    # the reference's fleet refuses in the same words, before its params
+    # are looked at
+    jhv = JHypervisor(JClusterSpec(n_nodes=1, devices_per_node=1))
+    with pytest.raises(ValueError, match="attention-family") as je:
+        JGatewayFleet(jhv, j_get_model(j_reduced(j_get_config(
+            "mamba2-370m"))), None)
+    assert str(e.value) == str(je.value)
 
 
 def test_open_session_failure_unwinds_allocation(served_model, monkeypatch):

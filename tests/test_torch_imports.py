@@ -57,7 +57,10 @@ def test_port_imports_without_jax_or_reference():
         "repro_torch.optim.adamw", "repro_torch.optim.compress",
         "repro_torch.runtime.train", "repro_torch.runtime.losses",
         "repro_torch.data.synthetic", "repro_torch.ckpt.checkpoint",
-        "repro_torch.launch.train", "repro_torch.tree"} <= walked
+        "repro_torch.launch.train", "repro_torch.tree"} | {
+        "repro_torch.runtime.sharding"} | {
+        f"repro_torch.launch.{m}" for m in
+            ("mesh", "hlo_analysis", "dryrun", "sweep", "report")} <= walked
 
 
 def test_chip_smoke_imports_neither_jax_nor_reference():

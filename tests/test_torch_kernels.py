@@ -106,6 +106,53 @@ def test_decode_plain_int8_cache():
         np.testing.assert_allclose(got, np.asarray(ref), **TOL)
 
 
+@pytest.mark.parametrize("pieces", [2, 4])
+@pytest.mark.parametrize("window", [0, 128])
+@pytest.mark.parametrize("quant", [False, True])
+def test_decode_plain_pieces_merge_by_lse(pieces, window, quant):
+    """A cache's length cut into equal pieces (as ranks hold it): each
+    piece's output and log-sum-exp (``return_lse``), merged by
+    ``merge_by_lse``, give the whole cache's output, which is the JAX
+    reference's. Row 0 has keys in every piece, row 1 is idle (the mean of
+    V), row 2's keys all lie in the first piece; the log-sum-exp is that
+    of the scaled, masked scores."""
+    B, Hq, Hkv, D, L = 3, 8, 2, 64, 512
+    q, k, v, kpos, cur = _decode_inputs(B, Hq, Hkv, L, D, [L - 150, -1, 40],
+                                        fill=100, seed=9)
+    ks = vs = None
+    if quant:
+        k, ks = _quant(k)
+        v, vs = _quant(v)
+    opt = {n: _t(x) for n, x in (("k_scale", ks), ("v_scale", vs))
+           if x is not None}
+    whole, lse = tda.decode_attention_ref(
+        _t(q), _t(k), _t(v), _t(kpos), _t(cur), window=window,
+        return_lse=True, **opt)
+    ref = jops.decode_attention(q, k, v, kpos, cur, window=window,
+                                k_scale=ks, v_scale=vs, force="ref")
+    np.testing.assert_allclose(whole.numpy(), np.asarray(ref), **TOL)
+    kd = _t(k).float() * (opt["k_scale"][..., None] if quant else 1.0)
+    sc = torch.einsum("bhd,bhld->bhl", _t(q) * D ** -0.5,
+                      kd.repeat_interleave(Hq // Hkv, dim=1))
+    c = _t(cur)[:, None]
+    ok = (_t(kpos) >= 0) & (_t(kpos) <= c)
+    if window:
+        ok &= (c - _t(kpos)) < window
+    want = torch.logsumexp(sc.masked_fill(~ok[:, None], float("-inf")), -1)
+    torch.testing.assert_close(lse, want, atol=1e-5, rtol=1e-6)
+    assert torch.isinf(lse[1]).all() and not torch.isinf(lse[0]).any()
+    n = L // pieces
+    outs, lses = zip(*(tda.decode_attention_ref(
+        _t(q), _t(k)[:, :, i * n:(i + 1) * n], _t(v)[:, :, i * n:(i + 1) * n],
+        _t(kpos)[:, i * n:(i + 1) * n], _t(cur), window=window,
+        return_lse=True, **{m: x[:, :, i * n:(i + 1) * n]
+                            for m, x in opt.items()})
+        for i in range(pieces)))
+    got, got_lse = tda.merge_by_lse(torch.stack(outs), torch.stack(lses))
+    torch.testing.assert_close(got, whole.float(), **TOL)
+    torch.testing.assert_close(got_lse, lse, atol=1e-5, rtol=1e-6)
+
+
 @pytest.mark.parametrize("paged", [False, True])
 @pytest.mark.parametrize("quant", [False, True])
 def test_decode_plain_idle_slot_is_mean_of_v(paged, quant):

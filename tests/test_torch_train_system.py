@@ -173,5 +173,7 @@ def test_launcher_resume_is_bitexact(tmp_path, monkeypatch, capsys):
 
 @pytest.mark.parametrize("flag", ["--data", "--model"])
 def test_launcher_refuses_a_mesh(flag):
-    with pytest.raises(ValueError, match="mesh slice"):
+    """A mesh larger than the world: the reference's own refusal
+    (``make_host_mesh``: 2 devices needed, 1 exists)."""
+    with pytest.raises(ValueError, match="^need 2 devices, have 1$"):
         launch_train.main(ARGS + ["--steps", "1", flag, "2"])
