@@ -233,6 +233,31 @@ lines.jsonl):
    at 4, whisper-tiny in full: finite loss, MoE aux > 0, every gradient
    leaf finite and nonzero) and ``train_dp_nccl`` (``make_dp_train_step``
    on an NCCL world of 1, compressed and not, 5 steps, 4 layers).
+10d. the mesh slice on a one-rank NCCL mesh (``mesh_phases``):
+   ``mesh_serve`` (smollm-135m bf16 through ``jit_serve_step``, tokens
+   bitwise and 30 x 32 decode launches), ``mesh_train`` (fp32, B 8, S
+   1024, 3 steps, losses and leaves within 1e-6 of ``make_train_step``),
+   ``mesh_ckpt`` (restore by placements, bit-equal), ``dryrun_vs_card``;
+   then ``mesh_train_deepseek`` (deepseek-v2-lite-16b at full width cut
+   from 27 to 2 layers, fp32, its MoE dispatch split over the dp axes,
+   ``dp_shards`` 2: 3 steps held as ``mesh_train`` holds smollm) and
+   ``spatial_shell`` (``SpatialShell()`` over the group: 4 slots whose
+   groups are [0], each slot mesh a CUDA DeviceMesh of size 1 whose
+   all-reduce returns its input; the paper's stream of 100,000 16x16 and
+   32x32 products for each of 4 cores through the slots' streams, bitwise
+   equal to a ``FusedShell``'s on the same blocks, the batched kernel
+   launched cores x cycles times).
+10e. ``examples``: ``examples/{quickstart,serve_baas,multi_tenant,
+   train_smollm}_torch.py`` with ``--device cuda`` through ``main`` in this
+   process (what each prints goes to the output directory's examples/):
+   the quickstart's results; serve_baas (the paged engine) and
+   multi_tenant (the gateway's and the fleet's dense engines) served on
+   the kernels and on the plain versions, each serving part's launches
+   exactly what its engine calls and configures need and its streams
+   equal but at counted fp32 near-ties; train_smollm ``--full --steps 40
+   --seq 1024 --batch 8`` saving every 10 steps, then rerun from step 30
+   under deterministic algorithms: the loss falls and the rerun's losses
+   equal the first run's bit for bit; no launch.
 11. the ``kernels`` summary line (launches of the attention kernels from
    the smollm, the families', the fleet phases', the harness phases', the
    autotuned fleets', the remaining families' and whisper_engine's
@@ -241,7 +266,9 @@ lines.jsonl):
    ``families_model``, ``launch_serve``, ``fleet_chaos`` and
    ``scale_soak_long``; the streaming matmul's from the rc3e path, the
    SSD scan's from the SSM path and zamba2's; every row's
-   ``launches_by_path`` has ``training``: 0), the GPU's name and power
+   ``launches_by_path`` has ``training``: 0 and ``mesh``; the decode rows
+   ``examples``, the flash row's fp32 entry ``examples``, the streaming
+   matmul's ``spatial_shell``), the GPU's name and power
    limit, and ``{"ok": true, ...}`` last. Any failed check exits
    non-zero.
 """
@@ -255,6 +282,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -3644,6 +3672,44 @@ def mesh_serve_phase(get_config, mesh, card):
     return launched
 
 
+def _mesh_against_plain(phase, plain, mstep, state, mstate, data, steps):
+    """``steps`` steps of the plain train step from ``state`` and of the
+    mesh step from ``mstate`` (the same state placed) on the same batches:
+    the losses within 1e-6 relative, every state leaf within 1e-6 x its
+    max, no kernel launched. Returns (runs: losses, step ms and final
+    state by "plain" / "mesh", the launches, the losses' and the leaves'
+    largest relative difference)."""
+    from repro_torch.kernels import launches
+    from repro_torch.tree import flatten
+    before = dict(launches)
+    runs = {}
+    for tag, step, st in (("plain", plain, state), ("mesh", mstep, mstate)):
+        losses, times = [], []
+        for i in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            st, m = step(st, data.batch_at(i))
+            torch.cuda.synchronize()
+            times.append((time.monotonic() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+        runs[tag] = dict(losses=losses, step_ms=times, state=st)
+    got = _no_launch(phase, before)
+    lp, lm = runs["plain"]["losses"], runs["mesh"]["losses"]
+    rel = max(abs(a - b) / abs(a) for a, b in zip(lp, lm))
+    require(rel <= 1e-6, f"{phase}: losses {lm} vs plain {lp}")
+    worst = 0.0
+    for a, b in zip(flatten(runs["plain"]["state"])[0],
+                    flatten(runs["mesh"]["state"])[0]):
+        b = b.to_local()
+        scale = float(a.abs().max()) if a.numel() else 0.0
+        err = float((a.double() - b.double()).abs().max()) if a.numel() \
+            else 0.0
+        require(err <= 1e-6 * max(scale, 1e-30),
+                f"{phase}: a state leaf differs by {err} (max {scale})")
+        worst = max(worst, err / scale if scale else 0.0)
+    return runs, got, rel, worst
+
+
 def mesh_train_phase(get_config, mesh, card):
     """Full smollm-135m, fp32, B 8, S 1024: three ``jit_train_step`` steps
     on the one-rank mesh against three ``make_train_step`` steps on the
@@ -3651,10 +3717,8 @@ def mesh_train_phase(get_config, mesh, card):
     leaf within 1e-6 x its max; step p50 of both; no kernel launched.
     Returns (launches, the mesh state, its specs, the step, the data)."""
     from repro_torch.data import DataConfig, DataPipeline
-    from repro_torch.kernels import launches
     from repro_torch.runtime.train import jit_train_step, make_train_step
     from repro_torch.runtime.sharding import place
-    from repro_torch.tree import flatten
     t_phase = time.monotonic()
     p = MESH_TRAIN
     cfg = get_config("smollm-135m")
@@ -3670,33 +3734,10 @@ def mesh_train_phase(get_config, mesh, card):
         place(_clone_tree(state), mesh, sspecs),
         place({k: torch.from_numpy(v).to(DEV) for k, v in
                data.batch_at(0).items()}, mesh, bspecs)))
-    plain = make_train_step(model, opts)
-    before = dict(launches)
-    runs = {}
-    for tag, step, st in (("plain", plain, state), ("mesh", mstep, mstate)):
-        losses, times = [], []
-        for i in range(p["steps"]):
-            torch.cuda.synchronize()
-            t0 = time.monotonic()
-            st, m = step(st, data.batch_at(i))
-            torch.cuda.synchronize()
-            times.append((time.monotonic() - t0) * 1e3)
-            losses.append(float(m["loss"]))
-        runs[tag] = dict(losses=losses, step_ms=times, state=st)
-    got = _no_launch("mesh_train", before)
+    runs, got, rel, worst = _mesh_against_plain(
+        "mesh_train", make_train_step(model, opts), mstep, state, mstate,
+        data, p["steps"])
     lp, lm = runs["plain"]["losses"], runs["mesh"]["losses"]
-    rel = max(abs(a - b) / abs(a) for a, b in zip(lp, lm))
-    require(rel <= 1e-6, f"mesh_train: losses {lm} vs plain {lp}")
-    worst = 0.0
-    for a, b in zip(flatten(runs["plain"]["state"])[0],
-                    flatten(runs["mesh"]["state"])[0]):
-        b = b.to_local()
-        scale = float(a.abs().max()) if a.numel() else 0.0
-        err = float((a.double() - b.double()).abs().max()) if a.numel() \
-            else 0.0
-        require(err <= 1e-6 * max(scale, 1e-30),
-                f"mesh_train: a state leaf differs by {err} (max {scale})")
-        worst = max(worst, err / scale if scale else 0.0)
     # the card step for the dry run: its flops and peak
     _, flops = _flops_of(lambda: mstep(runs["mesh"]["state"],
                                        data.batch_at(0)))
@@ -3818,12 +3859,156 @@ def dryrun_vs_card_phase(get_config, card):
               wall_s=time.monotonic() - t_phase))
 
 
+MESH_DEEPSEEK = dict(layers=2, B=2, S=256, steps=3)   # train_families' cut
+
+
+def mesh_train_deepseek_phase(get_config, mesh):
+    """deepseek-v2-lite-16b at full width cut to 2 layers (the dense first
+    layer and one MoE layer, as train_families cuts the MoE families),
+    fp32, its MoE dispatch split over the dp axes (``dp_shards`` 2): three
+    ``jit_train_step`` steps on the one-rank mesh against three
+    ``make_train_step`` steps on the same state and batches, held as
+    mesh_train holds smollm (losses and leaves within 1e-6, no launch)."""
+    from repro_torch.data import DataConfig, DataPipeline
+    from repro_torch.runtime.sharding import place
+    from repro_torch.runtime.train import jit_train_step, make_train_step
+    t_phase = time.monotonic()
+    p = MESH_DEEPSEEK
+    cfg = get_config("deepseek-v2-lite-16b").replace(n_layers=p["layers"])
+    cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, dp_shards=2))
+    model, opts, state, _ = _train_setup(cfg, p["B"], p["S"], SEED + 64)
+    data = DataPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=p["S"],
+                                   batch_size=p["B"], seed=SEED + 64))
+    mstep, sspecs, _ = jit_train_step(model, mesh, opts, state,
+                                      data.batch_at(0))
+    mstate = place(_clone_tree(state), mesh, sspecs)
+    runs, got, rel, worst = _mesh_against_plain(
+        "mesh_train_deepseek", make_train_step(model, opts), mstep, state,
+        mstate, data, p["steps"])
+    p50 = {t: float(np.percentile(runs[t]["step_ms"][1:], 50))
+           for t in runs}
+    emit(dict(phase="mesh_train_deepseek", arch=cfg.name,
+              layers=cfg.n_layers, cut=f"n_layers 27 -> {p['layers']}",
+              dtype="float32", dp_shards=2, batch=p["B"], seq=p["S"],
+              steps=p["steps"], mesh="1x1 nccl",
+              losses=runs["mesh"]["losses"],
+              plain_losses=runs["plain"]["losses"],
+              loss_max_rel_diff=rel, state_max_rel_diff=worst,
+              mesh_step_ms_p50=p50["mesh"], plain_step_ms_p50=p50["plain"],
+              launches=got, wall_s=time.monotonic() - t_phase))
+    del runs, state, mstate
+    torch.cuda.empty_cache()
+    return got
+
+
+SHELL_SLOTS = 4
+
+
+def spatial_shell_phase():
+    """``SpatialShell()`` on the card over the existing one-rank group: 4
+    slots whose groups are all [0], each ``slot_mesh`` a CUDA DeviceMesh
+    of size 1 whose all-reduce returns its input. Then the paper's stream
+    (each of 4 cores streaming 100,000 fp32 16x16, then 32x32, matrices
+    resident on the card, blocks of 64) through the 4 slots' streams,
+    against a ``FusedShell`` running the same cores on the same blocks:
+    outputs bitwise equal, the batched kernel launched cores x cycles
+    times by each. Returns the launches of the spatial runs."""
+    import torch.distributed as dist
+    from repro_torch.kernels import _lib
+    from repro_torch.rc2f import (CoreSpec, FusedShell, SpatialShell,
+                                  StreamSpec)
+    t_phase = time.monotonic()
+    shell = SpatialShell(device=DEV)
+    require(shell.n_slots == SHELL_SLOTS and shell.devices == [0]
+            and shell._groups == [[0]] * SHELL_SLOTS,
+            f"spatial_shell: groups {shell._groups} on {shell.devices}")
+    sums = []
+    for i in range(SHELL_SLOTS):
+        m = shell.slot_mesh(i)
+        require(m.device_type == DEV and m.size() == 1
+                and m.mesh.tolist() == [0],
+                f"spatial_shell: slot {i} mesh {m}")
+        x = torch.arange(8.0, device=DEV) + i
+        y = x.clone()
+        dist.all_reduce(y, group=m.get_group())
+        require(torch.equal(x, y), f"spatial_shell: slot {i} all-reduce")
+        sums.append(float(y.sum()))
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 65)
+    g = RC3E_BLOCK
+    n_cycles = -(-RC3E_MATS // g)
+    spatial_path = {k: 0 for k in _lib.launches}
+    rows = []
+    for sz in (16, 32):
+        spec = CoreSpec(f"mm{sz}", (StreamSpec((g, sz, sz)),) * 2,
+                        (StreamSpec((g, sz, sz)),))
+        dev = [[torch.randn((RC3E_MATS, sz, sz), generator=gen, device=DEV)
+                for _ in range(2)] for _ in range(SHELL_SLOTS)]
+        fused = FusedShell(SHELL_SLOTS, device=DEV)
+        for i in range(SHELL_SLOTS):
+            shell.load(i, _stream_core, spec, f"tenant{i}")
+            fused.load(i, _stream_core, spec, f"tenant{i}")
+        blocks = [[(dev[i][0][j:j + g], dev[i][1][j:j + g])
+                   for j in range(0, RC3E_MATS, g)]
+                  for i in range(SHELL_SLOTS)]
+        runs = {}
+        for tag in ("fused", "spatial"):
+            before = dict(_lib.launches)
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            outs = [[] for _ in range(SHELL_SLOTS)]
+            for c in range(n_cycles):
+                if tag == "fused":
+                    got = fused.run_cycle({i: blocks[i][c]
+                                           for i in range(SHELL_SLOTS)})
+                else:
+                    got = {i: shell.run(i, *blocks[i][c])
+                           for i in range(SHELL_SLOTS)}
+                for i in range(SHELL_SLOTS):
+                    outs[i].append(got[i][0])
+            if tag == "spatial":
+                shell.join()
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            n = {k: _lib.launches[k] - before[k] for k in _lib.launches}
+            require(n["stream_matmul_batched"] == SHELL_SLOTS * n_cycles
+                    and sum(n.values()) == n["stream_matmul_batched"],
+                    f"spatial_shell mm{sz} {tag}: launches {n} != "
+                    f"{SHELL_SLOTS} x {n_cycles}")
+            if tag == "spatial":
+                spatial_path = {k: spatial_path[k] + n[k] for k in n}
+            runs[tag] = dict(outs=[torch.cat(o) for o in outs], wall=wall)
+        for i in range(SHELL_SLOTS):
+            a, b = runs["fused"]["outs"][i], runs["spatial"]["outs"][i]
+            require(a.shape == (RC3E_MATS, sz, sz)
+                    and bool(torch.isfinite(b).all()) and torch.equal(a, b),
+                    f"spatial_shell mm{sz}: slot {i} differs from the fused "
+                    "shell's")
+        in_bytes = 2 * RC3E_MATS * sz * sz * 4
+        rows.append(dict(core=f"mm{sz}", cores=SHELL_SLOTS, cycles=n_cycles,
+                         launches_each=SHELL_SLOTS * n_cycles,
+                         bitwise_equal=True, **{
+                             f"aggregate_MBps_{t}": SHELL_SLOTS * in_bytes
+                             / runs[t]["wall"] / 1e6 for t in runs},
+                         **{f"wall_s_{t}": runs[t]["wall"] for t in runs}))
+        del runs, blocks, dev
+    emit(dict(phase="spatial_shell", slots=SHELL_SLOTS, groups=shell._groups,
+              mesh_sizes=[shell.slot_mesh(i).size()
+                          for i in range(SHELL_SLOTS)],
+              all_reduce_sums=sums, matrices_per_core=RC3E_MATS, block=g,
+              rows=rows, launches=spatial_path,
+              wall_s=time.monotonic() - t_phase))
+    return spatial_path
+
+
 def mesh_phases(get_config):
     """The mesh slice's phases on a world of 1 over NCCL
-    (``make_host_mesh(1, 1)``); returns the mesh path's launches (the
-    counts zeroed just before jit_serve_step's decode loop and read just
-    after; the training phases launch nothing)."""
+    (``make_host_mesh(1, 1)``), then deepseek's train step on that mesh
+    and ``SpatialShell`` over its group; returns the mesh path's launches
+    (the counts zeroed just before jit_serve_step's decode loop and read
+    just after; the training phases launch nothing) and the spatial
+    shell's (zeroed just before its runs, read just after)."""
     import torch.distributed as dist
+    from repro_torch.kernels import _lib
     from repro_torch.launch.mesh import make_host_mesh
     t0 = time.monotonic()
     mesh = make_host_mesh(1, 1, device=DEV)
@@ -3835,12 +4020,252 @@ def mesh_phases(get_config):
         got2 = mesh_ckpt_phase(mesh, state, sspecs, step, data)
         del state
         torch.cuda.empty_cache()
+        got3 = mesh_train_deepseek_phase(get_config, mesh)
+        # the counts zeroed just before the shell's path, read just after
+        _lib.launches.reset()
+        shell_path = spatial_shell_phase()
     finally:
         dist.destroy_process_group()
-    require(not any(got.values()) and not any(got2.values()),
-            f"mesh: training launched kernels {got} {got2}")
+    require(not any(got.values()) and not any(got2.values())
+            and not any(got3.values()),
+            f"mesh: training launched kernels {got} {got2} {got3}")
     dryrun_vs_card_phase(get_config, card)
     emit(dict(phase="mesh", launches=path, wall_s=time.monotonic() - t0))
+    return path, shell_path
+
+
+# ---------------------------------------------------------------------------
+# The port's examples (examples/*_torch.py) through their main
+# ---------------------------------------------------------------------------
+
+# 40 steps: a restart from step 10 of a 20-step run trains while the lr
+# peaks and its loss rises (5.45 -> 5.68), failing the example's own
+# assert; from step 30 of 40 it falls
+EXAMPLE_TRAIN = ("--full", "--steps", "40", "--seq", "1024", "--batch", "8",
+                 "--save-every", "10")
+EXAMPLE_RESTART_AT = 30
+
+
+def load_example(name):
+    """``examples/<name>_torch.py`` as a module (its ``main`` not run)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"{name}_torch", ROOT / "examples" / f"{name}_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_example(name, fn, *args, **kw):
+    """``fn``'s result; what it printed goes to OUT/examples/<name>.txt."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args, **kw)
+    (OUT / "examples").mkdir(exist_ok=True)
+    with open(OUT / "examples" / f"{name}.txt", "a") as f:
+        f.write(buf.getvalue())
+    return out
+
+
+@contextlib.contextmanager
+def served_watch(w, top8=None):
+    """While the block runs: engine decode and prefill calls
+    (``engine_calls``) into ``w["calls"]``, configures of a program into
+    ``w["configures"]``, and the kernel launches into ``w["launches"]``
+    when it ends."""
+    from repro_torch.core.reconfig import Reconfigurator
+    from repro_torch.kernels import _lib
+    w.update(calls={"decode": 0, "prefill": 0}, configures=0)
+    configure = Reconfigurator.configure
+
+    def counted(self, *a, **kw):
+        w["configures"] += 1
+        return configure(self, *a, **kw)
+
+    before = dict(_lib.launches)
+    Reconfigurator.configure = counted
+    try:
+        with engine_calls(w["calls"], top8):
+            yield w
+    finally:
+        Reconfigurator.configure = configure
+        w["launches"] = {k: _lib.launches[k] - before[k]
+                         for k in _lib.launches}
+
+
+def by_request(streams, phase):
+    """Streams keyed by request id as a list in id order (ids 0..n-1, as
+    ``compare_streams`` indexes them)."""
+    require(sorted(streams) == list(range(len(streams))),
+            f"{phase}: request ids {sorted(streams)}")
+    return [streams[i] for i in range(len(streams))]
+
+
+def example_serving(name, parts, paged):
+    """Run example ``name`` on the kernels and on the plain versions
+    (``--kernel-force ref``), each of its serving ``parts`` (label ->
+    the module's function serving that part, whose result holds
+    ``streams`` and is ``main``'s result under the label; None: ``main``
+    itself) watched on its own (``served_watch``). Gates per part: the
+    kernel run's launches exactly what its engine calls and configures
+    need (``program_launches``, paged or dense engines), none on the plain
+    run, nothing launched outside the parts, the streams equal but at
+    counted near-ties (fp32 tolerance). Returns (the results of both runs,
+    per part: launches, engine calls, configures, the stream
+    comparison)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.kernels import _lib
+    cfg = reduced(get_config("smollm-135m")).replace(dtype="float32")
+    mod = load_example(name)
+    runs = {}
+    for tag, force in (("kernel", []), ("plain", ["--kernel-force",
+                                                  "ref"])):
+        watched = {label: {} for label in parts}
+        top8 = {label: {} if tag == "plain" else None for label in parts}
+
+        def watch(label, fn):
+            def run(*a, **kw):
+                with served_watch(watched[label], top8[label]):
+                    return fn(*a, **kw)
+            return run
+        saved = {attr: getattr(mod, attr) for attr in parts.values() if attr}
+        for label, attr in parts.items():
+            if attr:
+                setattr(mod, attr, watch(label, saved[attr]))
+        main = mod.main
+        if None in parts.values():
+            main = watch(next(k for k, v in parts.items() if v is None), main)
+        _lib.launches.reset()
+        try:
+            res = run_example(name, main, ["--device", DEV, *force])
+        finally:
+            for attr, fn in saved.items():
+                setattr(mod, attr, fn)
+        total = dict(_lib.launches)
+        in_parts = {k: sum(w["launches"][k] for w in watched.values())
+                    for k in total}
+        require(total == in_parts, f"examples {name} {tag}: launches "
+                f"{total} outside its serving parts {in_parts}")
+        runs[tag] = dict(res=res, watched=watched, top8=top8)
+    out = {}
+    for label, attr in parts.items():
+        phase = f"examples {name} {label}"
+        kw = runs["kernel"]["watched"][label]
+        require(not any(runs["plain"]["watched"][label]["launches"].values()),
+                f"{phase}: the plain run launched "
+                f"{runs['plain']['watched'][label]['launches']}")
+        need = program_launches(phase, cfg, kw["calls"], kw["configures"],
+                                paged, kw["launches"])
+        got = {t: runs[t]["res"] if attr is None else runs[t]["res"][label]
+               for t in runs}
+        streams = compare_streams(
+            by_request(got["kernel"]["streams"], phase),
+            by_request(got["plain"]["streams"], phase),
+            runs["plain"]["top8"][label], TOL[torch.float32])
+        out[label] = dict(launches=kw["launches"], launches_needed=need,
+                          engine_calls=kw["calls"],
+                          configures=kw["configures"], **streams)
+    return runs["kernel"]["res"], runs["plain"]["res"], out
+
+
+def examples_phase():
+    """The four port examples with ``--device cuda`` in this process,
+    through ``main`` (what each prints goes to OUT/examples/): quickstart
+    (RAaaS deploy, PR swap, BAaaS; user cores, no kernel), serve_baas (the
+    paged engine, 8 slots over a 25-page pool, COW prefix sharing) and
+    multi_tenant (the FusedShell's user cores, then the ServingGateway's
+    and the GatewayFleet's dense engines with a live hand-off), each
+    served on the kernels and on the plain versions (``example_serving``;
+    their wall-clock-free results equal), and train_smollm ``--full
+    --steps 40 --seq 1024 --batch 8`` saving every 10 steps, then rerun
+    from its step-30 checkpoint, under deterministic algorithms: the loss
+    falls, the rerun's 10 losses equal the first run's last 10 bit for
+    bit, nothing launched. Returns the launches by example."""
+    from repro_torch.ckpt.checkpoint import _step_dir
+    from repro_torch.kernels import _lib
+    t_phase = time.monotonic()
+    shutil.rmtree(OUT / "examples", ignore_errors=True)
+    path = {}
+
+    _lib.launches.reset()
+    qs = run_example("quickstart", load_example("quickstart").main,
+                     ["--device", DEV])
+    path["quickstart"] = dict(_lib.launches)
+    require(not any(path["quickstart"].values()),
+            f"examples quickstart: launched {path['quickstart']} (its cores "
+            "are user einsum)")
+    require(qs["out_shape"] == (64, 16, 16)
+            and qs["invoke"] == [2.0 * i for i in range(8)]
+            and qs["services"] == ["vector-double"]
+            and not any(qs["utilization_end"].values()),
+            f"examples quickstart: {qs}")
+    emit(dict(phase="examples", example="quickstart", results=qs,
+              launches=path["quickstart"]))
+
+    k, p, cmp = example_serving("serve_baas", {"main": None}, paged=True)
+    require(k["page_stats"] == p["page_stats"]
+            and k["engine_steps"] == p["engine_steps"]
+            and k["total_new"] == p["total_new"] == 96
+            and k["streams"][0] == k["streams"][1],
+            f"examples serve_baas: kernel {k} plain {p}")
+    path["serve_baas"] = cmp["main"]["launches"]
+    emit(dict(phase="examples", example="serve_baas",
+              page_stats=k["page_stats"], engine_steps=k["engine_steps"],
+              requests=k["requests"], **cmp["main"]))
+
+    k, p, cmp = example_serving(
+        "multi_tenant", {"gateway": "serving_gateway_demo",
+                         "fleet": "fleet_migration_demo"}, paged=False)
+    for key in ("tenant0_unchanged", "slot2_axpy"):
+        require(k[key] and p[key], f"examples multi_tenant: {key}")
+    for part in ("gateway", "fleet"):
+        a = {x: y for x, y in k[part].items() if x != "streams"}
+        b = {x: y for x, y in p[part].items() if x != "streams"}
+        require(a == b, f"examples multi_tenant {part}: kernel {a} vs "
+                f"plain {b}")
+    require(k["fleet"]["handoff"][0] == "hot" and k["gateway"]["audited"]
+            == 9 and k["fleet"]["served"] == 5,
+            f"examples multi_tenant: {k['gateway']} {k['fleet']}")
+    path["multi_tenant"] = {
+        x: sum(c["launches"][x] for c in cmp.values())
+        for x in _lib.launches}
+    emit(dict(phase="examples", example="multi_tenant",
+              gateway={x: y for x, y in k["gateway"].items()
+                       if x != "streams"},
+              fleet={x: y for x, y in k["fleet"].items() if x != "streams"},
+              **{f"{part}_{x}": y for part, c in cmp.items()
+                 for x, y in c.items()}))
+
+    train = load_example("train_smollm")
+    before = dict(_lib.launches)
+    torch.use_deterministic_algorithms(True)
+    try:
+        with tempfile.TemporaryDirectory() as ckpt:
+            argv = ["--device", DEV, *EXAMPLE_TRAIN, "--ckpt-dir", ckpt]
+            t0 = time.monotonic()
+            first = run_example("train_smollm", train.main, argv)
+            first_s = time.monotonic() - t0
+            shutil.rmtree(_step_dir(ckpt, len(first["losses"])))
+            again = run_example("train_smollm", train.main, argv)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    path["train_smollm"] = _no_launch("examples train_smollm", before)
+    losses = first["losses"]
+    steps = int(EXAMPLE_TRAIN[EXAMPLE_TRAIN.index("--steps") + 1])
+    require(len(losses) == steps and losses[-1] < losses[0]
+            and all(np.isfinite(losses)),
+            f"examples train_smollm: losses {losses}")
+    require(again["start"] == EXAMPLE_RESTART_AT
+            and again["losses"] == losses[EXAMPLE_RESTART_AT:],
+            f"examples train_smollm: the restart from step "
+            f"{again['start']} gave {again['losses']}, not "
+            f"{losses[EXAMPLE_RESTART_AT:]}")
+    emit(dict(phase="examples", example="train_smollm",
+              argv=list(EXAMPLE_TRAIN), model=first["model"],
+              losses=losses, restart_at=again["start"],
+              restart_losses=again["losses"], restart_bitexact=True,
+              first_run_s=first_s, launches=path["train_smollm"]))
+    emit(dict(phase="examples", wall_s=time.monotonic() - t_phase))
     return path
 
 
@@ -4028,7 +4453,14 @@ def main():
 
     # the mesh slice: jit_serve_step / jit_train_step on a one-rank NCCL
     # mesh, the checkpoint restored by placements, the dry run vs the card
-    mesh_path = mesh_phases(get_config)
+    mesh_path, shell_path = mesh_phases(get_config)
+
+    # the port's examples through their main, on the card (fp32 serving:
+    # flash launches count in the flash row's fp32 entry)
+    examples_path = examples_phase()
+    example_launches = {k: sum(got[k] for got in examples_path.values())
+                        for k in SERVING_KERNELS}
+    fp32_path["examples"] = example_launches["flash_attention"]
 
     main_case = {"decode_attention": "bf16", "paged_decode_attention": "bf16",
                  "flash_attention": "bf16/S1024",
@@ -4103,6 +4535,14 @@ def main():
             mesh_path["stream_matmul_batched"]
             if name == "stream_matmul" else 0)
         row["launches"] += row["launches_by_path"]["mesh"]
+        if name in ("decode_attention", "paged_decode_attention"):
+            row["launches_by_path"]["examples"] = example_launches[name]
+            row["launches"] += example_launches[name]
+        if name == "stream_matmul":     # SpatialShell's slot streams
+            row["launches_by_path"]["spatial_shell"] = (
+                shell_path["stream_matmul"]
+                + shell_path["stream_matmul_batched"])
+            row["launches"] += row["launches_by_path"]["spatial_shell"]
         if name == "flash_attention":      # the fp32 (3xTF32) kernel
             f = next(r for r in recs if r["case"] == "fp32/S512")
             row["fp32"] = dict(

@@ -68,13 +68,10 @@ def make_host_mesh(data: int = 1, model: int = 1, device: str = "cuda"):
     mesh is on CUDA unless ``device`` is "cpu". A world of one needs no
     group from the caller: a one-rank group is made on a ``HashStore``
     (NCCL for a CUDA mesh, gloo for a CPU one)."""
-    import torch.distributed as dist
     from torch.distributed.device_mesh import init_device_mesh
     kind = _mesh_device(device)
-    if not dist.is_initialized() and data * model <= 1:
-        dist.init_process_group("nccl" if kind == "cuda" else "gloo",
-                                store=dist.HashStore(), rank=0, world_size=1,
-                                timeout=datetime.timedelta(seconds=120))
+    if data * model <= 1:
+        default_group(kind)
     n = max(_world(), 1)
     if data * model > n:
         raise ValueError(f"need {data * model} devices, have {n}")
@@ -83,6 +80,17 @@ def make_host_mesh(data: int = 1, model: int = 1, device: str = "cuda"):
                          "the mesh takes every rank of the group")
     return init_device_mesh(kind, (data, model),
                             mesh_dim_names=("data", "model"))
+
+
+def default_group(kind: str) -> None:
+    """Make sure a default process group exists: the caller's if there is
+    one, else a one-rank group on a ``HashStore`` (NCCL for a "cuda" mesh,
+    gloo for a "cpu" one)."""
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        dist.init_process_group("nccl" if kind == "cuda" else "gloo",
+                                store=dist.HashStore(), rank=0, world_size=1,
+                                timeout=datetime.timedelta(seconds=120))
 
 
 def chips(mesh) -> int:

@@ -41,7 +41,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.layers.mlp import _act
@@ -170,6 +170,7 @@ def moe_forward(p, x, opts: MoEOpts):
     D = c.dp_shards if T % c.dp_shards == 0 else 1
     Tl = T // D
     E, k = c.n_experts, c.top_k
+    x_in = x
     if isinstance(x, DTensor):
         # tokens flatten batch-major: the sequence gathered first (a
         # sequence-sharded DTensor does not reshape across its shards)
@@ -191,14 +192,29 @@ def moe_forward(p, x, opts: MoEOpts):
     y = torch.einsum("xecf,efd->xecd", h, p["wd"].to(x.dtype))
     y = _ep_constrain(y, 2)
     y = y * _ep_constrain(gates_ec, 1)[..., None]
-    out = combine(y, slot, k)
+    out = _as_placed_like(combine(y, slot, k).reshape(B, S, d), x_in)
 
     if c.n_shared:
+        # on the (B, S, d) input: the same rows as the reference's (T, d)
+        # flatten, and no view across a mesh-split token dim
         sp = p["shared"]
-        xfl = xf.reshape(T, d)
-        g = act(xfl @ sp["wg"].to(x.dtype)) * (xfl @ sp["wu"].to(x.dtype))
-        out = out.reshape(T, d) + g @ sp["wd"].to(x.dtype)
-    return out.reshape(B, S, d), aux
+        g = act(x_in @ sp["wg"].to(x.dtype)) * (x_in @ sp["wu"].to(x.dtype))
+        out = out + g @ sp["wd"].to(x.dtype)
+    return out, aux
+
+
+def _as_placed_like(y, x):
+    """y in x's placements, a partial sum read as replicated (a no-op on
+    plain tensors). The backward of this redistribute hands the (D, Tl,
+    d) -> (B, S, d) view its gradient in y's own placement: a gradient
+    split over more mesh axes than D's dp axes (the residual stream's
+    batch split) is gathered first, where DTensor's view rule would give
+    it a wrong local shape."""
+    if not isinstance(y, DTensor):
+        return y
+    pl = tuple(Replicate() if q.is_partial() else q for q in x.placements)
+    return y if tuple(y.placements) == pl else y.redistribute(x.device_mesh,
+                                                              pl)
 
 
 def _mesh_regions(xf, opts: MoEOpts):

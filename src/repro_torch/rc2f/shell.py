@@ -9,11 +9,14 @@ Two co-residency modes:
     as the paper's cores share the PCIe link. Swapping one core = rebuilding
     the cycle (the other slots' cores and registers persist).
 
-  * ``SpatialShell`` — vSlices as separate execution contexts: each slot
-    gets its own CUDA stream on the card, so resident cores overlap on the
-    device. The reference carves a device set into per-slot sub-meshes;
-    with one device every slot shares it, as on the reference's one-CPU
-    host.
+  * ``SpatialShell`` — vSlices as disjoint sub-meshes, as the reference
+    carves its device set: the ranks of the ``torch.distributed`` group are
+    split into one group a slot, and ``slot_mesh`` gives each slot a
+    ``DeviceMesh`` over its group (what a caller shards a slot's work
+    over). With fewer ranks than slots the groups overlap, as the
+    reference's do: on one card every slot's group is ``[0]``. A slot's
+    core runs on the caller's device, on the slot's own CUDA stream, so
+    resident cores overlap there.
 
 Both place array inputs on the shell's device (the card unless the caller
 passes ``device="cpu"``; raises where CUDA is absent). The shell also owns
@@ -24,11 +27,14 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.core.device_db import MAX_SLOTS
+from repro_torch.launch.mesh import default_group
 from repro_torch.rc2f.control import (ConfigSpace, device_registers, make_gcs,
                                       make_ucs)
 from repro_torch.rc2f.core_api import (CoreSpec, compile_core, is_array,
@@ -127,22 +133,51 @@ class FusedShell:
 
 
 class SpatialShell:
-    """vSlices as separate execution contexts: one CUDA stream per slot.
+    """vSlices as disjoint sub-meshes of the process group's ranks.
+
+    ``devices`` are ranks of the current process group (default: every
+    rank of it, or ``[0]`` where there is none); slot i's group is the
+    reference's ``devices[i*per:(i+1)*per]``, per = len(devices) //
+    n_slots (at least 1), or one rank taken round-robin.
 
     ``run`` enqueues a slot's core on the slot's stream after the work the
     caller's stream has queued so far (its inputs), and returns at once.
     ``join`` makes the caller's stream wait for every slot, after which the
     outputs may be read there."""
 
-    def __init__(self, n_slots: int = MAX_SLOTS, device="cuda"):
+    def __init__(self, devices: Optional[Sequence[int]] = None,
+                 n_slots: int = MAX_SLOTS, device="cuda"):
         self.device = resolve_device(device)
+        if devices is None:
+            devices = range(dist.get_world_size()) \
+                if dist.is_initialized() else [0]
+        self.devices = [int(r) for r in devices]
         self.n_slots = n_slots
         self.gcs = make_gcs()
+        per = max(1, len(self.devices) // n_slots)
+        self._groups = [self.devices[i * per:(i + 1) * per] or
+                        [self.devices[i % len(self.devices)]]
+                        for i in range(n_slots)]
+        self._meshes: Dict[str, List[DeviceMesh]] = {}
         self._streams = [torch.cuda.Stream(self.device)
                          if self.device.type == "cuda" else None
                          for _ in range(n_slots)]
         self.slots: List[_Slot] = [_Slot() for _ in range(n_slots)]
         self._compiled: Dict[int, Callable] = {}
+
+    def slot_mesh(self, slot: int, axis: str = "slice") -> DeviceMesh:
+        """A one-dim ``DeviceMesh`` of the shell's device type over slot
+        ``slot``'s group of ranks. Building a mesh over a subset of ranks
+        is collective (``new_group``), so the first call for an ``axis``
+        builds every slot's mesh at once, in slot order, and every rank
+        of the default group must make it; where no group exists yet a
+        one-rank group is made first."""
+        if axis not in self._meshes:
+            default_group(self.device.type)
+            self._meshes[axis] = [
+                DeviceMesh(self.device.type, torch.tensor(g),
+                           mesh_dim_names=(axis,)) for g in self._groups]
+        return self._meshes[axis][slot]
 
     def load(self, slot: int, user_fn: Callable, spec: CoreSpec,
              user: str = "anon"):

@@ -842,7 +842,7 @@ def test_raas_slice_on_card(cuda):
     blocks = [[tuple(torch.from_numpy(rng.standard_normal((g, s, s))
                                       .astype(np.float32)) for _ in range(2))
                for _ in range(cycles)] for _ in range(n)]
-    for shell in (FusedShell(4), SpatialShell(4)):
+    for shell in (FusedShell(4), SpatialShell(n_slots=4)):
         for i, e in enumerate(entries):
             shell.load(i, e.compiled, spec, f"t{i}")
         fifos = [StreamFIFO(2).feed(iter(blocks[i])) for i in range(n)]
@@ -1149,3 +1149,98 @@ def test_jit_serve_step_on_one_rank_nccl_mesh(mesh_card_run):
 @pytest.mark.cuda
 def test_kernel_wrapper_refuses_a_dtensor(mesh_card_run):
     assert mesh_card_run["refused"]
+
+
+# ---------------------------------------------------------------------------
+# SpatialShell's sub-meshes and the port's examples on the card
+# ---------------------------------------------------------------------------
+
+SHELL_ON_CARD = """
+import torch, torch.distributed as dist
+from repro_torch.kernels import launches, ops
+from repro_torch.kernels.stream_matmul import matmul_batched_ref
+from repro_torch.rc2f import CoreSpec, SpatialShell, StreamSpec
+shell = SpatialShell()
+assert shell.device.type == "cuda" and shell._groups == [[0]] * 4
+assert not dist.is_initialized()           # the constructor opens no group
+for i in range(4):
+    m = shell.slot_mesh(i)
+    assert m.device_type == "cuda" and m.size() == 1, m
+    x = torch.arange(4.0, device="cuda") + i
+    y = x.clone()
+    dist.all_reduce(y, group=m.get_group())
+    assert torch.equal(x, y)
+assert dist.get_backend() == "nccl"
+spec = CoreSpec("mm16", (StreamSpec((64, 16, 16)),) * 2,
+                (StreamSpec((64, 16, 16)),))
+gen = torch.Generator(device="cuda").manual_seed(0)
+a, b = (torch.randn((4, 64, 16, 16), generator=gen, device="cuda")
+        for _ in range(2))
+for i in range(4):
+    shell.load(i, lambda p, q: (ops.matmul_batched(p, q),), spec, f"t{i}")
+before = launches["stream_matmul_batched"]
+outs = [shell.run(i, a[i], b[i])[0] for i in range(4)]
+shell.join()
+assert launches["stream_matmul_batched"] - before == 4
+for i in range(4):
+    torch.testing.assert_close(outs[i], matmul_batched_ref(a[i], b[i]),
+                               atol=1e-4, rtol=1e-4)
+dist.destroy_process_group()
+print("OK")
+"""
+
+
+@pytest.mark.cuda
+def test_spatial_shell_one_rank_on_card(cuda):
+    """SpatialShell() on the card: 4 slots over rank [0], each slot mesh a
+    one-rank CUDA DeviceMesh (NCCL, made at the first slot_mesh) whose
+    all-reduce returns its input, the cores on the slots' streams."""
+    import os
+    import subprocess
+    import sys
+    root = os.path.join(os.path.dirname(__file__), "..")
+    proc = subprocess.run([sys.executable, "-c", SHELL_ON_CARD], cwd=root,
+                          capture_output=True, text=True, timeout=600,
+                          env=dict(os.environ, PYTHONPATH="src"))
+    assert proc.returncode == 0, proc.stderr[-2500:]
+    assert "OK" in proc.stdout
+
+
+def _port_example(name):
+    import importlib.util
+    import os
+    path = os.path.join(os.path.dirname(__file__), "..", "examples",
+                        f"{name}_torch.py")
+    spec = importlib.util.spec_from_file_location(f"{name}_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["quickstart", "serve_baas", "multi_tenant",
+                                  "train_smollm"])
+def test_port_example_on_card(cuda, name, tmp_path, capsys):
+    """Each port example with --device cuda (its default) through main:
+    serving launches the attention kernels, the rest launch none."""
+    from repro_torch.kernels import _lib
+    argv = ["--device", "cuda"]
+    if name == "train_smollm":
+        argv += ["--steps", "60", "--ckpt-dir", str(tmp_path)]
+    before = dict(_lib.launches)
+    res = _port_example(name).main(argv)
+    got = {k: _lib.launches[k] - before[k] for k in before}
+    if name == "quickstart":
+        assert res["invoke"] == [2.0 * i for i in range(8)]
+        assert not any(got.values())
+    elif name == "serve_baas":
+        assert res["total_new"] == 96
+        assert got["paged_decode_attention"] > 0 and got["flash_attention"] > 0
+    elif name == "multi_tenant":
+        assert res["tenant0_unchanged"] and res["slot2_axpy"]
+        assert res["gateway"]["audited"] == 9 and res["fleet"]["served"] == 5
+        assert got["decode_attention"] > 0 and got["flash_attention"] > 0
+    else:
+        assert res["losses"][-1] < res["losses"][0]
+        assert not any(got.values())
+    assert capsys.readouterr().out

@@ -1,7 +1,9 @@
-"""Import guard for the port: every module of ``repro_torch`` imports with
-JAX made unimportable, and none of them loads anything of the JAX package
-``repro``; ``chip_smoke.py`` imports neither. The copied configs must stay
-equal to the reference's, field for field, for every architecture."""
+"""Import guard for the port: every module of ``repro_torch`` and every
+port example (``examples/*_torch.py``) imports with JAX made unimportable,
+and none of them loads anything of the JAX package ``repro``;
+``chip_smoke.py`` and the port examples name neither in an import. The
+copied configs must stay equal to the reference's, field for field, for
+every architecture."""
 import ast
 import dataclasses
 import os
@@ -63,15 +65,51 @@ def test_port_imports_without_jax_or_reference():
             ("mesh", "hlo_analysis", "dryrun", "sweep", "report")} <= walked
 
 
-def test_chip_smoke_imports_neither_jax_nor_reference():
-    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+PORT_EXAMPLES = sorted(p.name for p in (REPO / "examples").glob(
+    "*_torch.py"))
+
+
+def test_port_examples_import_without_jax_or_reference():
+    assert PORT_EXAMPLES == ["multi_tenant_torch.py", "quickstart_torch.py",
+                             "serve_baas_torch.py", "train_smollm_torch.py"]
+    code = textwrap.dedent(f"""
+        import importlib.util, sys
+        sys.modules["jax"] = None          # any `import jax` now fails
+        for name in {PORT_EXAMPLES!r}:
+            spec = importlib.util.spec_from_file_location(
+                name[:-3], "{REPO / 'examples'}/" + name)
+            spec.loader.exec_module(importlib.util.module_from_spec(spec))
+        bad = sorted(m for m in sys.modules
+                     if m == "repro" or m.startswith("repro."))
+        assert not bad, bad
+    """)
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def imported_roots(path):
+    tree = ast.parse((REPO / path).read_text())
     mods = set()
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
             mods |= {a.name.split(".")[0] for a in node.names}
         elif isinstance(node, ast.ImportFrom) and node.module:
             mods.add(node.module.split(".")[0])
+    return mods
+
+
+def test_chip_smoke_imports_neither_jax_nor_reference():
+    mods = imported_roots("chip_smoke.py")
     assert not mods & {"jax", "jaxlib", "repro"}, mods
+
+
+@pytest.mark.parametrize("name", PORT_EXAMPLES)
+def test_port_example_names_neither_jax_nor_reference(name):
+    mods = imported_roots(f"examples/{name}")
+    assert not mods & {"jax", "jaxlib", "repro"}, mods
+    assert "repro_torch" in mods and "torch" in mods
 
 
 @pytest.mark.parametrize("arch", J_ARCH_IDS)

@@ -17,6 +17,9 @@ its positions always. On such caches:
   log-sum-exp; its first step's logits agree with the one-process
   ``make_serve_step``'s within 1e-5 and its greedy tokens equal them.
 
+The same world holds ``SpatialShell``'s slot meshes at 4 slots over 2
+ranks, whose groups overlap (tests/test_torch_spatial_shell.py's case).
+
 The world rendezvouses through a ``file://`` in ``tmp_path``; every
 spawned process has a deadline. A rank (spawned) imports this module,
 which imports no JAX.
@@ -146,6 +149,7 @@ def serve(mesh=None):
 
 def run2(rank: int, init_file: str, out_dir: str):
     from torch.distributed.device_mesh import init_device_mesh
+    from test_torch_spatial_shell import shell_case
 
     from repro_torch.tree import flatten, leaf_paths
     torch.set_num_threads(1)
@@ -164,6 +168,7 @@ def run2(rank: int, init_file: str, out_dir: str):
             out["cache_" + "/".join(map(str, path))] = t.numpy()
         out["length"], out["tokens"], out["calls"] = str(length), toks, calls
         out["first"] = first.numpy()
+        out.update(shell_case(rank))
         np.savez(f"{out_dir}/rank{rank}.npz", **out)
     finally:
         dist.destroy_process_group()
@@ -227,3 +232,9 @@ def test_length_sharded_decode_runs_the_kernel_route(world):
         np.testing.assert_allclose(r["first"], first.numpy(), rtol=1e-5,
                                    atol=1e-5)
         assert r["tokens"].tolist() == want
+
+
+def test_spatial_shell_overlapping_slot_meshes(world):
+    from test_torch_spatial_shell import check_shell_world
+    check_shell_world(world, 2)
+    assert world[0]["shell_groups"] == "[[0], [1], [0], [1]]"

@@ -1,6 +1,6 @@
 """The port's dry run on a fake 2x2 mesh for the last three families
-(reduced): deepseek (MLA + MoE with shared experts; its train cell is a
-recorded error, ROADMAP Queue 3), the zamba2 hybrid and the llava VLM."""
+(reduced): deepseek (MLA + MoE with shared experts, the dispatch split
+over the dp axes), the zamba2 hybrid and the llava VLM."""
 import pytest
 import torch
 

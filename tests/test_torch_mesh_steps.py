@@ -1,16 +1,20 @@
 """The mesh steps on gloo process groups on the CPU: ``jit_train_step``
-(8 ranks, meshes 8x1 and 4x2, reduced smollm and reduced qwen3-moe),
-``jit_serve_step`` (4 ranks, a 2x2 mesh, reduced smollm and reduced
-mamba2) and the elastic shrink (tests/test_multidevice.py's case
-mirrored: 8 ranks train 5 steps and save; a 4-rank world restores,
-reshards and trains 5 more).
+(8 ranks, meshes 8x1 and 4x2, reduced smollm and reduced qwen3-moe; 4
+ranks, a 2x2 mesh, reduced deepseek with its MoE dispatch split over the
+dp axes, ``dp_shards`` 2), ``jit_serve_step`` (4 ranks, a 2x2 mesh,
+reduced smollm and reduced mamba2) and the elastic shrink
+(tests/test_multidevice.py's case mirrored: 8 ranks train 5 steps and
+save; a 4-rank world restores, reshards and trains 5 more).
 
-- the 8-rank losses equal the one-process ``make_train_step`` on the same
+- the mesh losses equal the one-process ``make_train_step`` on the same
   global batches within 1e-4 relative, and every rank's local leaf shapes
   are those its specs give;
 - the 2x2 greedy tokens equal the one-process ``make_serve_step``'s;
 - after the shrink the loss keeps falling, the step is 10, and the
   restored state equals the saved leaves;
+- on the 8 ranks, ``SpatialShell``'s slot meshes
+  (tests/test_torch_spatial_shell.py's case: groups of 2, all-reduces
+  over each group only, the reference example's cores);
 - each of the 8 ranks' local shard of a seeded (8, 12, 16) tensor under
   P(("pod", "data"), "model") and P(None, ("data", "model")) on a 2x2x2
   mesh equals the JAX shard of the same device index on 8 forced host
@@ -20,6 +24,7 @@ Each world rendezvouses through a ``file://`` in ``tmp_path``; every
 spawned process has a deadline. A rank (spawned) imports this module,
 which imports no JAX.
 """
+import dataclasses
 import datetime
 import multiprocessing
 import os
@@ -39,6 +44,9 @@ STEPS = 5
 DEADLINE_S = 300
 TRAIN_CASES = [("smollm-135m", (8, 1)), ("smollm-135m", (4, 2)),
                ("qwen3-moe-30b-a3b", (8, 1)), ("qwen3-moe-30b-a3b", (4, 2))]
+# on the 4-rank world: MLA + MoE with shared experts and a dense first
+# layer, the dispatch split over the dp axes
+DEEPSEEK, DEEPSEEK_MESH, DEEPSEEK_STEPS = "deepseek-v2-lite-16b", (2, 2), 3
 SERVE_ARCHS = ("smollm-135m", "mamba2-370m")
 SERVE_B, PROMPT, NEW = 4, 8, 6
 SHARD_SPECS = ((("pod", "data"), "model"), (None, ("data", "model")))
@@ -51,7 +59,10 @@ def seeded_block():
 
 def _cfg(arch):
     from repro_torch.configs import get_config, reduced
-    return reduced(get_config(arch)).replace(dtype="float32", vocab_size=256)
+    cfg = reduced(get_config(arch)).replace(dtype="float32", vocab_size=256)
+    if arch == DEEPSEEK:
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, dp_shards=2))
+    return cfg
 
 
 def _opts():
@@ -170,14 +181,16 @@ def _init(rank, world, init_file):
 
 def run8(rank: int, init_file: str, out_dir: str):
     """The 8-rank world: every train case, then the elastic run's first
-    half (the smollm 8x1 state saved at step 5)."""
+    half (the smollm 8x1 state saved at step 5); SpatialShell's slot
+    meshes."""
     from torch.distributed.device_mesh import init_device_mesh
+    from test_torch_spatial_shell import shell_case
 
     from repro_torch.ckpt import save
     from repro_torch.runtime.sharding import P, place
     _init(rank, 8, init_file)
     try:
-        out = {}
+        out = shell_case(rank)
         cube = init_device_mesh("cpu", (2, 2, 2),
                                 mesh_dim_names=("pod", "data", "model"))
         for i, spec in enumerate(SHARD_SPECS):
@@ -195,7 +208,8 @@ def run8(rank: int, init_file: str, out_dir: str):
 
 def run4(rank: int, init_file: str, out_dir: str):
     """The 4-rank world: restore the 8-rank state, reshard it onto a 4x1
-    mesh and train 5 more steps; then the 2x2 serve runs."""
+    mesh and train 5 more steps; then the 2x2 serve runs and deepseek's
+    2x2 train steps."""
     from torch.distributed.device_mesh import init_device_mesh
 
     from repro_torch.ckpt import reshard, restore
@@ -223,6 +237,8 @@ def run4(rank: int, init_file: str, out_dir: str):
                                 mesh_dim_names=("data", "model"))
         for arch in SERVE_ARCHS:
             out[f"tokens_{arch}"] = serve_tokens(arch, mesh)
+        out["deepseek_losses"], out["deepseek_shapes_ok"], _, _ = \
+            mesh_train(DEEPSEEK, DEEPSEEK_MESH, steps=DEEPSEEK_STEPS)
         np.savez(f"{out_dir}/rank{rank}.npz", **out)
     finally:
         dist.destroy_process_group()
@@ -278,6 +294,17 @@ def test_jit_serve_step_tokens_equal_one_process(worlds, arch):
         assert r[f"tokens_{arch}"].tolist() == want
 
 
+def test_deepseek_dispatch_over_dp_tracks_one_process(worlds):
+    _, four = worlds
+    for r in four:
+        assert bool(r["deepseek_shapes_ok"])
+        np.testing.assert_array_equal(r["deepseek_losses"],
+                                      four[0]["deepseek_losses"])
+    np.testing.assert_allclose(four[0]["deepseek_losses"],
+                               one_process_losses(DEEPSEEK, DEEPSEEK_STEPS),
+                               rtol=1e-4)
+
+
 def test_elastic_shrink_continues_the_state(worlds):
     eight, four = worlds
     first = eight[0]["losses0"]                   # smollm 8x1, steps 0-4
@@ -289,6 +316,13 @@ def test_elastic_shrink_continues_the_state(worlds):
     # the continued run is the one-process run's steps 5-9
     np.testing.assert_allclose(losses, one_process_losses(
         "smollm-135m", 2 * STEPS), rtol=1e-4)
+
+
+def test_spatial_shell_slot_meshes_over_8_ranks(worlds):
+    from test_torch_spatial_shell import check_shell_world
+    eight, _ = worlds
+    check_shell_world(eight, 8)
+    assert eight[0]["shell_sizes"][0] == 2     # 8 ranks / 4 slots
 
 
 def test_local_shards_equal_jax_shards(worlds, tmp_path):

@@ -350,7 +350,7 @@ def test_raas_slice_spatial_shell():
     n = 4
     blocks = _stream(n, seed=7)
     hv, spec, sess, ent = _deploy(_t_core, trc2f, tcore, n, device="cpu")
-    shell = trc2f.SpatialShell(4, device="cpu")
+    shell = trc2f.SpatialShell(n_slots=4, device="cpu")
     for i, e in enumerate(ent):
         shell.load(i, e.compiled, spec, f"tenant{i}")
     assert shell.gcs.read("active_mask") == 0b1111
