@@ -14,7 +14,10 @@ lines.jsonl):
    library's SASS (``cuobjdump -sass``), and every kernel that spills.
    Fails if the flash library has no tensor-core instruction, or if a
    flash kernel (bf16 ``flash_mma_kernel``, fp32 3xTF32
-   ``flash_tf32_kernel``) is missing a head dim of ``HEAD_DIMS`` or spills.
+   ``flash_tf32_kernel``) is missing a head dim of ``HEAD_DIMS`` or spills,
+   or if the registry's static shared memory of a decode split or merge
+   instantiation (``kernel_footprints``) is not ptxas's, or the two list
+   other instantiations.
 2. ``kernel``: each kernel against its plain PyTorch version. Attention at
    the serving path's shapes (B=8, Hq=9, Hkv=3, D=64, L=2048, page 16;
    prefill S 64 to 2048): fp32, bf16, int8 KV, window, an idle slot (the
@@ -30,7 +33,14 @@ lines.jsonl):
    flash (fp32, bf16) at the remaining families' heads
    (``FAMILY2_HEADS``): qwen3-moe (32 / 4 of 128, g 8, flash S=1024),
    llava (56 / 8 of 128, g 7, S=1176) and whisper-tiny (6 / 6 of 64,
-   S=448). Paged decode (fp32, bf16) also at the harness phases' engines:
+   S=448). Decode and paged decode (fp32, bf16, int8) at groups past the 8
+   heads a block holds (``WIDE_GROUPS``: Qwen3-235B-A22B's 64 / 4 of 128,
+   Llama-3.1-405B's 128 / 8, MQA's 71 / 1 of 64 and 48 / 1 of 128; each
+   record gives the head chunks and the K/V bytes the chunks request) and
+   all three kernels (flash in fp32 and bf16 at S=1024) at the head dims
+   past 256 (``WIDE_DIMS``: 264, 320, 384, 512 at g 4), which the 384 and
+   512 builds read in place (``runs_on``). Paged decode (fp32, bf16) also
+   at the harness phases' engines:
    B=4, L=64, pages of 4 and 8, one slot idle; and (fp32, bf16, int8; bf16
    at B=1) at the tuner's pages 32 and 64 (``TUNER_PAGES``), at the
    serving shape, each split of whole pages. Every dense decode case also
@@ -217,6 +227,15 @@ lines.jsonl):
    [11, 2], 32 new tokens), kernel path against plain path, the logs
    equal, and a longer context failing with ``KeyError('frames')`` as
    the reference's engine does.
+10b'. ``wide_group_engine`` (the thirteenth slice's path): qwen3-moe-30b-
+   a3b's config at Qwen3-235B-A22B's published widths (``wide_group_cfg``:
+   d_model 4096, 64 query heads over 4 kv heads of 128, a group of 16; 128
+   experts top 8 of 1536; vocab 151936, untied), cut from 94 to 2 layers,
+   bf16, seeded weights: the dense and the paged engine serve the
+   workload of phase 4 with the gates of ``qwen3moe_*_engine`` (streams
+   against ``kernel_force="ref"``'s, near-ties and tokens routed apart
+   counted; decode and flash launches layers x calls); then
+   ``profile_wide_group_dense_decode`` (step ms, idle share).
 10c. training (``training_phases``; fp32, TF32 off; every phase must
    launch no kernel, as the reference's training reaches no Pallas
    kernel): ``train_smollm`` (``repro_torch.launch.train.main`` on
@@ -261,7 +280,8 @@ lines.jsonl):
 11. the ``kernels`` summary line (launches of the attention kernels from
    the smollm, the families', the fleet phases', the harness phases', the
    autotuned fleets', the remaining families' and whisper_engine's
-   serving paths, ``launches_by_path``; the flash row's ``fp32`` entry:
+   serving paths, ``launches_by_path``, ``wide_group_engine`` among
+   them; the flash row's ``fp32`` entry:
    the fp32 S=512 case and fp32 flash's launches on the fp32 engines,
    ``families_model``, ``launch_serve``, ``fleet_chaos`` and
    ``scale_soak_long``; the streaming matmul's from the rc3e path, the
@@ -331,6 +351,22 @@ NEW_HEADS = (("d96g1", (32, 32, 96)), ("d112g1", (32, 32, 112)),
 # a head dim outside HEAD_DIMS (a multiple of 8 the reference takes): the
 # wrappers zero-pad it to 96; smollm's heads
 PAD_D = 80
+# groups past the 8 query heads a decode block holds (Hq, Hkv, D):
+# Qwen3-235B-A22B (g 16), Llama-3.1-405B (128 / 8, g 16), Falcon-7B's MQA
+# (71 / 1 at D 64), StarCoder's and granite-code's MQA (48 / 1 at D 128)
+WIDE_GROUPS = (("g16", (64, 4, 128)), ("g16h128", (128, 8, 128)),
+               ("g71", (71, 1, 64)), ("g48", (48, 1, 128)))
+# head dims past 256 (no configured model; parity with the reference), at
+# g 4 (8 / 2): the 384 and 512 builds read them in place
+WIDE_DIMS = (264, 320, 384, 512)
+WIDE_D_HEADS = (8, 2)
+# Qwen3-235B-A22B's published widths (hf Qwen/Qwen3-235B-A22B config.json)
+# over qwen3-moe-30b-a3b's config; every other field stays the 30B's
+# (qk-norm, rope theta 1e6, untied embeddings, capacity factor 1.25)
+WIDE_GROUP_WIDTHS = dict(d_model=4096, n_heads=64, n_kv_heads=4,
+                         head_dim=128, vocab_size=151936)
+WIDE_GROUP_MOE = dict(n_experts=128, top_k=8, d_expert=1536)
+WIDE_GROUP_LAYERS = 2                  # of 94 (fp32 weights: ~25 GB)
 SSM_H, SSM_P, SSM_N = 32, 64, 128      # mamba2-370m's SSD width
 SSD_TOL = {torch.float32: dict(atol=5e-4, rtol=5e-3),    # tests/test_kernels
            torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
@@ -342,7 +378,7 @@ SSM_LOGIT_TOL = dict(atol=1e-3, rtol=1e-3)   # fp32 logits, as model phases
 # which moves the ratio by under 1% on the H100 (PERF.md)
 SSM_BF16_RMS_RATIO = 1.05
 # the remaining families' attention shapes (Hq, Hkv, D), each with its flash
-# prefill length: qwen3-moe (g 8, MAX_GROUP), llava (g 7; 576 patches + 600
+# prefill length: qwen3-moe (g 8, CHUNK_HEADS), llava (g 7; 576 patches + 600
 # tokens), whisper-tiny (D 64, g 1; its decoder's 448-token window)
 FAMILY2_HEADS = (("qwen3moe", "d128g8", (32, 4, 128), 1024),
                  ("llava", "d128g7", (56, 8, 128), 1176),
@@ -536,15 +572,20 @@ def decode_cost(q, kpos, cur, window, kvbytes, hkv, paged_nb=0):
 
 
 def pad_cost(q, k, v):
-    """For a head dim outside ``HEAD_DIMS``: the dim the wrapper pads to and
-    the device time of the padding copies alone (q, k/pool, v/pool; the
-    wrapper pays them on every call, inside its ``ms``); else nothing."""
-    from repro_torch.kernels.decode_attention import (pad_head_dim,
+    """For a head dim outside ``HEAD_DIMS``: up to 256, the dim the wrapper
+    pads to and the device time of the padding copies alone (q, k/pool,
+    v/pool; the wrapper pays them on every call, inside its ``ms``); past
+    it, the build that reads the true width in place (no copy); else
+    nothing."""
+    from repro_torch.kernels.decode_attention import (MAX_PADDED_HEAD_DIM,
+                                                      pad_head_dim,
                                                       padded_head_dim)
     d = q.shape[-1]
     dp = padded_head_dim("pad_cost", d)
     if dp == d:
         return {}
+    if d > MAX_PADDED_HEAD_DIM:
+        return dict(runs_on=dp, in_place=True)
     return dict(padded_to=dp, pad_ms=time_ms(
         lambda: [pad_head_dim(t, dp) for t in (q, k, v)]))
 
@@ -592,6 +633,13 @@ def kernel_phase(results):
         for _, tag, heads, _ in FAMILY2_HEADS:
             cases.append((f"{tag}/{kind}", dtype, quant, 0, cur, fill, L,
                           heads))
+        # this slice: groups past 8, and head dims past 256 at g 4
+        for tag, heads in WIDE_GROUPS:
+            cases.append((f"{tag}/{kind}", dtype, quant, 0, cur, fill, L,
+                          heads))
+        for d in WIDE_DIMS:
+            cases.append((f"d{d}g4/{kind}", dtype, quant, 0, cur, fill, L,
+                          WIDE_D_HEADS + (d,)))
     for name, dtype, quant, window, cur_c, fill_c, Lc, heads in cases:
         hq, hkv, d = heads
         q, k, v, kpos, cur_t, ks, vs = decode_inputs(
@@ -639,9 +687,16 @@ def kernel_phase(results):
         b_ms, b_by = bound(nbytes, flops, dtype)
         lib = None if quant else time_ms(sdpa_decode(q, k, v, kpos, cur_t,
                                                       window))
+        heads_a_block, chunks = da.head_chunks(hq // hkv, d)
+        # K/V bytes the split blocks request: every chunk of a kv head
+        # reads its rows (from L2 where another chunk brought them)
+        kv_read = chunks * (nbytes - decode_cost(q, kpos, cur_t, window,
+                                                 kvbytes, 0)[0])
         rec = dict(phase="kernel", name="decode_attention", case=name,
                    shape=dict(B=Bc, Hq=hq, Hkv=hkv, D=d, L=Lc),
-                   n_split=n_split,
+                   n_split=n_split, head_chunks=chunks,
+                   heads_a_block=heads_a_block, bytes=nbytes,
+                   kv_bytes_requested=kv_read,
                    max_abs_err=err, tol=tol, lse_max_abs_err=lse_err,
                    ms=time_ms(lambda: da.decode_attention_cuda(
                        q, k, v, kpos, cur_t, window=window, k_scale=ks,
@@ -797,6 +852,13 @@ def kernel_phase(results):
         ("gemma2/fp32/S1024/softcap50", f32, 1024, 0, 50.0, (16, 8, 256))]
     flash_cases += [(f"{fam}/{tag}/S{S}", dt, S, 0, 0.0, heads)
                     for fam, _, heads, S in FAMILY2_HEADS
+                    for tag, dt in (("fp32", f32), ("bf16", b16))]
+    # this slice: Qwen3-235B-A22B's prefill heads (g 16), and the head dims
+    # past 256 read in place
+    flash_cases += [("qwen3_235b/bf16/S1024", b16, 1024, 0, 0.0,
+                     WIDE_GROUPS[0][1])]
+    flash_cases += [(f"{tag}/D{d}/S1024", dt, 1024, 0, 0.0,
+                     WIDE_D_HEADS + (d,)) for d in WIDE_DIMS
                     for tag, dt in (("fp32", f32), ("bf16", b16))]
     for name, dtype, S, window, cap, (hq, hkv, d) in flash_cases:
         q = torch.randn((1, hq, S, d), generator=gen, device=DEV).to(dtype)
@@ -2056,6 +2118,48 @@ def families2_phases(get_config, fp32_path):
     torch.cuda.empty_cache()
     require(all(path[k] > 0 for k in SERVING_KERNELS + ("ssd_chunk_scan",)),
             f"a kernel of the families2 paths never launched: {path}")
+    return path
+
+
+def wide_group_cfg(get_config):
+    """qwen3-moe-30b-a3b's config at Qwen3-235B-A22B's widths, cut to
+    ``WIDE_GROUP_LAYERS`` layers (no new config in the registry)."""
+    base = get_config("qwen3-moe-30b-a3b")
+    return base.replace(n_layers=WIDE_GROUP_LAYERS,
+                        moe=dataclasses.replace(base.moe, **WIDE_GROUP_MOE),
+                        **WIDE_GROUP_WIDTHS)
+
+
+def wide_group_engine_phase(get_config):
+    """The slice's path: Qwen3-235B-A22B's widths (a group of 16 query
+    heads a kv head, decoded in two chunks of 8) through the dense and the
+    paged ``BatchingEngine`` in bf16, the gates of the MoE engines, then
+    the dense decode step profiled. Returns the path's launches."""
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.decode_attention import head_chunks
+    from repro_torch.models import Model
+    cfg = wide_group_cfg(get_config)
+    g = cfg.n_heads // cfg.n_kv_heads
+    require(g == 16 and head_chunks(g, cfg.resolved_head_dim) == (8, 2),
+            f"wide_group_engine: group {g} is not Qwen3-235B-A22B's 16")
+    cut = (f"n_layers 94 -> {cfg.n_layers} (qwen3-moe-30b-a3b's config at "
+           "Qwen3-235B-A22B's widths; fp32 weights and their bf16 casts on "
+           "80 GB, chip time)")
+    t_phase = time.monotonic()
+    params = seeded_params(Model(cfg, device=DEV), SEED + 50)
+    prompts = workload(cfg.vocab_size)
+    _lib.launches.reset()                   # the slice's serving path
+    engine_phase("wide_group_engine", cfg, params, prompts, False, cut)
+    engine_phase("wide_group_engine", cfg, params, prompts, True, cut)
+    path = dict(_lib.launches)
+    require(all(path[k] > 0 for k in SERVING_KERNELS),
+            f"wide_group_engine: a kernel of its path never launched: {path}")
+    profile_phase("profile_wide_group_dense_decode", cfg, params, prompts,
+                  False)
+    emit(dict(phase="wide_group_engine_path", launches=path,
+              wall_s=time.monotonic() - t_phase))
+    del params
+    torch.cuda.empty_cache()
     return path
 
 
@@ -4313,6 +4417,27 @@ def main():
                   if v["spill_bytes"]}
         require(not spills, f"flash_attention: {kern} spills registers "
                 f"(bytes by head dim): {spills}")
+    # the registry's static shared memory a block (what the tuner and
+    # rc3e-check read) against ptxas's, at every decode instantiation
+    from repro_torch.kernels import registry as kreg
+    fp = kreg.kernel_footprints()
+    kv_names = {"float": "float32", "__nv_bfloat16": "bfloat16",
+                "signed char": "int8"}
+    seen = set()
+    for k, v in ptxas["decode_attention"].items():
+        m = re.search(r"decode_(split|merge)_kernel<([^,]+), ([^,]+), "
+                      r"\(bool\)\d, \(int\)(\d+)(?:, \(int\)(\d+))?>", k)
+        require(m is not None, f"decode_attention: unparsed kernel {k}")
+        kind, _, kt, d, g = m.groups()
+        key = f"decode_split/D{d}/G{g}" if kind == "split" \
+            else f"decode_merge/D{d}/{kv_names[kt]}"
+        require(fp.get(key) == v["smem_bytes"],
+                f"registry {key}: {fp.get(key)} bytes of shared memory, "
+                f"ptxas {v['smem_bytes']}")
+        seen.add(key)
+    listed = {k for k in fp if k.startswith("decode_")}
+    require(seen == listed, f"decode_attention: built {sorted(seen - listed)}"
+            f" beyond the registry, missing {sorted(listed - seen)}")
     # the redesigned 2-D matmul and SSD: on the tensor cores, no spills
     for lib, kerns in (("stream_matmul", ("mm_kernel",)),
                        ("ssd_chunk_scan", ("ssd_prep_kernel",
@@ -4431,6 +4556,8 @@ def main():
 
     # the remaining families: MoE, MLA, VLM, hybrid, encoder-decoder
     families2_path = families2_phases(get_config, fp32_path)
+    # this slice: a group of 16 at Qwen3-235B-A22B's widths
+    wide_path = wide_group_engine_phase(get_config)
     _lib.launches.reset()                   # whisper through the engine
     whisper_engine_path = whisper_engine_phase(get_config)
 
@@ -4478,7 +4605,7 @@ def main():
                       flash_attention=gateway_path["flash_attention"])
     path_launches = {k: serving_path[k] + families_path[k] + fleet_main[k]
                      + families2_path[k] + autotune_path[k]
-                     + whisper_engine_path[k]
+                     + whisper_engine_path[k] + wide_path[k]
                      + sum(got[k] for got in harness_path.values())
                      for k in SERVING_KERNELS}
     path_launches["stream_matmul"] = (rc3e_path["stream_matmul"]
@@ -4519,7 +4646,8 @@ def main():
                 **{p: got[name] for p, got in harness_path.items()},
                 "families2": families2_path[name],
                 "autotune": autotune_path[name],
-                "whisper_engine": whisper_engine_path[name]}
+                "whisper_engine": whisper_engine_path[name],
+                "wide_group_engine": wide_path[name]}
         if name == "ssd_chunk_scan":
             row["launches_by_path"] = {
                 "ssm_serve": ssm_path[name],

@@ -75,8 +75,10 @@ class GeometryConfig:
 
     ``kernel_force`` is read: "" runs the CUDA kernels on CUDA tensors and
     the plain versions on CPU tensors; "ref" forces the plain versions on
-    any device. The reference's "kernel" and "interpret" are TPU modes,
-    which the port refuses."""
+    any device; "kernel" (the reference's "force the kernel") runs the CUDA
+    kernels and raises on a tensor off the card. The reference's
+    "interpret" (Pallas's interpreter) has no counterpart for CUDA sources,
+    and the port refuses it."""
 
     decode_block_k: int = 512
     flash_block_q: int = 256

@@ -1,6 +1,8 @@
 // Causal flash attention (prefill) for Hopper (sm_90a): GQA, blocked online
 // softmax with an fp32 accumulator, optional sliding window and tanh logit
-// softcap, ragged sequence lengths, head dims 32, 64, 96, 112, 128 and 256.
+// softcap, ragged sequence lengths, head dims 32, 64, 96, 112, 128 and 256
+// (compiled exactly) and any multiple of 8 from 264 to 512 (the 384 and 512
+// builds read the true width in place; see "Head dims past 256" below).
 //
 // Replaces the Pallas TPU kernel flash_attention (_flash_kernel) in
 // src/repro/kernels/flash_attention.py.
@@ -66,6 +68,26 @@
 //   spilled at 255): both halves score the same keys, 1.5x the mma work.
 //   What bounds it (by count): issue, about 3 split and load instructions
 //   an mma, near the tensor pipe's own rate.
+//
+// Head dims past 256 (kExactMaxD): the builds for D 384 and 512 take any
+// multiple of 8 above 256 up to their D. Rows are copied in place: a
+// 16-byte chunk at or past the true width a.D is zero-filled by cp.async
+// (src-size 0), not read, so a width between the builds moves no padding
+// bytes; k-steps of Q K^T wholly past a.D, and O tiles past it, are
+// skipped, and only columns below a.D are stored. What is left idle is the
+// part of the last k-step and of the last batch of O tiles past a.D (D 264
+// on the 384 build: 8 of 272 score columns, 8 of 264 output columns a
+// half). What binds there: shared memory and registers.
+//   * bf16: O of a 16-row strip is D / 2 fp32 registers a lane (256 at D
+//     512, past the 255 cap), so two halves of 4 warps each keep half of
+//     O's columns (as fp32 at D 256); both score the same keys (1.5x the
+//     mma work of one). One warp set: (64 + 2*2*32) rows of D bf16 are 192
+//     KB at D 512; two sets would be 320 KB.
+//   * fp32: a 64-query tile of D + 4 floats is 132 KB at D 512 alone, so
+//     the tile is 32 queries (2 row warps) and the K/V tiles 16 keys
+//     ((32 + 2*2*16) rows: 194 KB at D 512); O is split in D / 128 column
+//     parts of 64 registers a lane (3 at D 384, 4 at D 512), each part
+//     scoring the same keys (S's mma work times the parts).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -91,6 +113,7 @@ namespace {
 
 constexpr int kBQ = 64;      // query rows per block: 16 per warp of a set
 constexpr int kStages = 2;   // groups of kSets K/V tiles in flight
+constexpr int kExactMaxD = 256;  // widest head dim compiled exactly
 constexpr float kLog2e = 1.4426950408889634f;
 
 // ---------------------------------------------------------------------------
@@ -257,7 +280,7 @@ template <int kOT, int kSets, typename T>
 __device__ __forceinline__ void finish(float (&o)[kOT][4], float (&m)[2],
                                        float (&l)[2], float* xs, int set,
                                        int li, T* og, long long o_ss, int ra,
-                                       int col, int S) {
+                                       int col, int S, int n_cols) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
@@ -307,16 +330,19 @@ __device__ __forceinline__ void finish(float (&o)[kOT][4], float (&m)[2],
       const float inv = 1.f / fmaxf(l[r], 1e-30f);
       T* orow = og + (long long)row * o_ss + col;
 #pragma unroll
-      for (int t = 0; t < kOT; ++t)
-        store2(orow + 8 * t, o[t][2 * r] * inv, o[t][2 * r + 1] * inv);
+      for (int t = 0; t < kOT; ++t)  // n_cols: this warp's columns below D
+        if (8 * t < n_cols)
+          store2(orow + 8 * t, o[t][2 * r] * inv, o[t][2 * r + 1] * inv);
     }
   }
 }
 
-// The key range of query tile q0: causal (keys <= last query) and window.
-__device__ __forceinline__ void key_range(const FlashArgs& a, int q0, int bk,
-                                          int* k_begin, int* n_tiles) {
-  const int k_end = min(q0 + kBQ, a.S);
+// The key range of the bq-query tile q0: causal (keys <= last query) and
+// window.
+__device__ __forceinline__ void key_range(const FlashArgs& a, int q0, int bq,
+                                          int bk, int* k_begin,
+                                          int* n_tiles) {
+  const int k_end = min(q0 + bq, a.S);
   int kb = a.window ? max(0, q0 - a.window + 1) : 0;
   kb = (kb / bk) * bk;
   *k_begin = kb;
@@ -329,9 +355,12 @@ __device__ __forceinline__ void key_range(const FlashArgs& a, int q0, int bk,
 
 template <int D>
 struct MmaCfg {
+  static constexpr bool kMasked = D > kExactMaxD;  // true D <= D, in place
   static constexpr int kBK = D >= 256 ? 32 : 64;  // keys a K/V tile
-  static constexpr int kSets = 2;
-  static constexpr int kWarps = 4 * kSets;
+  static constexpr int kSets = kMasked ? 1 : 2;
+  // past 256: two halves of 4 warps, each with half of O's columns
+  static constexpr int kHalves = kMasked ? 2 : 1;
+  static constexpr int kWarps = 4 * kSets * kHalves;
   // elements a shared row: whole groups of 8 16-byte chunks (D 32: 4)
   static constexpr int kLd = D <= 32 ? 32 : (D + 63) / 64 * 64;
   static constexpr bool kQReg = D <= 128;  // Q fragments kept in registers
@@ -354,11 +383,13 @@ __device__ __forceinline__ int swz(int row, int chunk) {
 }
 
 // kRows rows of a [S][D] bf16 matrix (row stride ss) into a swizzled
-// tile; rows at or past S are zero-filled.
+// tile; rows at or past S, and 16-byte chunks at or past nc (the true
+// width's), are zero-filled.
 template <int D, int kRows>
 __device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
                                                const __nv_bfloat16* src,
-                                               long long ss, int r0, int S) {
+                                               long long ss, int r0, int S,
+                                               int nc) {
   constexpr int kChunks = D / 8;
   constexpr int kThreads = MmaCfg<D>::kWarps * 32;
   constexpr int kN = kRows * kChunks;
@@ -369,9 +400,10 @@ __device__ __forceinline__ void load_tile_bf16(__nv_bfloat16* dst,
       const int r = e / kChunks;
       const int c = e - r * kChunks;
       const int gr = r0 + r;
-      const bool in = gr < S;
+      const bool in = gr < S && c < nc;
       cp_async16(smem_addr(dst + swz<D>(r, c)),
-                 src + (long long)(in ? gr : 0) * ss + c * 8, in ? 16 : 0);
+                 src + (long long)(gr < S ? gr : 0) * ss + (in ? c * 8 : 0),
+                 in ? 16 : 0);
     }
   }
 }
@@ -384,7 +416,7 @@ flash_mma_kernel(const FlashArgs a) {
   constexpr int kSets = C::kSets;
   constexpr int kKSteps = D / 16;   // k-steps of Q K^T
   constexpr int kSTiles = kBK / 8;  // n8 tiles of S
-  constexpr int kOTiles = D / 8;    // n8 tiles of O
+  constexpr int kOTiles = D / 8 / C::kHalves;  // n8 tiles of O a warp
   constexpr int kVP = kOTiles / 2;  // x4 loads of V a k-step
   constexpr int kVB = kVP <= 8 ? kVP : 4;  // of which in flight at once
   constexpr int kTile = kBK * C::kLd;      // elements of a K or V tile
@@ -402,7 +434,10 @@ flash_mma_kernel(const FlashArgs a) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int wrow = (warp & 3) * 16;  // this warp's 16 rows of the tile
-  const int set = warp >> 2;
+  const int set = C::kHalves > 1 ? 0 : warp >> 2;
+  const int d0 = C::kHalves > 1 ? (warp >> 2) * (D / 2) : 0;  // O columns
+  const int nd = C::kMasked ? a.D : D;   // the true width
+  const int nc = nd / 8;                 // its 16-byte chunks
   const __nv_bfloat16* qg =
       static_cast<const __nv_bfloat16*>(a.q) + b * a.q_sb + h * a.q_sh;
   const __nv_bfloat16* kg =
@@ -410,10 +445,10 @@ flash_mma_kernel(const FlashArgs a) {
   const __nv_bfloat16* vg =
       static_cast<const __nv_bfloat16*>(a.v) + b * a.v_sb + hk * a.v_sh;
   __nv_bfloat16* og =
-      static_cast<__nv_bfloat16*>(a.out) + b * a.o_sb + h * a.o_sh;
+      static_cast<__nv_bfloat16*>(a.out) + b * a.o_sb + h * a.o_sh + d0;
 
   int k_begin, n_tiles;
-  key_range(a, q0, kBK, &k_begin, &n_tiles);
+  key_range(a, q0, kBQ, kBK, &k_begin, &n_tiles);
   const int n_groups = (n_tiles + kSets - 1) / kSets;
 
   // group i: tiles i*kSets .. i*kSets + kSets-1 (those that exist)
@@ -425,14 +460,14 @@ flash_mma_kernel(const FlashArgs a) {
       if (tile < n_tiles) {
         const int k0 = k_begin + tile * kBK;
         load_tile_bf16<D, kBK>(ks + (st * kSets + j) * kTile, kg, a.k_ss, k0,
-                               a.S);
+                               a.S, nc);
         load_tile_bf16<D, kBK>(vs + (st * kSets + j) * kTile, vg, a.v_ss, k0,
-                               a.S);
+                               a.S, nc);
       }
     }
     cp_async_commit();
   };
-  load_tile_bf16<D, kBQ>(qs, qg, a.q_ss, q0, a.S);
+  load_tile_bf16<D, kBQ>(qs, qg, a.q_ss, q0, a.S, nc);
 #pragma unroll
   for (int i = 0; i < kStages - 1; ++i) load_group(i);  // Q rides group 0
 
@@ -484,6 +519,7 @@ flash_mma_kernel(const FlashArgs a) {
         for (int e = 0; e < 4; ++e) s[t][e] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < kKSteps; ++kk) {
+        if (C::kMasked && 16 * kk >= nd) continue;  // zero columns
         uint32_t qa[4];
         if constexpr (C::kQReg) {
 #pragma unroll
@@ -528,18 +564,19 @@ flash_mma_kernel(const FlashArgs a) {
             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
-        for (int d0 = 0; d0 < kVP; d0 += kVB) {
+        for (int vb = 0; vb < kVP; vb += kVB) {
+          if (C::kMasked && d0 + 16 * vb >= nd) continue;  // past D
           uint32_t bf[kVB][4];
 #pragma unroll
           for (int i = 0; i < kVB; ++i)
             ldmatrix_x4_trans(bf[i],
                               smem_addr(vt + swz<D>(kk * 16 + (lane & 15),
-                                                    2 * (d0 + i) +
+                                                    d0 / 8 + 2 * (vb + i) +
                                                         (lane >> 4))));
 #pragma unroll
           for (int i = 0; i < kVB; ++i) {
-            mma_bf16(o[2 * (d0 + i)], pa, bf[i][0], bf[i][1]);
-            mma_bf16(o[2 * (d0 + i) + 1], pa, bf[i][2], bf[i][3]);
+            mma_bf16(o[2 * (vb + i)], pa, bf[i][0], bf[i][1]);
+            mma_bf16(o[2 * (vb + i) + 1], pa, bf[i][2], bf[i][3]);
           }
         }
       }
@@ -547,7 +584,8 @@ flash_mma_kernel(const FlashArgs a) {
     __syncthreads();  // this stage is consumed before it is refilled
   }
   finish<kOTiles, kSets>(o, m, l, reinterpret_cast<float*>(ks), set,
-                         (warp & 3) * 32 + lane, og, a.o_ss, ra, col, a.S);
+                         (warp & 3) * 32 + lane, og, a.o_ss, ra, col, a.S,
+                         nd - d0);
 }
 
 // ---------------------------------------------------------------------------
@@ -556,12 +594,17 @@ flash_mma_kernel(const FlashArgs a) {
 
 template <int D>
 struct Tf32Cfg {
-  static constexpr int kBK = D <= 64 ? 64 : 32;  // keys a K/V tile
+  static constexpr bool kMasked = D > kExactMaxD;  // true D <= D, in place
+  // past 256: 32-query tiles and 16-key K/V tiles (shared memory)
+  static constexpr int kBQ = kMasked ? ::kBQ / 2 : ::kBQ;
+  static constexpr int kRowWarps = kBQ / 16;
+  static constexpr int kBK = D <= 64 ? 64 : kMasked ? 16 : 32;  // keys a tile
   // D 256: one warp set whose O columns are split between two halves of 4
-  // warps (each half scores the same keys; 64 O registers a lane, not 128)
+  // warps (each half scores the same keys; 64 O registers a lane, not 128);
+  // past 256, D / 128 parts of 64 registers
   static constexpr int kSets = D >= 256 ? 1 : 2;
-  static constexpr int kHalves = D >= 256 ? 2 : 1;
-  static constexpr int kWarps = 4 * kSets * kHalves;
+  static constexpr int kHalves = kMasked ? D / 128 : D >= 256 ? 2 : 1;
+  static constexpr int kWarps = kRowWarps * kSets * kHalves;
   static constexpr int kLd = D + 4;  // floats a shared row
   static constexpr int kSmem = (kBQ + 2 * kStages * kSets * kBK) * kLd * 4;
   static_assert(kSmem <= 232448, "shared memory a block may use");
@@ -571,10 +614,12 @@ struct Tf32Cfg {
 };
 
 // kRows rows of a [S][D] fp32 matrix (row stride ss) into a [kRows][kLd]
-// tile; rows at or past S are zero-filled.
+// tile; rows at or past S, and 16-byte chunks at or past nc, are
+// zero-filled.
 template <int D, int kRows>
 __device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
-                                              long long ss, int r0, int S) {
+                                              long long ss, int r0, int S,
+                                              int nc) {
   constexpr int kChunks = D / 4;
   constexpr int kThreads = Tf32Cfg<D>::kWarps * 32;
   constexpr int kN = kRows * kChunks;
@@ -585,9 +630,10 @@ __device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
       const int r = e / kChunks;
       const int c = e - r * kChunks;
       const int gr = r0 + r;
-      const bool in = gr < S;
+      const bool in = gr < S && c < nc;
       cp_async16(smem_addr(dst + r * Tf32Cfg<D>::kLd + c * 4),
-                 src + (long long)(in ? gr : 0) * ss + c * 4, in ? 16 : 0);
+                 src + (long long)(gr < S ? gr : 0) * ss + (in ? c * 4 : 0),
+                 in ? 16 : 0);
     }
   }
 }
@@ -596,6 +642,7 @@ template <int D>
 __global__ void __launch_bounds__(Tf32Cfg<D>::kWarps * 32, 1)
 flash_tf32_kernel(const FlashArgs a) {
   using C = Tf32Cfg<D>;
+  constexpr int kBQ = C::kBQ;
   constexpr int kBK = C::kBK;
   constexpr int kSets = C::kSets;
   constexpr int kLd = C::kLd;
@@ -615,9 +662,12 @@ flash_tf32_kernel(const FlashArgs a) {
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // longest first
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int wrow = (warp & 3) * 16;  // this warp's 16 rows of the tile
-  const int set = C::kHalves > 1 ? 0 : warp >> 2;
-  const int d0 = C::kHalves > 1 ? (warp >> 2) * (D / 2) : 0;  // O columns
+  const int wrow = (warp % C::kRowWarps) * 16;  // this warp's 16 rows
+  const int part = warp / C::kRowWarps;
+  const int set = C::kHalves > 1 ? 0 : part;
+  const int d0 = C::kHalves > 1 ? part * (D / C::kHalves) : 0;  // O columns
+  const int nd = C::kMasked ? a.D : D;   // the true width
+  const int nc = nd / 4;                 // its 16-byte chunks
   const int gq = lane >> 2;  // fragment row (A, C) / column (B)
   const int tq = lane & 3;   // fragment column (A) / row (B)
   const float* qg = static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh;
@@ -628,7 +678,7 @@ flash_tf32_kernel(const FlashArgs a) {
   float* og = static_cast<float*>(a.out) + b * a.o_sb + h * a.o_sh + d0;
 
   int k_begin, n_tiles;
-  key_range(a, q0, kBK, &k_begin, &n_tiles);
+  key_range(a, q0, kBQ, kBK, &k_begin, &n_tiles);
   const int n_groups = (n_tiles + kSets - 1) / kSets;
 
   auto load_group = [&](int i) {
@@ -639,14 +689,14 @@ flash_tf32_kernel(const FlashArgs a) {
       if (tile < n_tiles) {
         const int k0 = k_begin + tile * kBK;
         load_tile_f32<D, kBK>(ks + (st * kSets + j) * kTile, kg, a.k_ss, k0,
-                              a.S);
+                              a.S, nc);
         load_tile_f32<D, kBK>(vs + (st * kSets + j) * kTile, vg, a.v_ss, k0,
-                              a.S);
+                              a.S, nc);
       }
     }
     cp_async_commit();
   };
-  load_tile_f32<D, kBQ>(qs, qg, a.q_ss, q0, a.S);
+  load_tile_f32<D, kBQ>(qs, qg, a.q_ss, q0, a.S, nc);
 #pragma unroll
   for (int i = 0; i < kStages - 1; ++i) load_group(i);  // Q rides group 0
 
@@ -685,6 +735,7 @@ flash_tf32_kernel(const FlashArgs a) {
         for (int e = 0; e < 4; ++e) s[t][e] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < kKSteps; ++kk) {
+        if (C::kMasked && 8 * kk >= nd) continue;  // zero columns
         uint32_t ah[4], al[4];
         split_tf32(qrow[8 * kk], ah[0], al[0]);
         split_tf32(qrow[8 * kLd + 8 * kk], ah[1], al[1]);
@@ -726,6 +777,7 @@ flash_tf32_kernel(const FlashArgs a) {
         const float* vr = vt + (8 * kk + 2 * tq) * kLd + d0 + gq;
 #pragma unroll
         for (int dt = 0; dt < kOTiles; ++dt) {
+          if (C::kMasked && d0 + 8 * dt >= nd) continue;  // past D
           uint32_t bh[2], bl[2];
           split_tf32(vr[8 * dt], bh[0], bl[0]);
           split_tf32(vr[kLd + 8 * dt], bh[1], bl[1]);
@@ -736,7 +788,7 @@ flash_tf32_kernel(const FlashArgs a) {
     __syncthreads();  // this stage is consumed before it is refilled
   }
   finish<kOTiles, kSets>(o, m, l, ks, set, (warp & 3) * 32 + lane, og,
-                         a.o_ss, ra, col, a.S);
+                         a.o_ss, ra, col, a.S, nd - d0);
 }
 
 // ---------------------------------------------------------------------------
@@ -744,14 +796,14 @@ flash_tf32_kernel(const FlashArgs a) {
 // ---------------------------------------------------------------------------
 
 template <typename Kernel>
-int launch(Kernel kernel, int threads, int bytes, const FlashArgs& a,
+int launch(Kernel kernel, int threads, int bytes, int bq, const FlashArgs& a,
            cudaStream_t stream) {
   if (bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  const dim3 grid(a.B * a.Hq, (a.S + kBQ - 1) / kBQ);
+  const dim3 grid(a.B * a.Hq, (a.S + bq - 1) / bq);
   kernel<<<grid, threads, bytes, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
@@ -759,17 +811,26 @@ int launch(Kernel kernel, int threads, int bytes, const FlashArgs& a,
 template <int D>
 int launch_mma_d(const FlashArgs& a, cudaStream_t stream) {
   using C = MmaCfg<D>;
-  return launch(flash_mma_kernel<D>, C::kWarps * 32, C::kSmem, a, stream);
+  return launch(flash_mma_kernel<D>, C::kWarps * 32, C::kSmem, kBQ, a,
+                stream);
 }
 
 template <int D>
 int launch_tf32_d(const FlashArgs& a, cudaStream_t stream) {
   using C = Tf32Cfg<D>;
-  return launch(flash_tf32_kernel<D>, C::kWarps * 32, C::kSmem, a, stream);
+  return launch(flash_tf32_kernel<D>, C::kWarps * 32, C::kSmem, C::kBQ, a,
+                stream);
 }
 
 bool bad_args(const FlashArgs* a) {
   return a->Hkv <= 0 || a->Hq % a->Hkv != 0;
+}
+
+// past kExactMaxD: a multiple of 8 up to 512, read in place by the next
+// build (0: none takes it)
+int wide_build(int D) {
+  if (D % 8 != 0 || D <= kExactMaxD || D > 512) return 0;
+  return D <= 384 ? 384 : 512;
 }
 
 }  // namespace
@@ -784,6 +845,11 @@ extern "C" int rt_flash_attention_f32(const FlashArgs* a, void* stream) {
     case 112: return launch_tf32_d<112>(*a, s);
     case 128: return launch_tf32_d<128>(*a, s);
     case 256: return launch_tf32_d<256>(*a, s);
+    default: break;
+  }
+  switch (wide_build(a->D)) {
+    case 384: return launch_tf32_d<384>(*a, s);
+    case 512: return launch_tf32_d<512>(*a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -798,6 +864,11 @@ extern "C" int rt_flash_attention_bf16(const FlashArgs* a, void* stream) {
     case 112: return launch_mma_d<112>(*a, s);
     case 128: return launch_mma_d<128>(*a, s);
     case 256: return launch_mma_d<256>(*a, s);
+    default: break;
+  }
+  switch (wide_build(a->D)) {
+    case 384: return launch_mma_d<384>(*a, s);
+    case 512: return launch_mma_d<512>(*a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -4,9 +4,11 @@
 Replaces the Pallas kernels ``repro.kernels.decode_attention.decode_attention``
 and ``paged_decode_attention`` with one hand-written split-K CUDA kernel
 pair (``csrc/decode_attention.cu``): a split pass over (sequence, kv head,
-row range) blocks that writes unnormalised fp32 partials, and a merge pass
-that combines them. A dense cache is the paged case with one "page" per
-sequence. ``split_plan`` picks the number of splits from shapes alone. Beside
+chunk of query heads, row range) blocks that writes unnormalised fp32
+partials, and a merge pass that combines them. A dense cache is the paged
+case with one "page" per sequence. ``head_chunks`` cuts a kv head's group
+of query heads into the chunks a block holds (any group, MQA included) and
+``split_plan`` picks the number of splits, both from shapes alone. Beside
 them, the plain PyTorch versions (``decode_attention_ref``,
 ``paged_decode_attention_ref``, ported from ``repro.kernels.ref``) serve
 CPU tensors and are what the kernels are held against; ``decode_partials_ref``
@@ -37,11 +39,15 @@ import torch
 
 from repro_torch.kernels import _lib
 
-MAX_GROUP = 8                  # query heads per kv head the kernel holds
+CHUNK_HEADS = 8                # query heads a decode block holds at most
+WIDE_CHUNK_HEADS = 4           # the same past MAX_PADDED_HEAD_DIM
 # the head dims the three attention kernels are built for: those of every
-# dense and hybrid config; another multiple of 8 up to 256 is zero-padded
-# to the next of them (``padded_head_dim``)
-HEAD_DIMS = (32, 64, 96, 112, 128, 256)
+# dense and hybrid config, then 384 and 512. Another multiple of 8 up to
+# MAX_PADDED_HEAD_DIM is zero-padded to the next of them; one above it runs
+# on the next of them in place, the kernel masking the row's tail
+# (``padded_head_dim``)
+HEAD_DIMS = (32, 64, 96, 112, 128, 256, 384, 512)
+MAX_PADDED_HEAD_DIM = 256
 MIN_SPLIT_ROWS = 64            # floor of rows a split sweeps
 SPLIT_WAVES = 2                # aim for this many blocks per SM
 MAX_SPLITS = 128               # the merge pass's limit
@@ -133,6 +139,19 @@ def split_plan(bh: int, capacity: int, sm_count: int,
     return -(-capacity // rows), rows
 
 
+def head_chunks(g: int, D: int) -> Tuple[int, int]:
+    """(heads a block, chunks) for a kv head's group of ``g`` query heads
+    at head dim ``D``: a block holds at most ``CHUNK_HEADS`` heads
+    (``WIDE_CHUNK_HEADS`` past ``MAX_PADDED_HEAD_DIM``: registers), so a
+    larger group runs in ``ceil(g / most)`` chunks of ``ceil(g / chunks)``
+    heads, the last holding the rest; chunk c covers heads ``c * heads``
+    .. ``min(g, (c + 1) * heads) - 1`` of the group, and each reads the kv
+    head's rows itself."""
+    most = CHUNK_HEADS if D <= MAX_PADDED_HEAD_DIM else WIDE_CHUNK_HEADS
+    n = -(-g // most)
+    return -(-g // n), n
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -215,17 +234,22 @@ def merge_by_lse(o, lse):
 
 def padded_head_dim(name: str, D: int) -> int:
     """The head dim the kernels run a head dim ``D`` at: ``D`` itself when
-    it is in ``HEAD_DIMS``, else, for a multiple of 8 up to 256 (the
+    it is in ``HEAD_DIMS``, else, for a multiple of 8 up to the largest (the
     reference's kernels take any multiple of 8), the next member of the set.
-    Zero columns appended to q, k and v leave q·k unchanged and add zero
+    Up to ``MAX_PADDED_HEAD_DIM`` the wrappers zero-pad q, k and v to it
+    (``pads_head_dim``): zero columns leave q·k unchanged and add zero
     columns to the output, so the caller pads, passes the true scale
-    ``D ** -0.5`` and slices the output back to ``D``. Raises for others."""
+    ``D ** -0.5`` and slices the output back to ``D``. Above it the kernel
+    built for that width reads the true ``D`` in place and masks the rest.
+    Raises for others, naming the largest width."""
     if D in HEAD_DIMS:
         return D
-    if D % 8 or D > HEAD_DIMS[-1]:
-        raise ValueError(f"{name}: head dim {D} (kernel takes {HEAD_DIMS}, "
-                         f"and other multiples of 8 up to {HEAD_DIMS[-1]} "
-                         "zero-padded to the next of them)")
+    if D % 8 or D < 8 or D > HEAD_DIMS[-1]:
+        raise ValueError(f"{name}: head dim {D}: the attention kernels take "
+                         f"a multiple of 8 up to {HEAD_DIMS[-1]} (built for "
+                         f"{HEAD_DIMS}; others up to {MAX_PADDED_HEAD_DIM} "
+                         "zero-padded to the next of them, others past it "
+                         "read in place)")
     return next(d for d in HEAD_DIMS if d > D)
 
 
@@ -240,10 +264,11 @@ def pad_head_dim(x: torch.Tensor, Dp: int) -> torch.Tensor:
 def pads_head_dim(name: str):
     """Decorator for an attention function ``fn(q, k, v, *args, scale=...,
     **kw)`` whose q, k and v share their last dim ``D``: where ``D`` is not
-    in ``HEAD_DIMS``, ``fn`` runs on q, k and v zero-padded to
-    ``padded_head_dim(name, D)`` with the true scale and its output is
-    sliced back to ``D``. The padding copies q, k and v (or the pools) on
-    every call."""
+    in ``HEAD_DIMS`` and at most ``MAX_PADDED_HEAD_DIM``, ``fn`` runs on q,
+    k and v zero-padded to ``padded_head_dim(name, D)`` with the true scale
+    and its output is sliced back to ``D``. The padding copies q, k and v
+    (or the pools) on every call; above ``MAX_PADDED_HEAD_DIM`` nothing is
+    copied (the kernels read the true width in place)."""
 
     def wrap(fn):
         @functools.wraps(fn)
@@ -251,7 +276,7 @@ def pads_head_dim(name: str):
             D = q.shape[-1]
             Dp = padded_head_dim(name, D) \
                 if k.shape[-1] == v.shape[-1] == D else D
-            if Dp == D:
+            if Dp == D or D > MAX_PADDED_HEAD_DIM:
                 return fn(q, k, v, *args, scale=scale, **kw)
             out = fn(pad_head_dim(q, Dp), pad_head_dim(k, Dp),
                      pad_head_dim(v, Dp), *args, scale=scale or D ** -0.5,
@@ -278,7 +303,8 @@ class _Args(ctypes.Structure):
         "B", "Hq", "Hkv", "D", "nb", "ps", "ps_shift", "window", "n_split",
         "split_rows")] + [
         ("scale", ctypes.c_float), ("dtype", ctypes.c_int),
-        ("quant", ctypes.c_int), ("lse", ctypes.c_void_p)]
+        ("quant", ctypes.c_int), ("lse", ctypes.c_void_p),
+        ("chunk", ctypes.c_int)]
 
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -324,11 +350,9 @@ def _check_common(name, q, k, v, kpos, cur, k_scale, v_scale):
     if k.shape[-1] != D or v.shape[-1] != D:
         raise ValueError(f"{name}: q/k/v head dims {D}/{k.shape[-1]}/"
                          f"{v.shape[-1]} differ")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {D} (kernel takes {HEAD_DIMS})")
-    if Hq % Hkv or Hq // Hkv > MAX_GROUP:
-        raise ValueError(f"{name}: Hq={Hq} Hkv={Hkv}: need Hq % Hkv == 0 and "
-                         f"at most {MAX_GROUP} query heads per kv head")
+    padded_head_dim(name, D)        # raises for a width no build takes
+    if Hkv < 1 or Hq % Hkv:
+        raise ValueError(f"{name}: Hq={Hq} Hkv={Hkv}: need Hq % Hkv == 0")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError(f"{name}: the head dim of q/k/v must be contiguous")
     for t, what in ((k, "k"), (v, "v")):      # rows read as vectors
@@ -348,7 +372,9 @@ def _launch(name, q, k, v, kpos, cur, bt, k_scale, v_scale, window, scale,
     cur = cur.contiguous()
     dev = q.device.index
     dev = torch.cuda.current_device() if dev is None else dev
-    n_split, rows = split_plan(B * k.shape[1], nb * ps, _sm_count(dev),
+    Hkv = k.shape[1]
+    chunk, n_chunks = head_chunks(Hq // Hkv, D)
+    n_split, rows = split_plan(B * Hkv * n_chunks, nb * ps, _sm_count(dev),
                                unit=ps if bt is not None else 16)
     # one workspace: acc (B, Hq, n_split, D), then m and l (B, Hq, n_split)
     n_ml = B * Hq * n_split
@@ -372,11 +398,12 @@ def _launch(name, q, k, v, kpos, cur, bt, k_scale, v_scale, window, scale,
         kp_sp=kpos.stride(0), kp_sl=kpos.stride(1),
         bt_sb=bt.stride(0) if bt is not None else 0,
         o_sb=out.stride(0), o_sh=out.stride(1),
-        B=B, Hq=Hq, Hkv=k.shape[1], D=D, nb=nb, ps=ps,
+        B=B, Hq=Hq, Hkv=Hkv, D=D, nb=nb, ps=ps,
         ps_shift=ps.bit_length() - 1 if ps & (ps - 1) == 0 else -1,
         window=int(window), n_split=n_split, split_rows=rows,
         scale=float(scale or D ** -0.5), dtype=_DTYPES[q.dtype],
-        quant=int(quant), lse=lse.data_ptr() if lse is not None else None)
+        quant=int(quant), lse=lse.data_ptr() if lse is not None else None,
+        chunk=chunk)
     lib, fn = _entry()
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = fn(ctypes.byref(a), stream)      # the split and the merge pass
@@ -391,8 +418,9 @@ def decode_attention_cuda(q, k, v, kpos, cur, *, window: int = 0,
                           scale: float = 0.0, k_scale=None, v_scale=None,
                           return_lse: bool = False):
     """The CUDA kernel on a dense cache; arguments and results as
-    ``decode_attention_ref`` (the merge pass writes the log-sum-exp). A
-    head dim outside ``HEAD_DIMS`` runs zero-padded (``pads_head_dim``)."""
+    ``decode_attention_ref`` (the merge pass writes the log-sum-exp). Any
+    group of query heads a kv head (``head_chunks``); a head dim outside
+    ``HEAD_DIMS`` runs as ``padded_head_dim`` says."""
     name = "decode_attention"
     quant = _check_common(name, q, k, v, kpos, cur, k_scale, v_scale)
     B, _, D = q.shape
@@ -416,8 +444,8 @@ def paged_decode_attention_cuda(q, k_pool, v_pool, kpos_pool, block_tables,
                                 cur, *, window: int = 0, scale: float = 0.0,
                                 k_scale=None, v_scale=None):
     """The CUDA kernel on a paged pool; arguments as
-    ``paged_decode_attention_ref``. A head dim outside ``HEAD_DIMS`` runs
-    zero-padded (``pads_head_dim``)."""
+    ``paged_decode_attention_ref``. Any group, and a head dim outside
+    ``HEAD_DIMS`` as ``padded_head_dim`` says."""
     name = "paged_decode_attention"
     quant = _check_common(name, q, k_pool, v_pool, kpos_pool, cur, k_scale,
                           v_scale)

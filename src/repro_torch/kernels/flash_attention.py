@@ -6,7 +6,9 @@ with hand-written CUDA kernels (``csrc/flash_attention.cu``), one per dtype,
 both on the tensor cores (``mma.sync``): bfloat16 directly, float32 as
 3xTF32 (each operand split into two TF32 halves, three products each, so
 that the fp32 tolerance holds). Head dims: ``HEAD_DIMS``; another multiple
-of 8 up to 256 runs zero-padded to the next of them. Beside them, the
+of 8 up to 256 runs zero-padded to the next of them, one from 264 to 512 on
+the next of them with its rows read in place (the kernel masks the tail).
+Beside them, the
 plain PyTorch version ``flash_attention_ref`` (ported from
 ``repro.kernels.ref``) serves CPU tensors and is what the kernels are held
 against.
@@ -26,7 +28,8 @@ import functools
 import torch
 
 from repro_torch.kernels import _lib
-from repro_torch.kernels.decode_attention import HEAD_DIMS, pads_head_dim
+from repro_torch.kernels.decode_attention import (padded_head_dim,
+                                                  pads_head_dim)
 
 
 def flash_attention_ref(q, k, v, *, window: int = 0, scale: float = 0.0,
@@ -81,7 +84,7 @@ def flash_attention_cuda(q, k, v, *, window: int = 0, scale: float = 0.0,
     """The CUDA kernel; arguments as ``flash_attention_ref``. The output is
     a (B, Hq, S, D) view of (B, S, Hq, D)-major memory, the layout the
     attention layer consumes next. A head dim outside ``HEAD_DIMS`` runs
-    zero-padded (``pads_head_dim``)."""
+    as ``padded_head_dim`` says."""
     name = "flash_attention"
     if q.device.type != "cuda":
         raise ValueError(f"{name}: the CUDA kernel takes CUDA tensors, got "
@@ -101,8 +104,7 @@ def flash_attention_cuda(q, k, v, *, window: int = 0, scale: float = 0.0,
     Hkv = k.shape[1]
     if tuple(k.shape) != (B, Hkv, S, D) or tuple(v.shape) != (B, Hkv, S, D):
         raise ValueError(f"{name}: k/v must be ({B}, Hkv, {S}, {D})")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"{name}: head dim {D} (kernel takes {HEAD_DIMS})")
+    padded_head_dim(name, D)        # raises for a width no build takes
     if Hq % Hkv:
         raise ValueError(f"{name}: Hq={Hq} not a multiple of Hkv={Hkv}")
     for t, what in ((q, "q"), (k, "k"), (v, "v")):

@@ -7,9 +7,10 @@ rc3e-check kernel pass (``repro_torch.analysis.kernelpass``),
   * the card: an H100 SXM's SMs, shared memory, registers and HBM, and its
     peak rates (the cost model's ceilings);
   * what the CUDA kernels take: their compiled tiles, the head dims and
-    state dims they are built for, the query-head group, the split-K
-    constants, and each kernel's shared memory a block at every head dim
-    and state dim it is built for;
+    state dims they are built for, the query heads a decode block holds
+    (any group runs, in chunks), the split-K constants, and each kernel's
+    shared memory a block at every head dim and state dim it is built
+    for;
   * the axes the tuner may sweep (page size, decode slots, prefill chunk)
     with their legal ranges and defaults;
   * the divisibility and fit rules, each returning ``None`` when legal,
@@ -48,10 +49,13 @@ PEAK_FLOPS: Dict[str, float] = {     # dense, per second
 # What the kernels take
 # ---------------------------------------------------------------------------
 # the attention kernels' head dims; another multiple of HEAD_ALIGN up to
-# the largest is zero-padded to the next of them
-HEAD_DIMS: Tuple[int, ...] = (32, 64, 96, 112, 128, 256)
+# the largest runs on the next of them: zero-padded up to
+# MAX_PADDED_HEAD_DIM (kExactMaxD), read in place (its tail masked) above
+HEAD_DIMS: Tuple[int, ...] = (32, 64, 96, 112, 128, 256, 384, 512)
 HEAD_ALIGN = 8
-MAX_GROUP = 8                        # query heads a kv head (decode)
+MAX_PADDED_HEAD_DIM = 256
+CHUNK_HEADS = 8                      # query heads a decode block holds
+WIDE_CHUNK_HEADS = 4                 # the same past MAX_PADDED_HEAD_DIM
 STATE_DIMS: Tuple[int, ...] = (16, 64, 128)   # the SSD's d_state
 
 # split-K decode (decode_attention.split_plan)
@@ -63,6 +67,7 @@ MAX_SPLITS = 128
 DECODE_WARPS = 8                     # warps of a split block (kWarps)
 DECODE_LOADS = 2                     # row loads a lane an iteration (kLoads)
 DECODE_GROUPS: Tuple[int, ...] = (4, 8)   # G the split kernel is built for
+                                          # (WIDE_CHUNK_HEADS past 256)
 DECODE_MERGE_THREADS = 256           # kMergeThreads
 FLASH_BQ = 64                        # query rows a block
 FLASH_STAGES = 2                     # groups of K/V tiles in flight
@@ -110,20 +115,28 @@ def padded_head_dim(head_dim: int) -> Optional[int]:
 
 
 def check_head_dim(head_dim: int) -> Optional[str]:
+    """The wrappers' own refusal: a multiple of ``HEAD_ALIGN`` up to the
+    largest of ``HEAD_DIMS``."""
     if padded_head_dim(head_dim) is None:
-        return (f"head_dim={head_dim} is neither in {HEAD_DIMS} nor a "
-                f"multiple of {HEAD_ALIGN} up to {HEAD_DIMS[-1]}")
+        return (f"head_dim={head_dim} is refused: the attention kernels "
+                f"take a multiple of {HEAD_ALIGN} up to {HEAD_DIMS[-1]} "
+                f"(built for {HEAD_DIMS})")
     return None
 
 
 def check_group(n_heads: int, n_kv_heads: int) -> Optional[str]:
-    """Decode holds at most ``MAX_GROUP`` query heads a kv head."""
+    """Any group of query heads a kv head (decode runs a group past
+    ``CHUNK_HEADS`` in chunks, ``decode_attention.head_chunks``); the heads
+    must divide."""
     if n_kv_heads < 1 or n_heads % n_kv_heads:
         return f"n_heads={n_heads} not a multiple of n_kv_heads={n_kv_heads}"
-    if n_heads // n_kv_heads > MAX_GROUP:
-        return (f"group {n_heads // n_kv_heads} > {MAX_GROUP} query heads "
-                "a kv head")
     return None
+
+
+def decode_groups(head_dim: int) -> Tuple[int, ...]:
+    """The G the split kernel is built for at ``head_dim``."""
+    return DECODE_GROUPS if head_dim <= MAX_PADDED_HEAD_DIM \
+        else (WIDE_CHUNK_HEADS,)
 
 
 def check_state_dim(d_state: int) -> Optional[str]:
@@ -171,34 +184,39 @@ def _lanes_a_row(head_dim: int, kv_dtype: str) -> int:
 
 
 def decode_split_smem_bytes(head_dim: int, group: int) -> int:
-    """``decode_split_kernel``'s static arrays: the idle-slot V sums
-    (kWarps x D) and the warps' (m, l, acc) buffer of kBuf warps (all
-    kWarps while their acc fits 32 KB, else half)."""
+    """``decode_split_kernel``'s static arrays at its G ``group``: the
+    warps' (m, l) and acc buffer of kBuf warps (all kWarps while their acc
+    fits 32 KB, else half), whose storage also holds an idle slot's
+    per-warp V sums (kWarps x D)."""
     acc = DECODE_WARPS * group * head_dim * 4
     buf = DECODE_WARPS if acc <= 32768 else DECODE_WARPS // 2
-    return 4 * (DECODE_WARPS * head_dim + buf * group * (head_dim + 2))
+    return 4 * (max(DECODE_WARPS * head_dim, buf * group * head_dim)
+                + 2 * buf * group)
 
 
 def decode_merge_smem_bytes(head_dim: int, kv_dtype: str) -> int:
-    """``decode_merge_kernel``'s static arrays: split weights (MAX_GROUP x
-    MAX_SPLITS), the heads' maxima, and the V row sums of one pass."""
+    """``decode_merge_kernel``'s static arrays: split weights (CHUNK_HEADS
+    x MAX_SPLITS), the heads' maxima, and the V row sums of one pass."""
     rows = DECODE_MERGE_THREADS // _lanes_a_row(head_dim, kv_dtype)
-    return 4 * (MAX_GROUP * MAX_SPLITS + MAX_GROUP + rows * head_dim)
+    return 4 * (CHUNK_HEADS * MAX_SPLITS + CHUNK_HEADS + rows * head_dim)
 
 
 def flash_smem_bytes(head_dim: int, dtype: str) -> int:
     """Dynamic shared memory of a flash block: the Q tile and
     ``FLASH_STAGES`` x sets K and V tiles. bf16 (``MmaCfg``): tiles of 64
-    keys (32 at D 256), rows padded to a multiple of 64 elements (32 at
-    D 32); fp32 3xTF32 (``Tf32Cfg``): tiles of 64 keys at D <= 64 else 32,
-    one set at D 256, rows of D + 4 floats."""
+    keys (32 at D >= 256), two sets (one past 256), rows padded to a
+    multiple of 64 elements (32 at D 32); fp32 3xTF32 (``Tf32Cfg``): tiles
+    of 64 keys at D <= 64, 32 up to 256, 16 past it, one set from D 256,
+    a 32-query tile past 256, rows of D + 4 floats."""
+    wide = head_dim > MAX_PADDED_HEAD_DIM
     if dtype == "bfloat16":
-        bk, sets = (32 if head_dim >= 256 else 64), 2
+        bk, sets = (32 if head_dim >= 256 else 64), (1 if wide else 2)
         ld = 32 if head_dim <= 32 else -(-head_dim // 64) * 64
         return (FLASH_BQ + 2 * FLASH_STAGES * sets * bk) * ld * 2
-    bk = 64 if head_dim <= 64 else 32
+    bk = 64 if head_dim <= 64 else 16 if wide else 32
     sets = 1 if head_dim >= 256 else 2
-    return (FLASH_BQ + 2 * FLASH_STAGES * sets * bk) * (head_dim + 4) * 4
+    bq = FLASH_BQ // 2 if wide else FLASH_BQ
+    return (bq + 2 * FLASH_STAGES * sets * bk) * (head_dim + 4) * 4
 
 
 def matmul_smem_bytes(dtype: str) -> int:
@@ -251,7 +269,7 @@ def kernel_footprints() -> Dict[str, int]:
     dim, dtype and block shape."""
     out: Dict[str, int] = {}
     for d in HEAD_DIMS:
-        for g in DECODE_GROUPS:
+        for g in decode_groups(d):
             out[f"decode_split/D{d}/G{g}"] = decode_split_smem_bytes(d, g)
         for kv in ("float32", "bfloat16", "int8"):
             out[f"decode_merge/D{d}/{kv}"] = decode_merge_smem_bytes(d, kv)

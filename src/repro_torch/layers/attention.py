@@ -14,7 +14,9 @@ same dict is returned).
 Attention over a cache or a causal prefill goes through ``kernels.ops``: the
 hand-written CUDA kernel on a CUDA tensor, its plain PyTorch version on a CPU
 tensor. ``kernel_force="ref"`` selects the plain versions on any device (the
-reference's spelling for "no kernel"). The einsum path (``_attend``) serves
+reference's spelling for "no kernel"); ``"kernel"`` (the reference's "force
+the kernel") runs the kernels as ``""`` does on CUDA and raises on a tensor
+off the card. The einsum path (``_attend``) serves
 what the kernels do not: autograd-recording forwards (the kernels have no
 backward), non-causal or cross attention, and decode with a logit softcap.
 """
@@ -53,16 +55,30 @@ class AttnOpts:
     qk_norm: bool = False
     query_scale: float = 0.0     # 0 -> head_dim ** -0.5
     q_chunk: int = 256           # query-chunk size for long sequences
-    kernel_force: str = ""       # "" = kernel on CUDA | "ref" = plain versions
+    kernel_force: str = ""       # "" = kernel on CUDA | "ref" = plain
+                                 # versions | "kernel" = kernel, or raise
     attn_tp: str = "heads"       # "heads" | "seq" (query positions over
                                  # "model") | "none" (pure DP): mesh hints
 
 
-def _plain(opts: AttnOpts) -> bool:
-    if opts.kernel_force not in ("", "ref"):
-        raise ValueError(f"kernel_force {opts.kernel_force!r}: the port "
-                         "knows '' (kernels on CUDA) and 'ref'")
-    return opts.kernel_force == "ref"
+def _plain(opts, t=None) -> bool:
+    """Whether the plain versions run (``kernel_force="ref"``). Raises for
+    a mode the port lacks, and under ``"kernel"`` where the kernel's input
+    ``t`` lies off the card (a meta tensor passes: admission's shape check
+    runs the plain versions there and launches nothing)."""
+    force = opts.kernel_force
+    if force == "interpret":
+        raise ValueError("kernel_force 'interpret': the port's kernels are "
+                         "CUDA sources, and no interpreter runs them off the "
+                         "card; 'ref' runs their plain PyTorch versions")
+    if force not in ("", "ref", "kernel"):
+        raise ValueError(f"kernel_force {force!r}: the port knows '' "
+                         "(kernels on CUDA), 'kernel' and 'ref'")
+    if force == "kernel" and t is not None \
+            and t.device.type not in ("cuda", "meta"):
+        raise ValueError(f"kernel_force 'kernel': the CUDA kernels need a "
+                         f"card, and this tensor is on {t.device}")
+    return force == "ref"
 
 
 # ---------------------------------------------------------------------------
@@ -156,7 +172,7 @@ def _decode_kernel_attend(q, cache, positions, opts: AttnOpts,
     if "k_scale" in cache:
         ks = cache["k_scale"].permute(0, 2, 1)
         vs = cache["v_scale"].permute(0, 2, 1)
-    fn = decode_attention_ref if _plain(opts) else ops.decode_attention
+    fn = decode_attention_ref if _plain(opts, q) else ops.decode_attention
     o = fn(qk, cache["k"].permute(0, 2, 1, 3), cache["v"].permute(0, 2, 1, 3),
            cache["pos"], positions[:, 0], window=opts.window, scale=1.0,
            k_scale=ks, v_scale=vs, return_lse=return_lse)
@@ -174,7 +190,7 @@ def _paged_kernel_attend(q, cache, positions, block_tables, opts: AttnOpts):
     if "k_scale" in cache:
         ks = cache["k_scale"].permute(0, 2, 1)
         vs = cache["v_scale"].permute(0, 2, 1)
-    fn = paged_decode_attention_ref if _plain(opts) \
+    fn = paged_decode_attention_ref if _plain(opts, q) \
         else ops.paged_decode_attention
     o = fn(qk, cache["k"].permute(0, 2, 1, 3), cache["v"].permute(0, 2, 1, 3),
            cache["pos"], block_tables, positions[:, 0], window=opts.window,
@@ -199,7 +215,7 @@ def _flash_kernel_attend(q, k, v, opts: AttnOpts):
             out_specs=P(dp, None, hm, None, None))(q, k, v)
     B, S, kv, g, hd = q.shape
     qk = q.permute(0, 2, 3, 1, 4).reshape(B, kv * g, S, hd)
-    fn = flash_attention_ref if _plain(opts) else ops.flash_attention
+    fn = flash_attention_ref if _plain(opts, q) else ops.flash_attention
     o = fn(qk, k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3),
            window=opts.window, scale=1.0, softcap=opts.softcap)
     return o.reshape(B, kv, g, S, hd).permute(0, 3, 1, 2, 4)

@@ -38,6 +38,7 @@ class SSMOpts:
     d_model: int
     cfg: SSMConfig
     kernel_force: str = ""       # "" = kernel on CUDA | "ref" = chunked einsum
+                                 # | "kernel" = kernel, or raise
     tp: bool = False             # tensor-parallel hints (cfg.tp_mode "tp")
 
     @property
@@ -216,6 +217,8 @@ def ssm_forward(p, x, opts: SSMOpts, init_state=None):
     # device: the kernel defines no backward (as attention's rule)
     plain = _plain(opts) or (torch.is_grad_enabled() and (
         x.requires_grad or any(w.requires_grad for w in p.values())))
+    if not plain:
+        _plain(opts, x)                 # "kernel" off the card raises
     Bsz, S, d = x.shape
     c = opts.cfg
     zxbcdt = x @ p["in_proj"].to(x.dtype)

@@ -39,7 +39,7 @@ from typing import Dict, Optional
 from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL,
                                       MIXER_SHARED_ATTN, ModelConfig)
 from repro_torch.kernels import registry as kreg
-from repro_torch.kernels.decode_attention import split_plan
+from repro_torch.kernels.decode_attention import head_chunks, split_plan
 from repro_torch.tuning.space import TunedConfig, legal_reason
 
 # H100 SXM ceilings (kernels/registry.py) — scaled by device speed below.
@@ -142,10 +142,18 @@ def step_launches(cfg: ModelConfig) -> int:
             + OPS_PER_STEP)
 
 
+def _chunks(cfg: ModelConfig):
+    """(heads a decode block, blocks a (slot, kv head)): the group's
+    chunks as the wrapper cuts them."""
+    return head_chunks(cfg.n_heads // max(cfg.n_kv_heads, 1),
+                       cfg.resolved_head_dim)
+
+
 def _group(cfg: ModelConfig) -> int:
-    g = cfg.n_heads // max(cfg.n_kv_heads, 1)
-    return kreg.DECODE_GROUPS[0] if g <= kreg.DECODE_GROUPS[0] \
-        else kreg.DECODE_GROUPS[-1]
+    """The G of the decode split kernel that runs this model's chunks:
+    the smallest built one that holds a chunk."""
+    hd = kreg.padded_head_dim(cfg.resolved_head_dim) or cfg.resolved_head_dim
+    return next(g for g in kreg.decode_groups(hd) if g >= _chunks(cfg)[0])
 
 
 # ---------------------------------------------------------------------------
@@ -189,14 +197,17 @@ def prune_reason(cand: TunedConfig, cfg: ModelConfig, prof: DeviceProfile,
 def sweep_plan(cfg: ModelConfig, cand: TunedConfig, prof: DeviceProfile, *,
                max_len: int, paged: bool) -> Dict[str, float]:
     """The decode sweep's grid as the wrapper launches it: ``split_plan``
-    over (slots x kv heads) rows on the class's SMs, split rows a multiple
-    of the page size on a paged pool; blocks an SM by the kernel's launch
-    bounds (two at a group of 4 or less, else one). ``wave_eff`` is the
-    share of the launched waves' block slots that hold a block."""
-    bh = cand.n_slots * cfg.n_kv_heads
+    over (slots x kv heads x head chunks) rows on the class's SMs, split
+    rows a multiple of the page size on a paged pool; blocks an SM by the
+    kernel's launch bounds (two at a G of 4 up to head dim 256, else one).
+    ``wave_eff`` is the share of the launched waves' block slots that hold
+    a block."""
+    bh = cand.n_slots * cfg.n_kv_heads * _chunks(cfg)[1]
     n_split, rows = split_plan(bh, max_len, prof.sm_count,
                                unit=cand.page_size if paged else 16)
-    per_wave = prof.sm_count * (2 if _group(cfg) <= 4 else 1)
+    two = _group(cfg) <= 4 and \
+        cfg.resolved_head_dim <= kreg.MAX_PADDED_HEAD_DIM
+    per_wave = prof.sm_count * (2 if two else 1)
     blocks = bh * n_split
     waves = -(-blocks // per_wave)
     return dict(n_split=float(n_split), split_rows=float(rows),

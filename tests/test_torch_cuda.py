@@ -14,7 +14,7 @@ import torch
 
 from repro_torch.kernels import decode_attention as tda
 from repro_torch.kernels import flash_attention as tfa
-from repro_torch.kernels import launches
+from repro_torch.kernels import _lib, launches
 
 torch.set_num_threads(1)
 
@@ -525,9 +525,9 @@ def test_head_dims_outside_the_set_are_padded(cuda, dtype):
     the reference takes) runs zero-padded to 96: flash, decode and paged
     decode each launch their kernel once and agree with the plain version
     at D 80, dense and paged decode also with an int8 KV cache. D 84 (not a
-    multiple of 8) is still refused, naming the set, and nothing
-    launches."""
-    assert tfa.HEAD_DIMS == tda.HEAD_DIMS == (32, 64, 96, 112, 128, 256)
+    multiple of 8) is still refused, naming the largest width and the set,
+    and nothing launches."""
+    assert tda.HEAD_DIMS == (32, 64, 96, 112, 128, 256, 384, 512)
     rng = np.random.default_rng(0)
     tol = TOL if dtype == torch.float32 else TOL_BF16
     q, k, v = (_normal(rng, shp).to(cuda, dtype) for shp in
@@ -578,13 +578,175 @@ def test_head_dims_outside_the_set_are_padded(cuda, dtype):
     q, k, v = (_normal(rng, shp).to(cuda, dtype) for shp in
                ((1, 2, 64, 84), (1, 1, 64, 84), (1, 1, 64, 84)))
     before = dict(launches)
-    with pytest.raises(ValueError, match=r"\(32, 64, 96, 112, 128, 256\)"):
+    refused = r"up to 512 \(built for \(32, 64, 96, 112, 128, 256, 384, 512\)"
+    with pytest.raises(ValueError, match=refused):
         tfa.flash_attention_cuda(q, k, v)
     kpos = torch.arange(64, dtype=torch.int32, device=cuda)[None]
     cur = torch.tensor([63], dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match=r"\(32, 64, 96, 112, 128, 256\)"):
+    with pytest.raises(ValueError, match=refused):
         tda.decode_attention_cuda(q[:, :, 0], k, v, kpos, cur)
     assert dict(launches) == before
+
+
+def _decode_both(cuda, hq, hkv, d, kind, B=3, L=640, ps=16, seed=0):
+    """The dense and paged decode kernels against the plain version at
+    (hq, hkv, d) in fp32, bf16 or int8 (bf16 q), with a long row, an idle
+    row and a short one; each launches once, and the dense kernel's
+    log-sum-exp agrees. Returns the dense kernel's split plan."""
+    dtype = torch.float32 if kind == "fp32" else torch.bfloat16
+    q, k, v, kpos, cur = _decode_inputs(B, hq, hkv, L, d, [600, -1, 30],
+                                        fill=25, seed=seed)
+    q = q.to(dtype)
+    ks = vs = None
+    if kind == "int8":
+        k, ks = _quant(k)
+        v, vs = _quant(v)
+    else:
+        k, v = k.to(dtype), v.to(dtype)
+    dev = [t.to(cuda) for t in (q, k, v, kpos, cur)]
+    opt = {} if ks is None else dict(k_scale=ks.to(cuda),
+                                     v_scale=vs.to(cuda))
+    tol = TOL if dtype == torch.float32 else TOL_BF16
+    ref, ref_l = tda.decode_attention_ref(*dev, **opt, return_lse=True)
+    n = launches["decode_attention"]
+    got, lse = tda.decode_attention_cuda(*dev, **opt, return_lse=True)
+    assert launches["decode_attention"] == n + 1
+    plan = _lib.last_plan["decode_attention"]
+    assert got.shape == (B, hq, d)
+    torch.testing.assert_close(got.float(), ref.float(), **tol)
+    fin = ~torch.isinf(ref_l)
+    assert torch.equal(torch.isinf(lse), ~fin)
+    torch.testing.assert_close(lse[fin], ref_l[fin], atol=1e-3, rtol=1e-5)
+    kp, vp, kpp, bt, scatter = _to_pool(k, v, kpos, ps, seed=d)
+    popt = {} if ks is None else dict(k_scale=scatter(ks, 1.0).to(cuda),
+                                      v_scale=scatter(vs, 1.0).to(cuda))
+    n = launches["paged_decode_attention"]
+    got = tda.paged_decode_attention_cuda(
+        dev[0], kp.to(cuda), vp.to(cuda), kpp.to(cuda), bt.to(cuda), dev[4],
+        **popt)
+    assert launches["paged_decode_attention"] == n + 1
+    torch.testing.assert_close(got.float(), ref.float(), **tol)
+    return plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hq,hkv,d", [(64, 4, 128), (32, 2, 64), (16, 1, 32),
+                                      (71, 1, 64), (48, 1, 128),
+                                      (9, 1, 112), (128, 8, 256)])
+@pytest.mark.parametrize("kind", ["fp32", "bf16", "int8"])
+def test_decode_any_group_on_card(cuda, hq, hkv, d, kind):
+    """Groups past the 8 heads a block holds run in chunks of at most 8
+    (Qwen3-235B's 16, Llama-3.1-405B's 16 at D 128 and at D 256, MQA's 48
+    and 71, 9 as 5 + 4): every head agrees with the plain version, dense,
+    paged and in the log-sum-exp, and split_plan covered the chunked grid
+    (B * Hkv * chunks blocks)."""
+    plan = _decode_both(cuda, hq, hkv, d, kind, seed=hq + d)
+    heads, n = tda.head_chunks(hq // hkv, d)
+    assert n > 1
+    assert plan == tda.split_plan(3 * hkv * n, 640, tda._sm_count(
+        torch.cuda.current_device()), unit=16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hq,hkv,d", [(8, 2, 264), (8, 2, 320), (8, 2, 384),
+                                      (8, 2, 392), (8, 2, 512), (4, 4, 504),
+                                      (16, 1, 264), (12, 1, 512)])
+@pytest.mark.parametrize("kind", ["fp32", "bf16", "int8"])
+def test_decode_head_dims_past_256_on_card(cuda, hq, hkv, d, kind):
+    """Head dims from 264 to 512 run on the 384 and 512 builds in place
+    (no padded copy: q, k and v reach the kernel as they are), a lane
+    owning only the slices below the true width; a group past 4 there runs
+    in chunks of 4."""
+    calls = []
+    real = tda._launch
+
+    def seen(name, q, k, v, *args, **kw):
+        calls.append((q.shape[-1], k.shape[-1], v.shape[-1]))
+        return real(name, q, k, v, *args, **kw)
+
+    tda._launch = seen
+    try:
+        _decode_both(cuda, hq, hkv, d, kind, seed=d + hq)
+    finally:
+        tda._launch = real
+    assert calls == [(d, d, d)] * 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [264, 320, 384, 392, 512])
+@pytest.mark.parametrize("s", [64, 300])
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (100, 30.0)])
+def test_flash_head_dims_past_256_on_card(cuda, dtype, d, s, window,
+                                          softcap):
+    """bf16 (two halves of O's columns, one warp set) and fp32 (32-query
+    tiles, O in D / 128 parts) at the widths past 256, read in place: one
+    launch, the plain version's output, only the true width written."""
+    rng = np.random.default_rng(s + d)
+    q, k, v = (_normal(rng, shp).to(cuda, dtype) for shp in
+               ((2, 4, s, d), (2, 2, s, d), (2, 2, s, d)))
+    n = launches["flash_attention"]
+    got = tfa.flash_attention_cuda(q, k, v, window=window, softcap=softcap)
+    assert launches["flash_attention"] == n + 1
+    assert got.shape == (2, 4, s, d)
+    ref = tfa.flash_attention_ref(q, k, v, window=window, softcap=softcap)
+    assert torch.isfinite(got.float()).all()
+    torch.testing.assert_close(got.float(), ref.float(),
+                               **(TOL if dtype == torch.float32
+                                  else TOL_BF16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [520, 516, 1024])
+def test_head_dims_past_512_refused_on_card(cuda, d):
+    """Past the largest width, or off a multiple of 8, each wrapper
+    raises naming 512, and nothing launches."""
+    q, k, v = (torch.zeros(shp, device=cuda) for shp in
+               ((1, 2, 16, d), (1, 1, 16, d), (1, 1, 16, d)))
+    kpos = torch.arange(16, dtype=torch.int32, device=cuda)[None]
+    cur = torch.tensor([15], dtype=torch.int32, device=cuda)
+    before = dict(launches)
+    with pytest.raises(ValueError, match="up to 512"):
+        tfa.flash_attention_cuda(q, k, v)
+    with pytest.raises(ValueError, match="up to 512"):
+        tda.decode_attention_cuda(q[:, :, 0], k, v, kpos, cur)
+    with pytest.raises(ValueError, match="up to 512"):
+        tda.paged_decode_attention_cuda(
+            q[:, :, 0], k, v, kpos, torch.zeros((1, 1), dtype=torch.int32,
+                                                device=cuda), cur)
+    assert dict(launches) == before
+
+
+@pytest.mark.cuda
+def test_kernel_force_kernel_is_the_default_on_card(cuda):
+    """kernel_force "kernel" on the card runs the kernels as "" does: the
+    same logits bit for bit and the same launches."""
+    import dataclasses
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.models import Model
+    cfg = reduced(get_config("smollm-135m")).replace(dtype="float32")
+    params = Model(cfg, device=cuda).init(
+        torch.Generator(device=cuda).manual_seed(0))
+    toks = torch.randint(0, cfg.vocab_size, (2, 24), device=cuda,
+                         generator=torch.Generator(device=cuda).manual_seed(1))
+    out = []
+    for force in ("", "kernel"):
+        model = Model(cfg.replace(geometry=dataclasses.replace(
+            cfg.geometry, kernel_force=force)), device=cuda)
+        before = dict(launches)
+        with torch.no_grad():
+            h, caches = model.prefill(params, {"tokens": toks}, 32)
+            lg, _ = model.decode(params, caches, toks[:, -1:],
+                                 torch.full((2,), 24, dtype=torch.int32,
+                                            device=cuda))
+        torch.cuda.synchronize()
+        out.append((model.logits(params, h), lg,
+                    {k: launches[k] - before[k] for k in launches}))
+    assert torch.equal(out[0][0], out[1][0])
+    assert torch.equal(out[0][1], out[1][1])
+    assert out[0][2] == out[1][2]
+    assert out[1][2]["flash_attention"] == out[1][2]["decode_attention"] \
+        == cfg.n_layers
 
 
 @pytest.mark.cuda

@@ -1,9 +1,12 @@
-"""Split-K decode attention on the CPU: the split plan and the plain
-versions of the split and merge passes (``decode_partials_ref``,
+"""Split-K decode attention on the CPU: the split plan, the head-chunk plan
+(``head_chunks``: a group past 8 query heads a kv head, or past 4 at a head
+dim past 256, runs in chunks, each its own split and merge blocks), and the
+plain versions of the split and merge passes (``decode_partials_ref``,
 ``merge_partials_ref``) against the plain dense and paged decode versions,
 which tests/test_torch_kernels.py holds against the JAX package, and
-against the JAX package's own oracle here. The CUDA split and merge kernels
-are held against the plain versions on the card in tests/test_torch_cuda.py.
+against the JAX package's own oracle here (groups 16 and 71 among them).
+The CUDA split and merge kernels are held against the plain versions on
+the card in tests/test_torch_cuda.py.
 
 Tolerance: atol 2e-5, rtol 2e-4 in float32 (the reference's own; the split
 sweep sums in another order).
@@ -164,6 +167,113 @@ def test_merge_of_split_sweep_matches_paged(quant):
     assert torch.isinf(m[1]).all()
     got = tda.merge_partials_ref(acc, m, l, _mean_v(dense["v"],
                                                     dense["v_scale"], 2))
+    torch.testing.assert_close(got, ref.float(), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# Head chunks: any group, MQA included
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("d", [64, 256, 264, 512])
+@pytest.mark.parametrize("g", [1, 3, 4, 5, 8, 9, 16, 48, 64, 71])
+def test_head_chunks_cover_every_head_once(g, d):
+    """Chunks of at most 8 heads (4 past D 256), as few as that allows, the
+    last holding the rest; a group of up to 8 (4) is one chunk, as before
+    chunks existed."""
+    heads, n = tda.head_chunks(g, d)
+    most = tda.CHUNK_HEADS if d <= tda.MAX_PADDED_HEAD_DIM \
+        else tda.WIDE_CHUNK_HEADS
+    assert 1 <= heads <= most and n == -(-g // most)
+    cover = [h for c in range(n)
+             for h in range(c * heads, min(g, (c + 1) * heads))]
+    assert cover == list(range(g))
+    assert all(c * heads < g for c in range(n))       # no chunk is empty
+    if g <= most:
+        assert (heads, n) == (g, 1)
+
+
+def _chunked_sweep(t, split_rows=None, paged_rows=None, **opt):
+    """The kernel's plan on the CPU: each kv head's group is cut into
+    ``head_chunks``; a chunk's heads go through the split pass
+    (``decode_partials_ref`` over ``split_plan``'s rows for B * Hkv *
+    chunks blocks, or ``split_rows``) and the merge pass on their own, and
+    their outputs land at the chunk's heads. Returns (out, (heads, n))."""
+    q, k, v = t["q"], t["k"], t["v"]
+    B, Hq, D = q.shape
+    Hkv, L = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    heads, n = tda.head_chunks(g, D)
+    if split_rows is None:
+        split_rows = tda.split_plan(B * Hkv * n, L, 132,
+                                    unit=paged_rows or 16)[1]
+    out = torch.empty((B, Hkv, g, D))
+    qg = q.reshape(B, Hkv, g, D)
+    for c in range(n):
+        lo, hi = c * heads, min(g, (c + 1) * heads)
+        qc = qg[:, :, lo:hi].reshape(B, Hkv * (hi - lo), D)
+        acc, m, l = tda.decode_partials_ref(qc, k, v, t["kpos"], t["cur"],
+                                            split_rows, **opt)
+        o = tda.merge_partials_ref(acc, m, l,
+                                   _mean_v(v, opt.get("v_scale"), hi - lo))
+        out[:, :, lo:hi] = o.reshape(B, Hkv, hi - lo, D)
+    return out.reshape(B, Hq, D), (heads, n)
+
+
+@pytest.mark.parametrize("hq,hkv,d,plan", [
+    (32, 2, 64, (8, 2)),          # g 16: Qwen3-235B-A22B's group
+    (71, 1, 64, (8, 9)),          # g 71: Falcon-7B's MQA
+    (48, 1, 32, (8, 6)),          # g 48: StarCoder's MQA
+    (16, 1, 264, (4, 4))])        # g 16 past D 256: chunks of 4
+@pytest.mark.parametrize("window,quant", [(0, False), (128, False),
+                                          (0, True)])
+def test_chunked_split_sweep_matches_dense(hq, hkv, d, plan, window, quant):
+    B, L = 3, 300
+    t = _dense_inputs(B, hq, hkv, L, d, [29, -1, 299], seed=hq + d,
+                      quant=quant)
+    opt = dict(window=window, k_scale=t["k_scale"], v_scale=t["v_scale"])
+    got, got_plan = _chunked_sweep(t, split_rows=64, **opt)
+    assert got_plan == plan
+    ref = tda.decode_attention_ref(t["q"], t["k"], t["v"], t["kpos"],
+                                   t["cur"], **opt)
+    torch.testing.assert_close(got, ref, **TOL)
+
+
+@pytest.mark.parametrize("hq,hkv", [(16, 1), (32, 2), (71, 1)])
+def test_chunked_split_sweep_matches_jax(hq, hkv):
+    """The chunk plan at g 16 and 71 against the JAX package's decode
+    oracle, split rows as ``split_plan`` cuts them for the chunked grid."""
+    t = _dense_inputs(3, hq, hkv, 300, 64, [299, -1, 100], seed=hq)
+    got, _ = _chunked_sweep(t)
+    ref = jops.decode_attention(*(t[n].numpy() for n in (
+        "q", "k", "v", "kpos", "cur")), force="ref")
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
+
+
+def test_chunked_split_sweep_matches_paged():
+    """g 16 over a paged pool's rows (split rows whole pages of 16)."""
+    B, Hq, Hkv, D, ps, nb, P = 2, 16, 1, 64, 16, 8, 20
+    rng = np.random.default_rng(16)
+    kp, vp = _normal(rng, (P, Hkv, ps, D)), _normal(rng, (P, Hkv, ps, D))
+    kpp = np.arange(P * ps, dtype=np.int32).reshape(P, ps) % (nb * ps)
+    kpp[0] = -1
+    bt = rng.permutation(np.arange(1, P))[:B * nb].reshape(B, nb)
+    bt = bt.astype(np.int32)
+    bt[1, 6:] = 0
+    t = {n: torch.from_numpy(np.ascontiguousarray(a)) for n, a in dict(
+        q=_normal(rng, (B, Hq, D)), kp=kp, vp=vp, kpp=kpp, bt=bt,
+        cur=np.asarray([nb * ps - 1, 90], np.int32)).items()}
+    ref = tda.paged_decode_attention_ref(t["q"], t["kp"], t["vp"], t["kpp"],
+                                         t["bt"], t["cur"])
+    bt_l = t["bt"].long()
+
+    def rows(pool):
+        return pool[bt_l].movedim(2, 1).reshape(
+            (B, Hkv, nb * ps) + tuple(pool.shape[3:]))
+
+    dense = dict(q=t["q"], k=rows(t["kp"]), v=rows(t["vp"]),
+                 kpos=t["kpp"][bt_l].reshape(B, nb * ps), cur=t["cur"])
+    got, plan = _chunked_sweep(dense, paged_rows=ps)
+    assert plan == (8, 2)
     torch.testing.assert_close(got, ref.float(), **TOL)
 
 

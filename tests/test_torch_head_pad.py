@@ -1,14 +1,16 @@
 """Head dims outside ``HEAD_DIMS`` on the CPU: the attention wrappers run a
 multiple of 8 up to 256 zero-padded to the next head dim the kernels are
 built for, with the true scale ``D ** -0.5`` and the output sliced back
-(``pads_head_dim``, the decorator on the three CUDA wrappers). Here that
-decorator is put on each of the port's plain versions (flash, dense decode,
-paged decode; the decode ones also with an int8 KV cache and its scales),
-and the result must equal the JAX package's oracle (``repro.kernels.ref``),
-which takes the unpadded D directly, at D 40, 80 and 200 (fp32 atol 2e-5,
-rtol 2e-4). D 84 (not a multiple of 8) and D 264 (past 256) still raise,
-as the reference refuses D 84. The CUDA wrappers' own padded launches are
-held in tests/test_torch_cuda.py."""
+(``pads_head_dim``, the decorator on the three CUDA wrappers), and one from
+264 to 512 unpadded (the kernels built for 384 and 512 read the true width
+in place). Here that decorator is put on each of the port's plain versions
+(flash, dense decode, paged decode; the decode ones also with an int8 KV
+cache and its scales), and the result must equal the JAX package's oracle
+(``repro.kernels.ref``), which takes the unpadded D directly: padded at D
+40, 80 and 200, passed through as they are at D 264, 320 and 392 (fp32 atol
+2e-5, rtol 2e-4). D 84 (not a multiple of 8), D 12 and D 520 (past 512)
+still raise, as the reference refuses D 84. The CUDA wrappers' own padded
+and in-place launches are held in tests/test_torch_cuda.py."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -56,13 +58,34 @@ def _decode_case(rng, d, quant):
     return q, k, v, kpos, cur, scales
 
 
+KERNELS = ["flash", "decode", "paged_decode", "decode_int8",
+           "paged_decode_int8"]
+
+
 @pytest.mark.parametrize("d,dp", [(40, 64), (80, 96), (200, 256)])
-@pytest.mark.parametrize("kernel", ["flash", "decode", "paged_decode",
-                                    "decode_int8", "paged_decode_int8"])
+@pytest.mark.parametrize("kernel", KERNELS)
 def test_padded_plain_version_equals_unpadded(kernel, d, dp):
+    assert tda.padded_head_dim(f"{kernel.removesuffix('_int8')}_attention",
+                               d) == dp
+    _run_against_oracle(kernel, d, dp)
+
+
+@pytest.mark.parametrize("d,built", [(264, 384), (320, 384), (392, 512)])
+@pytest.mark.parametrize("kernel", KERNELS)
+def test_wide_head_dims_are_read_in_place(kernel, d, built):
+    """Past 256 the decorator hands q, k and v on unpadded (the kernel
+    built for the next width masks the rest of the row), and the result is
+    the JAX oracle's at the true D."""
+    assert tda.padded_head_dim(f"{kernel.removesuffix('_int8')}_attention",
+                               d) == built
+    _run_against_oracle(kernel, d, d)
+
+
+def _run_against_oracle(kernel, d, dp):
+    """The decorated plain version of ``kernel`` at head dim ``d`` must
+    see q, k and v ``dp`` wide and equal the JAX oracle at ``d``."""
     base = kernel.removesuffix("_int8")
     name = f"{base}_attention"
-    assert tda.padded_head_dim(name, d) == dp
     rng = np.random.default_rng(d)
     T = lambda x: None if x is None else torch.from_numpy(x)   # noqa: E731
     J = lambda x: None if x is None else jnp.asarray(x)        # noqa: E731
@@ -110,14 +133,15 @@ def test_padded_plain_version_equals_unpadded(kernel, d, dp):
                                **TOL)
 
 
-@pytest.mark.parametrize("d", [32, 64, 96, 112, 128, 256])
+@pytest.mark.parametrize("d", [32, 64, 96, 112, 128, 256, 384, 512])
 def test_head_dims_of_the_set_are_not_padded(d):
     assert tda.padded_head_dim("decode_attention", d) == d
     x = torch.zeros((2, d))
     assert tda.pad_head_dim(x, d) is x
 
 
-@pytest.mark.parametrize("d", [84, 264, 12])
+@pytest.mark.parametrize("d", [84, 520, 12])
 def test_other_head_dims_still_raise(d):
-    with pytest.raises(ValueError, match=r"\(32, 64, 96, 112, 128, 256\)"):
+    with pytest.raises(ValueError, match=r"up to 512 \(built for \(32, 64, "
+                       r"96, 112, 128, 256, 384, 512\)"):
         tda.padded_head_dim("flash_attention", d)

@@ -81,7 +81,9 @@ def _constexprs(name):
 
 def test_registry_pinned_to_wrappers_and_sources():
     assert kreg.HEAD_DIMS == da.HEAD_DIMS
-    assert kreg.MAX_GROUP == da.MAX_GROUP
+    assert (kreg.CHUNK_HEADS, kreg.WIDE_CHUNK_HEADS,
+            kreg.MAX_PADDED_HEAD_DIM) == \
+        (da.CHUNK_HEADS, da.WIDE_CHUNK_HEADS, da.MAX_PADDED_HEAD_DIM)
     assert (kreg.MIN_SPLIT_ROWS, kreg.SPLIT_WAVES, kreg.MAX_SPLITS) == \
         (da.MIN_SPLIT_ROWS, da.SPLIT_WAVES, da.MAX_SPLITS)
     assert kreg.STATE_DIMS == ssd.STATE_DIMS
@@ -91,22 +93,28 @@ def test_registry_pinned_to_wrappers_and_sources():
                           for k, v in mm.MM_BK.items()}
     dec = _constexprs("decode_attention")
     assert (dec["kWarps"], dec["kLoads"], dec["kMergeThreads"],
-            dec["kMaxGroup"], dec["kMaxSplits"]) == \
+            dec["kChunkHeads"], dec["kWideHeads"], dec["kExactMaxD"],
+            dec["kMaxSplits"]) == \
         (kreg.DECODE_WARPS, kreg.DECODE_LOADS, kreg.DECODE_MERGE_THREADS,
-         kreg.MAX_GROUP, kreg.MAX_SPLITS)
+         kreg.CHUNK_HEADS, kreg.WIDE_CHUNK_HEADS, kreg.MAX_PADDED_HEAD_DIM,
+         kreg.MAX_SPLITS)
     fl = _constexprs("flash_attention")
-    assert (fl["kBQ"], fl["kStages"]) == (kreg.FLASH_BQ, kreg.FLASH_STAGES)
+    assert (fl["kBQ"], fl["kStages"], fl["kExactMaxD"]) == \
+        (kreg.FLASH_BQ, kreg.FLASH_STAGES, kreg.MAX_PADDED_HEAD_DIM)
     mmc = _constexprs("stream_matmul")
     assert mmc["kMmBM"] == mmc["kMmBN"] == kreg.MM_TILE
     assert _constexprs("ssd_chunk_scan")["kChunk"] == kreg.SSD_CHUNK
-    # the head-dim padding rule is the wrappers' own
-    for d in range(8, 272, 8):
+    # the head-dim rule is the wrappers' own, up to the largest width
+    for d in range(8, kreg.HEAD_DIMS[-1] + 16, 8):
         try:
             want = da.padded_head_dim("x", d)
         except ValueError:
             want = None
         assert kreg.padded_head_dim(d) == want, d
+        assert (kreg.check_head_dim(d) is None) == (want is not None), d
     assert kreg.padded_head_dim(60) is None
+    assert kreg.padded_head_dim(264) == 384
+    assert kreg.padded_head_dim(520) is None
 
 
 def test_geometry_defaults_pinned_to_registry():
@@ -164,15 +172,51 @@ def test_illegal_geometry_is_rejected():
                         head_dim=64, paged=True) is not None
     assert legal_reason(TunedConfig(), max_len=2048, head_dim=60,
                         paged=False) is not None   # no kernel takes D 60
-    assert legal_reason(TunedConfig(), max_len=2048, head_dim=264,
+    assert legal_reason(TunedConfig(), max_len=2048, head_dim=520,
                         paged=False) is not None   # past the largest
+    assert "up to 512" in legal_reason(TunedConfig(), max_len=2048,
+                                       head_dim=520, paged=False)
     assert legal_reason(TunedConfig(n_slots=4096), max_len=2048,
                         head_dim=64, paged=False) is not None
     assert legal_reason(TunedConfig(prefill_chunk=0), max_len=2048,
                         head_dim=64, paged=False) is not None
-    # dense engines ignore the page size; D 80 runs padded to 96
+    # dense engines ignore the page size; D 80 runs padded to 96, D 264
+    # in place on the 384 build
     assert legal_reason(TunedConfig(page_size=48), max_len=2048,
                         head_dim=80, paged=False) is None
+    assert legal_reason(TunedConfig(), max_len=2048, head_dim=264,
+                        paged=False) is None
+
+
+# Qwen3-235B-A22B's heads (64 over 4: g 16), MQA (Falcon-7B: 71 over 1 at D
+# 64), and D 264 past the old 256 limit (g 4)
+WIDE_SHAPES = [(64, 4, 128), (71, 1, 64), (16, 4, 264)]
+
+
+@pytest.mark.parametrize("heads", WIDE_SHAPES)
+@pytest.mark.parametrize("paged", [False, True])
+def test_wide_groups_and_head_dims_get_the_reference_candidates(heads,
+                                                                paged):
+    """Every candidate the reference's sweep finds legal at this head dim,
+    projected on the port's axes (page size, slots, prefill chunk), is a
+    candidate of the port's sweep, and nothing else; the port's tuner then
+    picks an unpruned winner for qwen3-moe at these heads."""
+    from repro.tuning.space import enumerate_candidates as j_enumerate
+    hq, hkv, d = heads
+    ref = {(c.page_size, c.n_slots, c.prefill_chunk)
+           for c in j_enumerate(max_len=2048, head_dim=d, paged=paged)}
+    port = {(c.page_size, c.n_slots, c.prefill_chunk)
+            for c in enumerate_candidates(max_len=2048, head_dim=d,
+                                          paged=paged)}
+    assert port and port == ref
+    cfg = get_config("qwen3-moe-30b-a3b").replace(
+        n_heads=hq, n_kv_heads=hkv, head_dim=d, max_seq_len=2048)
+    assert kreg.check_group(hq, hkv) is None
+    assert kreg.check_head_dim(d) is None
+    res = tune(cfg, profile_for_speed(1.0), max_len=2048, paged=paged)
+    assert legal_reason(res.best, max_len=2048, head_dim=d,
+                        paged=paged) is None
+    assert res.table[0][1].pruned is None
 
 
 # ---------------------------------------------------------------------------
