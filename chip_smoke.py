@@ -16,8 +16,12 @@ lines.jsonl):
    flash kernel (bf16 ``flash_mma_kernel``, fp32 3xTF32
    ``flash_tf32_kernel``) is missing a head dim of ``HEAD_DIMS`` or spills,
    or if the registry's static shared memory of a decode split or merge
-   instantiation (``kernel_footprints``) is not ptxas's, or the two list
-   other instantiations.
+   instantiation (``kernel_footprints``) is not ptxas's, or the registry's
+   dynamic shared memory of a decode group build, at every block size, is
+   not what its launch requests (``group_launch_smem``), or the two list
+   other instantiations, or any decode kernel (split, merge, group)
+   spills; a ``build_decode`` line gives the decode kernels' registers and
+   the group builds' dynamic shared memory.
 2. ``kernel``: each kernel against its plain PyTorch version. Attention at
    the serving path's shapes (B=8, Hq=9, Hkv=3, D=64, L=2048, page 16;
    prefill S 64 to 2048): fp32, bf16, int8 KV, window, an idle slot (the
@@ -35,8 +39,12 @@ lines.jsonl):
    llava (56 / 8 of 128, g 7, S=1176) and whisper-tiny (6 / 6 of 64,
    S=448). Decode and paged decode (fp32, bf16, int8) at groups past the 8
    heads a block holds (``WIDE_GROUPS``: Qwen3-235B-A22B's 64 / 4 of 128,
-   Llama-3.1-405B's 128 / 8, MQA's 71 / 1 of 64 and 48 / 1 of 128; each
-   record gives the head chunks and the K/V bytes the chunks request) and
+   Llama-3.1-405B's 128 / 8, MQA's 71 / 1 of 64 and 48 / 1 of 128; and
+   ``GROUP_D512``, 16 / 1 of 512): bf16 and int8 on the decode group kernel,
+   also held against its pass model (``decode_group_partials_ref``,
+   ``model_max_abs_err``), fp32 in head chunks; each record gives the
+   route and the K/V bytes its blocks request (each chunk, or each group
+   slice, reads its kv head's valid rows) and
    all three kernels (flash in fp32 and bf16 at S=1024) at the head dims
    past 256 (``WIDE_DIMS``: 264, 320, 384, 512 at g 4), which the 384 and
    512 builds read in place (``runs_on``). Paged decode (fp32, bf16) also
@@ -234,8 +242,10 @@ lines.jsonl):
    bf16, seeded weights: the dense and the paged engine serve the
    workload of phase 4 with the gates of ``qwen3moe_*_engine`` (streams
    against ``kernel_force="ref"``'s, near-ties and tokens routed apart
-   counted; decode and flash launches layers x calls); then
-   ``profile_wide_group_dense_decode`` (step ms, idle share).
+   counted; decode and flash launches layers x calls; every decode launch
+   on the decode group kernel's route, ``decode_group`` = decode + paged
+   launches); then ``profile_wide_group_dense_decode`` (step ms, idle
+   share).
 10c. training (``training_phases``; fp32, TF32 off; every phase must
    launch no kernel, as the reference's training reaches no Pallas
    kernel): ``train_smollm`` (``repro_torch.launch.train.main`` on
@@ -288,7 +298,10 @@ lines.jsonl):
    SSD scan's from the SSM path and zamba2's; every row's
    ``launches_by_path`` has ``training``: 0 and ``mesh``; the decode rows
    ``examples``, the flash row's fp32 entry ``examples``, the streaming
-   matmul's ``spatial_shell``), the GPU's name and power
+   matmul's ``spatial_shell``; the ``decode_group`` row: the decode group
+   kernel's launches on every path, all of them ``wide_group_engine``'s,
+   its g 16 case's ms, paged ms and K/V bytes requested, and its largest
+   errors against the plain version and its pass model), the GPU's name and power
    limit, and ``{"ok": true, ...}`` last. Any failed check exits
    non-zero.
 """
@@ -356,6 +369,9 @@ PAD_D = 80
 # (71 / 1 at D 64), StarCoder's and granite-code's MQA (48 / 1 at D 128)
 WIDE_GROUPS = (("g16", (64, 4, 128)), ("g16h128", (128, 8, 128)),
                ("g71", (71, 1, 64)), ("g48", (48, 1, 128)))
+# the decode group kernel also at a group of 16 on one kv head of 512
+# columns (the widest build; O in four column groups)
+GROUP_D512 = ("g16d512", (16, 1, 512))
 # head dims past 256 (no configured model; parity with the reference), at
 # g 4 (8 / 2): the 384 and 512 builds read them in place
 WIDE_DIMS = (264, 320, 384, 512)
@@ -590,6 +606,27 @@ def pad_cost(q, k, v):
         lambda: [pad_head_dim(t, dp) for t in (q, k, v)]))
 
 
+def group_model(q, k, v, kpos, cur, split_rows, plan, window, ks, vs):
+    """The decode group kernel's pass model at the launch's split rows and
+    plan, merged by the plain merge (the mean of V where no key counts)."""
+    from repro_torch.kernels import decode_attention as da
+    acc, m, l = da.decode_group_partials_ref(
+        q, k, v, kpos, cur, split_rows, plan, window=window, k_scale=ks,
+        v_scale=vs)
+    vf = v.float() * (1.0 if vs is None else vs[..., None])
+    g = q.shape[1] // k.shape[1]
+    return da.merge_partials_ref(acc, m, l,
+                                 vf.mean(2).repeat_interleave(g, dim=1))
+
+
+def check_model(what, got, model, tol):
+    """The group kernel's output against its pass model: max abs err."""
+    err = float((got.float() - model).abs().max())
+    require(torch.allclose(got.float(), model, **tol),
+            f"{what}: against the group kernel's pass model, max err {err}")
+    return err
+
+
 def kernel_phase(results):
     from repro_torch.kernels import _lib
     from repro_torch.kernels import decode_attention as da
@@ -634,7 +671,7 @@ def kernel_phase(results):
             cases.append((f"{tag}/{kind}", dtype, quant, 0, cur, fill, L,
                           heads))
         # this slice: groups past 8, and head dims past 256 at g 4
-        for tag, heads in WIDE_GROUPS:
+        for tag, heads in WIDE_GROUPS + (GROUP_D512,):
             cases.append((f"{tag}/{kind}", dtype, quant, 0, cur, fill, L,
                           heads))
         for d in WIDE_DIMS:
@@ -652,13 +689,22 @@ def kernel_phase(results):
         # dense
         got = da.decode_attention_cuda(q, k, v, kpos, cur_t, window=window,
                                        k_scale=ks, v_scale=vs)
-        n_split = _lib.last_plan["decode_attention"][0]
+        n_split, split_rows = _lib.last_plan["decode_attention"]
         ref = da.decode_attention_ref(q, k, v, kpos, cur_t, window=window,
                                       k_scale=ks, v_scale=vs)
         torch.cuda.synchronize()
         err = float((got.float() - ref.float()).abs().max())
         require(torch.allclose(got.float(), ref.float(), **tol),
                 f"decode_attention {name}: max err {err}")
+        group = da.uses_group_kernel(hq // hkv, d, dtype)
+        gplan = _lib.last_plan["decode_group"] if group else None
+        route = {}
+        if group:               # the group kernel against its pass model
+            model = group_model(q, k, v, kpos, cur_t, split_rows, gplan,
+                                window, ks, vs)
+            route = dict(route="group", group_plan=gplan._asdict(),
+                         model_max_abs_err=check_model(
+                             f"decode_attention {name}", got, model, tol))
         if idle.any():        # the mean of the swept V rows, as the reference
             v_deq = v[idle].float() * (vs[idle][..., None] if quant else 1.0)
             mean_v = v_deq.mean(dim=2).repeat_interleave(hq // hkv, dim=1)
@@ -689,14 +735,15 @@ def kernel_phase(results):
                                                       window))
         heads_a_block, chunks = da.head_chunks(hq // hkv, d)
         # K/V bytes the split blocks request: every chunk of a kv head
-        # reads its rows (from L2 where another chunk brought them)
-        kv_read = chunks * (nbytes - decode_cost(q, kpos, cur_t, window,
-                                                 kvbytes, 0)[0])
+        # reads its rows (from L2 where another chunk brought them); the
+        # group kernel once a kv head (a slice of the group)
+        kv_read = (gplan.n_slices if group else chunks) * (
+            nbytes - decode_cost(q, kpos, cur_t, window, kvbytes, 0)[0])
         rec = dict(phase="kernel", name="decode_attention", case=name,
                    shape=dict(B=Bc, Hq=hq, Hkv=hkv, D=d, L=Lc),
                    n_split=n_split, head_chunks=chunks,
                    heads_a_block=heads_a_block, bytes=nbytes,
-                   kv_bytes_requested=kv_read,
+                   kv_bytes_requested=kv_read, **route,
                    max_abs_err=err, tol=tol, lse_max_abs_err=lse_err,
                    ms=time_ms(lambda: da.decode_attention_cuda(
                        q, k, v, kpos, cur_t, window=window, k_scale=ks,
@@ -711,6 +758,8 @@ def kernel_phase(results):
                    **pad_cost(q, k, v))
         emit(rec)
         results.setdefault("decode_attention", []).append(rec)
+        if group:
+            results.setdefault("decode_group", []).append(rec)
         if Lc % PS:
             continue
         # paged: the same logical cache scattered over a shuffled pool
@@ -718,17 +767,23 @@ def kernel_phase(results):
         got = da.paged_decode_attention_cuda(q, kp, vp, kpp, bt, cur_t,
                                              window=window, k_scale=ksp,
                                              v_scale=vsp)
-        n_split = _lib.last_plan["paged_decode_attention"][0]
+        n_split, prow = _lib.last_plan["paged_decode_attention"]
         torch.cuda.synchronize()
         err = float((got.float() - ref.float()).abs().max())
         require(torch.allclose(got.float(), ref.float(), **tol),
                 f"paged_decode_attention {name}: max err {err}")
+        if group:       # the pool's rows in table order are the dense rows
+            if prow != split_rows:
+                model = group_model(q, k, v, kpos, cur_t, prow, gplan,
+                                    window, ks, vs)
+            route = dict(route="group", model_max_abs_err=check_model(
+                f"paged_decode_attention {name}", got, model, tol))
         nbytes, flops = decode_cost(q, kpos, cur_t, window, kvbytes, hkv,
                                     paged_nb=bt.shape[1])
         b_ms, b_by = bound(nbytes, flops, dtype)
         rec = dict(phase="kernel", name="paged_decode_attention", case=name,
                    shape=dict(B=Bc, Hq=hq, Hkv=hkv, D=d, L=Lc, ps=PS),
-                   n_split=n_split,
+                   n_split=n_split, **route,
                    max_abs_err=err, tol=tol,
                    ms=time_ms(lambda: da.paged_decode_attention_cuda(
                        q, kp, vp, kpp, bt, cur_t, window=window,
@@ -743,6 +798,8 @@ def kernel_phase(results):
                    **pad_cost(q, kp, vp))
         emit(rec)
         results.setdefault("paged_decode_attention", []).append(rec)
+        if group:
+            results["decode_group"].append(rec)
 
     # the harness phases' paged engines, 4 slots x 64 at smollm's heads:
     # page 4 (the soak presets' fleets) and page 8 (the adversary's
@@ -1787,13 +1844,18 @@ def program_launches(phase, cfg, calls, configures, paged, got):
     site (``kernel_sites``: every layer of a dense model, none of an MLA
     one) for every engine decode call, plus one a configure of a decode
     program (``Reconfigurator.configure`` warms it up once), one flash
-    launch an attention site for every prefill call; fails unless ``got``
-    is exactly that (a run that decoded without launching bypassed the
-    kernels)."""
+    launch an attention site for every prefill call; where the model's
+    decode takes the group kernel's route, every decode launch counts under
+    ``decode_group`` too; fails unless ``got`` is exactly that (a run that
+    decoded without launching bypassed the kernels)."""
+    from repro_torch.kernels.decode_attention import uses_group_kernel
     dec = "paged_decode_attention" if paged else "decode_attention"
     attn = kernel_sites(cfg)[0]
     need = {dec: (calls["decode"] + configures) * attn,
             "flash_attention": calls["prefill"] * attn}
+    if uses_group_kernel(cfg.n_heads // max(cfg.n_kv_heads, 1),
+                         cfg.resolved_head_dim, cfg.dtype):
+        need["decode_group"] = need[dec]    # of those, the group kernel's
     require(all(got[k] == need[k] for k in need)
             and sum(got.values()) == sum(need.values()),
             f"{phase}: launches {got} != needed {need}")
@@ -2132,16 +2194,18 @@ def wide_group_cfg(get_config):
 
 def wide_group_engine_phase(get_config):
     """The slice's path: Qwen3-235B-A22B's widths (a group of 16 query
-    heads a kv head, decoded in two chunks of 8) through the dense and the
+    heads a kv head, decoded by the group kernel) through the dense and the
     paged ``BatchingEngine`` in bf16, the gates of the MoE engines, then
     the dense decode step profiled. Returns the path's launches."""
     from repro_torch.kernels import _lib
-    from repro_torch.kernels.decode_attention import head_chunks
+    from repro_torch.kernels.decode_attention import uses_group_kernel
     from repro_torch.models import Model
     cfg = wide_group_cfg(get_config)
     g = cfg.n_heads // cfg.n_kv_heads
-    require(g == 16 and head_chunks(g, cfg.resolved_head_dim) == (8, 2),
-            f"wide_group_engine: group {g} is not Qwen3-235B-A22B's 16")
+    require(g == 16 and uses_group_kernel(g, cfg.resolved_head_dim,
+                                          torch.bfloat16),
+            f"wide_group_engine: group {g} is not Qwen3-235B-A22B's 16 on "
+            "the decode group kernel")
     cut = (f"n_layers 94 -> {cfg.n_layers} (qwen3-moe-30b-a3b's config at "
            "Qwen3-235B-A22B's widths; fp32 weights and their bf16 casts on "
            "80 GB, chip time)")
@@ -2154,6 +2218,10 @@ def wide_group_engine_phase(get_config):
     path = dict(_lib.launches)
     require(all(path[k] > 0 for k in SERVING_KERNELS),
             f"wide_group_engine: a kernel of its path never launched: {path}")
+    require(path["decode_group"] == path["decode_attention"]
+            + path["paged_decode_attention"],
+            f"wide_group_engine: a decode launch left the group kernel's "
+            f"route: {path}")
     profile_phase("profile_wide_group_dense_decode", cfg, params, prompts,
                   False)
     emit(dict(phase="wide_group_engine_path", launches=path,
@@ -4417,14 +4485,35 @@ def main():
                   if v["spill_bytes"]}
         require(not spills, f"flash_attention: {kern} spills registers "
                 f"(bytes by head dim): {spills}")
-    # the registry's static shared memory a block (what the tuner and
-    # rc3e-check read) against ptxas's, at every decode instantiation
+    # the registry's shared memory a block (what the tuner and rc3e-check
+    # read) against the build, at every decode instantiation: the split
+    # and merge kernels' static arrays against ptxas's; the group kernel
+    # (no static arrays) at every block size against the dynamic shared
+    # memory its launch requests (group_launch_smem)
     from repro_torch.kernels import registry as kreg
     fp = kreg.kernel_footprints()
     kv_names = {"float": "float32", "__nv_bfloat16": "bfloat16",
                 "signed char": "int8"}
-    seen = set()
+    from repro_torch.kernels.decode_attention import group_launch_smem
+    seen, dynamic = set(), {}
     for k, v in ptxas["decode_attention"].items():
+        m = re.search(r"decode_group_kernel<([^,]+), \(int\)(\d+)>", k)
+        if m:
+            kv, d = kv_names[m.group(1)], int(m.group(2))
+            key = f"decode_group/D{d}/{kv}"
+            require(v["smem_bytes"] == 0,
+                    f"{key}: {v['smem_bytes']} bytes of static shared memory")
+            for mrows in range(16, kreg.group_max_m(d) + 1, 16):
+                want = kreg.decode_group_smem_bytes(d, kv, mrows)
+                got = group_launch_smem(kv, d, mrows)
+                require(got == want, f"registry {key} at M {mrows}: {want} "
+                        f"bytes of dynamic shared memory, the launch {got}")
+            require(fp.get(key) == group_launch_smem(kv, d,
+                                                     kreg.group_max_m(d)),
+                    f"registry {key}: {fp.get(key)} bytes")
+            dynamic[key] = fp[key]
+            seen.add(key)
+            continue
         m = re.search(r"decode_(split|merge)_kernel<([^,]+), ([^,]+), "
                       r"\(bool\)\d, \(int\)(\d+)(?:, \(int\)(\d+))?>", k)
         require(m is not None, f"decode_attention: unparsed kernel {k}")
@@ -4438,6 +4527,18 @@ def main():
     listed = {k for k in fp if k.startswith("decode_")}
     require(seen == listed, f"decode_attention: built {sorted(seen - listed)}"
             f" beyond the registry, missing {sorted(listed - seen)}")
+    # no decode build spills: split, merge and group kernels alike
+    spills = {k: v["spill_bytes"] for k, v in ptxas["decode_attention"].items()
+              if v["spill_bytes"]}
+    require(not spills, f"decode_attention: kernels spill registers: "
+            f"{spills}")
+    emit(dict(phase="build_decode", group_dynamic_smem=dynamic,
+              registers={k: v["registers"]
+                         for k, v in ptxas["decode_attention"].items()},
+              tensor_core_ops=tensor_ops["decode_attention"]))
+    require(sum(tensor_ops["decode_attention"].values()) > 0,
+            "decode_attention: no HMMA in the SASS (the group kernel does "
+            "not run on the tensor cores)")
     # the redesigned 2-D matmul and SSD: on the tensor cores, no spills
     for lib, kerns in (("stream_matmul", ("mm_kernel",)),
                        ("ssd_chunk_scan", ("ssd_prep_kernel",
@@ -4522,7 +4623,7 @@ def main():
 
     # the dense families at full width and depth (bf16 serving; fp32
     # logits), then gemma2-9b at full width, 4 layers; weights freed between
-    families_path = {k: 0 for k in SERVING_KERNELS}
+    families_path = {k: 0 for k in SERVING_KERNELS + ("decode_group",)}
     fp32_path["families_model"] = 0
     for i, (tag, arch) in enumerate((("gemma3", "gemma3-1b"),
                                      ("phi3", "phi3-mini-3.8b"))):
@@ -4537,6 +4638,7 @@ def main():
             require(_lib.launches[k] > 0,
                     f"{tag}: {k} never launched on its serving path")
             families_path[k] += _lib.launches[k]
+        families_path["decode_group"] += _lib.launches["decode_group"]
         if tag == "phi3":
             profile_phase("profile_phi3_dense_decode", fcfg, fparams,
                           fprompts, False)
@@ -4612,9 +4714,43 @@ def main():
                                       + rc3e_path["stream_matmul_batched"])
     path_launches["ssd_chunk_scan"] = (ssm_path["ssd_chunk_scan"]
                                        + families2_path["ssd_chunk_scan"])
+    # the decode group kernel: its launches are decode_attention's and
+    # paged_decode_attention's that took its route, on every path
+    main_case["decode_group"] = "g16/bf16"
+    sources["decode_group"] = sources["decode_attention"]
+    group_paths = {"smollm_serving": serving_path,
+                   "families_serving": families_path,
+                   "launch_serve": launch_path, "gateway_fleet": gateway_path,
+                   "fleet_chaos": chaos_path, **harness_path,
+                   "families2": families2_path, "autotune": autotune_path,
+                   "whisper_engine": whisper_engine_path,
+                   "wide_group_engine": wide_path, "training": train_path,
+                   "mesh": mesh_path, **examples_path}
+    group_by_path = {p: got.get("decode_group", 0)
+                     for p, got in group_paths.items()}
     rows = []
     for name, recs in results.items():
         m = next(r for r in recs if r["case"] == main_case[name])
+        if name == "decode_group":
+            row = dict(
+                name=name, route="cuda",
+                source="src/repro_torch/kernels/csrc/decode_attention.cu",
+                replaces="src/repro/kernels/decode_attention.py:133",
+                launches=sum(group_by_path.values()),
+                launches_by_path=group_by_path,
+                max_abs_err=max(r["max_abs_err"] for r in recs),
+                model_max_abs_err=max(r["model_max_abs_err"] for r in recs),
+                ms=m["ms"], plain_ms=m["plain_ms"], bound_ms=m["bound_ms"],
+                bound_by=m["bound_by"], library_ms=m["library_ms"],
+                kv_bytes_requested=m["kv_bytes_requested"],
+                paged_ms=next(r["ms"] for r in recs
+                              if r["name"] == "paged_decode_attention"
+                              and r["case"] == main_case[name]))
+            require(row["launches"] == wide_path["decode_group"] > 0,
+                    f"decode_group: launched off its path or never: "
+                    f"{group_by_path}")
+            rows.append(row)
+            continue
         src, ref, line = sources[name]
         row = dict(
             name=name, route="cuda",

@@ -43,13 +43,17 @@ class LaunchCounts(dict):
             self[name] = 0
 
 
+# decode_group counts the launches of decode_attention and
+# paged_decode_attention (already counted there) whose split pass was the
+# group kernel.
 launches = LaunchCounts(decode_attention=0, paged_decode_attention=0,
-                        flash_attention=0, stream_matmul=0,
+                        decode_group=0, flash_attention=0, stream_matmul=0,
                         stream_matmul_batched=0, ssd_chunk_scan=0)
 
 # The launch plan a wrapper used on its latest launch, by wrapper name (split
-# decode: (n_split, split_rows); the 2-D stream_matmul: a MatmulPlan; the SSD:
-# an SsdPlan).
+# decode: (n_split, split_rows), and under "decode_group" the GroupPlan of
+# the latest group launch; the 2-D stream_matmul: a MatmulPlan; the SSD: an
+# SsdPlan).
 last_plan: Dict[str, tuple] = {}
 
 

@@ -2,17 +2,23 @@
 (ring-buffered) KV cache or a block-table-paged pool, GQA, online softmax.
 
 Replaces the Pallas kernels ``repro.kernels.decode_attention.decode_attention``
-and ``paged_decode_attention`` with one hand-written split-K CUDA kernel
-pair (``csrc/decode_attention.cu``): a split pass over (sequence, kv head,
-chunk of query heads, row range) blocks that writes unnormalised fp32
-partials, and a merge pass that combines them. A dense cache is the paged
-case with one "page" per sequence. ``head_chunks`` cuts a kv head's group
-of query heads into the chunks a block holds (any group, MQA included) and
-``split_plan`` picks the number of splits, both from shapes alone. Beside
-them, the plain PyTorch versions (``decode_attention_ref``,
+and ``paged_decode_attention`` with hand-written split-K CUDA kernels
+(``csrc/decode_attention.cu``): a split pass over (sequence, kv head,
+query heads, row range) blocks that writes unnormalised fp32 partials, and
+a merge pass that combines them. A dense cache is the paged case with one
+"page" per sequence. The split pass has two kernels, chosen from shapes and
+dtype alone (``registry.decode_route``): a bf16 group past one chunk of
+query heads takes ``decode_group_kernel`` (the whole group, or M-row slices
+of it, scored on the tensor cores over K/V tiles staged once in shared
+memory; ``registry.decode_group_plan``), every other launch
+``decode_split_kernel`` (``head_chunks`` cuts the group into the chunks a
+block holds, MQA included). ``split_plan`` picks the number of splits.
+Beside them, the plain PyTorch versions (``decode_attention_ref``,
 ``paged_decode_attention_ref``, ported from ``repro.kernels.ref``) serve
-CPU tensors and are what the kernels are held against; ``decode_partials_ref``
-and ``merge_partials_ref`` are the plain versions of the two passes.
+CPU tensors and are what the kernels are held against;
+``decode_partials_ref`` and ``merge_partials_ref`` are the plain versions
+of the two passes, and ``decode_group_partials_ref`` is the pass model of
+the group kernel (its tiles, key groups, bf16 roundings and scale folds).
 
 Layouts are the reference's: q (B, Hq, D); dense k/v (B, Hkv, L, D), kpos
 (B, L), scales (B, Hkv, L); pools (P, Hkv, ps, D), kpos_pool (P, ps), scales
@@ -38,6 +44,8 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _lib
+from repro_torch.kernels.registry import (GroupPlan, decode_group_plan,
+                                          decode_route)
 
 CHUNK_HEADS = 8                # query heads a decode block holds at most
 WIDE_CHUNK_HEADS = 4           # the same past MAX_PADDED_HEAD_DIM
@@ -49,6 +57,7 @@ WIDE_CHUNK_HEADS = 4           # the same past MAX_PADDED_HEAD_DIM
 HEAD_DIMS = (32, 64, 96, 112, 128, 256, 384, 512)
 MAX_PADDED_HEAD_DIM = 256
 MIN_SPLIT_ROWS = 64            # floor of rows a split sweeps
+GROUP_MIN_SPLIT_ROWS = 32      # the same on the group kernel's route
 SPLIT_WAVES = 2                # aim for this many blocks per SM
 MAX_SPLITS = 128               # the merge pass's limit
 
@@ -119,21 +128,23 @@ def paged_decode_attention_ref(q, k_pool, v_pool, kpos_pool, block_tables,
 # Split-K: the plan and the plain versions of the two passes
 # ---------------------------------------------------------------------------
 
-def split_plan(bh: int, capacity: int, sm_count: int,
-               unit: int = 16) -> Tuple[int, int]:
+def split_plan(bh: int, capacity: int, sm_count: int, unit: int = 16,
+               min_rows: int = MIN_SPLIT_ROWS) -> Tuple[int, int]:
     """(n_split, split_rows) for ``bh`` = B*Hkv (sequence, kv head) pairs
-    over ``capacity`` swept rows (L, or nb*ps), from shapes alone: about
-    ``SPLIT_WAVES`` blocks per SM, at least ``MIN_SPLIT_ROWS`` rows a split,
-    ``split_rows`` a multiple of ``unit`` (the page size of a paged cache,
-    so that a split covers whole block-table entries), at most
-    ``MAX_SPLITS`` splits, and one split when ``bh`` already fills the
-    card. Split i sweeps rows [i*split_rows, min(capacity,
-    (i+1)*split_rows)); every split holds at least one row."""
+    (times the head chunks or group slices a pair's blocks) over
+    ``capacity`` swept rows (L, or nb*ps), from shapes alone: about
+    ``SPLIT_WAVES`` blocks per SM, at least ``min_rows`` rows a split,
+    ``split_rows`` a multiple of ``unit`` (the split kernel's route: the
+    page size of a paged cache, so that a split covers whole block-table
+    entries), at most ``MAX_SPLITS`` splits, and one split when ``bh``
+    already fills the card. Split i sweeps rows [i*split_rows,
+    min(capacity, (i+1)*split_rows)); every split holds at least one
+    row."""
     capacity = max(int(capacity), 1)
     n = 1
     if bh < sm_count:
         n = min(-(-SPLIT_WAVES * sm_count // bh), MAX_SPLITS,
-                max(1, capacity // MIN_SPLIT_ROWS))
+                max(1, capacity // min_rows))
     rows = -(-capacity // n)
     rows = -(-rows // unit) * unit
     return -(-capacity // rows), rows
@@ -155,6 +166,34 @@ def head_chunks(g: int, D: int) -> Tuple[int, int]:
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def uses_group_kernel(g: int, D: int, dtype) -> bool:
+    """Whether a launch of ``g`` query heads a kv head at head dim ``D``
+    with q of ``dtype`` (a torch dtype or its name) takes
+    ``decode_group_kernel`` (bf16, a group past one chunk of
+    ``head_chunks``), from shapes and dtype alone."""
+    return decode_route(g, D, str(dtype).replace("torch.", "")) == "group"
+
+
+def launch_plan(B: int, Hkv: int, g: int, D: int, dtype, capacity: int,
+                sm_count: int, page: int = 0):
+    """What the wrapper launches for ``B`` sequences of ``Hkv`` kv heads
+    of ``g`` query heads at head dim ``D`` over ``capacity`` swept rows
+    (``page``: a paged pool's page size, 0 dense): (n_split, split_rows,
+    plan), ``plan`` the group kernel's ``GroupPlan`` on its route, else
+    None. On the group route ``split_plan`` counts the group's slices
+    and cuts splits at any row (the kernel finds each row's page) down to
+    ``GROUP_MIN_SPLIT_ROWS``: a block holds the whole group, so the
+    chunked route's floor of 64 rows at 16-row units would leave an MQA
+    group (one kv head a sequence) at 32 splits, under two blocks an SM
+    at B 8, L 2048."""
+    if uses_group_kernel(g, D, dtype):
+        plan = decode_group_plan(g, D)
+        return split_plan(B * Hkv * plan.n_slices, capacity, sm_count,
+                          unit=1, min_rows=GROUP_MIN_SPLIT_ROWS) + (plan,)
+    return split_plan(B * Hkv * head_chunks(g, D)[1], capacity, sm_count,
+                      unit=page or 16) + (None,)
 
 
 def decode_partials_ref(q, k, v, kpos, cur, split_rows: int, *,
@@ -193,6 +232,82 @@ def decode_partials_ref(q, k, v, kpos, cur, split_rows: int, *,
     acc = torch.einsum("bhnr,bhnrd->bhnd", p,
                        vv.reshape(B, Hq, n, split_rows, D))
     return acc, m, p.sum(-1)
+
+
+def decode_group_partials_ref(q, k, v, kpos, cur, split_rows: int,
+                              plan: GroupPlan, *, window: int = 0,
+                              scale: float = 0.0, k_scale=None, v_scale=None):
+    """Pass model of ``decode_group_kernel`` on a dense cache (arguments as
+    ``decode_attention_ref``; q bf16, K/V bf16 or int8 with row scales),
+    partials as ``decode_partials_ref``. It does what the kernel does: a
+    split's rows in tiles of ``plan.rows``, each tile in 16-key steps, step
+    i of a tile taken by key group ``i % plan.key_groups`` with an online
+    softmax of its own; scores q·k of bf16 values summed in fp32, times
+    ``scale * log2(e)`` (and the key's ``k_scale``), in log2 units; P
+    times the key's ``v_scale``, rounded to bf16, then P·V in fp32; the key
+    groups merged at the end of the split. Heads are independent, so the
+    M-row slices leave the numbers as they are. An idle row (cur < 0)
+    reports the split's sum of its (dequantized) V rows as acc, with
+    m = -inf and l = 0, as the kernel does for the merge's mean. Returns
+    acc (B, Hq, n_split, D), m (natural units, as ``merge_partials_ref``
+    takes it) and l (B, Hq, n_split)."""
+    B, Hq, D = q.shape
+    Hkv, L = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    log2e = 1.4426950408889634
+    s_mul = (scale or D ** -0.5) * log2e
+    quant = k_scale is not None
+    f32 = dict(dtype=torch.float32, device=q.device)
+    qf = q.float().reshape(B, Hkv, g, D)
+    kf, vf = k.float(), v.float()
+    ks = k_scale.float() if quant else torch.ones(B, Hkv, L, **f32)
+    vs = v_scale.float() if quant else torch.ones(B, Hkv, L, **f32)
+    c = cur[:, None]
+    valid = (kpos >= 0) & (kpos <= c)
+    if window:
+        valid &= (c - kpos) < window
+    idle = cur < 0
+    n = -(-L // split_rows)
+    acc = torch.zeros(B, Hkv, g, n, D, **f32)
+    m_out = torch.full((B, Hkv, g, n), float("-inf"), **f32)
+    l_out = torch.zeros(B, Hkv, g, n, **f32)
+    kg = plan.key_groups
+    for i in range(n):
+        lo, hi = i * split_rows, min(L, (i + 1) * split_rows)
+        st = [[torch.full((B, Hkv, g), float("-inf"), **f32),
+               torch.zeros(B, Hkv, g, **f32), torch.zeros(B, Hkv, g, D, **f32)]
+              for _ in range(kg)]
+        for t0 in range(lo, hi, plan.rows):
+            for j, k0 in enumerate(range(t0, min(t0 + plan.rows, hi), 16)):
+                k1 = min(k0 + 16, hi)
+                m, l, o = st[j % kg]
+                s = torch.einsum("bhgd,bhkd->bhgk", qf, kf[:, :, k0:k1])
+                s = s * (s_mul * ks[:, :, None, k0:k1])
+                s = s.masked_fill(~valid[:, None, None, k0:k1],
+                                  float("-inf"))
+                m_new = torch.maximum(m, s.amax(-1))
+                base = torch.where(torch.isinf(m_new), 0.0, m_new)
+                alpha = torch.exp2(m - base)
+                p = torch.exp2(s - base[..., None])
+                pv = (p * vs[:, :, None, k0:k1]).to(torch.bfloat16).float()
+                st[j % kg] = [m_new, l * alpha + p.sum(-1),
+                              o * alpha[..., None] + torch.einsum(
+                                  "bhgk,bhkd->bhgd", pv, vf[:, :, k0:k1])]
+        m, l, o = st[0]
+        for m2, l2, o2 in st[1:]:
+            mn = torch.maximum(m, m2)
+            base = torch.where(torch.isinf(mn), 0.0, mn)
+            c1, c2 = torch.exp2(m - base), torch.exp2(m2 - base)
+            m, l, o = mn, l * c1 + l2 * c2, (o * c1[..., None]
+                                              + o2 * c2[..., None])
+        vsum = (vf[:, :, lo:hi] * vs[:, :, lo:hi, None]).sum(2)
+        acc[:, :, :, i] = torch.where(idle[:, None, None, None],
+                                      vsum[:, :, None], o)
+        m_out[:, :, :, i] = torch.where(idle[:, None, None],
+                                        float("-inf"), m)
+        l_out[:, :, :, i] = torch.where(idle[:, None, None], 0.0, l)
+    return (acc.reshape(B, Hq, n, D), m_out.reshape(B, Hq, n) / log2e,
+            l_out.reshape(B, Hq, n))
 
 
 def merge_partials_ref(acc, m, l, mean_v):
@@ -303,8 +418,9 @@ class _Args(ctypes.Structure):
         "B", "Hq", "Hkv", "D", "nb", "ps", "ps_shift", "window", "n_split",
         "split_rows")] + [
         ("scale", ctypes.c_float), ("dtype", ctypes.c_int),
-        ("quant", ctypes.c_int), ("lse", ctypes.c_void_p),
-        ("chunk", ctypes.c_int)]
+        ("quant", ctypes.c_int), ("lse", ctypes.c_void_p)] + [
+        (n, ctypes.c_int) for n in ("chunk", "group_m", "n_slices",
+                                    "group_kg")]
 
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -317,6 +433,18 @@ def _entry():
     fn.argtypes = [ctypes.POINTER(_Args), ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib, fn
+
+
+def group_launch_smem(kv_dtype: str, D: int, m: int) -> int:
+    """Dynamic shared memory the group kernel's launch requests for a block
+    of ``m`` query rows at the build of head dim ``D`` with ``kv_dtype``
+    K/V (the library's ``GroupCfg::smem``; -1 for a width with no
+    build)."""
+    lib, _ = _entry()
+    fn = lib.rt_decode_group_smem
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    return fn(int(kv_dtype == "int8"), D, m)
 
 
 def _check_common(name, q, k, v, kpos, cur, k_scale, v_scale):
@@ -373,9 +501,11 @@ def _launch(name, q, k, v, kpos, cur, bt, k_scale, v_scale, window, scale,
     dev = q.device.index
     dev = torch.cuda.current_device() if dev is None else dev
     Hkv = k.shape[1]
-    chunk, n_chunks = head_chunks(Hq // Hkv, D)
-    n_split, rows = split_plan(B * Hkv * n_chunks, nb * ps, _sm_count(dev),
-                               unit=ps if bt is not None else 16)
+    g = Hq // Hkv
+    chunk = head_chunks(g, D)[0]           # query heads a merge block
+    n_split, rows, plan = launch_plan(B, Hkv, g, D, q.dtype, nb * ps,
+                                      _sm_count(dev),
+                                      ps if bt is not None else 0)
     # one workspace: acc (B, Hq, n_split, D), then m and l (B, Hq, n_split)
     n_ml = B * Hq * n_split
     ws = torch.empty(n_ml * (D + 2), dtype=torch.float32, device=q.device)
@@ -403,13 +533,20 @@ def _launch(name, q, k, v, kpos, cur, bt, k_scale, v_scale, window, scale,
         window=int(window), n_split=n_split, split_rows=rows,
         scale=float(scale or D ** -0.5), dtype=_DTYPES[q.dtype],
         quant=int(quant), lse=lse.data_ptr() if lse is not None else None,
-        chunk=chunk)
+        chunk=chunk, group_m=plan.m if plan else 0,
+        n_slices=plan.n_slices if plan else 0,
+        group_kg=plan.key_groups if plan else 0)
     lib, fn = _entry()
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = fn(ctypes.byref(a), stream)      # the split and the merge pass
+    # the split and the merge pass; a launch on the group route also adds
+    # one to decode_group, the count of that route's launches
+    rc = fn(ctypes.byref(a), stream)  # rc3e: allow-launch-count
     _lib.check(rc, lib, name)
     _lib.launches[name] += 1
     _lib.last_plan[name] = (n_split, rows)
+    if plan:                    # of those launches, the group kernel's
+        _lib.launches["decode_group"] += 1
+        _lib.last_plan["decode_group"] = plan
     return out
 
 
@@ -419,8 +556,9 @@ def decode_attention_cuda(q, k, v, kpos, cur, *, window: int = 0,
                           return_lse: bool = False):
     """The CUDA kernel on a dense cache; arguments and results as
     ``decode_attention_ref`` (the merge pass writes the log-sum-exp). Any
-    group of query heads a kv head (``head_chunks``); a head dim outside
-    ``HEAD_DIMS`` runs as ``padded_head_dim`` says."""
+    group of query heads a kv head (``uses_group_kernel`` picks the split
+    kernel); a head dim outside ``HEAD_DIMS`` runs as ``padded_head_dim``
+    says."""
     name = "decode_attention"
     quant = _check_common(name, q, k, v, kpos, cur, k_scale, v_scale)
     B, _, D = q.shape

@@ -8,9 +8,10 @@ rc3e-check kernel pass (``repro_torch.analysis.kernelpass``),
     peak rates (the cost model's ceilings);
   * what the CUDA kernels take: their compiled tiles, the head dims and
     state dims they are built for, the query heads a decode block holds
-    (any group runs, in chunks), the split-K constants, and each kernel's
-    shared memory a block at every head dim and state dim it is built
-    for;
+    (any group runs: a bf16 group past one chunk on the group kernel,
+    ``decode_route`` / ``decode_group_plan``; others in chunks of the
+    split kernel), the split-K constants, and each kernel's shared memory
+    a block at every head dim and state dim it is built for;
   * the axes the tuner may sweep (page size, decode slots, prefill chunk)
     with their legal ranges and defaults;
   * the divisibility and fit rules, each returning ``None`` when legal,
@@ -26,7 +27,7 @@ Pure Python: importing it builds and touches nothing.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 # ---------------------------------------------------------------------------
 # The card: NVIDIA H100 SXM5 80 GB (compute capability 9.0)
@@ -60,6 +61,7 @@ STATE_DIMS: Tuple[int, ...] = (16, 64, 128)   # the SSD's d_state
 
 # split-K decode (decode_attention.split_plan)
 MIN_SPLIT_ROWS = 64
+GROUP_MIN_SPLIT_ROWS = 32            # the same on the group kernel's route
 SPLIT_WAVES = 2
 MAX_SPLITS = 128
 
@@ -69,6 +71,9 @@ DECODE_LOADS = 2                     # row loads a lane an iteration (kLoads)
 DECODE_GROUPS: Tuple[int, ...] = (4, 8)   # G the split kernel is built for
                                           # (WIDE_CHUNK_HEADS past 256)
 DECODE_MERGE_THREADS = 256           # kMergeThreads
+GROUP_WARPS = 8                      # warps of a group block at most
+                                     # (kGroupWarps)
+GROUP_KV_DTYPES: Tuple[str, ...] = ("bfloat16", "int8")   # its K/V builds
 FLASH_BQ = 64                        # query rows a block
 FLASH_STAGES = 2                     # groups of K/V tiles in flight
 MM_TILE = 128                        # 2-D matmul output tile (kMmBM/kMmBN)
@@ -125,18 +130,75 @@ def check_head_dim(head_dim: int) -> Optional[str]:
 
 
 def check_group(n_heads: int, n_kv_heads: int) -> Optional[str]:
-    """Any group of query heads a kv head (decode runs a group past
-    ``CHUNK_HEADS`` in chunks, ``decode_attention.head_chunks``); the heads
-    must divide."""
+    """Any group of query heads a kv head: decode runs a bf16 group past
+    one chunk of ``CHUNK_HEADS`` (``WIDE_CHUNK_HEADS`` past
+    ``MAX_PADDED_HEAD_DIM``) on the group kernel (``decode_route``), an
+    fp32 one in chunks of the split kernel; the heads must divide."""
     if n_kv_heads < 1 or n_heads % n_kv_heads:
         return f"n_heads={n_heads} not a multiple of n_kv_heads={n_kv_heads}"
     return None
 
 
 def decode_groups(head_dim: int) -> Tuple[int, ...]:
-    """The G the split kernel is built for at ``head_dim``."""
+    """The G the split kernel is built for at ``head_dim`` (the chunked
+    route: every group of one chunk, and fp32 past it)."""
     return DECODE_GROUPS if head_dim <= MAX_PADDED_HEAD_DIM \
         else (WIDE_CHUNK_HEADS,)
+
+
+def decode_route(group: int, head_dim: int, dtype: str) -> str:
+    """Which split kernel a decode launch takes, from shapes and dtype
+    alone: ``"group"`` (``decode_group_kernel``) for bf16 q whose group
+    would run in more than one chunk (past ``CHUNK_HEADS``, or past
+    ``WIDE_CHUNK_HEADS`` at a head dim past ``MAX_PADDED_HEAD_DIM``),
+    else ``"split"`` (``decode_split_kernel``: every group of one chunk,
+    and fp32 q, whose tolerance a bf16 product would break)."""
+    most = CHUNK_HEADS if head_dim <= MAX_PADDED_HEAD_DIM \
+        else WIDE_CHUNK_HEADS
+    return "group" if dtype == "bfloat16" and group > most else "split"
+
+
+class GroupPlan(NamedTuple):
+    """How the group kernel cuts a kv head's group of query heads: blocks
+    of ``m`` query rows (whole 16-row m-tiles; the group zero-padded) in
+    ``n_slices`` slices, K/V staged in tiles of ``rows`` rows,
+    ``stages`` deep; ``key_groups`` warps split a tile's 16-key steps,
+    ``col_groups`` split O's columns, ``warps`` = key_groups x m-tiles x
+    col_groups."""
+    m: int
+    n_slices: int
+    rows: int
+    stages: int
+    key_groups: int
+    col_groups: int
+    warps: int
+
+
+def group_tiles(head_dim: int) -> Tuple[int, int, int]:
+    """(rows a staged K/V tile, stages, O column groups) of the group
+    kernel's build at ``head_dim`` (``GroupCfg``): 64 rows and 3 stages up
+    to 128, 32 rows past it, 2 stages past 256; O's columns in groups of
+    128 past 128."""
+    return (64 if head_dim <= 128 else 32, 3 if head_dim <= 256 else 2,
+            1 if head_dim <= 128 else head_dim // 128)
+
+
+def decode_group_plan(group: int, head_dim: int) -> GroupPlan:
+    """The group kernel's plan for ``group`` query heads a kv head at
+    ``head_dim`` (run at ``padded_head_dim``): as many 16-row m-tiles a
+    block as ``GROUP_WARPS`` warps hold with their O columns (8 / column
+    groups), the group cut into the fewest equal slices that allows, and
+    the warps left over splitting the tile's keys (a power of two)."""
+    hd = padded_head_dim(head_dim) or head_dim
+    rows, stages, cg = group_tiles(hd)
+    tiles = -(-group // 16)
+    n_slices = -(-tiles // (GROUP_WARPS // cg))
+    mt = -(-tiles // n_slices)
+    kg = 1
+    while 2 * kg <= rows // 16 and 2 * kg * mt * cg <= GROUP_WARPS:
+        kg *= 2
+    return GroupPlan(m=16 * mt, n_slices=n_slices, rows=rows, stages=stages,
+                     key_groups=kg, col_groups=cg, warps=kg * mt * cg)
 
 
 def check_state_dim(d_state: int) -> Optional[str]:
@@ -195,10 +257,32 @@ def decode_split_smem_bytes(head_dim: int, group: int) -> int:
 
 
 def decode_merge_smem_bytes(head_dim: int, kv_dtype: str) -> int:
-    """``decode_merge_kernel``'s static arrays: split weights (CHUNK_HEADS
-    x MAX_SPLITS), the heads' maxima, and the V row sums of one pass."""
+    """``decode_merge_kernel``'s static array: split weights (CHUNK_HEADS
+    x MAX_SPLITS), the heads' maxima (padded to 32 floats), and the V row
+    sums of one pass."""
     rows = DECODE_MERGE_THREADS // _lanes_a_row(head_dim, kv_dtype)
-    return 4 * (CHUNK_HEADS * MAX_SPLITS + CHUNK_HEADS + rows * head_dim)
+    return 4 * (CHUNK_HEADS * MAX_SPLITS + 32 + rows * head_dim)
+
+
+def group_max_m(head_dim: int) -> int:
+    """The most query rows a group block holds at a build (``kMaxM``)."""
+    return 16 * (GROUP_WARPS // group_tiles(head_dim)[2])
+
+
+def decode_group_smem_bytes(head_dim: int, kv_dtype: str, m: int) -> int:
+    """Dynamic shared memory of a ``decode_group_kernel`` block of ``m``
+    query rows at the build ``head_dim`` (``GroupCfg::smem``): Q (m bf16
+    rows), the K/V stages, and per stage each row's page, row and flags;
+    int8 adds the bf16 tiles its rows are converted into and the stages'
+    row scales. bf16 rows are swizzled, padded to a multiple of 64
+    elements (32 at D 32); int8 rows are staged raw (D bytes)."""
+    rows, stages, _ = group_tiles(head_dim)
+    ld = 32 if head_dim <= 32 else -(-head_dim // 64) * 64
+    q8 = kv_dtype == "int8"
+    raw = head_dim if q8 else 2 * ld
+    fixed = (stages * 2 * rows * raw + stages * 3 * rows * 4
+             + (2 * rows * ld * 2 + stages * 2 * rows * 4 if q8 else 0))
+    return m * ld * 2 + fixed
 
 
 def flash_smem_bytes(head_dim: int, dtype: str) -> int:
@@ -264,7 +348,8 @@ def ssd_prep_smem_bytes(d_state: int, dtype: str) -> int:
 def kernel_footprints() -> Dict[str, int]:
     """Shared memory a block of every kernel instantiation the sources
     build, keyed ``kernel/variant``: decode at each head dim and group (and
-    its merge at each K/V dtype), flash at each head dim and dtype, the 2-D
+    its merge at each K/V dtype), the group kernel at each head dim and
+    K/V dtype (its largest block), flash at each head dim and dtype, the 2-D
     matmul per dtype, the batched entry per shape, the SSD at each state
     dim, dtype and block shape."""
     out: Dict[str, int] = {}
@@ -273,6 +358,9 @@ def kernel_footprints() -> Dict[str, int]:
             out[f"decode_split/D{d}/G{g}"] = decode_split_smem_bytes(d, g)
         for kv in ("float32", "bfloat16", "int8"):
             out[f"decode_merge/D{d}/{kv}"] = decode_merge_smem_bytes(d, kv)
+        for kv in GROUP_KV_DTYPES:
+            out[f"decode_group/D{d}/{kv}"] = decode_group_smem_bytes(
+                d, kv, group_max_m(d))
         for dt in ("float32", "bfloat16"):
             out[f"flash/D{d}/{dt}"] = flash_smem_bytes(d, dt)
     for dt in ("float32", "bfloat16"):
@@ -288,8 +376,9 @@ def kernel_footprints() -> Dict[str, int]:
 
 def check_smem(name: str, nbytes: int) -> Optional[str]:
     """A block's shared memory against the card: static arrays (the decode
-    and batched kernels) within 48 KB, dynamic within the opt-in 227 KB."""
-    static = name.startswith(("decode_", "mm_batched"))
+    split and merge kernels, the batched kernels) within 48 KB, dynamic
+    within the opt-in 227 KB."""
+    static = name.startswith(("decode_split", "decode_merge", "mm_batched"))
     limit = STATIC_SMEM_PER_BLOCK if static else SMEM_PER_BLOCK
     if nbytes > limit:
         return (f"{name}: {nbytes} bytes of "

@@ -39,7 +39,7 @@ from typing import Dict, Optional
 from repro_torch.configs.base import (ATTN_GLOBAL, ATTN_LOCAL,
                                       MIXER_SHARED_ATTN, ModelConfig)
 from repro_torch.kernels import registry as kreg
-from repro_torch.kernels.decode_attention import head_chunks, split_plan
+from repro_torch.kernels.decode_attention import head_chunks, launch_plan
 from repro_torch.tuning.space import TunedConfig, legal_reason
 
 # H100 SXM ceilings (kernels/registry.py) — scaled by device speed below.
@@ -142,16 +142,30 @@ def step_launches(cfg: ModelConfig) -> int:
             + OPS_PER_STEP)
 
 
+def _group_plan(cfg: ModelConfig):
+    """The group kernel's plan where the wrapper routes this model's
+    decode to it (``registry.decode_route``: bf16, a group past one
+    chunk), else None (the chunked split kernel)."""
+    g = cfg.n_heads // max(cfg.n_kv_heads, 1)
+    if kreg.decode_route(g, cfg.resolved_head_dim, cfg.dtype) != "group":
+        return None
+    return kreg.decode_group_plan(g, cfg.resolved_head_dim)
+
+
 def _chunks(cfg: ModelConfig):
-    """(heads a decode block, blocks a (slot, kv head)): the group's
-    chunks as the wrapper cuts them."""
+    """(query heads a decode split block, blocks a (slot, kv head)) as the
+    wrapper launches them: the group kernel's rows and slices, or the
+    group's chunks."""
+    plan = _group_plan(cfg)
+    if plan is not None:
+        return plan.m, plan.n_slices
     return head_chunks(cfg.n_heads // max(cfg.n_kv_heads, 1),
                        cfg.resolved_head_dim)
 
 
 def _group(cfg: ModelConfig) -> int:
     """The G of the decode split kernel that runs this model's chunks:
-    the smallest built one that holds a chunk."""
+    the smallest built one that holds a chunk (the chunked route)."""
     hd = kreg.padded_head_dim(cfg.resolved_head_dim) or cfg.resolved_head_dim
     return next(g for g in kreg.decode_groups(hd) if g >= _chunks(cfg)[0])
 
@@ -166,8 +180,10 @@ def smem_bytes(cfg: ModelConfig) -> int:
     kernels run it at."""
     hd = kreg.padded_head_dim(cfg.resolved_head_dim) or cfg.resolved_head_dim
     kv = "int8" if cfg.kv_quant else cfg.dtype
-    return max(kreg.decode_split_smem_bytes(hd, _group(cfg)),
-               kreg.decode_merge_smem_bytes(hd, kv),
+    plan = _group_plan(cfg)
+    split = kreg.decode_split_smem_bytes(hd, _group(cfg)) if plan is None \
+        else kreg.decode_group_smem_bytes(hd, kv, plan.m)
+    return max(split, kreg.decode_merge_smem_bytes(hd, kv),
                kreg.flash_smem_bytes(hd, cfg.dtype))
 
 
@@ -197,15 +213,17 @@ def prune_reason(cand: TunedConfig, cfg: ModelConfig, prof: DeviceProfile,
 def sweep_plan(cfg: ModelConfig, cand: TunedConfig, prof: DeviceProfile, *,
                max_len: int, paged: bool) -> Dict[str, float]:
     """The decode sweep's grid as the wrapper launches it: ``split_plan``
-    over (slots x kv heads x head chunks) rows on the class's SMs, split
-    rows a multiple of the page size on a paged pool; blocks an SM by the
-    kernel's launch bounds (two at a G of 4 up to head dim 256, else one).
-    ``wave_eff`` is the share of the launched waves' block slots that hold
-    a block."""
+    over (slots x kv heads x head chunks, or the group kernel's slices)
+    rows on the class's SMs, split rows a multiple of the page size on a
+    paged pool; blocks an SM by the kernel's launch bounds (two at a G of
+    4 up to head dim 256, else one; the group kernel one). ``wave_eff`` is
+    the share of the launched waves' block slots that hold a block."""
     bh = cand.n_slots * cfg.n_kv_heads * _chunks(cfg)[1]
-    n_split, rows = split_plan(bh, max_len, prof.sm_count,
-                               unit=cand.page_size if paged else 16)
-    two = _group(cfg) <= 4 and \
+    n_split, rows, _ = launch_plan(
+        cand.n_slots, cfg.n_kv_heads, cfg.n_heads // max(cfg.n_kv_heads, 1),
+        cfg.resolved_head_dim, cfg.dtype, max_len, prof.sm_count,
+        cand.page_size if paged else 0)
+    two = _group_plan(cfg) is None and _group(cfg) <= 4 and \
         cfg.resolved_head_dim <= kreg.MAX_PADDED_HEAD_DIM
     per_wave = prof.sm_count * (2 if two else 1)
     blocks = bh * n_split

@@ -635,16 +635,96 @@ def _decode_both(cuda, hq, hkv, d, kind, B=3, L=640, ps=16, seed=0):
                                       (9, 1, 112), (128, 8, 256)])
 @pytest.mark.parametrize("kind", ["fp32", "bf16", "int8"])
 def test_decode_any_group_on_card(cuda, hq, hkv, d, kind):
-    """Groups past the 8 heads a block holds run in chunks of at most 8
-    (Qwen3-235B's 16, Llama-3.1-405B's 16 at D 128 and at D 256, MQA's 48
-    and 71, 9 as 5 + 4): every head agrees with the plain version, dense,
-    paged and in the log-sum-exp, and split_plan covered the chunked grid
-    (B * Hkv * chunks blocks)."""
+    """Groups past the 8 heads a block holds (Qwen3-235B's 16,
+    Llama-3.1-405B's 16 at D 128 and at D 256, MQA's 48 and 71, 9): fp32
+    runs in chunks of at most 8 (9 as 5 + 4), split_plan covering the
+    chunked grid (B * Hkv * chunks blocks); bf16 and int8 K/V take the
+    group kernel, split_plan covering its slices. Every head agrees with
+    the plain version, dense, paged and in the log-sum-exp."""
+    n_group = launches["decode_group"]
     plan = _decode_both(cuda, hq, hkv, d, kind, seed=hq + d)
     heads, n = tda.head_chunks(hq // hkv, d)
     assert n > 1
-    assert plan == tda.split_plan(3 * hkv * n, 640, tda._sm_count(
-        torch.cuda.current_device()), unit=16)
+    sms = tda._sm_count(torch.cuda.current_device())
+    dtype = torch.float32 if kind == "fp32" else torch.bfloat16
+    assert plan == tda.launch_plan(3, hkv, hq // hkv, d, dtype, 640,
+                                   sms)[:2]
+    if kind == "fp32":
+        assert plan == tda.split_plan(3 * hkv * n, 640, sms, unit=16)
+    assert launches["decode_group"] == n_group + (0 if kind == "fp32"
+                                                  else 2)
+
+
+# chip_smoke.py's WIDE_GROUPS (Qwen3-235B-A22B, Llama-3.1-405B, Falcon-7B's
+# and StarCoder's MQA) and a group of 16 at head dim 512
+GROUP_SHAPES = [(64, 4, 128), (128, 8, 128), (71, 1, 64), (48, 1, 128),
+                (16, 1, 512)]
+
+
+def _group_model(q, k, v, kpos, cur, split_rows, plan, window, ks, vs):
+    """The pass model of the group kernel, merged by the plain merge."""
+    g = q.shape[1] // k.shape[1]
+    acc, m, l = tda.decode_group_partials_ref(
+        q, k, v, kpos, cur, split_rows, plan, window=window, k_scale=ks,
+        v_scale=vs)
+    vf = v.float() * (1.0 if vs is None else vs[..., None])
+    return tda.merge_partials_ref(acc, m, l,
+                                  vf.mean(2).repeat_interleave(g, dim=1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hq,hkv,d", GROUP_SHAPES)
+@pytest.mark.parametrize("kind", ["bf16", "int8"])
+@pytest.mark.parametrize("window", [0, 128])
+def test_decode_group_kernel_on_card(cuda, hq, hkv, d, kind, window):
+    """The group kernel (bf16 q, bf16 or int8 K/V) against its pass model
+    (``decode_group_partials_ref`` at the launch's split rows and plan)
+    and the plain version: dense with the log-sum-exp, and paged at pages
+    of 4, 8 and 16; rows long, idle (the mean of V), short, and with cur
+    set but no key cached (the merge's own mean of V)."""
+    B, L = 4, 640
+    q, k, v, kpos, cur = _decode_inputs(B, hq, hkv, L, d, [600, -1, 30, 300],
+                                        fill=25, seed=hq + d + window)
+    kpos[3] = -1
+    q = q.to(torch.bfloat16)
+    ks = vs = None
+    if kind == "int8":
+        k, ks = _quant(k)
+        v, vs = _quant(v)
+    else:
+        k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
+    dev = [t.to(cuda) for t in (q, k, v, kpos, cur)]
+    ks_d, vs_d = (None, None) if ks is None else (ks.to(cuda), vs.to(cuda))
+    opt = dict(window=window, k_scale=ks_d, v_scale=vs_d)
+    ref, ref_l = tda.decode_attention_ref(*dev, **opt, return_lse=True)
+    n = launches["decode_group"]
+    got, lse = tda.decode_attention_cuda(*dev, **opt, return_lse=True)
+    assert launches["decode_group"] == n + 1
+    plan = _lib.last_plan["decode_group"]
+    rows = _lib.last_plan["decode_attention"][1]
+    assert plan == tda.decode_group_plan(hq // hkv, d)
+    model = _group_model(*dev, rows, plan, window, ks_d, vs_d)
+    torch.testing.assert_close(got.float(), ref.float(), **TOL_BF16)
+    torch.testing.assert_close(got.float(), model, **TOL_BF16)
+    fin = ~torch.isinf(ref_l)
+    assert torch.equal(torch.isinf(lse), ~fin) and not fin[1:4:2].any()
+    torch.testing.assert_close(lse[fin], ref_l[fin], atol=1e-3, rtol=1e-5)
+    for ps in (4, 8, 16):
+        kp, vp, kpp, bt, scatter = _to_pool(k, v, kpos, ps, seed=d + ps)
+        popt = dict(window=window)
+        if ks is not None:
+            popt.update(k_scale=scatter(ks, 1.0).to(cuda),
+                        v_scale=scatter(vs, 1.0).to(cuda))
+        n = launches["decode_group"]
+        got = tda.paged_decode_attention_cuda(
+            dev[0], kp.to(cuda), vp.to(cuda), kpp.to(cuda), bt.to(cuda),
+            dev[4], **popt)
+        assert launches["decode_group"] == n + 1
+        prow = _lib.last_plan["paged_decode_attention"][1]
+        torch.testing.assert_close(got.float(), ref.float(), **TOL_BF16)
+        if prow != rows:
+            model = _group_model(*dev, prow, plan, window, ks_d, vs_d)
+        torch.testing.assert_close(got.float(), model, **TOL_BF16)
 
 
 @pytest.mark.cuda

@@ -19,6 +19,17 @@ measures, at smollm-135m's widths (Hq 9, Hkv 3, D 64, bf16):
   ``scaled_dot_product_attention`` call on the same inputs (dense decode,
   flash), replayed the same way, with fp32 matmuls in full fp32 (TF32
   off);
+* decode at the groups past one chunk of 8 query heads (``WIDE_GROUPS``:
+  Qwen3-235B-A22B's 64 / 4 of 128, Llama-3.1-405B's 128 / 8, MQA's 71 / 1
+  of 64 and 48 / 1 of 128; and 16 / 1 of 512) at B=8, L=2048, bf16 dense
+  and paged (page 16) and int8 dense: ``graph_ms`` as above, SDPA's on
+  the dense bf16 case, the bound (valid K/V rows once, over 3.35 TB/s)
+  and ``kv_mb_requested``, the K/V bytes the tree's split blocks ask of
+  L2 / HBM (each head chunk, or each group-kernel slice, reads its kv
+  head's valid rows);
+* ``digests``: a hash of each output at smollm's widths (fp32, bf16 and
+  int8 K/V, with an idle row and a row with no valid key), so that two
+  trees whose split-kernel route should agree bit for bit can be compared;
 * the dense and the paged ``BatchingEngine`` (full-width smollm-135m,
   seeded weights, 8 slots, 8 prompts of 64-1024 tokens): wall ms of each
   of 20 steady decode steps after 3 warm-up steps, with their mean and
@@ -26,6 +37,7 @@ measures, at smollm-135m's widths (Hq 9, Hkv 3, D 64, bf16):
 
 Prints one JSON line per process, then the card's name and power limit.
 """
+import hashlib
 import json
 import subprocess
 import sys
@@ -130,6 +142,128 @@ def kernel_cases(da, fa):
     return out
 
 
+WIDE_GROUPS = (("g16", (64, 4, 128)), ("g16h128", (128, 8, 128)),
+               ("g71", (71, 1, 64)), ("g48", (48, 1, 128)),
+               ("g16d512", (16, 1, 512)))
+
+
+def _quant(x):
+    amax = x.abs().amax(-1)
+    s = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    return torch.clamp(torch.round(x / s[..., None]), -127, 127) \
+        .to(torch.int8), s.float()
+
+
+def _table(gen, Bx, nb):
+    """A shuffled block table over pages 1 .. Bx * nb (page 0 null)."""
+    perm = torch.randperm(Bx * nb, generator=gen, device=DEV) + 1
+    return perm.reshape(Bx, nb).to(torch.int32)
+
+
+def _pool(x, bt, fill):
+    """(B, Hkv, L, ...) or (B, L) rows (scales: (B, Hkv, L)) over a pool
+    of pages of PS rows laid out by the block table ``bt``."""
+    Bx, nb = bt.shape
+    if x.dim() == 2:
+        pool = torch.full((Bx * nb + 1, PS), fill, dtype=x.dtype, device=DEV)
+        pool[bt.long()] = x.reshape(Bx, nb, PS)
+    else:
+        pool = torch.full((Bx * nb + 1, x.shape[1], PS) + tuple(x.shape[3:]),
+                          fill, dtype=x.dtype, device=DEV)
+        pool[bt.long()] = x.reshape((Bx, x.shape[1], nb, PS)
+                                    + tuple(x.shape[3:])).movedim(2, 1)
+    return pool
+
+
+def wide_cases(da):
+    """Decode past one chunk of query heads, bf16 dense / paged and int8
+    dense, with SDPA on the dense bf16 inputs and the tree's own K/V bytes
+    requested."""
+    F = torch.nn.functional
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 1)
+    rng = np.random.default_rng(SEED + 1)
+    cur = rng.integers(64, L - 1, size=B)
+    fill = np.minimum(L, cur + 1 + rng.integers(0, 64, size=B))
+    ar = torch.arange(L, device=DEV, dtype=torch.int32)[None]
+    fill_t = torch.tensor(fill, device=DEV, dtype=torch.int32)[:, None]
+    kpos = torch.where(ar < fill_t, ar, torch.full_like(ar, -1)).contiguous()
+    cur_t = torch.tensor(cur, device=DEV, dtype=torch.int32)
+    valid = (kpos >= 0) & (kpos <= cur_t[:, None])
+    n_valid = int(valid.sum())
+    mask = valid[:, None, None, :]
+    out = {}
+    for tag, (hq, hkv, d) in WIDE_GROUPS:
+        q = torch.randn((B, hq, d), generator=gen, device=DEV).bfloat16()
+        k = torch.randn((B, hkv, L, d), generator=gen, device=DEV)
+        v = torch.randn((B, hkv, L, d), generator=gen, device=DEV)
+        g = hq // hkv
+        group = getattr(da, "uses_group_kernel", None)
+        reads = (da.decode_group_plan(g, d).n_slices
+                 if group and group(g, d, torch.bfloat16)
+                 else da.head_chunks(g, d)[1])
+        kv_b = n_valid * hkv * d * 2 * 2
+        kb, vb = k.bfloat16(), v.bfloat16()
+        rec = timings(lambda: da.decode_attention_cuda(q, kb, vb, kpos,
+                                                       cur_t),
+                      lambda: F.scaled_dot_product_attention(
+                          q[:, :, None], kb, vb, attn_mask=mask,
+                          enable_gqa=True))
+        rec.update(bound_ms=(kv_b + 2 * q.numel() * 2 + kpos.numel() * 4)
+                   / 3.35e12 * 1e3, kv_mb_bound=kv_b / 1e6,
+                   kv_mb_requested=reads * kv_b / 1e6)
+        out[f"{tag}_bf16"] = rec
+        bt = _table(gen, B, L // PS)
+        kp, vp, kpp = _pool(kb, bt, 0), _pool(vb, bt, 0), _pool(kpos, bt, -1)
+        out[f"{tag}_bf16_paged"] = dict(graph_ms=time_ms(
+            lambda: da.paged_decode_attention_cuda(q, kp, vp, kpp, bt, cur_t),
+            True))
+        k8, ks = _quant(k)
+        v8, vs = _quant(v)
+        out[f"{tag}_int8"] = dict(graph_ms=time_ms(
+            lambda: da.decode_attention_cuda(q, k8, v8, kpos, cur_t,
+                                             k_scale=ks, v_scale=vs), True),
+            kv_mb_requested=reads * n_valid * hkv * (2 * d + 8) / 1e6)
+    return out
+
+
+def digests(da):
+    """sha256 of decode outputs at smollm's widths (Hq 9, Hkv 3, D 64, B 4,
+    L 512): fp32, bf16 and int8 K/V, with a long row, an idle row, a short
+    one and one whose cur is set with nothing cached, and the log-sum-exp;
+    dense and paged."""
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 2)
+    Bd, Ld = 4, 512
+    kpos = torch.arange(Ld, device=DEV, dtype=torch.int32)[None].repeat(Bd, 1)
+    kpos[3] = -1
+    cur_t = torch.tensor([500, -1, 30, 200], device=DEV, dtype=torch.int32)
+    out = {}
+    for kind in ("fp32", "bf16", "int8"):
+        dt = torch.float32 if kind == "fp32" else torch.bfloat16
+        q = torch.randn((Bd, HQ, D), generator=gen, device=DEV).to(dt)
+        k = torch.randn((Bd, HKV, Ld, D), generator=gen, device=DEV)
+        v = torch.randn((Bd, HKV, Ld, D), generator=gen, device=DEV)
+        opt = {}
+        if kind == "int8":
+            k, ks = _quant(k)
+            v, vs = _quant(v)
+            opt = dict(k_scale=ks, v_scale=vs)
+        else:
+            k, v = k.to(dt), v.to(dt)
+        o, lse = da.decode_attention_cuda(q, k, v, kpos, cur_t,
+                                          return_lse=True, **opt)
+        bt = _table(gen, Bd, Ld // PS)
+        kp, vp, kpp = _pool(k, bt, 0), _pool(v, bt, 0), _pool(kpos, bt, -1)
+        popt = {} if not opt else dict(k_scale=_pool(ks, bt, 1.0),
+                                       v_scale=_pool(vs, bt, 1.0))
+        po = da.paged_decode_attention_cuda(q, kp, vp, kpp, bt, cur_t,
+                                            **popt)
+        torch.cuda.synchronize()
+        for name, t in (("dense", o), ("lse", lse), ("paged", po)):
+            out[f"{kind}_{name}"] = hashlib.sha256(
+                t.float().cpu().numpy().tobytes()).hexdigest()[:16]
+    return out
+
+
 def engine_steps(get_config, Model, BatchingEngine):
     cfg = get_config("smollm-135m")
     params = Model(cfg, device=DEV).init(
@@ -172,6 +306,7 @@ def child(tree):
     torch.backends.cuda.matmul.allow_tf32 = False
     _lib.build()
     rec = dict(tree=str(tree), kernels=kernel_cases(da, fa),
+               wide=wide_cases(da), digests=digests(da),
                engine=engine_steps(get_config, Model, BatchingEngine))
     print(json.dumps(rec), flush=True)
 
