@@ -88,9 +88,27 @@ lines.jsonl):
    layers x prefill calls); token streams must equal the same engine forced
    onto the plain versions (``kernel_force="ref"``), except from a step
    where the kernel path's token has a plain-path logit within the bf16
-   tolerance of the plain path's top logit (counted).
+   tolerance of the plain path's top logit (counted). Every engine decode
+   call of every serving phase (``engine_calls``) must capture its
+   engine's CUDA graph (its first call) or replay it; each record gives
+   the engine's captures, replays, capture ms and graph memory.
 5. ``profile_*``: device busy time and idle share of decode steps, and
    the step's five largest device kernels by time.
+5a. the decode step as CUDA graphs (``core/graphs.py``): ``graph_replay``
+   (full-width smollm, 8 slots x 2048, dense and paged, bf16, fp32 and
+   int8 KV: 16 replays an engine, each held against a direct call of the
+   captured function on copies of the same inputs; ids identical, the
+   largest logit difference, fp32 within 1e-5), ``graph_profile`` (one
+   replay under ``torch.profiler``: the decode split or group kernel and
+   the merge kernel once an attention site, by name), ``graph_refusal``
+   (``configure`` of a step that syncs with the host and of one that
+   uploads from pageable memory raises ``GraphCaptureError`` naming the
+   op; the program refuses later calls without running the step; the
+   allocator still empties its cache afterwards) and
+   ``graph_configure`` (Table I on the serving program: a 4-engine paged
+   fleet's configure, its capture included, against the engines' PR
+   swaps; each engine's capture ms and graph memory; every later step a
+   replay).
 5b. serving through the hypervisor, each path with the launch counts zeroed
    before it and read after it, every decode and flash launch accounted
    for (layers x engine decode calls, plus one decode step a configure's
@@ -107,10 +125,11 @@ lines.jsonl):
    plain path (near-ties counted), one ``serve`` event a request, every pool
    verified and empty after the drain; tokens/s, step and round ms, TTFT,
    steps by engine, and the host ms a decode step of an engine bare and
-   bound to the configured program, with the program wrapper's tree
-   rebuild alone. ``fleet_chaos``: the reference's chaos workload (4 nodes
-   x 1 device, six 2-slot tenants packed on 3 devices and a spare parked, 2
-   requests of 64-256 tokens each, 16 new tokens) at full width in fp32;
+   bound to the configured program, with the graph program's binding of
+   the argument trees alone. ``fleet_chaos``: the reference's chaos
+   workload (4 nodes x 1 device, six 2-slot tenants packed on 3 devices
+   and a spare parked, 2 requests of 64-256 tokens each, 16 new tokens) at
+   full width in fp32;
    a seeded device kill mid-decode in the lockstep loop and through
    ``EventLoop``; token logs against the fault-free run (near-ties
    counted), 4 requests resumed from the journal, the spare woken, the
@@ -411,6 +430,8 @@ FAMILY2_LAYERS = {"qwen3-moe-30b-a3b": 6, "llava-next-34b": 4,
 ROUTER_TIE = 1e-5
 WHISPER_B, WHISPER_PROMPT, WHISPER_STEPS = 4, 4, 64
 WHISPER_ENGINE_NEW = 32                # whisper_engine: tokens a request
+GRAPH_STEPS = 16                       # graph_replay: replays an engine
+GRAPH_FP32_TOL = 1e-5                  # graph_replay: fp32 logits
 
 
 class SmokeFailure(Exception):
@@ -427,6 +448,15 @@ def emit(obj):
 def require(cond, what):
     if not cond:
         raise SmokeFailure(what)
+
+
+def free_card():
+    """Collect unreachable objects, then return the allocator's cached
+    blocks to the card. A fleet and its hypervisor reference each other
+    (migration listeners), so the engines of a finished phase, their
+    caches and their graphs' memory pools wait for the cycle collector."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def gpu_line():
@@ -460,9 +490,12 @@ def time_ms(fn, iters=20, graph=True):
         fn()
     run = fn
     if graph:
+        from repro_torch.kernels import _lib
         g = torch.cuda.CUDAGraph()
         torch.cuda.synchronize()
-        with torch.cuda.graph(g):
+        # a timing's launches are measurements, not a path's: the capture
+        # keeps its tally (the ledger asks it to) and the replays drop it
+        with _lib.capture_tally(), torch.cuda.graph(g):
             fn()
         run = g.replay
     total = 0.0
@@ -1361,11 +1394,14 @@ def family_batch(cfg, B, n_tok, seed=SEED):
 
 
 @contextlib.contextmanager
-def router_watch(log):
+def router_watch(log, captured=None):
     """Record every MoE routing while the block runs: per ``moe.route``
     call, each token's top-k margin (the k-th sorted router probability
     less the (k+1)-th), its experts and which of its assignments were kept
-    (capacity)."""
+    (capacity). A routing recorded while a CUDA graph is captured goes to
+    ``captured`` instead: its tensors are the graph's, and each replay of
+    the graph rewrites them with that step's routing."""
+    from repro_torch.kernels import _lib
     from repro_torch.layers import moe
     route = moe.route
 
@@ -1373,8 +1409,10 @@ def router_watch(log):
         out = route(p, xf, opts)
         sp, _, expert, pos, cap, _ = out
         k = opts.cfg.top_k
-        log.append(dict(margin=sp[..., k - 1] - sp[..., k], expert=expert,
-                        keep=(pos < cap).reshape(expert.shape)))
+        rec = dict(margin=sp[..., k - 1] - sp[..., k], expert=expert,
+                   keep=(pos < cap).reshape(expert.shape))
+        (captured if captured is not None and _lib._capturing()
+         else log).append(rec)
         return out
 
     moe.route = watched
@@ -1803,15 +1841,38 @@ def engine_calls(calls, top8=None, routes=None):
     block runs; with ``top8``, record each decoding slot's top-8 logits,
     keyed (request id, tokens generated so far), for ``compare_streams``;
     with ``routes`` (MoE), each decoding slot's routing in that step under
-    the same key: per MoE layer, its experts and which were kept."""
+    the same key: per MoE layer, its experts and which were kept. On the
+    card every decode call must capture its engine's graph (its first
+    call) or replay it, and nothing else: ``calls`` counts the captures
+    and the replays. A replayed step runs no Python: its routing is read
+    from the tensors the engine's capture recorded (``router_watch``),
+    which the replay rewrote."""
+    from repro_torch.core.graphs import GraphProgram
     from repro_torch.runtime.serve import BatchingEngine
     dec, pre = BatchingEngine._decode, BatchingEngine._prefill
-    log = []
+    log, captured, graph_routes = [], [], {}
+    calls.setdefault("captures", 0)
+    calls.setdefault("replays", 0)
 
     def decode(self, tokens, pos):
         calls["decode"] += 1
         log.clear()                      # routings of earlier prefills
+        prog, n_cap = self._greedy, len(captured)
+        was = (prog.captures, prog.replays) \
+            if isinstance(prog, GraphProgram) else None
         logits = dec(self, tokens, pos)
+        if DEV != "cpu":
+            require(was is not None, "an engine's decode step is not a "
+                    f"graph program: {prog!r}")
+            cap, rep = prog.captures - was[0], prog.replays - was[1]
+            require((cap, rep) in ((1, 0), (0, 1)),
+                    f"an engine decode call captured {cap} and replayed "
+                    f"{rep} graphs")
+            calls["captures"] += cap
+            calls["replays"] += rep
+        if len(captured) > n_cap:        # this call captured the graph
+            graph_routes[id(self)] = captured[n_cap:]
+        step_log = log if log else graph_routes.get(id(self), [])
         rows = [(i, (r.request_id, len(r.out_tokens)))
                 for i, r in enumerate(self._slots)
                 if r is not None and i not in self._prefilling]
@@ -1821,9 +1882,10 @@ def engine_calls(calls, top8=None, routes=None):
             for i, key in rows:
                 top8[key] = dict(zip(idx[i].tolist(), val[i].tolist()))
         if routes is not None:
-            for i, key in rows:
-                routes[key] = [(r["expert"][0, i], r["keep"][0, i])
-                               for r in log]
+            require(step_log, "a MoE decode step recorded no routing")
+            for i, key in rows:   # copies: a replay rewrites the graph's
+                routes[key] = [(r["expert"][0, i].clone(),
+                                r["keep"][0, i].clone()) for r in step_log]
         return logits
 
     def prefill(self, toks):
@@ -1832,7 +1894,7 @@ def engine_calls(calls, top8=None, routes=None):
 
     BatchingEngine._decode, BatchingEngine._prefill = decode, prefill
     try:
-        with router_watch(log) if routes is not None \
+        with router_watch(log, captured) if routes is not None \
                 else contextlib.nullcontext():
             yield
     finally:
@@ -1900,7 +1962,7 @@ def serve(model, params, prompts, paged, new_tokens=32, top8=None,
     require(n_tok == new_tokens * len(reqs), "engine: short streams")
     metrics = dict(requests=len(reqs), tokens=n_tok, wall_s=wall,
                    tokens_per_s=n_tok / wall,
-                   decode_steps=eng.steps,
+                   decode_steps=eng.steps, graph=graph_stats(eng, calls),
                    step_ms_p50=float(np.percentile(step_ms, 50)),
                    step_ms_p95=float(np.percentile(step_ms, 95)),
                    ttft_ms_p50=float(np.percentile(ttft, 50)),
@@ -1911,6 +1973,22 @@ def serve(model, params, prompts, paged, new_tokens=32, top8=None,
     if paged:
         metrics["page_stats"] = eng.page_stats()
     return [r.out_tokens for r in reqs], metrics
+
+
+def graph_stats(eng, calls):
+    """An engine's decode graph (None on the CPU): its captures and
+    replays, the ms each capture took and the card memory it reserved. On
+    the card an engine captures once and replays every later step."""
+    g = eng._greedy
+    if DEV == "cpu":
+        return None
+    out = dict(captures=calls["captures"], replays=calls["replays"],
+               capture_ms=g.capture_ms,
+               graph_mb=[b / 1e6 for b in g.graph_bytes])
+    require(calls["captures"] == 1
+            and calls["replays"] == calls["decode"] - 1,
+            f"engine: {calls['decode']} decode calls, {out}")
+    return out
 
 
 def routed_apart(routes, key):
@@ -2035,6 +2113,247 @@ def profile_phase(phase, cfg, params, prompts, paged):
 
 
 # ---------------------------------------------------------------------------
+# The decode step as CUDA graphs (core/graphs.py)
+# ---------------------------------------------------------------------------
+
+def replay_against_direct(eng, params):
+    """Wrap ``eng._decode``: each step, replayed from the engine's graph,
+    is followed by a direct call of the captured function (the serve step
+    and ``greedy_tail``, eagerly) on copies of the step's inputs. Returns
+    the list of (ids equal, largest |logit difference|) a step."""
+    step = eng._greedy.fn
+    dec = eng._decode
+    got = []
+
+    def clone(tree):
+        if isinstance(tree, dict):
+            return {k: clone(v) for k, v in tree.items()}
+        if isinstance(tree, (tuple, list)):
+            return type(tree)(clone(v) for v in tree)
+        return tree.clone()
+
+    def decode(tokens, pos):
+        caches = clone(eng.caches)
+        extra = (torch.from_numpy(np.ascontiguousarray(
+            eng.pool.block_tables, np.int32)).to(DEV),) if eng.paged else ()
+        logits = dec(tokens, pos).clone()
+        ids = eng._step_ids.clone()
+        want, want_ids = step(
+            params, caches, torch.from_numpy(np.array(tokens)).to(DEV),
+            torch.from_numpy(np.array(pos, np.int32)).to(DEV), *extra)
+        got.append((bool(torch.equal(ids, want_ids)),
+                    float((logits.float() - want.float()).abs().max())))
+        return logits
+
+    eng._decode = decode
+    return got
+
+
+def graph_replay_phase(cfg, params, prompts):
+    """smollm-135m at full width and depth, 8 slots x 2048, 8 requests of
+    the workload: for each engine (dense and paged; bf16, fp32, int8 KV)
+    its first decode step captures the graph and the next GRAPH_STEPS
+    replay it, each held against a direct call of the captured function on
+    copies of the same inputs: the ids identical, the largest logit
+    difference reported (fp32: within GRAPH_FP32_TOL). Launches: one decode
+    a layer for each step and each direct call."""
+    from repro_torch.kernels import _lib
+    from repro_torch.models import Model
+    from repro_torch.runtime import BatchingEngine
+    rows = []
+    for dtype, quant in (("bfloat16", False), ("float32", False),
+                         ("bfloat16", True)):
+        c = cfg.replace(dtype=dtype, kv_quant=quant)
+        for paged in (False, True):
+            eng = BatchingEngine(Model(c, device=DEV), params, n_slots=8,
+                                 max_len=2048, paged=paged, page_size=16)
+            for p, t in prompts[:8]:
+                eng.submit(p, max_new_tokens=64, tenant=t)
+            got = replay_against_direct(eng, params)
+            _lib.launches.reset()
+            while len(got) < GRAPH_STEPS + 1:
+                eng.step()
+            name = "paged_decode_attention" if paged else "decode_attention"
+            need = 2 * c.n_layers * len(got)
+            require(_lib.launches[name] == need,
+                    f"graph_replay: {_lib.launches[name]} {name} launches, "
+                    f"{need} needed")
+            counts = eng._greedy.counts()
+            require(counts == dict(graphs=1, captures=1, replays=len(got) - 1),
+                    f"graph_replay: {counts} over {len(got)} steps")
+            diff = max(d for _, d in got)
+            require(all(same for same, _ in got),
+                    f"graph_replay {dtype} kv_quant={quant} paged={paged}: "
+                    "a replay's tokens differ from the direct call's")
+            require(dtype != "float32" or diff <= GRAPH_FP32_TOL,
+                    f"graph_replay fp32 paged={paged}: logits {diff} apart")
+            rows.append(dict(dtype=dtype, kv_quant=quant, paged=paged,
+                             replays=len(got) - 1, ids_equal=True,
+                             max_logit_diff=diff,
+                             capture_ms=eng._greedy.capture_ms[0],
+                             graph_mb=eng._greedy.graph_bytes[0] / 1e6))
+            del eng._decode, eng        # the wrapper's cycle with eng
+            free_card()
+    emit(dict(phase="graph_replay", arch=cfg.name, layers=cfg.n_layers,
+              steps=GRAPH_STEPS, fp32_tol=GRAPH_FP32_TOL, rows=rows))
+
+
+def graph_profile_phase(cfg, params, prompts):
+    """One replayed decode step under ``torch.profiler``, dense and paged
+    (bf16, 8 slots): the decode kernels by name, the split pass (the split
+    or the group kernel) and the merge pass once an attention site, and
+    the step's device ops and busy ms."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import Model
+    from repro_torch.runtime import BatchingEngine
+    sites = kernel_sites(cfg)[0]
+    for paged in (False, True):
+        eng = BatchingEngine(Model(cfg, device=DEV), params, n_slots=8,
+                             max_len=2048, paged=paged, page_size=16)
+        for p, t in prompts[:8]:
+            eng.submit(p, max_new_tokens=64, tenant=t)
+        for _ in range(3):
+            eng.step()                  # admit, capture, replay
+        args = (eng.params, eng.caches, eng._tok, eng._posd) \
+            + ((eng._bt,) if paged else ())
+        replays = eng._greedy.replays
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            eng._greedy(*args)
+            torch.cuda.synchronize()
+        require(eng._greedy.replays == replays + 1,
+                "graph_profile: the profiled call did not replay")
+        dev = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        by = {k: sum(e.count for e in dev if k in e.key)
+              for k in ("decode_split_kernel", "decode_group_kernel",
+                        "decode_merge_kernel", "flash_")}
+        require(by["decode_split_kernel"] + by["decode_group_kernel"]
+                == by["decode_merge_kernel"] == sites and not by["flash_"],
+                f"graph_profile paged={paged}: decode kernels {by} in one "
+                f"replay, {sites} attention sites")
+        emit(dict(phase="graph_profile", arch=cfg.name, paged=paged,
+                  attention_sites=sites, decode_kernels=by,
+                  device_ops=sum(e.count for e in dev),
+                  device_busy_ms=sum(e.self_device_time_total
+                                     for e in dev) / 1e3))
+        del eng
+
+
+def graph_refusal_phase():
+    """``Reconfigurator.configure`` of a step that syncs with the host
+    (``torch.cuda.synchronize()``) and of one that uploads from pageable
+    memory (``torch.tensor(..., device=...)``): each raises
+    ``GraphCaptureError`` naming the op's source line; the program then
+    refuses a call without running the step; the card still computes."""
+    from repro_torch.core import ClusterSpec, Hypervisor
+    from repro_torch.core.graphs import GraphCaptureError, GraphProgram
+    ran = []
+
+    def synced_step(x):
+        ran.append(1)
+        y = x * 2
+        torch.cuda.synchronize()
+        return y
+
+    def uploading_step(x):
+        ran.append(1)
+        return x * torch.tensor(2.0, device=x.device)
+
+    out = {}
+    free_card()
+    reserved = torch.cuda.memory_reserved()
+    hv = Hypervisor(ClusterSpec(n_nodes=1, devices_per_node=1), device=DEV)
+    for fn, op in ((synced_step, "torch.cuda.synchronize()"),
+                   (uploading_step, "torch.tensor(2.0, device=x.device)")):
+        try:
+            hv.reconfig.configure(fn, (torch.empty((4, 4), device="meta"),))
+            msg = None
+        except GraphCaptureError as e:
+            msg = str(e)
+        require(msg is not None and op in msg,
+                f"graph_refusal: configure of {fn.__name__}: {msg!r}")
+        program = GraphProgram(fn, DEV)
+        x = torch.ones((4, 4), device=DEV)
+        for i in range(2):
+            n = len(ran)
+            try:
+                program(x)
+                refused = False
+            except GraphCaptureError:
+                refused = True
+            # the first call runs the step (eagerly, then under the
+            # capture that fails); a refused program runs nothing
+            require(refused and (len(ran) > n if i == 0 else len(ran) == n),
+                    f"graph_refusal: call {i} of {fn.__name__} ran "
+                    f"{len(ran) - n} times, refused {refused}")
+        out[fn.__name__] = msg
+    require(len(hv.reconfig.cache) == 0, "graph_refusal: a refused program "
+            "entered the program cache")
+    x = torch.ones((64, 64), device=DEV)
+    require(float((x @ x).sum()) == 64.0 ** 3,
+            "graph_refusal: the card computes wrong after a refused capture")
+    # the allocator still returns memory: a refused capture left it routing
+    # to the graph's pool, where it empties no cache (repaired in graphs.py)
+    x = torch.empty(1 << 30, dtype=torch.uint8, device=DEV)
+    del x
+    free_card()
+    after = torch.cuda.memory_reserved()
+    require(after <= reserved + (64 << 20),
+            f"graph_refusal: {after - reserved} bytes stay reserved after a "
+            "refused capture")
+    emit(dict(phase="graph_refusal", messages=out,
+              reserved_bytes_before=reserved, reserved_bytes_after=after))
+
+
+def graph_configure_phase(cfg, params, prompts):
+    """Table I on the serving program, and the graphs of a fleet's
+    engines: a paged ``GatewayFleet`` of smollm-135m (bf16, 4 slots x
+    2048) over 4 devices, one tenant of 4 slots on each (rsaas), serves 8
+    requests of the workload, 8 new tokens each. The first engine's
+    ``configure`` (the meta check, the warm-up run, the capture; its
+    capture ms) against the other engines' PR swaps; each engine's own
+    capture (ms, card memory reserved) at its first step; every later step
+    a replay."""
+    from repro_torch.core import ClusterSpec, Hypervisor
+    from repro_torch.models import Model
+    from repro_torch.runtime import GatewayFleet
+    hv = Hypervisor(ClusterSpec(n_nodes=1, devices_per_node=4), device=DEV)
+    calls = {"decode": 0, "prefill": 0}
+    with engine_calls(calls):
+        fleet = GatewayFleet(hv, Model(cfg, device=DEV), params, n_slots=4,
+                             max_len=2048, paged=True, page_size=16)
+        for t in "abcd":
+            fleet.open_session(t, slots=4, service_model="rsaas")
+        reqs = [fleet.submit("abcd"[i % 4], p, max_new_tokens=8)
+                for i, (p, _) in enumerate(prompts[:8])]
+        fleet.run_until_idle()
+    require(all(len(r.out_tokens) == 8 for r in reqs),
+            "graph_configure: short streams")
+    up = next(e for e in hv.log if e["kind"] == "fleet_up")
+    swaps = [e for e in hv.log if e["kind"] == "engine_up"]
+    program = hv.reconfig.cache.entry_for(fleet.program_fingerprint).compiled
+    chained = list(program._chained.values())
+    require(len(swaps) == 4 and all(e["cache_hit"] for e in swaps)
+            and len(chained) == 1,
+            f"graph_configure: {len(swaps)} engines, {len(chained)} chained")
+    engines = chained[0]
+    require(engines.captures == calls["captures"] == 4
+            and engines.replays == calls["replays"] == calls["decode"] - 4,
+            f"graph_configure: {engines.counts()} for {calls}")
+    emit(dict(phase="graph_configure", table="I", arch=cfg.name,
+              configure_s=up["compile_s"],
+              configure_capture_ms=program.capture_ms[0],
+              configure_graph_mb=program.graph_bytes[0] / 1e6,
+              pr_swap_s=[e["swap_s"] for e in swaps],
+              engine_capture_ms=engines.capture_ms,
+              engine_graph_mb=[b / 1e6 for b in engines.graph_bytes],
+              decode_calls=calls["decode"], replays=calls["replays"]))
+    fleet.close()
+
+
+# ---------------------------------------------------------------------------
 # The remaining families: MoE, MLA, hybrid, encoder-decoder, VLM
 # ---------------------------------------------------------------------------
 
@@ -2155,7 +2474,7 @@ def families2_phases(get_config, fp32_path):
         got = families_model_phase(fcfg, fparams, cut, "families2_model")
         fp32_path["families2_model"] += got["flash_attention"]
         del fparams
-        torch.cuda.empty_cache()
+        free_card()
 
     zcfg = get_config("zamba2-7b")
     zparams = seeded_params(Model(zcfg, device=DEV), SEED + 43)
@@ -2167,7 +2486,7 @@ def families2_phases(get_config, fp32_path):
     add(got16)
     fp32_path["zamba2_serve_fp32"] += got32["flash_attention"]
     del zparams
-    torch.cuda.empty_cache()
+    free_card()
 
     wcfg = get_config("whisper-tiny")
     wparams = seeded_params(Model(wcfg, device=DEV), SEED + 44)
@@ -2177,7 +2496,7 @@ def families2_phases(get_config, fp32_path):
     _lib.launches.reset()                   # whisper's serving path
     add(whisper_serve_phase(wcfg, wparams))
     del wparams
-    torch.cuda.empty_cache()
+    free_card()
     require(all(path[k] > 0 for k in SERVING_KERNELS + ("ssd_chunk_scan",)),
             f"a kernel of the families2 paths never launched: {path}")
     return path
@@ -2227,7 +2546,7 @@ def wide_group_engine_phase(get_config):
     emit(dict(phase="wide_group_engine_path", launches=path,
               wall_s=time.monotonic() - t_phase))
     del params
-    torch.cuda.empty_cache()
+    free_card()
     return path
 
 
@@ -2342,12 +2661,13 @@ def fleet_serve(model, params, prompts, top8=None, new_tokens=32):
 
 def program_overhead(model, params, prompts):
     """Host ms a decode step of one paged engine (8 slots, 8 requests in
-    decode) bare and bound to the program the hypervisor configured
-    (``use_program``), in turns bare, program, program, bare of 10 steps
-    each; and the host time of the program wrapper's rebuild of the
-    parameter and cache trees alone (``_device_program``), per call."""
+    decode) bare (its own graph program) and bound to the program the
+    hypervisor configured (``use_program``), in turns bare, program,
+    program, bare of 10 steps each; and the host time of a graph program's
+    binding of the parameter and cache trees alone (``graphs.binding``:
+    the key a replay is looked up by), per call."""
     from repro_torch.core import ClusterSpec, Hypervisor
-    from repro_torch.core.reconfig import _device_program
+    from repro_torch.core.graphs import binding
     from repro_torch.runtime import BatchingEngine
     from repro_torch.runtime.gateway import serve_example
     from repro_torch.runtime.serve import make_paged_serve_step
@@ -2372,19 +2692,14 @@ def program_overhead(model, params, prompts):
             eng.step()
         torch.cuda.synchronize()
         ms[tag].append((time.monotonic() - t0) * 1e3 / 10)
-    args = (params, eng.caches, torch.zeros((8, 1), dtype=torch.int32,
-                                            device=DEV),
-            torch.zeros((8,), dtype=torch.int32, device=DEV),
-            eng._block_tables_dev())
-    # the wrapper the program cache holds, around a step that does nothing
-    place = _device_program(lambda *a: None, hv.reconfig.device)
+    args = (params, eng.caches, eng._tok, eng._posd, eng._bt)
     t0 = time.monotonic()
     for _ in range(100):
-        place(*args)
-    wrap_ms = (time.monotonic() - t0) * 1e3 / 100
+        binding(args, eng.device)
+    bind_ms = (time.monotonic() - t0) * 1e3 / 100
     return dict(step_host_ms_bare=ms["bare"],
                 step_host_ms_program=ms["program"],
-                program_wrapper_host_ms=wrap_ms)
+                program_binding_host_ms=bind_ms)
 
 
 def gateway_fleet_phase(cfg, params, prompts):
@@ -3328,7 +3643,7 @@ TRAIN_LR = dict(lr=1e-3, warmup_steps=10)             # the launcher's
 
 def _mem_reset():
     torch.cuda.synchronize()
-    torch.cuda.empty_cache()
+    free_card()
     torch.cuda.reset_peak_memory_stats()
 
 
@@ -3642,7 +3957,7 @@ def train_families_phase(get_config):
                   params=sum(t.numel() for t in flatten(state["params"])[0]),
                   launches=got))
         del state, batch, model
-        torch.cuda.empty_cache()
+        free_card()
     emit(dict(phase="train_families", wall_s=time.monotonic() - t_phase))
     return total
 
@@ -3709,7 +4024,7 @@ def training_phases(get_config):
                train_families_phase, train_dp_nccl_phase):
         got = fn(get_config)
         total = {k: total.get(k, 0) + v for k, v in got.items()}
-        torch.cuda.empty_cache()
+        free_card()
     emit(dict(phase="training", launches=total,
               wall_s=time.monotonic() - t0))
     return total
@@ -3840,7 +4155,7 @@ def mesh_serve_phase(get_config, mesh, card):
                                     - np.percentile(plain_ms[1:], 50)),
               wall_s=time.monotonic() - t_phase))
     del params, mparams, caches, mcaches
-    torch.cuda.empty_cache()
+    free_card()
     return launched
 
 
@@ -4069,7 +4384,7 @@ def mesh_train_deepseek_phase(get_config, mesh):
               mesh_step_ms_p50=p50["mesh"], plain_step_ms_p50=p50["plain"],
               launches=got, wall_s=time.monotonic() - t_phase))
     del runs, state, mstate
-    torch.cuda.empty_cache()
+    free_card()
     return got
 
 
@@ -4191,7 +4506,7 @@ def mesh_phases(get_config):
                                                           card)
         got2 = mesh_ckpt_phase(mesh, state, sspecs, step, data)
         del state
-        torch.cuda.empty_cache()
+        free_card()
         got3 = mesh_train_deepseek_phase(get_config, mesh)
         # the counts zeroed just before the shell's path, read just after
         _lib.launches.reset()
@@ -4575,6 +4890,16 @@ def main():
     profile_phase("profile_dense_decode", cfg, params, prompts, False)
     profile_phase("profile_paged_decode", cfg, params, prompts, True)
 
+    # the decode step as CUDA graphs: replays against direct calls, one
+    # replay profiled, configure's refusal of a step that syncs, Table I
+    # and each fleet engine's capture (counts zeroed before and after:
+    # the direct calls are comparisons, not a path)
+    graph_replay_phase(cfg, params, prompts)
+    graph_profile_phase(cfg, params, prompts)
+    graph_refusal_phase()
+    graph_configure_phase(cfg, params, prompts)
+    _lib.launches.reset()
+
     # serving through the hypervisor: each phase zeroes the counts before
     # it drives its path and reads them after
     launch_path = launch_serve_phase()                  # fp32
@@ -4645,7 +4970,7 @@ def main():
         got = families_model_phase(fcfg, fparams)
         fp32_path["families_model"] += got["flash_attention"]
         del fparams
-        torch.cuda.empty_cache()
+        free_card()
     g2cfg = get_config("gemma2-9b").replace(n_layers=4)
     gen = torch.Generator(device=DEV).manual_seed(SEED + 12)
     g2params = Model(g2cfg, device=DEV).init(gen)
@@ -4654,7 +4979,7 @@ def main():
         "chip time)")
     fp32_path["families_model"] += got["flash_attention"]
     del g2params
-    torch.cuda.empty_cache()
+    free_card()
 
     # the remaining families: MoE, MLA, VLM, hybrid, encoder-decoder
     families2_path = families2_phases(get_config, fp32_path)
@@ -4673,7 +4998,7 @@ def main():
     require(ssm_path["ssd_chunk_scan"] > 0,
             f"ssd_chunk_scan never launched on the SSM path: {ssm_path}")
     del sparams
-    torch.cuda.empty_cache()
+    free_card()
 
     # training: AdamW, chunked xent, remat, microbatches, checkpoints and
     # the DP exchange through the port's entry points; no kernel launches

@@ -1,0 +1,450 @@
+"""Capture and replay of a step as CUDA graphs: the port's counterpart of
+the reference's compiled executables (``jax.jit``, ``lower().compile()``).
+It has no module in the reference.
+
+An XLA executable is bound to the shapes of its arguments; a CUDA graph is
+bound to their addresses. A ``GraphProgram`` wraps a step function and
+keeps one graph for each binding of its arguments:
+
+* a tensor on the program's device is bound by address (weights, caches,
+  an engine's step buffers); the caller updates its contents in place;
+* a host array (a numpy array, or a tensor on another device) is staged:
+  copied, through pinned host memory, into a buffer the program owns;
+* any other leaf (a number, a string, None) is part of the key by value.
+
+The key is the arguments' tree structure, the shape, strides and dtype of
+every array, and the address of every bound tensor. A call with a key not
+seen yet runs the step eagerly (the call's real execution, and the warm-up
+of whatever it loads), then captures it on the same buffers; capture
+executes nothing, so no data moves twice. Later calls with that key copy
+the staged inputs in and replay. The graphs of one program share a memory
+pool. A graph is dropped once a tensor it is bound to is freed, and
+``close`` drops them all (the program cache calls it when it evicts the
+program).
+
+A replay rewrites the graph's outputs in place: what a call returns stays
+valid until the program's next replay (``fresh`` returns copies). An
+output that is one of the call's own tensors (a cache written in place)
+is returned as the caller's tensor.
+
+A step must be capturable: no host sync (``.item()``, ``.cpu()``,
+``torch.cuda.synchronize()``) and no upload from pageable memory
+(``torch.tensor(..., device="cuda")``). A step that is not raises
+``GraphCaptureError`` naming the source line of the op, and the program
+refuses every later call: nothing runs the step eagerly after a capture
+failed.
+
+``then(program, post)`` is a program followed by ``post`` on its outputs,
+captured as one graph (the serving engine's decode step and its argmax):
+callers that bind one program share the chained program, so each caller's
+buffers get one graph of it, in the program's pool.
+
+The kernel wrappers' launch counts stay counts of executions: a capture
+keeps the tally of the launches it recorded (``_lib.capture_tally``), and
+each replay adds it (``_lib.launches.replayed``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import gc
+import os
+import threading
+import time
+import traceback
+import weakref
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import _lib
+
+_TORCH_DIR = os.path.dirname(torch.__file__)
+_streams: Dict[torch.device, Any] = {}
+_streams_lock = threading.Lock()
+
+
+class GraphCaptureError(RuntimeError):
+    """A step that cannot be captured as a CUDA graph."""
+
+
+class _Pool:
+    """The memory pool that the graphs of a program, and of the programs
+    chained to it, share. The allocator frees a pool with its last graph,
+    and a capture into a freed pool's handle fails: once no graph of the
+    pool lives, the next capture takes a new handle."""
+
+    def __init__(self):
+        self.handle = None
+        self.live = 0
+
+    def get(self):
+        if self.handle is None:
+            self.handle = torch.cuda.graph_pool_handle()
+        return self.handle
+
+    def dropped(self, n: int = 1) -> None:
+        self.live -= n
+        if self.live == 0:
+            self.handle = None
+
+
+@dataclasses.dataclass(frozen=True)
+class _Arg:
+    """An output that is the call's own leaf ``index``."""
+    index: int
+
+
+@dataclasses.dataclass
+class _Graph:
+    graph: Any                       # torch.cuda.CUDAGraph
+    staged: List[Tuple[torch.Tensor, torch.Tensor]]  # (device, pinned host)
+    outputs: Any                     # tensors the graph writes, or _Arg
+    aliased: bool                    # whether ``outputs`` holds an _Arg
+    tally: Dict[str, int]            # kernel launches a replay makes
+    refs: list                       # weakrefs to the bound tensors
+    capture_ms: float
+    reserved_bytes: int              # card memory the capture reserved
+    copied: Any = None               # event after the staging copies
+
+
+def flatten(tree, leaves: list, spec: list) -> None:
+    """Append the leaves of nested dicts, tuples and lists to ``leaves`` and
+    their structure to ``spec`` (None is a leaf)."""
+    if isinstance(tree, dict):
+        spec.append(tuple(tree))
+        for v in tree.values():
+            flatten(v, leaves, spec)
+    elif isinstance(tree, (tuple, list)):
+        spec.append((type(tree), len(tree)))
+        for v in tree:
+            flatten(v, leaves, spec)
+    else:
+        leaves.append(tree)
+
+
+def rebuild(tree, leaves):
+    """``tree`` with its leaves replaced, in order, by ``leaves``. (No
+    recursive closure: its cycle would keep the leaves alive until the
+    garbage collector runs, and with them a graph's bound tensors.)"""
+    return _rebuild(tree, iter(leaves))
+
+
+def _rebuild(tree, it):
+    if isinstance(tree, dict):
+        return {k: _rebuild(v, it) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_rebuild(v, it) for v in tree)
+    return next(it)
+
+
+def leaf_key(x, device: torch.device) -> tuple:
+    """How a leaf binds: ``("bound", address, shape, strides, dtype)`` for a
+    tensor on ``device``, ``("staged", shape, dtype)`` for a host array,
+    ``("value", type, value)`` for anything else."""
+    if isinstance(x, torch.Tensor):
+        if x.device == device:
+            return ("bound", x.data_ptr(), x.shape, x.stride(), x.dtype)
+        return ("staged", x.shape, x.dtype)
+    if isinstance(x, np.ndarray):
+        return ("staged", x.shape, x.dtype.str)
+    return ("value", type(x), x)
+
+
+def binding(args: tuple, device: torch.device):
+    """(leaves, key) of a call's arguments on ``device``."""
+    leaves, spec = [], []
+    flatten(args, leaves, spec)
+    return leaves, (tuple(spec), tuple(leaf_key(x, device) for x in leaves))
+
+
+def capture_stream(device: torch.device):
+    """The side stream the programs of ``device`` capture on (capture
+    cannot run on the legacy default stream). cuBLAS keeps a workspace
+    for each stream, for the process's life: the stream's is taken when
+    the stream is made, outside any capture, so that no graph's pool holds
+    it."""
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    with _streams_lock:
+        s = _streams.get(device)
+        if s is None:
+            s = torch.cuda.Stream(device)
+            with torch.cuda.stream(s):
+                for dt in (torch.float32, torch.bfloat16):
+                    x = torch.ones((8, 8), dtype=dt, device=device)
+                    torch.mm(x, x)
+            torch.cuda.current_stream(device).wait_stream(s)
+            _streams[device] = s
+        return s
+
+
+def _end_pool(device: torch.device, pool) -> None:
+    """Close the allocator's routing of a failed capture into its pool.
+    ``CUDAGraph.capture_end`` raises on an invalidated capture before it
+    ends that routing, and while any routing is open the allocator neither
+    empties its cache nor frees cached blocks to retry a failed allocation:
+    the card's memory would never be returned again."""
+    try:
+        torch._C._cuda_endAllocateToPool(device.index, pool)
+    except RuntimeError:
+        pass                    # capture_end had closed it before raising
+
+
+def _op_source(err: BaseException) -> str:
+    """The source line, outside torch, of the op that raised ``err``, and
+    the torch function it called."""
+    frames = traceback.extract_tb(err.__traceback__)
+    mine = os.path.abspath(__file__)
+    user = [f for f in frames if not os.path.abspath(
+        f.filename).startswith(_TORCH_DIR)
+        and os.path.abspath(f.filename) != mine]
+    where = ""
+    if user:
+        f = user[-1]
+        path = "/".join(f.filename.replace(os.sep, "/").split("/")[-2:])
+        where = f"`{f.line}` ({path}:{f.lineno}, in {f.name})"
+    inner = frames[-1] if frames else None
+    if inner is not None and os.path.abspath(
+            inner.filename).startswith(_TORCH_DIR):
+        where += f" through torch's {inner.name}()"
+    return where or "an op of the step"
+
+
+class GraphProgram:
+    """``fn`` run as CUDA graphs on ``device``, one a binding of its
+    arguments (module docstring). ``captures``, ``replays``,
+    ``capture_ms`` and ``graph_bytes`` count and measure the captures."""
+
+    def __init__(self, fn: Callable, device, name: str = ""):
+        self.fn = fn
+        self.device = torch.device(device)
+        if self.device.type != "cuda":
+            raise ValueError(f"GraphProgram: CUDA graphs need a CUDA "
+                             f"device, not {self.device}")
+        if self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.__name__ = name or getattr(fn, "__name__", "program")
+        self._graphs: Dict[tuple, _Graph] = {}
+        self._dead: List[tuple] = []
+        self._pool = _Pool()
+        self._refused: Optional[str] = None
+        self._chained: Dict[Callable, "GraphProgram"] = {}
+        self.captures = 0
+        self.replays = 0
+        self.capture_ms: List[float] = []
+        self.graph_bytes: List[int] = []
+
+    def __call__(self, *args):
+        out, _ = self._call(args)
+        return out
+
+    def fresh(self, *args):
+        """A call whose tensors are the caller's to keep: the graph's
+        outputs of a replay are copied (a later replay rewrites them)."""
+        out, g = self._call(args)
+        if g is None:
+            return out                  # the eager run's own tensors
+        static = {id(x) for x in _leaves(g.outputs)
+                  if isinstance(x, torch.Tensor)}
+        return rebuild(out, [x.clone() if id(x) in static else x
+                             for x in _leaves(out)])
+
+    def then(self, post: Callable) -> "GraphProgram":
+        """This program followed by ``post`` on its outputs, one graph a
+        binding, in this program's memory pool; one chained program a
+        ``post``, so that every caller of this program shares it."""
+        got = self._chained.get(post)
+        if got is None:
+            fn = self.fn
+
+            def step(*args):
+                return post(fn(*args))
+
+            got = GraphProgram(step, self.device, name=f"{self.__name__}"
+                               f"+{getattr(post, '__name__', 'post')}")
+            got._pool = self._pool
+            self._chained[post] = got
+        return got
+
+    def counts(self) -> Dict[str, int]:
+        """Graphs held, captures and replays, of this program and of the
+        programs chained to it."""
+        out = dict(graphs=len(self._graphs), captures=self.captures,
+                   replays=self.replays)
+        for c in self._chained.values():
+            for k, v in c.counts().items():
+                out[k] += v
+        return out
+
+    def close(self) -> None:
+        """Drop every graph, this program's and its chained programs', and
+        the memory pool they share."""
+        for c in self._chained.values():
+            c.close()
+        self._pool.dropped(len(self._graphs))
+        self._graphs.clear()
+        self._dead.clear()
+
+    def purge(self) -> None:
+        """Drop the graphs bound to a tensor that has been freed."""
+        while self._dead:
+            if self._graphs.pop(self._dead.pop(), None) is not None:
+                self._pool.dropped()
+
+    # ------------------------------------------------------------------
+    def _call(self, args: tuple):
+        if self._refused is not None:
+            raise GraphCaptureError(self._refused)
+        if self._dead:
+            self.purge()
+        leaves, key = binding(args, self.device)
+        g = self._graphs.get(key)
+        if g is None:
+            return self._first_call(args, leaves, key), None
+        if g.staged:
+            self._stage(g, [x for x, k in zip(leaves, key[1])
+                            if k[0] == "staged"])
+        g.graph.replay()
+        _lib.launches.replayed(g.tally)
+        self.replays += 1
+        if not g.aliased:
+            return g.outputs, g
+        return rebuild(g.outputs, [leaves[x.index] if isinstance(x, _Arg)
+                                   else x for x in _leaves(g.outputs)]), g
+
+    def _stage(self, g: _Graph, hosts: list) -> None:
+        """Copy a call's host arrays into the graph's staging buffers."""
+        if g.copied is not None:
+            g.copied.synchronize()      # the last call's copies have landed
+        for (buf, pinned), x in zip(g.staged, hosts):
+            src = torch.from_numpy(np.ascontiguousarray(x)) \
+                if isinstance(x, np.ndarray) else x
+            pinned.copy_(src)
+            buf.copy_(pinned, non_blocking=True)
+        if g.copied is None:
+            g.copied = torch.cuda.Event()
+        g.copied.record(torch.cuda.current_stream(self.device))
+
+    def _first_call(self, args: tuple, leaves: list, key: tuple):
+        """Run the step eagerly on the call's binding, then capture it."""
+        kinds = key[1]
+        staged = []
+        placed = []
+        for x, k in zip(leaves, kinds):
+            if k[0] != "staged":
+                placed.append(x)
+                continue
+            t = torch.from_numpy(np.ascontiguousarray(x)) \
+                if isinstance(x, np.ndarray) else x
+            buf = torch.empty(tuple(t.shape), dtype=t.dtype,
+                              device=self.device)
+            pinned = torch.empty(tuple(t.shape), dtype=t.dtype,
+                                 pin_memory=True)
+            staged.append((buf, pinned))
+            placed.append(buf)
+        g = _Graph(graph=None, staged=staged, outputs=None, aliased=False,
+                   tally={}, refs=[], capture_ms=0.0, reserved_bytes=0)
+        if staged:
+            self._stage(g, [x for x, k in zip(leaves, kinds)
+                            if k[0] == "staged"])
+        call_args = rebuild(args, placed)
+        out = self.fn(*call_args)           # the call's real execution
+        self._capture(g, call_args, placed, kinds)
+        dead = self._dead
+        g.refs = [weakref.ref(x, lambda _, key=key: dead.append(key))
+                  for x, k in zip(leaves, kinds) if k[0] == "bound"]
+        self._graphs[key] = g
+        return out
+
+    def _capture(self, g: _Graph, call_args: tuple, placed: list,
+                 kinds: tuple) -> None:
+        pool = self._pool.get()
+        cur = torch.cuda.current_stream(self.device)
+        side = capture_stream(self.device)
+        side.wait_stream(cur)
+        graph = torch.cuda.CUDAGraph()
+        reserved = torch.cuda.memory_reserved(self.device)
+        t0 = time.perf_counter()
+        err = None
+        # no cycle collection during the capture: collecting a dead engine
+        # frees pinned host memory and events, CUDA calls that invalidate a
+        # capture
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.stream(side), _lib.capture_tally() as tally:
+                graph.capture_begin(pool=pool,
+                                    capture_error_mode="thread_local")
+                try:
+                    out = self.fn(*call_args)
+                except Exception as e:          # re-raised below, named
+                    err = e
+                finally:
+                    try:
+                        graph.capture_end()
+                    except RuntimeError as e:   # an invalidated capture
+                        err = err or e
+                        _end_pool(self.device, pool)
+        finally:
+            if collecting:
+                gc.enable()
+        cur.wait_stream(side)
+        if err is not None:
+            if self._pool.live == 0:
+                self._pool.handle = None    # the failed graph held it alone
+            self._refused = (
+                f"{self.__name__}: the step cannot be captured as a CUDA "
+                f"graph: {_op_source(err)} syncs with the host or uploads "
+                f"from pageable memory ({type(err).__name__}: "
+                f"{str(err).splitlines()[0] if str(err) else ''})")
+            raise GraphCaptureError(self._refused) from err
+        g.graph = graph
+        g.tally = dict(tally)
+        g.capture_ms = (time.perf_counter() - t0) * 1e3
+        g.reserved_bytes = torch.cuda.memory_reserved(self.device) - reserved
+        index = {id(x): i for i, (x, k) in enumerate(zip(placed, kinds))
+                 if k[0] == "bound"}
+        outs = [_Arg(index[id(x)]) if id(x) in index else x
+                for x in _leaves(out)]
+        g.aliased = any(isinstance(x, _Arg) for x in outs)
+        g.outputs = rebuild(out, outs)
+        self._pool.live += 1
+        self.captures += 1
+        self.capture_ms.append(g.capture_ms)
+        self.graph_bytes.append(g.reserved_bytes)
+
+
+def _leaves(tree) -> list:
+    leaves: list = []
+    flatten(tree, leaves, [])
+    return leaves
+
+
+def then(program: Callable, post: Callable) -> Callable:
+    """``program`` followed by ``post`` on its outputs: a graph program's
+    chained program (``GraphProgram.then``), or the two calls in a row."""
+    if isinstance(program, GraphProgram):
+        return program.then(post)
+
+    def step(*args):
+        return post(program(*args))
+
+    return step
+
+
+def eager_program(program: Callable) -> Callable:
+    """A configured program as one eager call a use, for callers that hand
+    it new buffers at every call (the RC2F shells' cycles, whose capture is
+    still to be ported): a ``GraphProgram``'s step itself, on arguments
+    already on its device; anything else as it is."""
+    if not isinstance(program, GraphProgram):
+        return program
+    fn = program.fn
+
+    def step(*args):
+        return fn(*args)
+
+    step.__name__ = program.__name__
+    return step

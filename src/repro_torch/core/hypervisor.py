@@ -135,14 +135,17 @@ class Hypervisor:
 
     def execute(self, slice_id: str, *args):
         """Run the slice's configured executable; records step time for the
-        straggler monitor."""
+        straggler monitor. The outputs are the caller's to keep, as the
+        reference's executable returns new arrays: a graph program's replay
+        rewrites its own outputs, so they are copied (``fresh``)."""
         vs = self.db.find_slice(slice_id)
         if vs.program is None:
             raise RuntimeError(f"slice {slice_id} not configured")
         entry = self._entry_for(vs.program)
         self.db.set_slice_state(slice_id, SliceState.RUNNING)
+        run = getattr(entry.compiled, "fresh", entry.compiled)
         t0 = self.clock()
-        out = entry.compiled(*args)
+        out = run(*args)
         self.monitor.record_step(slice_id, (self.clock() - t0) * 1e3)
         self.db.set_slice_state(slice_id, SliceState.CONFIGURED)
         return out

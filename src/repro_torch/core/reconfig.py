@@ -5,9 +5,15 @@ FPGA mapping:
                                              then one warm-up run on the
                                              slice's device (loads the kernel
                                              library, surfaces a broken
-                                             kernel at configure time)
+                                             kernel at configure time), then,
+                                             on the card, the capture of a
+                                             CUDA graph (``core/graphs.py``)
   partial reconfig    (PR region, ~0.9 s) -> hot swap of a cached program
                                              into a vSlice while co-tenants run
+
+On the card the configured program is a ``GraphProgram``: bound to its
+buffers as a bitstream is bound to its region, it replays one graph a call.
+On the CPU (the caller asked for it) the program runs eagerly.
 
 The ``ProgramCache`` is the "bitfile library": keyed by (core fingerprint,
 input shapes and dtypes, kernel geometry). ``configure`` populates it (slow
@@ -31,6 +37,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core.graphs import GraphProgram
 from repro_torch.rc2f.core_api import (is_array, meta_inputs, resolve_device,
                                        torch_dtype, tree_leaves, tree_map)
 
@@ -58,8 +65,9 @@ def _aval_key(tree) -> str:
 @dataclass
 class ProgramEntry:
     fingerprint: str
-    compiled: Any                 # the configured program (a callable)
-    lowered_text: Optional[str]   # None: an eager program has no HLO
+    compiled: Any                 # the configured program: a GraphProgram
+                                  # on the card, an eager callable on the CPU
+    lowered_text: Optional[str]   # None: a CUDA graph keeps no text
     compile_time_s: float
     flops: float = 0.0
     bytes_accessed: float = 0.0
@@ -116,6 +124,7 @@ class ProgramCache:
                     and len(self._entries) > self.max_entries:
                 _, old = self._entries.popitem(last=False)
                 self._drop_fp(old)
+                _release(old)
                 self.evictions += 1
 
     def entry_for(self, fingerprint: str) -> ProgramEntry:
@@ -142,6 +151,7 @@ class ProgramCache:
             for k in [k for k in self._entries if k[0] == fingerprint]:
                 old = self._entries.pop(k)
                 self._drop_fp(old)
+                _release(old)
                 self.evictions += 1
 
     def _drop_fp(self, entry: ProgramEntry) -> None:
@@ -157,6 +167,18 @@ class ProgramCache:
 
     def __len__(self):
         return len(self._entries)
+
+    def programs(self) -> Dict[str, int]:
+        """Graphs held, captures and replays over the cached programs (all
+        zero on the CPU, where programs run eagerly)."""
+        with self._lock:
+            entries = list(self._entries.values())
+        out = dict(graphs=0, captures=0, replays=0)
+        for e in entries:
+            counts = getattr(e.compiled, "counts", None)
+            for k, v in (counts() if counts else {}).items():
+                out[k] += v
+        return out
 
     # ---------------- tuned-config store (auto-tuner winners) ------------
 
@@ -208,6 +230,7 @@ class Reconfigurator:
         # NOT `cache or ...`: an empty ProgramCache is falsy via __len__
         self.cache = cache if cache is not None else ProgramCache()
         self.device = resolve_device(device)
+        self.configures = 0
 
     def configure(self, fn: Callable, example_inputs, *,
                   static_desc: str = "",
@@ -215,8 +238,13 @@ class Reconfigurator:
         """Full configuration: a run on meta tensors of the example shapes
         (shape errors surface here, no kernel runs), then one warm-up run on
         zeros of those shapes on the device, which loads the kernel library
-        the core calls; on the card it is synchronized, so a broken kernel
-        fails here and not at first execute.
+        the core calls. On the card the program is a ``GraphProgram``: the
+        warm-up is its first call, which captures the step on the zeros
+        after running it (the port's lower + compile; a step that cannot be
+        captured raises ``GraphCaptureError`` here, naming the op), and is
+        synchronized, so a broken kernel fails here and not at first
+        execute. The capture on the zeros is dropped with them: each
+        caller's buffers get their own graph at its first call.
 
         Returns (entry, elapsed_seconds). Cached afterwards for PR swaps.
         """
@@ -226,12 +254,17 @@ class Reconfigurator:
             else (example_inputs,)
         t0 = time.perf_counter()
         fn(*meta_inputs(args))
-        program = _device_program(fn, self.device)
+        if self.device.type == "cuda":
+            program = GraphProgram(fn, self.device)
+        else:
+            program = _device_program(fn, self.device)
         program(*tree_map(lambda x: torch.zeros(
             tuple(x.shape), dtype=torch_dtype(x), device=self.device)
             if is_array(x) else x, args))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+            program.purge()             # the zeros are gone
+        self.configures += 1
         dt = time.perf_counter() - t0
         entry = ProgramEntry(fingerprint=fp, compiled=program,
                              lowered_text=None, compile_time_s=dt)
@@ -252,6 +285,13 @@ class Reconfigurator:
         entry, dt = self.configure(fn, example_inputs, static_desc=static_desc,
                                    geometry=geometry)
         return entry, dt, False
+
+
+def _release(entry: ProgramEntry) -> None:
+    """Free what an evicted program holds on the card (its graphs)."""
+    close = getattr(entry.compiled, "close", None)
+    if close is not None:
+        close()
 
 
 def _device_program(fn: Callable, device: torch.device) -> Callable:

@@ -11,6 +11,7 @@ library as ``<name>.log``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -21,6 +22,8 @@ import threading
 import time
 from pathlib import Path
 from typing import Dict
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
@@ -34,13 +37,60 @@ _libs: Dict[str, ctypes.CDLL] = {}
 
 
 class LaunchCounts(dict):
-    """Kernel launches per wrapper. A wrapper adds one where it launches its
-    kernel and nowhere else; a caller zeroes the counts with ``reset()``
-    before a run and reads them after it."""
+    """Kernel launches per wrapper: executions on the card. A wrapper adds
+    one where it launches its kernel and nowhere else; a caller zeroes the
+    counts with ``reset()`` before a run and reads them after it.
+
+    A launch recorded while the current CUDA stream captures a graph
+    executes nothing: the wrapper's increment goes to the capture's tally
+    (``capture_tally()``), and each replay of that graph adds the whole
+    tally (``replayed``). A wrapper called under a capture that keeps no
+    tally raises, so that the counts never miss an execution."""
+
+    def __setitem__(self, name, value):
+        if _capturing():
+            tally = getattr(_tallies, "open", None)
+            if tally is None:
+                raise RuntimeError(
+                    f"{name}: a kernel launched under a CUDA graph capture "
+                    "that keeps no launch tally; capture through "
+                    "repro_torch.core.graphs (or _lib.capture_tally())")
+            tally[name] = tally.get(name, 0) + value - self[name]
+            return
+        super().__setitem__(name, value)
 
     def reset(self) -> None:
         for name in self:
-            self[name] = 0
+            super().__setitem__(name, 0)
+
+    def replayed(self, tally: Dict[str, int]) -> None:
+        """Add a captured graph's tally: one replay of it."""
+        for name, n in tally.items():
+            super().__setitem__(name, self[name] + n)
+
+
+def _capturing() -> bool:
+    """Whether the current CUDA stream is capturing a graph (False on a
+    build or a machine without CUDA)."""
+    return torch.cuda.is_available() and \
+        torch.cuda.is_current_stream_capturing()
+
+
+_tallies = threading.local()
+
+
+@contextlib.contextmanager
+def capture_tally():
+    """Collect the launches the kernels record while this thread captures a
+    graph; yields the tally (wrapper name -> launches a replay makes)."""
+    if getattr(_tallies, "open", None) is not None:
+        raise RuntimeError("capture_tally: a capture is already open on "
+                           "this thread")
+    _tallies.open = tally = {}
+    try:
+        yield tally
+    finally:
+        _tallies.open = None
 
 
 # decode_group counts the launches of decode_attention and

@@ -31,7 +31,9 @@ from repro_torch.runtime import GatewayFleet
 def main(argv=None) -> dict:
     """Run the launcher (``argv`` as on the command line; None reads
     ``sys.argv``). Returns the run's summary: requests, tokens, wall
-    seconds, tokens/s, median latency and the audited serve events."""
+    seconds, tokens/s, median latency, the audited serve events, and the
+    decode program's configures, CUDA graph captures and replays (none on
+    the CPU)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduce", action="store_true")
@@ -120,6 +122,10 @@ def main(argv=None) -> dict:
     print(f"\naudit: all {len(serve_events)} requests logged against "
           f"hypervisor vSlices "
           f"({sorted({e['slice'] for e in serve_events.values()})})")
+    programs = hv.reconfig.cache.programs()
+    print(f"programs: {hv.reconfig.configures} configure(s), "
+          f"{programs['captures']} CUDA graph capture(s), "
+          f"{programs['replays']} replay(s)")
     fleet.close()
     return dict(requests=len(reqs), tokens=total, wall_s=wall,
                 tokens_per_s=total / wall,
@@ -127,7 +133,9 @@ def main(argv=None) -> dict:
                 serve_events=len(serve_events),
                 slices=sorted({e["slice"] for e in serve_events.values()}),
                 engines=len({e["device"] for e in hv.log
-                             if e["kind"] == "engine_up"}))
+                             if e["kind"] == "engine_up"}),
+                configures=hv.reconfig.configures,
+                captures=programs["captures"], replays=programs["replays"])
 
 
 if __name__ == "__main__":

@@ -32,9 +32,10 @@ def sinusoidal_positions(seq: int, d_model: int, dtype=torch.float32,
     pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
     dim = torch.arange(0, d_model, 2, dtype=torch.float32,
                        device=device)[None, :]
-    # one fp32 scalar uploaded a call (whisper's decode step rebuilds the
-    # table every step, as the reference's does)
-    base = torch.tensor(10000.0, device=device)  # rc3e: allow-host-sync
+    # whisper's decode step rebuilds the table every step, as the
+    # reference's does: the base is filled on the device, not uploaded, so
+    # that the step can be captured as a CUDA graph
+    base = torch.full((), 10000.0, device=device)
     ang = pos / torch.pow(base, dim / d_model)
     pe = torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
     return pe[:, :d_model].to(dtype)

@@ -21,7 +21,10 @@ Two co-residency modes:
 Both place array inputs on the shell's device (the card unless the caller
 passes ``device="cpu"``; raises where CUDA is absent). The shell also owns
 the gcs and one ucs per slot; a core that takes ``ucs`` sees its registers
-as int32 tensors on the device (``control.device_registers``).
+as int32 tensors on the device (``control.device_registers``). A core
+configured as a CUDA graph program runs eagerly in a shell
+(``core.graphs.eager_program``): a cycle hands it new blocks, and the
+cycle's own capture is still to be ported.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.core.device_db import MAX_SLOTS
+from repro_torch.core.graphs import eager_program
 from repro_torch.launch.mesh import default_group
 from repro_torch.rc2f.control import (ConfigSpace, device_registers, make_gcs,
                                       make_ucs)
@@ -70,7 +74,7 @@ class FusedShell:
         """Partial reconfiguration of one region: only the shell cycle is
         rebuilt; other slots' cores are untouched."""
         s = self.slots[slot]
-        s.core_fn, s.spec, s.user = user_fn, spec, user
+        s.core_fn, s.spec, s.user = eager_program(user_fn), spec, user
         s.ucs = make_ucs()
         self._dirty = True
         self.gcs.write("active_mask",
@@ -182,6 +186,7 @@ class SpatialShell:
     def load(self, slot: int, user_fn: Callable, spec: CoreSpec,
              user: str = "anon"):
         s = self.slots[slot]
+        user_fn = eager_program(user_fn)
         s.core_fn, s.spec, s.user = user_fn, spec, user
         s.ucs = make_ucs()
         core = compile_core(user_fn, spec)

@@ -24,7 +24,9 @@ in-flight requests on migration, elastic scale-out/park — use
 
 Ported from ``repro.runtime.gateway``. The decode program is configured
 from an example of meta tensors (shapes and dtypes, no storage) and runs on
-the engine's device (``Hypervisor(device=...)``, the card by default).
+the engine's device (``Hypervisor(device=...)``, the card by default),
+where it is a ``GraphProgram``: configure captures it once, and the
+engine's buffers get a graph of their own at its first step.
 """
 from __future__ import annotations
 

@@ -11,9 +11,17 @@ position-masked KV caches. ``jit_serve_step`` binds the decode step to a
 ``DeviceMesh``: parameters and caches are DTensors placed by the sharding
 rules, and the caches are updated in place shard by shard.
 
-Greedy decoding (argmax on the device). Decode runs eagerly, one call per
-step; its attention goes through the hand-written CUDA kernels on a CUDA
-model (``repro_torch.kernels``).
+Greedy decoding (argmax on the device). On the card the engine's decode
+step is a ``GraphProgram`` (``core/graphs.py``), the counterpart of the
+reference's ``jax.jit(step)``: the serve step and the argmax after it
+(``greedy_tail``) run eagerly at its first call and are captured as one
+CUDA graph on the engine's own buffers, which every later step replays.
+The engine keeps those buffers for its whole life (the caches, and the
+tokens, positions and block tables each step copies in from pinned host
+memory), so that one graph serves admissions, preemption, copy-on-write,
+scrubbing and page hand-off alike. Prefill runs eagerly. Attention goes
+through the hand-written CUDA kernels on a CUDA model
+(``repro_torch.kernels``).
 
 The reference's jitted pool operations with buffer donation become the
 in-place index operations below: the cache tensors are mutated where they
@@ -32,6 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch.analysis.lifecycle import sanitizer
+from repro_torch.core.graphs import GraphProgram, then
 from repro_torch.models.api import Model
 from repro_torch.runtime.paged import PagePoolManager, default_pool_pages
 
@@ -189,6 +198,13 @@ def _argmax_tokens(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits[:, 0, :], dim=-1).to(torch.int32)
 
 
+def greedy_tail(out):
+    """What the engine runs after a serve step, in the same graph:
+    (logits, caches) -> (logits, (n_slots,) int32 greedy ids)."""
+    logits, _ = out
+    return logits, _argmax_tokens(logits)
+
+
 # ---------------------------------------------------------------------------
 # Requests
 # ---------------------------------------------------------------------------
@@ -245,7 +261,11 @@ class BatchingEngine:
       copy-on-write prefix sharing and preemption back to the queue head.
 
     The engine runs on ``model.device`` (CUDA unless the model was built
-    for the CPU).
+    for the CPU). Its decode step is the step factories' serve step and
+    ``greedy_tail``, a ``GraphProgram`` on the card (module docstring),
+    over buffers it keeps for its whole life: the caches, tokens
+    (n_slots, 1), positions (n_slots,) and, paged, the block tables
+    (n_slots, max_blocks).
     """
 
     # contexts shorter than this prefill through the decode step; longer
@@ -291,8 +311,7 @@ class BatchingEngine:
         self.preemptions = 0
         self.scrub_ms = 0.0        # cumulative zero-on-free dispatch cost
         self._scope = sanitizer.scope()      # slot-machine key namespace
-        # device block-table cache, keyed on the pool's version counter
-        self._bt_cache = None
+        # the pool's version the device block tables were copied at
         self._bt_version = -1
         if paged:
             if model.cfg.mla is not None:
@@ -325,8 +344,30 @@ class BatchingEngine:
                 (leaf.shape[2] for f in _site_caches(self.caches)
                  for leaf in f.values() if leaf.dim() >= 3),
                 default=max_len)
-        # the model's decode and prefill entry points for this layout
-        self._decode_fn = model.decode_paged if paged else model.decode
+        # the decode step's buffers: fixed addresses for the step's graph
+        on_card = self.device.type == "cuda"
+        self._tok = torch.zeros((n_slots, 1), dtype=torch.int32,
+                                device=self.device)
+        self._posd = torch.zeros((n_slots,), dtype=torch.int32,
+                                 device=self.device)
+        self._bt = torch.zeros((n_slots, max_len // page_size),
+                               dtype=torch.int32, device=self.device) \
+            if paged else None
+        # their pinned host sides, and the ids' download buffer
+        self._host = {name: torch.zeros(tuple(t.shape), dtype=torch.int32,
+                                        pin_memory=on_card)
+                      for name, t in (("tok", self._tok),
+                                      ("pos", self._posd), ("bt", self._bt),
+                                      ("ids", self._posd))
+                      if t is not None}
+        self._copied = torch.cuda.Event() if on_card else None
+        self._copy_pending = False
+        self._step_ids = None                # the last step's (n_slots,) ids
+        # the model's decode step for this layout, and its prefill
+        step = make_paged_serve_step(model) if paged \
+            else make_serve_step(model)
+        self.use_program(GraphProgram(step, self.device) if on_card
+                         else step)
         self._prefill_fn = model.prefill
         # hooks: called after every decode step / on every completion
         self.on_step: Optional[Callable[[Dict[str, int], float], None]] = None
@@ -338,29 +379,55 @@ class BatchingEngine:
         the serving gateway and fleet configure the decode step through the
         hypervisor's ``Reconfigurator``, so the program lives in the RC3E
         program cache (and PR swaps bind it to each tenant's vSlice).
-        The engine keeps only the logits the program returns: the program
-        must write the caches it is given in place, on the engine's own
-        device (the gateway and the fleet refuse a model that is not on the
-        hypervisor's device)."""
+        The engine runs it followed by ``greedy_tail`` (``then``): on the
+        card one graph of the program's, captured on this engine's buffers
+        at its first step. The program must write the caches it is given
+        in place, on the engine's own device (the gateway and the fleet
+        refuse a model that is not on the hypervisor's device)."""
         self._decode_fn = compiled
+        self._greedy = then(compiled, greedy_tail)
 
     def _upload(self, x: np.ndarray) -> torch.Tensor:  # rc3e: allow-host-sync
-        """A host array on the engine's device. The hot path's uploads: the
-        decode step's (n_slots, 1) tokens and (n_slots,) positions, the
-        prefill prompt once an admission, the block tables when the pool's
-        version moved, page lists at admission, growth or flush."""
+        """A host array on the engine's device, outside the decode step:
+        the prefill prompt once an admission, page lists at admission,
+        growth or flush."""
         return torch.from_numpy(x).to(self.device)
+
+    def _stage(self, name: str, dev: torch.Tensor, x: np.ndarray) -> None:
+        """Copy a host array into one of the step's device buffers, in
+        place, through its pinned host side."""
+        host = self._host[name]
+        if self._copy_pending:
+            self._copied.synchronize()   # the last copies have landed
+            self._copy_pending = False
+        # the pinned buffer's own memory: no device sync
+        host.numpy()[...] = x                    # rc3e: allow-host-sync
+        dev.copy_(host, non_blocking=self._copied is not None)
 
     def _decode(self, tokens: np.ndarray, pos: np.ndarray):
         """One decode step over all slots; the caches update in place.
-        The two small per-step uploads ((n_slots, 1) tokens and (n_slots,)
-        positions) are the step's inputs."""
-        tok = self._upload(tokens)
-        posd = self._upload(pos.copy())
+        The step's inputs are copied into its buffers: (n_slots, 1) tokens,
+        (n_slots,) positions and, when the pool's version moved, the block
+        tables. Returns the logits (valid until the next step); the
+        step's greedy ids wait in ``_step_ids``."""
+        self._stage("tok", self._tok, tokens)
+        self._stage("pos", self._posd, pos)
         extra = (self._block_tables_dev(),) if self.paged else ()
-        logits, _ = self._decode_fn(self.params, self.caches, tok, posd,
-                                    *extra)
+        if self._copied is not None:
+            self._copied.record(torch.cuda.current_stream(self.device))
+            self._copy_pending = True
+        logits, self._step_ids = self._greedy(self.params, self.caches,
+                                              self._tok, self._posd, *extra)
         return logits
+
+    def _download_ids(self) -> np.ndarray:
+        """The last decode step's (n_slots,) greedy ids on the host."""
+        host = self._host["ids"]
+        host.copy_(self._step_ids, non_blocking=self._copied is not None)
+        if self._copied is not None:
+            torch.cuda.current_stream(self.device).synchronize()
+        # the step's one download, 4 bytes a slot
+        return host.numpy().copy()               # rc3e: allow-host-sync
 
     def _prefill(self, toks: torch.Tensor):
         """Batch-1 prefill of a padded context -> its caches (full length,
@@ -744,13 +811,13 @@ class BatchingEngine:
         return self._upload(toks)      # once per admission, not per step
 
     def _block_tables_dev(self) -> torch.Tensor:
-        """Device copy of the pool block tables, re-uploaded only when the
-        pool's ``version`` counter moved."""
+        """The step's block-table buffer, copied into in place only when the
+        pool's ``version`` counter moved (a new tensor would be a new
+        address, and so a new graph)."""
         if self._bt_version != self.pool.version:
-            self._bt_cache = self._upload(
-                np.ascontiguousarray(self.pool.block_tables, np.int32))
+            self._stage("bt", self._bt, self.pool.block_tables)
             self._bt_version = self.pool.version
-        return self._bt_cache
+        return self._bt
 
     def _step_single(self, slot: int, token: int, pos: int):
         """Replay ONE context token through the decode step (short or
@@ -839,9 +906,9 @@ class BatchingEngine:
         for i in active:
             tokens[i, 0] = self._slots[i]._next_input
         t0 = time.monotonic()
-        logits = self._decode(tokens, self._pos)
+        self._decode(tokens, self._pos)
         # argmax on device: download (n_slots,) int32 ids, not the logits
-        next_ids = _argmax_tokens(logits).cpu().numpy()  # rc3e: allow-host-sync
+        next_ids = self._download_ids()
         step_ms = (time.monotonic() - t0) * 1e3
         self.steps += 1
         if self.on_step is not None:

@@ -834,12 +834,15 @@ def test_kernel_force_kernel_is_the_default_on_card(cuda):
 def test_gateway_configure_frees_its_warm_up(cuda, paged):
     """``Reconfigurator.configure`` warms the decode program up on zeros of
     the example's shapes: a zero copy of every weight and of the whole KV
-    cache, for a moment. Once the gateway stands, the card holds only the
-    engine's own weights and caches, plus a little slack (the warm-up's
-    logits and the allocator's rounding; cuBLAS's workspace, which the
-    allocator keeps, is taken before the baseline)."""
+    cache, for a moment, and the capture of a graph on them, dropped with
+    them. Once the gateway stands, the card holds only the engine's own
+    weights and caches, plus a little slack (the warm-up's logits and the
+    allocator's rounding; cuBLAS's workspaces, which the allocator keeps,
+    one for each stream, are taken before the baseline: the current
+    stream's and the capture stream's)."""
     from repro_torch.configs import get_config
     from repro_torch.core import ClusterSpec, Hypervisor
+    from repro_torch.core.graphs import capture_stream
     from repro_torch.models import Model
     from repro_torch.runtime import ServingGateway
     cfg = get_config("smollm-135m").replace(n_layers=4)
@@ -849,6 +852,7 @@ def test_gateway_configure_frees_its_warm_up(cuda, paged):
         x = torch.ones((2, 8, 8), dtype=dt, device=cuda)
         torch.einsum("bij,jk->bik", x, x[0])
         del x
+    capture_stream(cuda)
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated()
     hv = Hypervisor(ClusterSpec(n_nodes=1, devices_per_node=1))
@@ -1486,3 +1490,214 @@ def test_port_example_on_card(cuda, name, tmp_path, capsys):
         assert res["losses"][-1] < res["losses"][0]
         assert not any(got.values())
     assert capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# The decode step as CUDA graphs (core/graphs.py)
+# ---------------------------------------------------------------------------
+
+def _graph_model(cuda, dtype="bfloat16", kv_quant=False, layers=4):
+    from repro_torch.configs import get_config
+    from repro_torch.models import Model
+    cfg = get_config("smollm-135m").replace(n_layers=layers, dtype=dtype,
+                                            kv_quant=kv_quant)
+    model = Model(cfg, device=cuda)
+    return cfg, model, model.init(torch.Generator(device=cuda).manual_seed(0))
+
+
+def _graph_prompts(vocab, n=6, seed=1):
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, size=int(m)).astype(np.int32)
+            for m in rng.integers(2, 80, size=n)]
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_clone_tree(v) for v in tree)
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
+
+
+def _replay_against_direct(eng, params, cuda):
+    """Wrap ``eng._decode`` so that each step, replayed from the engine's
+    graph, is followed by a direct call of the captured function (the serve
+    step and ``greedy_tail``, eagerly) on copies of the step's inputs.
+    Returns the list of (ids equal, largest logit difference) a step."""
+    step = eng._greedy.fn
+    dec = eng._decode
+    got = []
+
+    def decode(tokens, pos):
+        caches = _clone_tree(eng.caches)
+        extra = (torch.from_numpy(np.ascontiguousarray(
+            eng.pool.block_tables, np.int32)).to(cuda),) if eng.paged else ()
+        logits = dec(tokens, pos).clone()
+        ids = eng._step_ids.clone()
+        want_logits, want_ids = step(
+            params, caches, torch.from_numpy(np.array(tokens)).to(cuda),
+            torch.from_numpy(np.array(pos, np.int32)).to(cuda), *extra)
+        got.append((torch.equal(ids, want_ids),
+                    float((logits.float() - want_logits.float()).abs()
+                          .max())))
+        return logits
+
+    eng._decode = decode
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+@pytest.mark.parametrize("dtype,kv_quant", [("bfloat16", False),
+                                            ("float32", False),
+                                            ("bfloat16", True)],
+                         ids=["bf16", "fp32", "int8"])
+def test_engine_replay_matches_a_direct_call(cuda, paged, dtype, kv_quant):
+    """An engine's decode steps replay one graph on its own buffers (one
+    capture, every later step a replay); at every step a direct call of
+    the captured function on copies of the same inputs gives the same ids,
+    and fp32 logits within 1e-5. The launches count executions: one decode
+    a layer for each replay and each direct call."""
+    from repro_torch.runtime import BatchingEngine
+    cfg, model, params = _graph_model(cuda, dtype, kv_quant)
+    eng = BatchingEngine(model, params, n_slots=4, max_len=128, paged=paged,
+                         page_size=16)
+    for p in _graph_prompts(cfg.vocab_size):
+        eng.submit(p, max_new_tokens=12)
+    got = _replay_against_direct(eng, params, cuda)
+    launches.reset()
+    assert eng.run_until_idle()
+    n_dec = "paged_decode_attention" if paged else "decode_attention"
+    assert launches[n_dec] == 2 * cfg.n_layers * len(got)
+    assert all(same for same, _ in got)
+    if dtype == "float32":
+        assert max(d for _, d in got) <= 1e-5, got
+    counts = eng._greedy.counts()
+    assert counts == dict(graphs=1, captures=1, replays=len(got) - 1)
+
+
+@pytest.mark.cuda
+def test_engine_buffers_keep_one_graph_through_the_pool_events(cuda):
+    """Preemption on an exhausted pool, copy-on-write, scrubbing, a
+    hand-off's page export and import with a catch-up step, and short
+    contexts replayed token by token all run between replays of one graph
+    an engine."""
+    from repro_torch.runtime import BatchingEngine
+    cfg, model, params = _graph_model(cuda)
+    rng = np.random.default_rng(5)
+    prompt = lambda n: rng.integers(0, cfg.vocab_size, size=n).astype(
+        np.int32)
+    kw = dict(max_len=64, paged=True, page_size=16)
+    tight = BatchingEngine(model, params, n_slots=4, cache_pages=5, **kw)
+    for _ in range(4):
+        tight.submit(prompt(20), max_new_tokens=20)
+    tight.submit(prompt(2), max_new_tokens=4)
+    assert tight.run_until_idle(max_steps=5000)
+    assert tight.preemptions > 0 and tight.pool.pages_scrubbed > 0
+    cow = BatchingEngine(model, params, n_slots=2, **kw)
+    p = prompt(34)
+    cow.submit(p, max_new_tokens=2, tenant="t")
+    cow.submit(p, max_new_tokens=8, tenant="t")
+    assert cow.run_until_idle()
+    assert cow.pool.stats()["cow_copies"] >= 1
+    src = BatchingEngine(model, params, n_slots=2, **kw)
+    dst = BatchingEngine(model, params, n_slots=2, **kw)
+    req = src.submit(prompt(20), max_new_tokens=12, tenant="m")
+    for _ in range(3):
+        src.step()
+    payload = src.export_request_pages(req)
+    ctx = len(src._ctx_tokens(req))
+    src.step()                            # one token the target catches up
+    src.drain_tenant("m")
+    assert dst.import_request_pages(req, payload, ctx_len=ctx)
+    assert dst.run_until_idle() and len(req.out_tokens) == 12
+    for e in (tight, cow, src, dst):
+        counts = e._greedy.counts()
+        assert counts["graphs"] == 1 and counts["captures"] == 1, counts
+        assert counts["replays"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["sync", "upload"])
+def test_configure_refuses_a_step_that_syncs(cuda, kind):
+    """A step that syncs with the host, or uploads from pageable memory,
+    cannot be captured: configure raises GraphCaptureError naming the op,
+    and the program refuses every later call without running the step."""
+    from repro_torch.core import ClusterSpec, Hypervisor
+    from repro_torch.core.graphs import GraphCaptureError
+    ran = []
+
+    def synced_step(x):
+        ran.append(1)
+        y = x * 2
+        torch.cuda.synchronize()
+        return y
+
+    def uploading_step(x):
+        ran.append(1)
+        return x * torch.tensor(2.0, device=x.device)
+
+    fn = synced_step if kind == "sync" else uploading_step
+    hv = Hypervisor(ClusterSpec(n_nodes=1, devices_per_node=1))
+    example = (torch.empty((4, 4), device="meta"),)
+    with pytest.raises(GraphCaptureError) as err:
+        hv.reconfig.configure(fn, example)
+    op = "torch.cuda.synchronize()" if kind == "sync" \
+        else "torch.tensor(2.0, device=x.device)"
+    assert op in str(err.value) and "test_torch_cuda.py" in str(err.value)
+    assert len(hv.reconfig.cache) == 0
+    from repro_torch.core.graphs import GraphProgram
+    program = GraphProgram(fn, cuda)
+    x = torch.ones((4, 4), device=cuda)
+    with pytest.raises(GraphCaptureError):
+        program(x)
+    n = len(ran)
+    with pytest.raises(GraphCaptureError, match=op.split("(")[0]):
+        program(x)
+    assert len(ran) == n                 # refused: the step did not run
+    torch.cuda.synchronize()             # the card is still usable
+    assert float((x * 2).sum()) == 32.0
+    # and its allocator still returns cached memory (a failed capture must
+    # not leave it routing to the graph's pool)
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    y = torch.empty(1 << 30, dtype=torch.uint8, device=cuda)
+    del y
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_reserved() <= before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_fleet_engines_bind_one_program_with_a_graph_each(cuda, paged):
+    """Two engines of a fleet bind the one configured program; each
+    engine's buffers get a graph of their own, every later step replays
+    it, and the streams equal a lone engine's."""
+    from repro_torch.core import ClusterSpec, Hypervisor
+    from repro_torch.core.graphs import GraphProgram
+    from repro_torch.runtime import GatewayFleet
+    cfg, model, params = _graph_model(cuda)
+    hv = Hypervisor(ClusterSpec(n_nodes=1, devices_per_node=2))
+    fleet = GatewayFleet(hv, model, params, n_slots=4, max_len=128,
+                         paged=paged)
+    fleet.open_session("a", slots=4, service_model="rsaas")
+    fleet.open_session("b", slots=4, service_model="rsaas")
+    engines = list(fleet._engines.values())
+    checks = [_replay_against_direct(e, params, cuda) for e in engines]
+    reqs = [fleet.submit("ab"[i % 2], p, max_new_tokens=10)
+            for i, p in enumerate(_graph_prompts(cfg.vocab_size, n=8))]
+    launches.reset()
+    fleet.run_until_idle()
+    assert all(len(r.out_tokens) == 10 for r in reqs)
+    program = hv.reconfig.cache.entry_for(fleet.program_fingerprint).compiled
+    assert len(engines) == 2 and isinstance(program, GraphProgram)
+    assert all(e._decode_fn is program for e in engines)
+    assert len({id(e._greedy) for e in engines}) == 1
+    counts = program.counts()
+    steps = sum(len(c) for c in checks)
+    # configure's capture on its zeros is counted and dropped with them
+    assert counts == dict(graphs=2, captures=3, replays=steps - 2), counts
+    assert all(same for c in checks for same, _ in c)
+    n_dec = "paged_decode_attention" if paged else "decode_attention"
+    assert launches[n_dec] == 2 * cfg.n_layers * steps   # replay + direct
+    fleet.close()

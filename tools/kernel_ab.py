@@ -35,13 +35,22 @@ SEED = 0
 DEV = "cuda"
 
 
+def uncounted():
+    """A timing capture's launch tally, dropped: its replays are
+    measurements, not a path's launches. A tree whose launch ledger keeps
+    no tallies (before its CUDA graphs) counted the capture itself."""
+    import contextlib
+    from repro_torch.kernels import _lib
+    return getattr(_lib, "capture_tally", contextlib.nullcontext)()
+
+
 def time_ms(fn, iters=20):
     flush = torch.empty(64 << 20, dtype=torch.float32, device=DEV)
     for _ in range(3):
         fn()
     g = torch.cuda.CUDAGraph()
     torch.cuda.synchronize()
-    with torch.cuda.graph(g):
+    with uncounted(), torch.cuda.graph(g):
         fn()
     total = 0.0
     for _ in range(iters):
