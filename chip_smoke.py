@@ -90,8 +90,11 @@ lines.jsonl):
    where the kernel path's token has a plain-path logit within the bf16
    tolerance of the plain path's top logit (counted). Every engine decode
    call of every serving phase (``engine_calls``) must capture its
-   engine's CUDA graph (its first call) or replay it; each record gives
-   the engine's captures, replays, capture ms and graph memory.
+   engine's CUDA graph (its first call) or replay it, and every engine
+   prefill call its prefill program's graph of the prompt's pad length;
+   each record gives the engine's captures, replays, capture ms and graph
+   memory, and its prefill program's captures, replays, evictions,
+   capture ms and card memory (captures and caches).
 5. ``profile_*``: device busy time and idle share of decode steps, and
    the step's five largest device kernels by time.
 5a. the decode step as CUDA graphs (``core/graphs.py``): ``graph_replay``
@@ -108,7 +111,14 @@ lines.jsonl):
    ``graph_configure`` (Table I on the serving program: a 4-engine paged
    fleet's configure, its capture included, against the engines' PR
    swaps; each engine's capture ms and graph memory; every later step a
-   replay).
+   replay). ``prefill_graph_replay`` (the same smollm engines: for each pad
+   bucket of the workload, a replay of the engine's prefill program held
+   against a direct eager prefill of the same prompt, every cache leaf and
+   the hidden states bit-equal or within 1e-5 fp32 / the bf16 tolerance /
+   one int8 step, the record naming such a leaf; the token streams with
+   the program equal those of an eager prefill; a ``step_async`` run with
+   two admissions of one bucket pending at once equal to the lockstep
+   run).
 5b. serving through the hypervisor, each path with the launch counts zeroed
    before it and read after it, every decode and flash launch accounted
    for (layers x engine decode calls, plus one decode step a configure's
@@ -215,8 +225,12 @@ lines.jsonl):
    model phases' tolerance and the fp32 greedy tokens equal but at a
    counted near-tie; the bf16 kernel path no less accurate than the plain
    bf16 path against fp32 (RMS). ``ssd_chunk_scan`` must launch 48 times a
-   prefill call and nothing else may launch. Prefill ms, decode step ms,
-   tokens/s, and the decode step's device idle share.
+   prefill call and nothing else may launch. Every path runs through the
+   port's ``GreedyLoop``: on the card one prefill graph a (B, S) and one
+   decode graph captured at the first step and replayed by every later
+   one (gated; the launches count through the capture tally). Prefill ms
+   (eager run and capture) and a replay's, decode step ms, tokens/s, the
+   graphs' counts and capture ms, and the decode step's device idle share.
 10. the dense families (after the int8 engines): ``gemma3_dense_engine`` /
    ``gemma3_paged_engine`` (gemma3-1b, full width and depth: 26 layers, d
    1152, 4 q / 1 kv heads of 256, 5:1 local (window 512) : global,
@@ -324,6 +338,7 @@ lines.jsonl):
    limit, and ``{"ok": true, ...}`` last. Any failed check exits
    non-zero.
 """
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -432,6 +447,7 @@ WHISPER_B, WHISPER_PROMPT, WHISPER_STEPS = 4, 4, 64
 WHISPER_ENGINE_NEW = 32                # whisper_engine: tokens a request
 GRAPH_STEPS = 16                       # graph_replay: replays an engine
 GRAPH_FP32_TOL = 1e-5                  # graph_replay: fp32 logits
+PREFILL_CHUNK = 64                     # prefill_graph_replay: async chunk
 
 
 class SmokeFailure(Exception):
@@ -451,10 +467,13 @@ def require(cond, what):
 
 
 def free_card():
-    """Collect unreachable objects, then return the allocator's cached
-    blocks to the card. A fleet and its hypervisor reference each other
-    (migration listeners), so the engines of a finished phase, their
-    caches and their graphs' memory pools wait for the cycle collector."""
+    """Close the cached prefill programs (their caches and graphs), collect
+    unreachable objects, then return the allocator's cached blocks to the
+    card. A fleet and its hypervisor reference each other (migration
+    listeners), so the engines of a finished phase, their caches and their
+    graphs' memory pools wait for the cycle collector."""
+    from repro_torch.runtime import clear_prefill_programs
+    clear_prefill_programs()
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1605,16 +1624,45 @@ def greedy_generate(model, params, batch, feed=None, n_new=None):
     """Greedy generation through the serve-step factories: one prefill of
     ``batch`` ((B, S) ``tokens``; whisper: and its ``frames``), then
     ``n_new`` (SSM_NEW_TOKENS by default) - 1 decode steps (the first token
-    comes from the prefill).
+    comes from the prefill). Decoder-only models run through the port's
+    ``GreedyLoop`` (on the card: a prefill graph, and one decode graph the
+    steps replay on the loop's fixed buffers); whisper, whose prefill
+    builds its own caches, calls the factories eagerly.
     With ``feed`` (B, n_new), step i is fed ``feed[:, i - 1]`` instead of
     the model's own last token, so that two paths see the same inputs.
     Returns (own greedy tokens (B, n_new) on the host, logits (n_new, B, V)
-    on the device, prefill ms, decode step ms list, caches, last tokens,
-    next position)."""
-    from repro_torch.runtime import make_prefill_step, make_serve_step
+    on the device, prefill ms, decode step ms list, the GreedyLoop or
+    None)."""
+    from repro_torch.runtime import GreedyLoop
     n_new = n_new or SSM_NEW_TOKENS
     B, S = batch["tokens"].shape
+    if model.audio:
+        return greedy_eager(model, params, batch, n_new) + (None,)
     # the caches of attention sites hold the prompt and the new tokens
+    loop = GreedyLoop(model, B, S + n_new)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    lg, ids = loop.prefill(params, batch)
+    logits, toks = [lg.clone()], [ids.clone()]   # a replay rewrites them
+    torch.cuda.synchronize()
+    prefill_ms = (time.monotonic() - t0) * 1e3
+    step_ms = []
+    for i in range(1, n_new):
+        t0 = time.monotonic()
+        lg, ids = loop.step(params, None if feed is None else feed[:, i - 1])
+        logits.append(lg.clone())
+        toks.append(ids.clone())
+        torch.cuda.synchronize()
+        step_ms.append((time.monotonic() - t0) * 1e3)
+    return (torch.stack(toks, 1).cpu().numpy(), torch.stack(logits),
+            prefill_ms, step_ms, loop)
+
+
+def greedy_eager(model, params, batch, n_new):
+    """``greedy_generate`` through the step factories called eagerly,
+    without a feed: (tokens, logits, prefill ms, step ms)."""
+    from repro_torch.runtime import make_prefill_step, make_serve_step
+    B, S = batch["tokens"].shape
     prefill = make_prefill_step(model, S + n_new)
     step = make_serve_step(model)
     torch.cuda.synchronize()
@@ -1625,19 +1673,17 @@ def greedy_generate(model, params, batch, feed=None, n_new=None):
     torch.cuda.synchronize()
     prefill_ms = (time.monotonic() - t0) * 1e3
     step_ms = []
-    nxt = toks[0] if feed is None else feed[:, 0]
     pos = torch.full((B,), S, dtype=torch.int32, device=DEV)
-    for i in range(1, n_new):
+    for _ in range(1, n_new):
         t0 = time.monotonic()
-        lg, caches = step(params, caches, nxt[:, None], pos)
+        lg, caches = step(params, caches, toks[-1][:, None], pos)
         logits.append(lg[:, 0])
         toks.append(lg[:, 0].argmax(-1).to(torch.int32))
         torch.cuda.synchronize()
         step_ms.append((time.monotonic() - t0) * 1e3)
-        nxt = toks[-1] if feed is None else feed[:, i]
         pos = pos + 1
     return (torch.stack(toks, 1).cpu().numpy(), torch.stack(logits),
-            prefill_ms, step_ms, caches, nxt, pos)
+            prefill_ms, step_ms)
 
 
 def _errs(a, b, tol):
@@ -1707,20 +1753,16 @@ def compare_forced(logits, tol16, phase="ssm_serve"):
         plain_logit_std=float(p32.std()))
 
 
-def ssm_decode_profile(model, params, caches, nxt, pos, steps=10):
-    """Device busy time of ``steps`` decode steps under the profiler; the
-    idle share is taken against the wall time of ``steps`` unprofiled
-    steps just before (as ``profile_phase``)."""
+def ssm_decode_profile(loop, params, steps=10):
+    """Device busy time of ``steps`` decode steps of ``loop`` (a
+    ``GreedyLoop``: replays of its decode graph on the card) under the
+    profiler; the idle share is taken against the wall time of ``steps``
+    unprofiled steps just before (as ``profile_phase``)."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.runtime import make_serve_step
-    step = make_serve_step(model)
 
     def run():
-        nonlocal nxt, pos
         for _ in range(steps):
-            logits, _ = step(params, caches, nxt[:, None], pos)
-            nxt = logits[:, 0].argmax(-1).to(torch.int32)
-            pos = pos + 1
+            loop.step(params)
         torch.cuda.synchronize()
 
     run()                                 # warm up
@@ -1740,6 +1782,21 @@ def ssm_decode_profile(model, params, caches, nxt, pos, steps=10):
                 top_kernels_ms_per_step={
                     e.key[:80]: e.self_device_time_total / 1e3 / steps
                     for e in top})
+
+
+def loop_graphs(phase, loop, steps):
+    """A GreedyLoop's graph counts after one prefill and ``steps`` decode
+    steps (None on the CPU): on the card one prefill capture, and one
+    decode capture that every later step replayed."""
+    if DEV == "cpu":
+        return None
+    counts = loop.counts()
+    require(counts["prefill"]["captures"] == 1
+            and counts["decode"] == dict(graphs=1, captures=1,
+                                         replays=steps - 1, evictions=0),
+            f"{phase}: graphs {counts} after 1 prefill and {steps} steps")
+    return dict(counts, prefill_capture_ms=loop._prefill.capture_ms,
+                decode_capture_ms=loop._step.capture_ms)
 
 
 def ssm_serve_phase(cfg, params, batches=SSM_BATCHES, phase="ssm_serve",
@@ -1776,10 +1833,11 @@ def ssm_serve_phase(cfg, params, batches=SSM_BATCHES, phase="ssm_serve",
                                    .astype(np.int32)).to(DEV)
         before = dict(_lib.launches)
         t0 = time.monotonic()
-        kt, k_logits, k_pre, k_steps, caches, nxt, pos = greedy_generate(
+        kt, k_logits, k_pre, k_steps, loop = greedy_generate(
             models["k16"], params, {"tokens": prompts})
         k_wall = time.monotonic() - t0
         got = {k: _lib.launches[k] - before[k] for k in before}
+        graphs = loop_graphs(phase, loop, SSM_NEW_TOKENS - 1)
         for k in path:
             path[k] += got[k]
         require(got == need, f"{phase} {B}x{S}: launches {got}, needed "
@@ -1787,16 +1845,30 @@ def ssm_serve_phase(cfg, params, batches=SSM_BATCHES, phase="ssm_serve",
         require(kt.shape == (B, SSM_NEW_TOKENS)
                 and bool(((kt >= 0) & (kt < cfg.vocab_size)).all()),
                 f"{phase} {B}x{S}: token shape or range")
-        prof = ssm_decode_profile(models["k16"], params, caches, nxt, pos) \
-            if bi == 0 else None
-        del caches
+        prof = ssm_decode_profile(loop, params) if bi == 0 else None
+        # a prefill replayed (timing only: after the path's launches were
+        # read); the first call above ran eagerly and captured
+        replay_ms = None
+        if DEV != "cpu":
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            loop.prefill(params, {"tokens": prompts})
+            torch.cuda.synchronize()
+            replay_ms = (time.monotonic() - t0) * 1e3
+            require(loop._prefill.replays == 1,
+                    f"{phase}: the second prefill did not replay")
+        loop.close()
+        del loop
         logits = {"k16": k_logits}
         feed = torch.from_numpy(kt).to(DEV)
         for tag in ("p16", "k32", "p32"):
             before = dict(_lib.launches)
             t0 = time.monotonic()
-            _, logits[tag], pre, steps, _, _, _ = greedy_generate(
+            _, logits[tag], pre, steps, tloop = greedy_generate(
                 models[tag], params, {"tokens": prompts}, feed=feed)
+            loop_graphs(f"{phase} {tag}", tloop, SSM_NEW_TOKENS - 1)
+            tloop.close()
+            del tloop
             if tag == "p16":
                 p_pre, p_steps = pre, steps
                 p_wall = time.monotonic() - t0
@@ -1818,7 +1890,8 @@ def ssm_serve_phase(cfg, params, batches=SSM_BATCHES, phase="ssm_serve",
                        .multi_processor_count)._asdict(),
                    logit_tol=tol, **checks,
                    kernel_path=dict(
-                       prefill_ms=k_pre,
+                       prefill_ms=k_pre, prefill_replay_ms=replay_ms,
+                       graphs=graphs,
                        step_ms_p50=float(np.percentile(k_steps, 50)),
                        step_ms_p95=float(np.percentile(k_steps, 95)),
                        wall_s=k_wall, tokens_per_s=n_tok / k_wall,
@@ -1844,15 +1917,21 @@ def engine_calls(calls, top8=None, routes=None):
     the same key: per MoE layer, its experts and which were kept. On the
     card every decode call must capture its engine's graph (its first
     call) or replay it, and nothing else: ``calls`` counts the captures
-    and the replays. A replayed step runs no Python: its routing is read
-    from the tensors the engine's capture recorded (``router_watch``),
-    which the replay rewrote."""
+    and the replays. So must every prefill call capture its prefill
+    program's graph of the prompt's length or replay it: ``calls`` counts
+    those captures and replays and the graphs evicted, and keeps each
+    prefill program's card memory (its captures' reserved MB and its
+    caches' MB, by program). A replayed step runs no Python: its routing
+    is read from the tensors the engine's capture recorded
+    (``router_watch``), which the replay rewrote."""
     from repro_torch.core.graphs import GraphProgram
     from repro_torch.runtime.serve import BatchingEngine
     dec, pre = BatchingEngine._decode, BatchingEngine._prefill
     log, captured, graph_routes = [], [], {}
-    calls.setdefault("captures", 0)
-    calls.setdefault("replays", 0)
+    for k in ("captures", "replays", "prefill_captures", "prefill_replays",
+              "prefill_evictions"):
+        calls.setdefault(k, 0)
+    calls.setdefault("prefill_mb", {})
 
     def decode(self, tokens, pos):
         calls["decode"] += 1
@@ -1890,7 +1969,24 @@ def engine_calls(calls, top8=None, routes=None):
 
     def prefill(self, toks):
         calls["prefill"] += 1
-        return pre(self, toks)
+        prog = self._prefill_fn
+        was = prog.counts()
+        out = pre(self, toks)
+        if DEV != "cpu":
+            now = prog.counts()
+            cap, rep = (now["captures"] - was["captures"],
+                        now["replays"] - was["replays"])
+            require((cap, rep) in ((1, 0), (0, 1)),
+                    f"an engine prefill call of length {toks.shape[1]} "
+                    f"captured {cap} and replayed {rep} graphs")
+            calls["prefill_captures"] += cap
+            calls["prefill_replays"] += rep
+            calls["prefill_evictions"] += now["evictions"] - was["evictions"]
+            calls["prefill_mb"][prog._program.__name__] = dict(
+                graphs=now["graphs"],
+                capture_reserved_mb=now["graph_bytes"] / 1e6,
+                caches_mb=now["cache_bytes"] / 1e6)
+        return out
 
     BatchingEngine._decode, BatchingEngine._prefill = decode, prefill
     try:
@@ -1978,16 +2074,28 @@ def serve(model, params, prompts, paged, new_tokens=32, top8=None,
 def graph_stats(eng, calls):
     """An engine's decode graph (None on the CPU): its captures and
     replays, the ms each capture took and the card memory it reserved. On
-    the card an engine captures once and replays every later step."""
+    the card an engine captures once and replays every later step. And its
+    prefill program's: captures (one a prompt length), replays, graphs
+    evicted, the ms of its captures, the card memory they reserved and its
+    caches' (``engine_calls`` gated each prefill call)."""
     g = eng._greedy
     if DEV == "cpu":
         return None
+    pg = eng._prefill_fn._program
     out = dict(captures=calls["captures"], replays=calls["replays"],
                capture_ms=g.capture_ms,
-               graph_mb=[b / 1e6 for b in g.graph_bytes])
+               graph_mb=[b / 1e6 for b in g.graph_bytes],
+               prefill=dict(captures=calls["prefill_captures"],
+                            replays=calls["prefill_replays"],
+                            evictions=calls["prefill_evictions"],
+                            capture_ms=pg.capture_ms,
+                            programs_mb=calls["prefill_mb"]))
     require(calls["captures"] == 1
             and calls["replays"] == calls["decode"] - 1,
             f"engine: {calls['decode']} decode calls, {out}")
+    require(calls["prefill_captures"] + calls["prefill_replays"]
+            == calls["prefill"],
+            f"engine: {calls['prefill']} prefill calls, {out['prefill']}")
     return out
 
 
@@ -2179,7 +2287,8 @@ def graph_replay_phase(cfg, params, prompts):
                     f"graph_replay: {_lib.launches[name]} {name} launches, "
                     f"{need} needed")
             counts = eng._greedy.counts()
-            require(counts == dict(graphs=1, captures=1, replays=len(got) - 1),
+            require(counts == dict(graphs=1, captures=1, replays=len(got) - 1,
+                                   evictions=0),
                     f"graph_replay: {counts} over {len(got)} steps")
             diff = max(d for _, d in got)
             require(all(same for same, _ in got),
@@ -2196,6 +2305,150 @@ def graph_replay_phase(cfg, params, prompts):
             free_card()
     emit(dict(phase="graph_replay", arch=cfg.name, layers=cfg.n_layers,
               steps=GRAPH_STEPS, fp32_tol=GRAPH_FP32_TOL, rows=rows))
+
+
+def prefill_leaf_check(got, want, dtype):
+    """Leaf by leaf, a replayed prefill's caches against a direct call's:
+    the names of the leaves not bit-equal; fails unless each of those is
+    within 1e-5 (fp32), the bf16 tolerance (bf16) or one quantization step
+    (int8 K/V), positions always bit-equal."""
+    from repro_torch.core.graphs import _leaves
+    off = []
+    for i, (g, w) in enumerate(zip(_leaves(got), _leaves(want))):
+        require(g.shape == w.shape and g.dtype == w.dtype,
+                f"prefill leaf {i}: {g.shape}/{g.dtype} vs {w.shape}/"
+                f"{w.dtype}")
+        if torch.equal(g, w):
+            continue
+        require(g.dtype not in (torch.int32, torch.int64),
+                f"prefill leaf {i}: positions differ")
+        d = (g.float() - w.float()).abs()
+        if g.dtype == torch.int8:
+            ok = bool((d <= 1).all())
+        else:
+            tol = dict(atol=GRAPH_FP32_TOL, rtol=0.0) \
+                if dtype == torch.float32 else TOL[torch.bfloat16]
+            ok = bool((d <= tol["atol"] + tol["rtol"] * w.float().abs())
+                      .all())
+        require(ok, f"prefill leaf {i} ({g.dtype}): {float(d.max())} apart")
+        off.append(dict(leaf=i, dtype=str(g.dtype).split(".")[-1],
+                        max_abs_diff=float(d.max())))
+    return off
+
+
+def prefill_graph_replay_phase(cfg, params, prompts):
+    """smollm-135m at full width and depth, engines of 8 slots x 2048,
+    dense and paged, bf16, fp32 and int8 KV. For each pad bucket the
+    workload's prompts fall in: one call of the engine's prefill program
+    (its first of the bucket captures the graph), then a replay on another
+    prompt of the bucket, held against a direct eager prefill of that
+    prompt into a new cache tree: every cache leaf bit-equal, or within
+    the stated tolerance (``prefill_leaf_check``; the record names the
+    leaf), and the hidden states bit-equal or within it. Then 8 requests
+    of the workload, 16 new tokens each: the engine's token streams with
+    the prefill program equal those of an engine whose prefill is the
+    eager call, and a ``step_async`` run (chunk PREFILL_CHUNK) in which at
+    least two admissions of one bucket are pending at once gives the
+    lockstep streams. Launches here are comparisons, not a path: main
+    zeroes the counts after the graph phases."""
+    from repro_torch.models import Model
+    from repro_torch.runtime import BatchingEngine
+    t_phase = time.monotonic()
+    rng = np.random.default_rng(SEED + 50)
+    rows = []
+    for dtype, quant in (("bfloat16", False), ("float32", False),
+                         ("bfloat16", True)):
+        c = cfg.replace(dtype=dtype, kv_quant=quant)
+        model = Model(c, device=DEV)
+        for paged in (False, True):
+            def engine():
+                return BatchingEngine(model, params, n_slots=8,
+                                      max_len=2048, paged=paged,
+                                      page_size=16)
+            eng = engine()
+            prog = eng._prefill_fn
+            by_bucket = {}
+            for p, _ in prompts:
+                by_bucket.setdefault(eng._pad_ctx(p[:-1]).shape[1],
+                                     []).append(p[:-1])
+            buckets = []
+            for b, ctxs in sorted(by_bucket.items()):
+                other = rng.integers(0, c.vocab_size, size=len(ctxs[0]))
+                prog(params, eng._pad_ctx(ctxs[0]))
+                was = prog.counts()
+                toks = eng._pad_ctx(other.astype(np.int32))
+                hidden, caches = prog(params, toks)
+                now = prog.counts()
+                if DEV != "cpu":
+                    require(now["replays"] == was["replays"] + 1
+                            and now["captures"] == was["captures"],
+                            f"prefill_graph_replay: bucket {b} did not "
+                            f"replay: {was} -> {now}")
+                want_h, want = model.prefill(
+                    params, {"tokens": torch.from_numpy(toks).to(DEV)},
+                    2048, clamp_window=not paged)
+                off = prefill_leaf_check(caches, want, getattr(torch, dtype))
+                h_diff = float((hidden.float() - want_h.float()).abs().max())
+                require(h_diff <= (GRAPH_FP32_TOL if dtype == "float32"
+                                   else TOL[torch.bfloat16]["atol"]),
+                        f"prefill_graph_replay: bucket {b} hidden "
+                        f"{h_diff} apart")
+                buckets.append(dict(bucket=b, prompts=len(ctxs),
+                                    leaves_not_bit_equal=off,
+                                    hidden_max_abs_diff=h_diff))
+                del hidden, caches, want_h, want
+            reqs = prompts[:8]
+
+            def run(e, mode):
+                rs = [e.submit(p, max_new_tokens=16, tenant=t)
+                      for p, t in reqs]
+                pending = []
+                for _ in range(10000):
+                    if mode == "step":
+                        e.step()
+                    else:
+                        e.step_async(prefill_chunk=PREFILL_CHUNK)
+                        pending.append(collections.Counter(
+                            e._pad_ctx(e._ctx_tokens(e._slots[i])[:-1])
+                            .shape[1] for i in e._prefilling))
+                    if e.idle():
+                        break
+                require(e.idle(), "prefill_graph_replay: not drained")
+                return [r.out_tokens for r in rs], pending
+
+            calls = {"decode": 0, "prefill": 0}
+            with engine_calls(calls):
+                graph_logs, _ = run(eng, "step")
+                async_logs, pending = run(engine(), "async")
+            plain = engine()
+            plain._prefill_fn = lambda p, toks: model.prefill(
+                p, {"tokens": torch.from_numpy(toks).to(DEV)}, 2048,
+                clamp_window=not paged)
+            eager_logs, _ = run(plain, "step")
+            together = max((n for cnt in pending for n in cnt.values()),
+                           default=0)
+            require(graph_logs == eager_logs,
+                    f"prefill_graph_replay {dtype} kv_quant={quant} "
+                    f"paged={paged}: streams differ from the eager "
+                    "prefill's")
+            require(together >= 2, "prefill_graph_replay: no two pending "
+                    f"prefills of one bucket at once: {pending[:3]}")
+            require(async_logs == graph_logs,
+                    f"prefill_graph_replay {dtype} kv_quant={quant} "
+                    f"paged={paged}: step_async streams differ from step's")
+            rows.append(dict(
+                dtype=dtype, kv_quant=quant, paged=paged, buckets=buckets,
+                streams_equal_eager=True, async_streams_equal=True,
+                async_pending_one_bucket_max=together,
+                engine_calls=calls, program=prog.counts(),
+                capture_ms=None if prog._program is None
+                else prog._program.capture_ms))
+            del eng, plain, prog
+            free_card()
+    emit(dict(phase="prefill_graph_replay", arch=cfg.name,
+              layers=cfg.n_layers, fp32_tol=GRAPH_FP32_TOL,
+              bf16_tol=TOL[torch.bfloat16], rows=rows,
+              phase_wall_s=time.monotonic() - t_phase))
 
 
 def graph_profile_phase(cfg, params, prompts):
@@ -2374,7 +2627,7 @@ def whisper_serve_phase(cfg, params):
     for tag, c in (("kernel", cfg), ("plain", plain_cfg(cfg))):
         before = dict(launches)
         t0 = time.monotonic()
-        toks, logits, pre, steps, _, _, _ = greedy_generate(
+        toks, logits, pre, steps, _ = greedy_generate(
             Model(c, device=DEV), params, batch, n_new=WHISPER_STEPS + 1)
         wall = time.monotonic() - t0
         n = toks.size
@@ -4895,6 +5148,7 @@ def main():
     # and each fleet engine's capture (counts zeroed before and after:
     # the direct calls are comparisons, not a path)
     graph_replay_phase(cfg, params, prompts)
+    prefill_graph_replay_phase(cfg, params, prompts)
     graph_profile_phase(cfg, params, prompts)
     graph_refusal_phase()
     graph_configure_phase(cfg, params, prompts)

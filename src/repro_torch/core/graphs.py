@@ -20,7 +20,9 @@ executes nothing, so no data moves twice. Later calls with that key copy
 the staged inputs in and replay. The graphs of one program share a memory
 pool. A graph is dropped once a tensor it is bound to is freed, and
 ``close`` drops them all (the program cache calls it when it evicts the
-program).
+program). With ``max_graphs`` a program keeps at most that many graphs:
+a capture past the cap drops the least recently called one (counted in
+``evictions``), whose key captures again at its next call.
 
 A replay rewrites the graph's outputs in place: what a call returns stays
 valid until the program's next replay (``fresh`` returns copies). An
@@ -214,10 +216,12 @@ def _op_source(err: BaseException) -> str:
 
 class GraphProgram:
     """``fn`` run as CUDA graphs on ``device``, one a binding of its
-    arguments (module docstring). ``captures``, ``replays``,
-    ``capture_ms`` and ``graph_bytes`` count and measure the captures."""
+    arguments (module docstring), at most ``max_graphs`` of them (None: no
+    cap). ``captures``, ``replays``, ``evictions``, ``capture_ms`` and
+    ``graph_bytes`` count and measure the captures."""
 
-    def __init__(self, fn: Callable, device, name: str = ""):
+    def __init__(self, fn: Callable, device, name: str = "",
+                 max_graphs: Optional[int] = None):
         self.fn = fn
         self.device = torch.device(device)
         if self.device.type != "cuda":
@@ -231,8 +235,12 @@ class GraphProgram:
         self._pool = _Pool()
         self._refused: Optional[str] = None
         self._chained: Dict[Callable, "GraphProgram"] = {}
+        if max_graphs is not None and max_graphs < 1:
+            raise ValueError(f"max_graphs {max_graphs} < 1")
+        self.max_graphs = max_graphs
         self.captures = 0
         self.replays = 0
+        self.evictions = 0
         self.capture_ms: List[float] = []
         self.graph_bytes: List[int] = []
 
@@ -269,10 +277,10 @@ class GraphProgram:
         return got
 
     def counts(self) -> Dict[str, int]:
-        """Graphs held, captures and replays, of this program and of the
-        programs chained to it."""
+        """Graphs held, captures, replays and evictions, of this program
+        and of the programs chained to it."""
         out = dict(graphs=len(self._graphs), captures=self.captures,
-                   replays=self.replays)
+                   replays=self.replays, evictions=self.evictions)
         for c in self._chained.values():
             for k, v in c.counts().items():
                 out[k] += v
@@ -303,6 +311,8 @@ class GraphProgram:
         g = self._graphs.get(key)
         if g is None:
             return self._first_call(args, leaves, key), None
+        if self.max_graphs is not None:
+            self._graphs[key] = self._graphs.pop(key)   # most recently used
         if g.staged:
             self._stage(g, [x for x, k in zip(leaves, key[1])
                             if k[0] == "staged"])
@@ -356,6 +366,11 @@ class GraphProgram:
         g.refs = [weakref.ref(x, lambda _, key=key: dead.append(key))
                   for x, k in zip(leaves, kinds) if k[0] == "bound"]
         self._graphs[key] = g
+        while self.max_graphs is not None \
+                and len(self._graphs) > self.max_graphs:
+            del self._graphs[next(iter(self._graphs))]  # least recently used
+            self._pool.dropped()
+            self.evictions += 1
         return out
 
     def _capture(self, g: _Graph, call_args: tuple, placed: list,

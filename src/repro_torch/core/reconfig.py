@@ -169,11 +169,11 @@ class ProgramCache:
         return len(self._entries)
 
     def programs(self) -> Dict[str, int]:
-        """Graphs held, captures and replays over the cached programs (all
-        zero on the CPU, where programs run eagerly)."""
+        """Graphs held, captures, replays and evictions over the cached
+        programs (all zero on the CPU, where programs run eagerly)."""
         with self._lock:
             entries = list(self._entries.values())
-        out = dict(graphs=0, captures=0, replays=0)
+        out = dict(graphs=0, captures=0, replays=0, evictions=0)
         for e in entries:
             counts = getattr(e.compiled, "counts", None)
             for k, v in (counts() if counts else {}).items():

@@ -66,13 +66,20 @@ class Model:
         return lm.lm_logits(self.cfg, params, hidden)
 
     @torch.no_grad()
-    def prefill(self, params, batch, max_len: int, clamp_window: bool = True):
+    def prefill(self, params, batch, max_len: int, clamp_window: bool = True,
+                caches=None):
+        """batch dict -> (hidden, caches). ``caches`` (decoder-only LMs: a
+        tree of ``make_prefill_caches``'s) is reset and filled in place
+        instead of a new tree."""
         if self.audio:
+            if caches is not None:
+                raise ValueError("the audio family's prefill builds its own "
+                                 "caches")
             return encdec.encdec_prefill(self.cfg, params, batch["frames"],
                                          batch["tokens"])
         return lm.lm_prefill(self.cfg, params, batch["tokens"], max_len,
                              patches=batch.get("patches"),
-                             clamp_window=clamp_window)
+                             clamp_window=clamp_window, caches=caches)
 
     @torch.no_grad()
     def decode(self, params, caches, tokens, pos):
@@ -102,6 +109,16 @@ class Model:
                 leaf.zero_()
             return caches
         return lm.make_decode_caches(self.cfg, batch, max_len, self.dev)
+
+    def make_prefill_caches(self, batch: int, max_len: int,
+                            clamp_window: bool = True):
+        """The cache tree ``prefill`` builds for ``batch`` prompts (its
+        ``caches`` argument): decoder-only LMs only."""
+        if self.audio:
+            raise ValueError("the audio family's prefill builds its own "
+                             "caches")
+        return lm.make_decode_caches(self.cfg, batch, max_len, self.dev,
+                                     clamp_window=clamp_window)
 
     def make_paged_caches(self, n_pages: int, page_size: int):
         if self.audio:

@@ -6,7 +6,7 @@ reference's pytree.
   lm_forward(cfg, params, tokens, patches=None, remat=False)
                                                   -> (hidden, aux)  [train]
   lm_logits(cfg, params, hidden)                  -> logits
-  lm_prefill(cfg, params, tokens, max_len, patches=None)
+  lm_prefill(cfg, params, tokens, max_len, patches=None, caches=None)
                                                   -> (hidden, caches)
   lm_decode(cfg, params, caches, tok, pos)        -> (logits, caches)
   lm_decode_paged(cfg, params, caches, tok, pos, block_tables)
@@ -26,7 +26,7 @@ from repro_torch.layers.norms import rms_norm, softcap
 from repro_torch.placement import place
 from repro_torch.models.stages import (apply_stages, init_cache,
                                        init_paged_cache, init_shared_block,
-                                       init_stage, plan_stages)
+                                       init_stage, plan_stages, reset_cache)
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -89,16 +89,23 @@ def lm_logits(cfg: ModelConfig, params, h):
 
 
 def lm_prefill(cfg: ModelConfig, params, tokens, max_len: int, patches=None,
-               clamp_window: bool = True):
+               clamp_window: bool = True, caches=None):
     """Run the prompt (``patches`` first, where given), building decode
     caches sized ``max_len``.
 
     ``clamp_window=False`` builds full-length (non-ring) caches even for
-    windowed sites — the layout the paged page-splice expects."""
+    windowed sites — the layout the paged page-splice expects. ``caches``
+    (a tree of ``make_prefill_caches``'s for this batch, ``max_len`` and
+    layout) is reset to its initial values and filled in place instead of
+    a new tree: the result is bit for bit a new tree's, whatever an
+    earlier prompt left in it."""
     x = _embed_tokens(cfg, params, tokens, patches)
-    caches = _place_caches(cfg, lambda: init_cache(
-        cfg, x.shape[0], max_len, _dtype(cfg), x.device,
-        clamp_window=clamp_window), x)
+    if caches is not None:
+        reset_cache(caches)
+    else:
+        caches = _place_caches(cfg, lambda: init_cache(
+            cfg, x.shape[0], max_len, _dtype(cfg), x.device,
+            clamp_window=clamp_window), x)
     x = apply_stages(cfg, params, x, _positions(x), mode="prefill",
                      caches=caches)
     return rms_norm(x, params["final_norm"]), caches
@@ -144,9 +151,12 @@ def lm_decode_paged(cfg: ModelConfig, params, caches, tokens, pos,
     return lm_logits(cfg, params, h), caches
 
 
-def make_decode_caches(cfg: ModelConfig, batch: int, max_len: int, device):
-    """Empty caches for serving allocation."""
-    return init_cache(cfg, batch, max_len, _dtype(cfg), device)
+def make_decode_caches(cfg: ModelConfig, batch: int, max_len: int, device,
+                       clamp_window: bool = True):
+    """Empty caches for serving allocation (``clamp_window``: as
+    ``lm_prefill``'s)."""
+    return init_cache(cfg, batch, max_len, _dtype(cfg), device,
+                      clamp_window=clamp_window)
 
 
 def make_paged_caches(cfg: ModelConfig, n_pages: int, page_size: int,

@@ -251,6 +251,24 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype, device,
     return _stacked_caches(cfg, one)
 
 
+# every cache leaf starts as one value: k/v, latents, SSM state and conv
+# tail 0, positions -1 (empty), int8 scales 1
+_CACHE_INIT = {"pos": -1, "k_scale": 1, "v_scale": 1}
+
+
+def reset_cache(caches) -> None:
+    """Restore a cache tree of ``init_cache``'s (or a paged pool of
+    ``init_paged_cache``'s) to exactly what that function makes, in place:
+    the same leaves at the same addresses, ring and MLA layouts as they
+    are. A prefill into the reset tree fills it as it fills a new one."""
+    if isinstance(caches, dict):
+        for name, leaf in caches.items():
+            leaf.fill_(_CACHE_INIT.get(name, 0))
+        return
+    for part in caches:
+        reset_cache(part)
+
+
 def init_paged_cache(cfg: ModelConfig, n_pages: int, page_size: int, dtype,
                      device):
     """Empty paged KV pool tree mirroring the stage structure: every

@@ -11,9 +11,12 @@ from repro_torch.runtime.loadgen import (Arrival, FleetSpec, SoakMatrix,
                                          tenant_shares)
 from repro_torch.runtime.losses import chunked_xent, full_xent
 from repro_torch.runtime.paged import PagePoolManager
-from repro_torch.runtime.serve import (BatchingEngine, Request,
-                                      jit_serve_step, make_paged_serve_step,
-                                      make_prefill_step, make_serve_step)
+from repro_torch.runtime.serve import (BatchingEngine, GreedyLoop,
+                                      PrefillProgram, Request,
+                                      clear_prefill_programs, jit_serve_step,
+                                      make_paged_serve_step,
+                                      make_prefill_step, make_serve_step,
+                                      prefill_program)
 from repro_torch.runtime.train import (TrainOpts, init_train_state,
                                       jit_train_step, make_dp_train_step,
                                       make_loss_fn,

@@ -19,9 +19,14 @@ CUDA graph on the engine's own buffers, which every later step replays.
 The engine keeps those buffers for its whole life (the caches, and the
 tokens, positions and block tables each step copies in from pinned host
 memory), so that one graph serves admissions, preemption, copy-on-write,
-scrubbing and page hand-off alike. Prefill runs eagerly. Attention goes
-through the hand-written CUDA kernels on a CUDA model
-(``repro_torch.kernels``).
+scrubbing and page hand-off alike. The engine's prefill is a
+``PrefillProgram`` from ``prefill_program``, the counterpart of the
+reference's ``_prefill_jit``: one program a (model, max_len, layout),
+shared by every engine that asks for it, filling one batch-1 cache tree
+it owns; on the card one CUDA graph a padded prompt length and params.
+``GreedyLoop`` runs the two step factories the same way for callers that
+serve a batch directly (the SSM models). Attention goes through the
+hand-written CUDA kernels on a CUDA model (``repro_torch.kernels``).
 
 The reference's jitted pool operations with buffer donation become the
 in-place index operations below: the cache tensors are mutated where they
@@ -40,7 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch.analysis.lifecycle import sanitizer
-from repro_torch.core.graphs import GraphProgram, then
+from repro_torch.core.graphs import GraphProgram, _leaves, rebuild, then
 from repro_torch.models.api import Model
 from repro_torch.runtime.paged import PagePoolManager, default_pool_pages
 
@@ -104,13 +109,188 @@ def jit_serve_step(model: Model, mesh, batch: int, cache_len: int,
 
 
 def make_prefill_step(model: Model, max_len: int, clamp_window: bool = True):
-    """prefill_step(params, batch) -> (hidden, caches)."""
+    """prefill_step(params, batch, caches=None) -> (hidden, caches);
+    ``caches`` (``model.make_prefill_caches``) is reset and filled in
+    place instead of a new tree."""
 
-    def prefill_step(params, batch):
+    def prefill_step(params, batch, caches=None):
         return model.prefill(params, batch, max_len,
-                             clamp_window=clamp_window)
+                             clamp_window=clamp_window, caches=caches)
 
     return prefill_step
+
+
+# ---------------------------------------------------------------------------
+# Compiled prefill and greedy loops (CUDA graphs on the card)
+# ---------------------------------------------------------------------------
+
+# programs the prefill cache keeps: the reference's lru_cache(maxsize=8)
+PREFILL_PROGRAMS = 8
+# graphs a prefill program keeps, least recently used dropped: every
+# power-of-two bucket from 8 to 16384. A dense engine with a windowed
+# layer pads a prompt past the window to its own length (``_pad_ctx``),
+# so its distinct lengths are unbounded; the cap bounds its graphs.
+PREFILL_GRAPHS = 12
+
+
+def _copy_tree(tree):
+    """A copy of a tuple/dict tree of tensors."""
+    return rebuild(tree, [x.clone() for x in _leaves(tree)])
+
+
+class PrefillProgram:
+    """The batch-1 prefill of one (model, max_len, layout), the counterpart
+    of the reference's ``_prefill_jit``: ``(params, toks) -> (hidden,
+    caches)`` for a (1, S) int32 host prompt ``toks``. ``full_len`` builds
+    full-length caches for windowed sites (the paged splice's layout).
+
+    The caches are one batch-1 tree the program owns (``caches``), reset
+    and filled in place by every call, so they hold the last call's prompt
+    until the next call: a caller splices them at once or copies them,
+    never keeps them. On the card the call is a ``GraphProgram``: one CUDA
+    graph a prompt length and params binding (engines that share params
+    share graphs), the prompt staged through pinned memory, at most
+    ``PREFILL_GRAPHS`` graphs. On the CPU it is the plain call into the
+    same caches. ``close`` frees the graphs and the caches; a later call
+    makes them anew."""
+
+    def __init__(self, model: Model, max_len: int, full_len: bool = False):
+        self.model = model
+        self.max_len = max_len
+        self.full_len = full_len
+        self.caches = None
+        self._program = GraphProgram(
+            self._prefill_into, model.dev, max_graphs=PREFILL_GRAPHS,
+            name=f"prefill[{model.cfg.name}/{max_len}"
+                 f"{'/full' if full_len else ''}]") \
+            if model.dev.type == "cuda" else None
+
+    def _prefill_into(self, params, toks):
+        return self.model.prefill(params, {"tokens": toks}, self.max_len,
+                                  clamp_window=not self.full_len,
+                                  caches=self.caches)
+
+    def __call__(self, params, toks: np.ndarray):
+        if self.caches is None and not self.model.audio:
+            # (the audio family's prefill needs frames: it raises the
+            # reference's KeyError at its eager first call)
+            self.caches = self.model.make_prefill_caches(
+                1, self.max_len, clamp_window=not self.full_len)
+        if self._program is not None:
+            return self._program(params, toks)
+        return self._prefill_into(params, torch.from_numpy(toks))
+
+    def counts(self) -> Dict[str, int]:
+        """Graphs held, captures, replays and evictions (zeros on the CPU),
+        and the bytes of the program's caches and of its captures."""
+        out = dict(graphs=0, captures=0, replays=0, evictions=0)
+        if self._program is not None:
+            out = self._program.counts()
+            out["graph_bytes"] = sum(self._program.graph_bytes)
+        out["cache_bytes"] = 0 if self.caches is None else sum(
+            t.numel() * t.element_size() for t in _leaves(self.caches))
+        return out
+
+    def close(self) -> None:
+        """Free the graphs and the caches."""
+        if self._program is not None:
+            self._program.close()
+        self.caches = None
+
+
+_prefill_programs: "collections.OrderedDict" = collections.OrderedDict()
+_prefill_lock = threading.Lock()
+
+
+def prefill_program(model: Model, max_len: int,
+                    full_len: bool = False) -> PrefillProgram:
+    """The prefill program of ``(model, max_len, full_len)``, shared by
+    every engine that asks for it (a fleet's engine woken mid-hand-off
+    captures no graph another engine of its model already holds). At most
+    ``PREFILL_PROGRAMS`` live here, least recently asked for evicted and
+    closed."""
+    key = (model, int(max_len), bool(full_len))
+    with _prefill_lock:
+        prog = _prefill_programs.get(key)
+        if prog is not None:
+            _prefill_programs.move_to_end(key)
+            return prog
+        prog = _prefill_programs[key] = PrefillProgram(model, max_len,
+                                                       full_len)
+        while len(_prefill_programs) > PREFILL_PROGRAMS:
+            _prefill_programs.popitem(last=False)[1].close()
+        return prog
+
+
+def clear_prefill_programs() -> None:
+    """Close and forget every cached prefill program."""
+    with _prefill_lock:
+        while _prefill_programs:
+            _prefill_programs.popitem()[1].close()
+
+
+class GreedyLoop:
+    """Greedy generation for a batch served through ``make_prefill_step``
+    and ``make_serve_step`` directly (the SSM models), over buffers the
+    loop keeps for its life: the caches (``batch`` rows, ``max_len``), the
+    (batch, 1) tokens and (batch,) positions a decode step reads. On the
+    card both steps are ``GraphProgram``s, as the reference's callers
+    ``jax.jit`` them: one prefill graph a prompt shape, one decode graph
+    that every step replays (the next tokens and positions are copied into
+    the same buffers). ``prefill`` and ``step`` return the step's (batch,
+    V) logits and (batch,) int32 greedy ids, valid until the next call:
+    copy what is kept."""
+
+    def __init__(self, model: Model, batch: int, max_len: int):
+        dev = model.dev
+        self.model = model
+        self.caches = model.make_prefill_caches(batch, max_len)
+        self.tokens = torch.zeros((batch, 1), dtype=torch.int32, device=dev)
+        self.pos = torch.zeros((batch,), dtype=torch.int32, device=dev)
+        self.ids = None
+        prefill = make_prefill_step(model, max_len)
+        logits = model.logits
+
+        def prefill_ids(params, batch_, caches):
+            h, _ = prefill(params, batch_, caches=caches)
+            return greedy_tail((logits(params, h[:, -1:]), caches))
+
+        step = make_serve_step(model)
+        if dev.type == "cuda":
+            self._prefill = GraphProgram(prefill_ids, dev)
+            self._step = then(GraphProgram(step, dev), greedy_tail)
+        else:
+            self._prefill, self._step = prefill_ids, then(step, greedy_tail)
+
+    def prefill(self, params, batch):
+        """Prefill ``batch`` (``tokens`` (B, S)) into the caches; the next
+        step decodes position S."""
+        logits, self.ids = self._prefill(params, batch, self.caches)
+        self.pos.fill_(batch["tokens"].shape[1])
+        return logits[:, 0], self.ids
+
+    def step(self, params, feed: Optional[torch.Tensor] = None):
+        """One decode step, fed the last step's greedy ids or ``feed``
+        ((B,) int32 on the device)."""
+        self.tokens[:, 0].copy_(self.ids if feed is None else feed)
+        logits, self.ids = self._step(params, self.caches, self.tokens,
+                                      self.pos)
+        self.pos.add_(1)
+        return logits[:, 0], self.ids
+
+    def counts(self) -> Dict[str, Dict[str, int]]:
+        """The prefill's and the decode step's graph counts (empty on the
+        CPU)."""
+        return {name: p.counts() for name, p in
+                (("prefill", self._prefill), ("decode", self._step))
+                if isinstance(p, GraphProgram)}
+
+    def close(self) -> None:
+        """Free the graphs and the buffers."""
+        for p in (self._prefill, self._step):
+            if isinstance(p, GraphProgram):
+                p.close()
+        self.caches = self.ids = None
 
 
 # ---------------------------------------------------------------------------
@@ -368,7 +548,9 @@ class BatchingEngine:
             else make_serve_step(model)
         self.use_program(GraphProgram(step, self.device) if on_card
                          else step)
-        self._prefill_fn = model.prefill
+        # the batched prefill: one program a (model, max_len, layout),
+        # shared across engines
+        self._prefill_fn = prefill_program(model, max_len, full_len=paged)
         # hooks: called after every decode step / on every completion
         self.on_step: Optional[Callable[[Dict[str, int], float], None]] = None
         self.on_finish: Optional[Callable[[Request], None]] = None
@@ -386,12 +568,6 @@ class BatchingEngine:
         refuse a model that is not on the hypervisor's device)."""
         self._decode_fn = compiled
         self._greedy = then(compiled, greedy_tail)
-
-    def _upload(self, x: np.ndarray) -> torch.Tensor:  # rc3e: allow-host-sync
-        """A host array on the engine's device, outside the decode step:
-        the prefill prompt once an admission, page lists at admission,
-        growth or flush."""
-        return torch.from_numpy(x).to(self.device)
 
     def _stage(self, name: str, dev: torch.Tensor, x: np.ndarray) -> None:
         """Copy a host array into one of the step's device buffers, in
@@ -429,12 +605,11 @@ class BatchingEngine:
         # the step's one download, 4 bytes a slot
         return host.numpy().copy()               # rc3e: allow-host-sync
 
-    def _prefill(self, toks: torch.Tensor):
-        """Batch-1 prefill of a padded context -> its caches (full length,
-        no ring, on a paged engine)."""
-        _, caches = self._prefill_fn(self.params, {"tokens": toks},
-                                     self.max_len,
-                                     clamp_window=not self.paged)
+    def _prefill(self, toks: np.ndarray):
+        """Batch-1 prefill of a padded (1, S) host context -> its caches
+        (full length, no ring, on a paged engine): the prefill program's
+        own, valid until its next call."""
+        _, caches = self._prefill_fn(self.params, toks)
         return caches
 
     def set_tenant_share(self, tenant: str, max_slots: Optional[int]) -> None:
@@ -608,8 +783,8 @@ class BatchingEngine:
     def _pages_dev(self, pages) -> torch.Tensor:
         """Upload a page-index list (block order kept) at admission, growth
         or flush time — never per decode step."""
-        return self._upload(
-            np.asarray(pages, np.int64))             # rc3e: allow-host-sync
+        idx = np.asarray(pages, np.int64)            # rc3e: allow-host-sync
+        return torch.from_numpy(idx).to(self.device)  # rc3e: allow-host-sync
 
     def _invalidate_pages(self, pages) -> None:
         """Reset recycled pages' stale ``pos`` metadata before first use by
@@ -736,7 +911,9 @@ class BatchingEngine:
             pass                        # every context page prefix-matched
         elif len(ctx) >= self.PREFILL_MIN_TOKENS \
                 and self.prefill_mode == "batched":
-            buf = self._prefill(self._pad_ctx(ctx))
+            # a copy: another admission (here or in an engine sharing the
+            # program) may run the prefill again before the splice
+            buf = _copy_tree(self._prefill(self._pad_ctx(ctx)))
             chunks = -(-len(ctx) // max(1, int(chunk)))   # ceil
         else:
             if plan is not None:
@@ -789,7 +966,8 @@ class BatchingEngine:
     def _prefill_slot(self, slot: int, ctx: np.ndarray):
         """Prefill a slot's context with ONE batched call (lengths padded
         to power-of-two buckets; padded positions sit past the context and
-        are causally masked until generation overwrites them)."""
+        are causally masked until generation overwrites them), spliced
+        before anything else can run the prefill program."""
         _splice_slot(self.caches, self._prefill(self._pad_ctx(ctx)), slot)
 
     def _prefill_slot_paged(self, slot: int, ctx: np.ndarray, plan):
@@ -800,7 +978,10 @@ class BatchingEngine:
                       self._pages_dev(plan.write_pages),
                       start=plan.write_start)
 
-    def _pad_ctx(self, ctx: np.ndarray) -> torch.Tensor:
+    def _pad_ctx(self, ctx: np.ndarray) -> np.ndarray:
+        """The (1, pad) host prompt of a context: the reference's padding
+        (power-of-two buckets from 8, none past the shortest layer cache);
+        the prefill program stages it on the device."""
         n = len(ctx)
         bucket = 8
         while bucket < n:
@@ -808,7 +989,7 @@ class BatchingEngine:
         pad = max(n, min(bucket, self._min_cache_len))
         toks = np.zeros((1, pad), np.int32)
         toks[0, :n] = ctx
-        return self._upload(toks)      # once per admission, not per step
+        return toks
 
     def _block_tables_dev(self) -> torch.Tensor:
         """The step's block-table buffer, copied into in place only when the

@@ -1573,7 +1573,8 @@ def test_engine_replay_matches_a_direct_call(cuda, paged, dtype, kv_quant):
     if dtype == "float32":
         assert max(d for _, d in got) <= 1e-5, got
     counts = eng._greedy.counts()
-    assert counts == dict(graphs=1, captures=1, replays=len(got) - 1)
+    assert counts == dict(graphs=1, captures=1, replays=len(got) - 1,
+                          evictions=0)
 
 
 @pytest.mark.cuda
@@ -1696,8 +1697,166 @@ def test_fleet_engines_bind_one_program_with_a_graph_each(cuda, paged):
     counts = program.counts()
     steps = sum(len(c) for c in checks)
     # configure's capture on its zeros is counted and dropped with them
-    assert counts == dict(graphs=2, captures=3, replays=steps - 2), counts
+    assert counts == dict(graphs=2, captures=3, replays=steps - 2,
+                          evictions=0), counts
     assert all(same for c in checks for same, _ in c)
     n_dec = "paged_decode_attention" if paged else "decode_attention"
     assert launches[n_dec] == 2 * cfg.n_layers * steps   # replay + direct
     fleet.close()
+
+
+# ---------------------------------------------------------------------------
+# The prefill program and the SSM serve steps as CUDA graphs
+# ---------------------------------------------------------------------------
+
+def _tree_equal(a, b):
+    from repro_torch.core.graphs import _leaves
+    la, lb = _leaves(a), _leaves(b)
+    return len(la) == len(lb) and all(
+        x.shape == y.shape and x.dtype == y.dtype and torch.equal(x, y)
+        for x, y in zip(la, lb))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("paged", [False, True], ids=["dense", "paged"])
+def test_prefill_replay_matches_a_direct_call(cuda, paged):
+    """An engine's prefill program at three pad buckets (8, 64, 256): the
+    first call of a bucket runs eagerly and captures its graph, the next
+    replays it on another prompt; every call's hidden states and caches
+    (the program's own tree, reset in place) equal a direct eager prefill
+    of the same prompt into a new tree, bit for bit. The flash launches
+    count executions: one a layer for every call."""
+    from repro_torch.runtime import BatchingEngine, clear_prefill_programs
+    clear_prefill_programs()
+    cfg, model, params = _graph_model(cuda)
+    eng = BatchingEngine(model, params, n_slots=4, max_len=256, paged=paged,
+                         page_size=16)
+    prog = eng._prefill_fn
+    rng = np.random.default_rng(3)
+    for n in (5, 40, 200):
+        for _ in range(2):
+            toks = eng._pad_ctx(rng.integers(0, cfg.vocab_size, size=n)
+                                .astype(np.int32))
+            launches.reset()
+            hidden, caches = prog(params, toks)
+            assert launches["flash_attention"] == cfg.n_layers
+            want_h, want = model.prefill(
+                params, {"tokens": torch.from_numpy(toks).to(cuda)}, 256,
+                clamp_window=not paged)
+            assert torch.equal(hidden, want_h)
+            assert _tree_equal(caches, want)
+    counts = prog.counts()
+    assert (counts["graphs"], counts["captures"], counts["replays"],
+            counts["evictions"]) == (3, 3, 3, 0), counts
+    clear_prefill_programs()
+
+
+@pytest.mark.cuda
+def test_two_engines_share_one_prefill_program(cuda):
+    """Two engines of one model and max_len share the prefill program and,
+    sharing params, its graphs: the second engine's prefills all replay
+    graphs the first captured, and its streams equal the first's."""
+    from repro_torch.runtime import BatchingEngine, clear_prefill_programs
+    clear_prefill_programs()
+    cfg, model, params = _graph_model(cuda)
+    engines = [BatchingEngine(model, params, n_slots=4, max_len=128)
+               for _ in range(2)]
+    assert engines[0]._prefill_fn is engines[1]._prefill_fn
+    prog = engines[0]._prefill_fn
+    logs = []
+    for eng in engines:
+        reqs = [eng.submit(p, max_new_tokens=8)
+                for p in _graph_prompts(cfg.vocab_size, n=8)]
+        assert eng.run_until_idle()
+        logs.append([r.out_tokens for r in reqs])
+        if eng is engines[0]:
+            first = prog.counts()
+    assert logs[0] == logs[1]
+    second = prog.counts()
+    assert first["captures"] >= 1
+    assert second["captures"] == first["captures"]
+    assert second["replays"] > first["replays"]
+    clear_prefill_programs()
+
+
+@pytest.mark.cuda
+def test_pending_async_prefill_survives_a_replay_of_its_bucket(cuda):
+    """A prefill buffered by ``step_async`` is a copy: another engine's
+    admission into the same bucket replays the shared program (rewriting
+    its caches) before the splice, and the pending request's stream still
+    equals a lockstep engine's."""
+    from repro_torch.core.graphs import _leaves
+    from repro_torch.runtime import BatchingEngine, clear_prefill_programs
+    clear_prefill_programs()
+    cfg, model, params = _graph_model(cuda)
+    rng = np.random.default_rng(9)
+    a, b = (rng.integers(0, cfg.vocab_size, size=n).astype(np.int32)
+            for n in (41, 50))                     # one bucket: 64
+    eng = BatchingEngine(model, params, n_slots=4, max_len=128)
+    other = BatchingEngine(model, params, n_slots=4, max_len=128)
+    req = eng.submit(a, max_new_tokens=8)
+    eng.step_async(prefill_chunk=8)
+    prog = eng._prefill_fn
+    pending = eng._prefilling[0].buf
+    owned = {t.data_ptr() for t in _leaves(prog.caches)}
+    assert not owned & {t.data_ptr() for t in _leaves(pending)}
+    replays = prog.counts()["replays"]
+    other.submit(b, max_new_tokens=8)
+    other.step()
+    assert prog.counts()["replays"] == replays + 1
+    while not eng.idle():
+        eng.step_async(prefill_chunk=8)
+    lone = BatchingEngine(model, params, n_slots=4, max_len=128)
+    want = lone.submit(a, max_new_tokens=8)
+    assert lone.run_until_idle()
+    assert req.out_tokens == want.out_tokens
+    clear_prefill_programs()
+
+
+@pytest.mark.cuda
+def test_mamba2_decode_graph_replays_every_step(cuda):
+    """mamba2-370m at 4 layers through ``GreedyLoop``: one prefill
+    capture, one decode capture, every later step a replay, the buffers'
+    addresses fixed; its tokens equal the step factories called eagerly
+    (fresh token and position tensors each step)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.graphs import _leaves
+    from repro_torch.models import Model
+    from repro_torch.runtime import (GreedyLoop, make_prefill_step,
+                                     make_serve_step)
+    cfg = get_config("mamba2-370m").replace(n_layers=4)
+    model = Model(cfg, device=cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    for st in params["stages"]:
+        for site in (st,) if isinstance(st, dict) else st:
+            site["ssm"]["norm"].fill_(1.0)
+    B, S, steps = 2, 64, 12
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)).to(cuda)
+    loop = GreedyLoop(model, B, S + steps + 1)
+    ptrs = [t.data_ptr() for t in _leaves(loop.caches)] + [
+        loop.tokens.data_ptr(), loop.pos.data_ptr()]
+    _, ids = loop.prefill(params, {"tokens": toks})
+    got = [ids.clone()]
+    for _ in range(steps):
+        _, ids = loop.step(params)
+        got.append(ids.clone())
+        assert [t.data_ptr() for t in _leaves(loop.caches)] + [
+            loop.tokens.data_ptr(), loop.pos.data_ptr()] == ptrs
+    counts = loop.counts()
+    assert counts["prefill"]["captures"] == 1
+    assert counts["decode"] == dict(graphs=1, captures=1,
+                                    replays=steps - 1, evictions=0)
+    h, caches = make_prefill_step(model, S + steps + 1)(params,
+                                                        {"tokens": toks})
+    nxt = model.logits(params, h[:, -1:])[:, 0].argmax(-1).to(torch.int32)
+    want = [nxt]
+    step = make_serve_step(model)
+    pos = torch.full((B,), S, dtype=torch.int32, device=cuda)
+    for _ in range(steps):
+        lg, caches = step(params, caches, nxt[:, None], pos)
+        nxt = lg[:, 0].argmax(-1).to(torch.int32)
+        want.append(nxt)
+        pos = pos + 1
+    assert torch.equal(torch.stack(got), torch.stack(want))
+    loop.close()

@@ -1,8 +1,9 @@
-"""Two trees' decode steps against each other on one card, each tree in a
-process of its own: the engine's eager step against its CUDA graph, or any
-host cost a change adds to a step.
+"""Two trees' decode steps and prefills against each other on one card,
+each tree in a process of its own: an eager step against its CUDA graph,
+or any host cost a change adds to a step.
 
-    python3 tools/decode_host_ab.py TREE [TREE ...]
+    python3 tools/decode_host_ab.py [--sections engines,serve_step,prefill]
+        TREE [TREE ...]
 
 Each TREE is the root of a checkout (its ``src/repro_torch`` is imported and
 its kernels are built from its own sources). The trees run in the order
@@ -23,9 +24,21 @@ bf16, seeded weights:
   directly as ``chip_smoke.py``'s ``mesh_serve`` calls it for its plain
   steps (8 prompts of 64 tokens through ``make_prefill_step``, then 32
   greedy steps, each timed between two synchronisations): the wall ms of
-  every step after the first.
+  every step after the first;
+* ``prefill``: the engine's batched prefill (``BatchingEngine._prefill``
+  of ``_pad_ctx``, whatever the tree binds there: an eager call or a
+  prefill program's graph) on full-width smollm-135m dense and paged and
+  phi3-mini-3.8b dense: for each pad bucket of the 8 prompts, one warm-up
+  call (a graph's capture) and then 10 calls, each timed between two
+  synchronisations; then the TTFT of three fresh engines, each given the
+  8 prompts at once (lockstep: the first step admits all 8 and decodes),
+  p50 and p95 over the 24 requests; and mamba2-370m (48 layers, gate
+  norms 1) at 4 x 1024 and 8 x 256: one prefill and its first token
+  through ``GreedyLoop`` where the tree has it, else the step factories
+  called eagerly, a warm-up call and then 10 timed.
 
-Prints one JSON line per process, then the card's name and power limit.
+``--sections`` picks the sections (all three by default). Prints one
+JSON line per process, then the card's name and power limit.
 """
 import dataclasses
 import gc
@@ -130,9 +143,93 @@ def serve_step(get_config, get_model, make_prefill_step, make_serve_step):
                 mean_ms=float(np.mean(ms)))
 
 
-def child(tree):
+def _timed(call, n=10):
+    """Wall ms of ``n`` calls of ``call``, each between two
+    synchronisations, after one warm-up call."""
+    call()
+    ms = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return dict(ms=ms, p50_ms=float(np.median(ms)), min_ms=min(ms))
+
+
+def prefill_engine(cfg, paged, Model, BatchingEngine):
+    params = Model(cfg, device=DEV).init(
+        torch.Generator(device=DEV).manual_seed(SEED))
+    rng = np.random.default_rng(SEED + 1)
+    prompts = [rng.integers(0, cfg.vocab_size, size=int(n)).astype(np.int32)
+               for n in rng.integers(64, 1025, size=8)]
+
+    def make():
+        return BatchingEngine(Model(cfg, device=DEV), params, n_slots=8,
+                              max_len=2048, paged=paged, page_size=16)
+
+    eng = make()
+    buckets = {}
+    for p in prompts:
+        toks = eng._pad_ctx(p[:-1])
+        buckets.setdefault(int(toks.shape[1]), toks)
+    out = dict(buckets={b: _timed(lambda t=toks: eng._prefill(t))
+                        for b, toks in sorted(buckets.items())})
+    ttft = []
+    for _ in range(3):
+        eng = make()
+        torch.cuda.synchronize()
+        reqs = [eng.submit(p, max_new_tokens=4) for p in prompts]
+        eng.run_until_idle()
+        ttft += [(r.first_token_at - r.submitted_at) * 1e3 for r in reqs]
+    out.update(ttft_ms_p50=float(np.percentile(ttft, 50)),
+               ttft_ms_p95=float(np.percentile(ttft, 95)))
+    counts = getattr(eng._prefill_fn, "counts", None)
+    if counts is not None:                      # a prefill program
+        out["prefill_program"] = counts()
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def prefill_ssm(get_config, Model, runtime):
+    cfg = get_config("mamba2-370m")
+    model = Model(cfg, device=DEV)
+    params = model.init(torch.Generator(device=DEV).manual_seed(SEED + 8))
+    for st in params["stages"]:
+        for site in (st,) if isinstance(st, dict) else st:
+            site["ssm"]["norm"].fill_(1.0)
+    rng = np.random.default_rng(SEED + 7)
+    out = {}
+    for B, S in ((4, 1024), (8, 256)):
+        toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S))
+                                .astype(np.int32)).to(DEV)
+        if hasattr(runtime, "GreedyLoop"):
+            loop = runtime.GreedyLoop(model, B, S + 32)
+
+            def call():
+                loop.prefill(params, {"tokens": toks})
+        else:
+            prefill = runtime.make_prefill_step(model, S + 32)
+
+            def call():
+                h, _ = prefill(params, {"tokens": toks})
+                model.logits(params, h[:, -1:])[:, 0].argmax(-1)
+        out[f"{B}x{S}"] = _timed(call)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+SECTIONS = ("engines", "serve_step", "prefill")
+
+
+def child(tree, sections):
     sys.path.insert(0, str(tree / "src"))
     import repro_torch
+    from repro_torch import runtime
     from repro_torch.configs import get_config
     from repro_torch.kernels import _lib
     from repro_torch.models import Model, get_model
@@ -141,12 +238,22 @@ def child(tree):
     if not Path(repro_torch.__file__).resolve().is_relative_to(tree):
         raise SystemExit(f"imported {repro_torch.__file__}, not from {tree}")
     _lib.build()
-    rec = dict(tree=str(tree), engines={
-        name: engine(path_cfg(get_config, arch, layers, over), paged, Model,
-                     BatchingEngine)
-        for name, arch, layers, paged, over in PATHS})
-    rec["serve_step"] = serve_step(get_config, get_model, make_prefill_step,
-                                   make_serve_step)
+    rec = dict(tree=str(tree))
+    if "engines" in sections:
+        rec["engines"] = {
+            name: engine(path_cfg(get_config, arch, layers, over), paged,
+                         Model, BatchingEngine)
+            for name, arch, layers, paged, over in PATHS}
+    if "serve_step" in sections:
+        rec["serve_step"] = serve_step(get_config, get_model,
+                                       make_prefill_step, make_serve_step)
+    if "prefill" in sections:
+        rec["prefill"] = {
+            name: prefill_engine(path_cfg(get_config, arch, layers, over),
+                                 paged, Model, BatchingEngine)
+            for name, arch, layers, paged, over in PATHS[:3]}
+        rec["prefill"]["mamba2_370m"] = prefill_ssm(get_config, Model,
+                                                    runtime)
     print(json.dumps(rec), flush=True)
 
 
@@ -154,15 +261,23 @@ def main(argv):
     if not torch.cuda.is_available():
         print("decode_host_ab: no CUDA device", file=sys.stderr)
         return 1
+    sections = SECTIONS
+    if argv[:1] == ["--sections"]:
+        sections = tuple(argv[1].split(","))
+        if not set(sections) <= set(SECTIONS):
+            print(f"decode_host_ab: sections of {SECTIONS}", file=sys.stderr)
+            return 2
+        argv = argv[2:]
     if argv[:1] == ["--child"]:
-        child(Path(argv[1]).resolve())
+        child(Path(argv[1]).resolve(), argv[2].split(","))
         return 0
     if not argv:
         print(__doc__, file=sys.stderr)
         return 2
     for tree in argv:
         res = subprocess.run(
-            [sys.executable, __file__, "--child", str(Path(tree).resolve())],
+            [sys.executable, __file__, "--child", str(Path(tree).resolve()),
+             ",".join(sections)],
             capture_output=True, text=True, timeout=1500)
         if res.returncode:
             print(res.stdout, res.stderr, file=sys.stderr)
