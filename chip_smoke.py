@@ -281,20 +281,29 @@ lines.jsonl):
    share).
 10c. training (``training_phases``; fp32, TF32 off; every phase must
    launch no kernel, as the reference's training reaches no Pallas
-   kernel): ``train_smollm`` (``repro_torch.launch.train.main`` on
-   full-width, full-depth smollm-135m, B 8, S 1024, 30 steps, warmup 10:
-   losses finite and falling; step ms p50/p95 after 3 warm-up steps,
-   tokens/s, peak memory, one step under the profiler: device busy ms,
-   idle share, top-5 device ops), ``train_remat_micro`` (one step plain /
-   remat / 2 microbatches from one state: loss within 1e-5 relative,
-   grad_norm within 1e-4; peak memory of each), ``train_device_parity``
-   (2 layers, B 2, S 256: loss and every gradient leaf against the CPU),
-   ``train_restart`` (4 layers, B 4, S 256, deterministic algorithms: 6
-   steps straight against 3 + save + restore + 3, bit for bit),
-   ``train_families`` (one step each of qwen3-moe at 2 layers, mamba2-370m
-   at 4, whisper-tiny in full: finite loss, MoE aux > 0, every gradient
-   leaf finite and nonzero) and ``train_dp_nccl`` (``make_dp_train_step``
-   on an NCCL world of 1, compressed and not, 5 steps, 4 layers).
+   kernel; every step through ``train_program`` / ``dp_train_program``:
+   on the card one capture a binding, then replays, the state at its
+   addresses): ``train_smollm`` (``repro_torch.launch.train.main`` on
+   full-width, full-depth smollm-135m, B 8, S 1024, 30 steps, warmup 10,
+   timing the launcher's program: losses finite and falling, each
+   returned loss its own step's; step ms p50/p95 after 3 warm-up steps,
+   tokens/s, peak memory, capture ms and graph MB, one step under the
+   profiler: device busy ms, idle share, ops, top-5 device ops),
+   ``train_graph_replay`` (the same model, plain / remat / 2
+   microbatches, 3 program steps against 3 eager in-place steps under
+   deterministic algorithms: metrics and every state leaf bit-equal;
+   remat's and the microbatches' first loss within 1e-5 relative of the
+   plain one, grad_norm within 1e-4; peak memory of each),
+   ``train_device_parity`` (2 layers, B 2, S 256: loss and every gradient
+   leaf against the CPU), ``train_restart`` (4 layers, B 4, S 256,
+   deterministic algorithms: 6 program steps straight against 3 + save +
+   restore + 3 and against 6 eager steps, bit for bit),
+   ``train_families`` (qwen3-moe at 2 layers, mamba2-370m at 4,
+   whisper-tiny in full: finite loss, MoE aux > 0, every gradient leaf
+   finite and nonzero; 3 program steps against 3 eager ones, bit-equal)
+   and ``train_dp_nccl`` (``dp_train_program`` on an NCCL world of 1,
+   compressed and not, 5 steps, 4 layers, its collectives captured,
+   against the eager in-place DP step, bit-equal).
 10d. the mesh slice on a one-rank NCCL mesh (``mesh_phases``):
    ``mesh_serve`` (smollm-135m bf16 through ``jit_serve_step``, tokens
    bitwise and 30 x 32 decode launches), ``mesh_train`` (fp32, B 8, S
@@ -3885,11 +3894,13 @@ def whisper_engine_phase(get_config):
 
 TRAIN_B, TRAIN_S, TRAIN_STEPS, TRAIN_WARM = 8, 1024, 30, 3
 TRAIN_PROFILE_STEP = 5          # the launcher's step traced by the profiler
+TRAIN_GRAPH_STEPS = 3           # train_graph_replay: steps a variant
 TRAIN_PARITY = dict(layers=2, B=2, S=256)
 TRAIN_RESTART = dict(layers=4, B=4, S=256, steps=6)
 TRAIN_FAMILIES = (("qwen3-moe-30b-a3b", 2, 2, 256),   # arch, layers, B, S
                   ("mamba2-370m", 4, 2, 256),
                   ("whisper-tiny", 0, 2, 0))          # 0: full depth / S
+TRAIN_FAMILY_STEPS = 3
 TRAIN_DP = dict(layers=4, B=8, S=256, steps=5)
 TRAIN_LR = dict(lr=1e-3, warmup_steps=10)             # the launcher's
 
@@ -3951,47 +3962,110 @@ def _tree_cpu(tree):
     return tree_map(lambda t: t.detach().cpu(), tree)
 
 
+def _leaves(tree):
+    from repro_torch.tree import flatten
+    return flatten(tree)[0]
+
+
+def _diff_leaves(a, b):
+    """Indices of the leaves of two state trees that are not bit-equal."""
+    return [i for i, (x, y) in enumerate(zip(_leaves(a), _leaves(b)))
+            if not torch.equal(x, y)]
+
+
+def _graph_record(phase, program, steps, binds=1):
+    """A training program's graph counts and costs; on the card every call
+    after a binding's first must be a replay (``binds`` bindings, one
+    capture each, ``steps`` calls in all)."""
+    g = program.graphs
+    if g is None:                       # DEV = "cpu": the step runs eagerly
+        return dict(captures=0, replays=0)
+    c = g.counts()
+    require(c["captures"] == binds and c["replays"] == steps - binds,
+            f"{phase}: {c['captures']} captures and {c['replays']} replays "
+            f"for {steps} calls over {binds} bindings (one capture a "
+            "binding, then replays)")
+    return dict(captures=c["captures"], replays=c["replays"],
+                capture_ms=list(g.capture_ms),
+                graph_mb=[b / 2**20 for b in g.graph_bytes])
+
+
+def _close(program):
+    if program.graphs is not None:
+        program.graphs.close()
+
+
+def _timed_steps(step, state, batches, kept=None):
+    """Run ``step`` over ``batches`` from ``state``, each call between two
+    synchronisations; returns (state, metrics of each step as floats, ms of
+    each step). The state's leaves must keep their addresses (an in-place
+    step); ``kept`` collects each step's metric tensors."""
+    ptrs = [t.data_ptr() for t in _leaves(state)]
+    metrics, ms = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        state, m = step(state, b)
+        torch.cuda.synchronize()
+        ms.append((time.monotonic() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+        if kept is not None:
+            kept.append(m)
+    require([t.data_ptr() for t in _leaves(state)] == ptrs,
+            "an in-place training step moved a state leaf")
+    return state, metrics, ms
+
+
 def train_smollm_phase(get_config):
     """``repro_torch.launch.train.main`` on full-width, full-depth
-    smollm-135m (B 8, S 1024, 30 steps, warmup 10, fp32): the losses
-    finite and the last below the first, no kernel launched; step ms
-    p50/p95 after 3 warm-up steps (each step synchronised), tokens/s, the
-    peak memory, and one step traced by the profiler (device busy ms, idle
-    share against the unprofiled p50, top-5 device ops)."""
+    smollm-135m (B 8, S 1024, 30 steps, warmup 10, fp32), whose steps run
+    through its ``train_program``: the losses finite and the last below
+    the first, each returned loss the one its step computed (read right
+    after the step), the state at its addresses, one capture then replays,
+    no kernel launched; step ms p50/p95 after 3 warm-up steps (each step
+    synchronised), the first step's ms (its eager run and the capture),
+    tokens/s, the peak memory, the capture's ms and graph MB, and one
+    step traced by the profiler (device busy ms, idle share against the
+    unprofiled p50, ops, top-5 device ops)."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.kernels import launches
     from repro_torch.launch import train as launch_train
     t_phase = time.monotonic()
     cfg = get_config("smollm-135m")
-    times, traced = [], {}
-    real = launch_train.make_train_step
+    times, traced, seen, moved, made = [], {}, [], [], []
+    real = launch_train.train_program
 
     def timed_factory(model, opts):
-        step = real(model, opts)
+        program = real(model, opts)
+        made.append(program)
 
         def timed(state, batch):
+            ptrs = [t.data_ptr() for t in _leaves(state)]
             if len(times) == TRAIN_PROFILE_STEP and not traced:
                 torch.cuda.synchronize()
                 with profile(activities=[ProfilerActivity.CPU,
                                          ProfilerActivity.CUDA]) as prof:
                     t0 = time.monotonic()
-                    out = step(state, batch)
+                    out = program(state, batch)
                     torch.cuda.synchronize()
                 traced["wall_ms"] = (time.monotonic() - t0) * 1e3
                 traced["prof"] = prof
-                return out
-            torch.cuda.synchronize()
-            t0 = time.monotonic()
-            out = step(state, batch)
-            torch.cuda.synchronize()
-            times.append(time.monotonic() - t0)
+            else:
+                torch.cuda.synchronize()
+                t0 = time.monotonic()
+                out = program(state, batch)
+                torch.cuda.synchronize()
+                times.append(time.monotonic() - t0)
+            seen.append(float(out[1]["loss"]))
+            if [t.data_ptr() for t in _leaves(out[0])] != ptrs:
+                moved.append(len(seen))
             return out
 
         return timed
 
     before = dict(launches)
     _mem_reset()
-    launch_train.make_train_step = timed_factory
+    launch_train.train_program = timed_factory
     printed = io.StringIO()
     try:
         with contextlib.redirect_stdout(printed):
@@ -4000,7 +4074,7 @@ def train_smollm_phase(get_config):
                  "--batch", str(TRAIN_B), "--seq", str(TRAIN_S),
                  "--device", DEV])
     finally:
-        launch_train.make_train_step = real
+        launch_train.train_program = real
     peak = _mem_peak()
     got = _no_launch("train_smollm", before)
     require(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
@@ -4008,6 +4082,11 @@ def train_smollm_phase(get_config):
     require(losses[-1] < losses[0],
             f"train_smollm: the loss did not fall: {losses[0]} -> "
             f"{losses[-1]}")
+    require(losses == seen, f"train_smollm: the launcher returned {losses}, "
+            f"its steps computed {seen} (aliased metrics)")
+    require(not moved, f"train_smollm: the state moved at steps {moved}")
+    graphs = _graph_record("train_smollm", made[0], TRAIN_STEPS)
+    _close(made[0])
     steady = np.array(times[TRAIN_WARM:]) * 1e3
     p50 = float(np.percentile(steady, 50))
     dev = [e for e in traced["prof"].key_averages()
@@ -4026,49 +4105,86 @@ def train_smollm_phase(get_config):
               device_ops_per_step=sum(e.count for e in dev),
               top_device_ops_ms={e.key[:80]: e.self_device_time_total / 1e3
                                  for e in top},
-              peak_memory_bytes=peak, launches=got,
+              peak_memory_bytes=peak, launches=got, **graphs,
               launcher_lines=printed.getvalue().splitlines()[-4:],
               wall_s=time.monotonic() - t_phase))
     return got
 
 
-def train_remat_micro_phase(get_config):
-    """One step of full smollm (30 layers, B 8, S 1024) from one state and
-    batch: plain, ``remat=True`` and ``microbatches=2``; loss within 1e-5
-    relative and grad_norm within 1e-4 relative of the plain step's; the
-    peak memory of each."""
+def train_graph_replay_phase(get_config):
+    """Full-width, full-depth smollm-135m, fp32, B 8, S 1024, TF32 off,
+    under deterministic algorithms: plain, remat and 2 microbatches, each
+    ``TRAIN_GRAPH_STEPS`` steps through ``train_program`` against as many
+    eager in-place steps from the same state on the same batches (numpy,
+    staged through the program's pinned buffers): every step's metrics and
+    every state leaf bit-equal, the state at its addresses, one capture
+    then replays; remat's and the microbatches' first loss within 1e-5
+    relative of the plain one and grad_norm within 1e-4; the capture's ms
+    and graph MB, each run's step ms and peak memory."""
+    from repro_torch.data import DataConfig, DataPipeline
     from repro_torch.kernels import launches
-    from repro_torch.runtime.train import TrainOpts, make_train_step
+    from repro_torch.runtime.train import (make_inplace_train_step,
+                                           train_program)
     t_phase = time.monotonic()
     cfg = get_config("smollm-135m")
-    model, opts, state, batch = _train_setup(cfg, TRAIN_B, TRAIN_S, SEED + 50)
+    model, opts, state, _ = _train_setup(cfg, TRAIN_B, TRAIN_S, SEED + 50)
+    data = DataPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                   seq_len=TRAIN_S, batch_size=TRAIN_B))
+    batches = [data.batch_at(i) for i in range(TRAIN_GRAPH_STEPS)]
     before = dict(launches)
     rec = {}
-    for tag, kw in (("plain", {}), ("remat", {"remat": True}),
-                    ("microbatches2", {"microbatches": 2})):
-        step = make_train_step(model, dataclasses.replace(opts, **kw))
-        _mem_reset()
-        t0 = time.monotonic()
-        new, m = step(state, batch)
-        peak = _mem_peak()
-        rec[tag] = dict(loss=float(m["loss"]),
-                        grad_norm=float(m["grad_norm"]),
-                        peak_memory_bytes=peak,
-                        step_ms=(time.monotonic() - t0) * 1e3)
-        del new, m
-    got = _no_launch("train_remat_micro", before)
+    torch.use_deterministic_algorithms(True)
+    try:
+        for tag, kw in (("plain", {}), ("remat", {"remat": True}),
+                        ("microbatches2", {"microbatches": 2})):
+            o = dataclasses.replace(opts, **kw)
+            _mem_reset()
+            eager_state, eager, eager_ms = _timed_steps(
+                make_inplace_train_step(model, o), _clone_tree(state),
+                batches)
+            eager_peak = _mem_peak()
+            _mem_reset()
+            program = train_program(model, o)
+            kept = []
+            graph_state, graph, graph_ms = _timed_steps(
+                program, _clone_tree(state), batches, kept)
+            graph_peak = _mem_peak()
+            require(graph == eager, f"train_graph_replay {tag}: the "
+                    f"program's metrics {graph} vs the eager step's {eager}")
+            require(len({id(m["loss"]) for m in kept}) == len(kept),
+                    f"train_graph_replay {tag}: metrics of two calls are "
+                    "one tensor")
+            diff = _diff_leaves(graph_state, eager_state)
+            require(not diff, f"train_graph_replay {tag}: leaves {diff} "
+                    "differ from the eager steps'")
+            rec[tag] = dict(metrics=graph, eager_ms=eager_ms,
+                            graph_ms=graph_ms,
+                            eager_peak_memory_bytes=eager_peak,
+                            graph_peak_memory_bytes=graph_peak,
+                            bitequal_leaves=len(_leaves(graph_state)),
+                            **_graph_record(f"train_graph_replay {tag}",
+                                            program, TRAIN_GRAPH_STEPS))
+            _close(program)
+            del program, eager_state, graph_state, kept
+    finally:
+        torch.use_deterministic_algorithms(False)
+    got = _no_launch("train_graph_replay", before)
+    p = rec["plain"]["metrics"][0]
     for tag in ("remat", "microbatches2"):
-        r, p = rec[tag], rec["plain"]
+        r = rec[tag]["metrics"][0]
         require(abs(r["loss"] - p["loss"]) <= 1e-5 * abs(p["loss"]),
-                f"train_remat_micro: {tag} loss {r['loss']} vs {p['loss']}")
+                f"train_graph_replay: {tag} loss {r['loss']} vs "
+                f"{p['loss']}")
         require(abs(r["grad_norm"] - p["grad_norm"])
                 <= 1e-4 * abs(p["grad_norm"]),
-                f"train_remat_micro: {tag} grad_norm {r['grad_norm']} vs "
+                f"train_graph_replay: {tag} grad_norm {r['grad_norm']} vs "
                 f"{p['grad_norm']}")
-    emit(dict(phase="train_remat_micro", arch=cfg.name, layers=cfg.n_layers,
-              batch=TRAIN_B, seq=TRAIN_S, runs=rec,
-              remat_peak_memory_ratio=rec["remat"]["peak_memory_bytes"]
-              / rec["plain"]["peak_memory_bytes"],
+    emit(dict(phase="train_graph_replay", arch=cfg.name, layers=cfg.n_layers,
+              dtype="float32", batch=TRAIN_B, seq=TRAIN_S,
+              steps=TRAIN_GRAPH_STEPS, deterministic=True, tolerance="bit",
+              runs=rec,
+              remat_peak_memory_ratio=rec["remat"]["eager_peak_memory_bytes"]
+              / rec["plain"]["eager_peak_memory_bytes"],
               launches=got, wall_s=time.monotonic() - t_phase))
     del state
     return got
@@ -4115,14 +4231,16 @@ def train_device_parity_phase(get_config):
 
 
 def train_restart_phase(get_config):
-    """Full width, 4 layers, B 4, S 256, under deterministic algorithms:
-    6 steps straight against 3 + ``save`` + ``restore`` + 3; the two
-    states bit for bit equal."""
+    """Full width, 4 layers, B 4, S 256, under deterministic algorithms,
+    through ``train_program``: 6 steps straight against 3 + ``save`` +
+    ``restore`` + 3, and against 6 eager in-place steps; the three states
+    bit for bit equal; three bindings (the straight state, the saved one,
+    the restored one), each captured once and replayed after."""
     from repro_torch.ckpt import restore, save
     from repro_torch.data import DataConfig, DataPipeline
     from repro_torch.kernels import launches
-    from repro_torch.runtime.train import make_train_step
-    from repro_torch.tree import flatten
+    from repro_torch.runtime.train import (make_inplace_train_step,
+                                           train_program)
     t_phase = time.monotonic()
     p = TRAIN_RESTART
     cfg = get_config("smollm-135m").replace(n_layers=p["layers"])
@@ -4132,47 +4250,58 @@ def train_restart_phase(get_config):
     ckpt = OUT / "train_restart_ckpt"
     shutil.rmtree(ckpt, ignore_errors=True)
     before = dict(launches)
+    half = p["steps"] // 2
     torch.use_deterministic_algorithms(True)
     try:
-        step = make_train_step(model, opts)
-        sa = state
+        program = train_program(model, opts)
+        sa = _clone_tree(state)
         for i in range(p["steps"]):
-            sa, _ = step(sa, data.batch_at(i))
-        sb = state
-        for i in range(p["steps"] // 2):
-            sb, _ = step(sb, data.batch_at(i))
-        save(sb, str(ckpt), step=p["steps"] // 2)
+            sa, _ = program(sa, data.batch_at(i))
+        se, eager = _clone_tree(state), make_inplace_train_step(model, opts)
+        for i in range(p["steps"]):
+            se, _ = eager(se, data.batch_at(i))
+        sb = _clone_tree(state)
+        for i in range(half):
+            sb, _ = program(sb, data.batch_at(i))
+        save(sb, str(ckpt), step=half)
         del sb
         sb, at = restore(str(ckpt), state)
         for i in range(at, p["steps"]):
-            sb, _ = step(sb, data.batch_at(i))
+            sb, _ = program(sb, data.batch_at(i))
     finally:
         torch.use_deterministic_algorithms(False)
     got = _no_launch("train_restart", before)
-    diff = [i for i, (a, b) in enumerate(zip(flatten(sa)[0],
-                                             flatten(sb)[0]))
-            if not torch.equal(a, b)]
+    graphs = _graph_record("train_restart", program, 2 * p["steps"], binds=3)
+    _close(program)
+    diff = _diff_leaves(sa, sb)
+    eager_diff = _diff_leaves(sa, se)
     shutil.rmtree(ckpt, ignore_errors=True)      # the output dir stays small
     require(not diff, f"train_restart: leaves {diff} differ after the "
             "restart")
+    require(not eager_diff, f"train_restart: leaves {eager_diff} of the "
+            "program's state differ from the eager steps'")
     emit(dict(phase="train_restart", arch=cfg.name, layers=cfg.n_layers,
               batch=p["B"], seq=p["S"], steps=p["steps"], restored_at=at,
-              leaves=len(flatten(sa)[0]), bitexact=True, launches=got,
-              wall_s=time.monotonic() - t_phase))
+              leaves=len(_leaves(sa)), bitexact=True, eager_bitexact=True,
+              launches=got, **graphs, wall_s=time.monotonic() - t_phase))
     return got
 
 
 def train_families_phase(get_config):
-    """One step each, norms at 1: qwen3-moe full width cut to 2 layers,
-    mamba2-370m full width cut to 4, whisper-tiny in full: the loss
-    finite, the MoE aux > 0, no kernel launched (no ``ssd_chunk_scan``:
-    the SSM trains on ``ssd_scan``), every gradient leaf finite and nonzero
-    (as every leaf is in the CPU parity tests at these norms); loss, aux
-    and ms a step (the second step, synchronised)."""
+    """Norms at 1: qwen3-moe full width cut to 2 layers, mamba2-370m full
+    width cut to 4, whisper-tiny in full. One gradient pass: the loss
+    finite, the MoE aux > 0, every gradient leaf finite and nonzero (as
+    every leaf is in the CPU parity tests at these norms). Then, under
+    deterministic algorithms, ``TRAIN_FAMILY_STEPS`` steps through
+    ``train_program`` against as many eager in-place steps from the same
+    state on the same batch: metrics and every state leaf bit-equal, one
+    capture then replays; no kernel launched (no ``ssd_chunk_scan``: the
+    SSM trains on ``ssd_scan``); loss, aux, the ms of each step of both,
+    the capture's ms and graph MB."""
     from repro_torch.kernels import launches
     from repro_torch.runtime.train import (_value_and_grad, make_loss_fn,
-                                           make_train_step)
-    from repro_torch.tree import flatten
+                                           make_inplace_train_step,
+                                           train_program)
     t_phase = time.monotonic()
     total = {k: 0 for k in launches}
     for arch, layers, B, S in TRAIN_FAMILIES:
@@ -4184,7 +4313,7 @@ def train_families_phase(get_config):
         before = dict(launches)
         loss, m, grads = _value_and_grad(make_loss_fn(model, opts),
                                          state["params"], batch)
-        bad = [i for i, g in enumerate(flatten(grads)[0])
+        bad = [i for i, g in enumerate(_leaves(grads))
                if not bool(torch.isfinite(g).all()) or
                float(g.abs().max()) == 0.0]
         del grads
@@ -4195,41 +4324,60 @@ def train_families_phase(get_config):
         if cfg.moe is not None:
             require(float(m["aux"]) > 0, f"train_families {arch}: aux "
                     f"{float(m['aux'])}")
-        step = make_train_step(model, opts)
-        state, _ = step(state, batch)
-        torch.cuda.synchronize()
-        t0 = time.monotonic()
-        state, m2 = step(state, batch)
-        torch.cuda.synchronize()
-        ms = (time.monotonic() - t0) * 1e3
+        batches = [batch] * TRAIN_FAMILY_STEPS
+        torch.use_deterministic_algorithms(True)
+        try:
+            eager_state, eager, eager_ms = _timed_steps(
+                make_inplace_train_step(model, opts), _clone_tree(state),
+                batches)
+            program = train_program(model, opts)
+            graph_state, graph, graph_ms = _timed_steps(
+                program, state, batches)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        require(graph == eager, f"train_families {arch}: the program's "
+                f"metrics {graph} vs the eager step's {eager}")
+        diff = _diff_leaves(graph_state, eager_state)
+        require(not diff, f"train_families {arch}: leaves {diff} differ "
+                "from the eager steps'")
+        graphs = _graph_record(f"train_families {arch}", program,
+                               TRAIN_FAMILY_STEPS)
+        _close(program)
         got = _no_launch(f"train_families {arch}", before)
         total = {k: total[k] + got[k] for k in total}
         emit(dict(phase="train_families", arch=arch, layers=cfg.n_layers,
                   batch=B, seq=S, loss=float(loss), aux=float(m["aux"]),
-                  loss_step2=float(m2["loss"]), step_ms=ms,
-                  params=sum(t.numel() for t in flatten(state["params"])[0]),
-                  launches=got))
-        del state, batch, model
+                  metrics=graph, loss_step2=graph[1]["loss"],
+                  eager_step_ms=eager_ms, graph_step_ms=graph_ms,
+                  step_ms=graph_ms[-1], bitequal=True,
+                  params=sum(t.numel() for t in _leaves(state["params"])),
+                  launches=got, **graphs))
+        del state, batch, model, program, eager_state, graph_state
         free_card()
     emit(dict(phase="train_families", wall_s=time.monotonic() - t_phase))
     return total
 
 
 def train_dp_nccl_phase(get_config):
-    """``make_dp_train_step`` on an NCCL world of 1 (``file://``
-    rendezvous), full width, 4 layers, B 8, S 256, 5 steps compressed
-    (int8 all-gather with error feedback) and not: the loss falls in both,
-    the compressed run's last loss within 0.25 x the first of the
-    uncompressed; ms a step each."""
+    """On an NCCL world of 1 (``file://`` rendezvous), full width, 4
+    layers, B 8, S 256, 5 steps compressed (int8 all-gather with error
+    feedback) and not, under deterministic algorithms: ``dp_train_program``
+    (its collectives captured with the step) against as many eager steps
+    of ``make_inplace_dp_train_step`` from the same state: metrics and
+    every state leaf (the residuals too) bit-equal, one capture then
+    replays; the loss falls in both, the compressed run's last loss within
+    0.25 x the first of the uncompressed; ms a step of each."""
     import torch.distributed as dist
     from repro_torch.data import DataConfig, DataPipeline
     from repro_torch.kernels import launches
-    from repro_torch.runtime.train import make_dp_train_step
+    from repro_torch.runtime.train import (dp_train_program,
+                                           make_inplace_dp_train_step)
     t_phase = time.monotonic()
     p = TRAIN_DP
     cfg = get_config("smollm-135m").replace(n_layers=p["layers"])
     data = DataPipeline(DataConfig(vocab_size=cfg.vocab_size,
                                    seq_len=p["S"], batch_size=p["B"]))
+    batches = [data.batch_at(i) for i in range(p["steps"])]
     rdv = OUT / "nccl_rendezvous"
     if rdv.exists():
         rdv.unlink()
@@ -4238,23 +4386,35 @@ def train_dp_nccl_phase(get_config):
                             rank=0)
     before = dict(launches)
     runs = {}
+    torch.use_deterministic_algorithms(True)
     try:
         for tag, compress in (("uncompressed", False), ("compressed", True)):
             model, opts, state, _ = _train_setup(
                 cfg, p["B"], p["S"], SEED + 54, compress_grads=compress)
-            step = make_dp_train_step(model, None, opts)
-            losses, times = [], []
-            for i in range(p["steps"]):
-                torch.cuda.synchronize()
-                t0 = time.monotonic()
-                state, m = step(state, data.batch_at(i))
-                torch.cuda.synchronize()
-                times.append((time.monotonic() - t0) * 1e3)
-                losses.append(float(m["loss"]))
-            runs[tag] = dict(losses=losses, step_ms=times,
-                             step_ms_median=float(np.median(times[1:])))
-            del state
+            eager_state, eager, eager_ms = _timed_steps(
+                make_inplace_dp_train_step(model, None, opts),
+                _clone_tree(state), batches)
+            program = dp_train_program(model, None, opts)
+            graph_state, graph, graph_ms = _timed_steps(program, state,
+                                                        batches)
+            require(graph == eager, f"train_dp_nccl {tag}: the program's "
+                    f"metrics {graph} vs the eager step's {eager}")
+            diff = _diff_leaves(graph_state, eager_state)
+            require(not diff, f"train_dp_nccl {tag}: leaves {diff} differ "
+                    "from the eager steps'")
+            losses = [m["loss"] for m in graph]
+            runs[tag] = dict(losses=losses, step_ms=graph_ms,
+                             step_ms_median=float(np.median(graph_ms[1:])),
+                             eager_step_ms=eager_ms,
+                             eager_step_ms_median=float(
+                                 np.median(eager_ms[1:])),
+                             bitequal=True,
+                             **_graph_record(f"train_dp_nccl {tag}", program,
+                                             p["steps"]))
+            _close(program)
+            del state, program, eager_state, graph_state
     finally:
+        torch.use_deterministic_algorithms(False)
         dist.destroy_process_group()
     got = _no_launch("train_dp_nccl", before)
     lu, lc = runs["uncompressed"]["losses"], runs["compressed"]["losses"]
@@ -4272,7 +4432,7 @@ def training_phases(get_config):
     """Every training phase; returns the launches they made (all 0)."""
     t0 = time.monotonic()
     total = {}
-    for fn in (train_smollm_phase, train_remat_micro_phase,
+    for fn in (train_smollm_phase, train_graph_replay_phase,
                train_device_parity_phase, train_restart_phase,
                train_families_phase, train_dp_nccl_phase):
         got = fn(get_config)

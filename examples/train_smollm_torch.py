@@ -1,7 +1,10 @@
 """End-to-end training example on the PyTorch port (``examples/
 train_smollm.py`` through ``repro_torch``): train a smollm-family model
 through the full stack — RC3E allocation, StreamFIFO-fed synthetic data,
-AdamW, periodic checkpointing with restart support.
+AdamW, periodic checkpointing with restart support. It trains through
+``train_program`` (the reference's jitted step): on the card one CUDA
+graph replayed every step, the FIFO's blocks copied into its fixed batch
+buffers, the state updated in place.
 
 Default runs a width-reduced smollm (~10M params) for 300 steps and prints
 the loss trajectory (which must fall under the unigram entropy).
@@ -30,7 +33,7 @@ from repro_torch.data import DataConfig, DataPipeline
 from repro_torch.models import get_model
 from repro_torch.optim import AdamWConfig
 from repro_torch.rc2f import StreamFIFO
-from repro_torch.runtime import TrainOpts, init_train_state, make_train_step
+from repro_torch.runtime import TrainOpts, init_train_state, train_program
 
 
 def config(full: bool):
@@ -72,7 +75,7 @@ def main(argv=None, *, params=None, state=None):
     opts = TrainOpts(opt=AdamWConfig(lr=3e-3, warmup_steps=20,
                                      total_steps=args.steps),
                      loss_chunk=64)
-    step_fn = make_train_step(model, opts)
+    step_fn = train_program(model, opts)
 
     if state is None:
         state = init_train_state(

@@ -163,9 +163,11 @@ def binding(args: tuple, device: torch.device):
 def capture_stream(device: torch.device):
     """The side stream the programs of ``device`` capture on (capture
     cannot run on the legacy default stream). cuBLAS keeps a workspace
-    for each stream, for the process's life: the stream's is taken when
-    the stream is made, outside any capture, so that no graph's pool holds
-    it."""
+    for each (thread, stream), for the process's life: the stream's are
+    taken when the stream is made, outside any capture, so that no graph's
+    pool holds one. That is this thread's, and autograd's device thread's,
+    which runs a captured backward pass: a GEMM and its backward in each
+    dtype."""
     device = torch.device(device)
     if device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
@@ -173,10 +175,12 @@ def capture_stream(device: torch.device):
         s = _streams.get(device)
         if s is None:
             s = torch.cuda.Stream(device)
-            with torch.cuda.stream(s):
+            with torch.cuda.stream(s), torch.inference_mode(False), \
+                    torch.enable_grad():
                 for dt in (torch.float32, torch.bfloat16):
-                    x = torch.ones((8, 8), dtype=dt, device=device)
-                    torch.mm(x, x)
+                    x = torch.ones((8, 8), dtype=dt, device=device,
+                                   requires_grad=True)
+                    torch.autograd.grad(torch.mm(x, x).sum(), x)
             torch.cuda.current_stream(device).wait_stream(s)
             _streams[device] = s
         return s
@@ -218,11 +222,17 @@ class GraphProgram:
     """``fn`` run as CUDA graphs on ``device``, one a binding of its
     arguments (module docstring), at most ``max_graphs`` of them (None: no
     cap). ``captures``, ``replays``, ``evictions``, ``capture_ms`` and
-    ``graph_bytes`` count and measure the captures."""
+    ``graph_bytes`` count and measure the captures. With
+    ``release_cache`` the allocator's cached blocks are released between
+    a first call's eager run and its capture (a training step): a capture
+    cannot free them to retry an allocation, so without it the eager
+    run's blocks and the graph's pool would have to fit side by side."""
 
     def __init__(self, fn: Callable, device, name: str = "",
-                 max_graphs: Optional[int] = None):
+                 max_graphs: Optional[int] = None,
+                 release_cache: bool = False):
         self.fn = fn
+        self.release_cache = release_cache
         self.device = torch.device(device)
         if self.device.type != "cuda":
             raise ValueError(f"GraphProgram: CUDA graphs need a CUDA "
@@ -361,6 +371,8 @@ class GraphProgram:
                             if k[0] == "staged"])
         call_args = rebuild(args, placed)
         out = self.fn(*call_args)           # the call's real execution
+        if self.release_cache:
+            torch.cuda.empty_cache()
         self._capture(g, call_args, placed, kinds)
         dead = self._dead
         g.refs = [weakref.ref(x, lambda _, key=key: dead.append(key))

@@ -11,7 +11,11 @@ launcher then computes the parameter specs and trains the one-process
 step on every rank without placing anything on the mesh (the reference
 computes ``pspecs`` and never applies them; ROADMAP records it). The
 port's seeded init (``torch.Generator``) draws other numbers than the
-reference's ``PRNGKey(0)``, so the two launchers' losses differ. Examples:
+reference's ``PRNGKey(0)``, so the two launchers' losses differ. It trains
+through ``train_program``, the reference's ``jax.jit(make_train_step(...))``:
+on the card one CUDA graph, bound to the (restored) state and the batch
+buffers, captured at the first step and replayed at every later one; the
+state is updated in place. Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
       --reduce --device cpu --steps 50 --batch 8 --seq 128
   PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-135m \\
@@ -32,7 +36,7 @@ from repro_torch.models import get_model
 from repro_torch.optim import AdamWConfig
 from repro_torch.runtime.sharding import axis_sizes, param_specs
 from repro_torch.runtime.train import (TrainOpts, init_train_state,
-                                       make_train_step)
+                                       train_program)
 
 SAVE_EVERY = 25
 
@@ -103,7 +107,7 @@ def main(argv=None) -> list:
     if mesh is not None:
         # computed and not applied, as the reference's launcher does
         pspecs = param_specs(cfg, state["params"], mesh)  # noqa: F841
-    step = make_train_step(model, opts)
+    step = train_program(model, opts)
     data = DataPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                                    batch_size=args.batch))
     losses = []

@@ -1,4 +1,5 @@
 from repro_torch.optim.adamw import (AdamWConfig, adamw_update,
+                                     adamw_update_,
                                      clip_by_global_norm, global_norm,
                                      init_opt_state, schedule)
 from repro_torch.optim.compress import (compressed_psum, dequantize_int8,

@@ -8,6 +8,13 @@ it, and works in place on its own temporaries, so that a large state (a
 MoE layer's stacked experts) needs no clipped copy of every gradient
 beside the new state; each operation and its rounding are the
 reference's.
+
+``adamw_update_`` is the same update in place: it writes each leaf's new
+parameter, ``mu`` and ``nu``, and ``count``, into the tensors it is given,
+by the same operations in the same order (``mu.mul_(b1)`` rounds as
+``torch.mul(mu, b1)``). It is the port's counterpart of XLA's buffer
+donation (``donate_argnums``) for the training program, whose CUDA graph
+is bound to the state's addresses.
 """
 from __future__ import annotations
 
@@ -32,8 +39,8 @@ class AdamWConfig:
     min_lr_ratio: float = 0.1
 
 
-def _f32(x, device=None):
-    return torch.as_tensor(x, device=device).to(torch.float32)
+def _f32(x):
+    return torch.as_tensor(x).to(torch.float32)
 
 
 def schedule(cfg: AdamWConfig, step):
@@ -72,17 +79,25 @@ def clip_by_global_norm(grads, max_norm: float):
     return tree_map(lambda g: (g * scale).to(g.dtype), grads), norm
 
 
+def _corrections(cfg: AdamWConfig, count):
+    """(lr, bc1, bc2) at the advanced ``count``. The bases are filled on
+    the device (an upload from pageable memory cannot be captured) and
+    hold the same float32 values as ``torch.as_tensor(b1)``."""
+    c32 = count.to(torch.float32)
+    base = lambda b: torch.full((), b, dtype=torch.float32,
+                                device=c32.device)
+    return (schedule(cfg, count), 1 - torch.pow(base(cfg.b1), c32),
+            1 - torch.pow(base(cfg.b2), c32))
+
+
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, grads, opt_state, params):
     """Returns (new_params, new_opt_state, metrics {grad_norm, lr})."""
     gnorm = global_norm(grads)
     scale = _clip_scale(gnorm, cfg.clip_norm)
     count = opt_state["count"] + 1
-    lr = schedule(cfg, count)
+    lr, bc1, bc2 = _corrections(cfg, count)
     b1, b2 = cfg.b1, cfg.b2
-    c32 = count.to(torch.float32)
-    bc1 = 1 - torch.pow(_f32(b1, c32.device), c32)
-    bc2 = 1 - torch.pow(_f32(b2, c32.device), c32)
 
     def upd(g, mu, nu, p):
         g32 = (g * scale).to(g.dtype).float()        # clip_by_global_norm
@@ -105,3 +120,28 @@ def adamw_update(cfg: AdamWConfig, grads, opt_state, params):
     new_nu = unflatten(spec, [o[2] for o in out])
     return new_p, {"mu": new_mu, "nu": new_nu, "count": count}, \
         {"grad_norm": gnorm, "lr": lr}
+
+
+@torch.no_grad()
+def adamw_update_(cfg: AdamWConfig, grads, opt_state, params):
+    """``adamw_update`` in place: writes the new parameters, ``mu``, ``nu``
+    and ``count`` into ``params`` and ``opt_state``. Returns the metrics
+    {grad_norm, lr}."""
+    gnorm = global_norm(grads)
+    scale = _clip_scale(gnorm, cfg.clip_norm)
+    count = opt_state["count"].add_(1)
+    lr, bc1, bc2 = _corrections(cfg, count)
+    b1, b2 = cfg.b1, cfg.b2
+    for g, mu, nu, p in zip(
+            flatten(grads)[0], flatten(opt_state["mu"])[0],
+            flatten(opt_state["nu"])[0], flatten(params)[0]):
+        g32 = (g * scale).to(g.dtype).float()
+        mu.mul_(b1).add_(torch.mul(g32, 1 - b1))
+        nu.mul_(b2).add_(torch.square(g32).mul_(1 - b2))
+        del g32
+        step = torch.div(mu, bc1).div_(torch.div(nu, bc2).sqrt_()
+                                       .add_(cfg.eps))
+        p32 = p.float()            # p itself when p is fp32: read before
+        step.add_(torch.mul(p32, cfg.weight_decay)).mul_(lr)
+        p.copy_(torch.sub(p32, step))          # rounds as .to(p.dtype)
+    return {"grad_norm": gnorm, "lr": lr}

@@ -35,16 +35,15 @@ def dequantize_int8(q, scale):
 def compressed_psum(grads, residuals, group=None):
     """int8 all-gather mean with error feedback over ``group`` (the default
     group when None). Every leaf's payload goes in one int8 all-gather and
-    every scale in one fp32 all-gather. Returns (mean_grads,
-    new_residuals)."""
+    every scale in one fp32 all-gather. The new residuals are written into
+    ``residuals`` in place. Returns (mean_grads, residuals)."""
     import torch.distributed as dist
     flat_g, spec = flatten(grads)
-    flat_r = flatten(residuals)[0]
-    qs, scales, new_r = [], [], []
-    for g, r in zip(flat_g, flat_r):
+    qs, scales = [], []
+    for g, r in zip(flat_g, flatten(residuals)[0]):
         g32 = g.float() + r                              # add error feedback
         q, scale = quantize_int8(g32)
-        new_r.append(g32 - dequantize_int8(q, scale))    # local residual
+        r.copy_(g32 - dequantize_int8(q, scale))         # local residual
         qs.append(q.reshape(-1))
         scales.append(scale)
     n = dist.get_world_size(group)
@@ -60,7 +59,7 @@ def compressed_psum(grads, residuals, group=None):
         deq = wire_q[:, off:off + size].float() * wire_s[:, i:i + 1]
         out.append(torch.mean(deq, dim=0).reshape(g.shape).to(g.dtype))
         off += size
-    return unflatten(spec, out), unflatten(spec, new_r)
+    return unflatten(spec, out), residuals
 
 
 def init_residuals(params):

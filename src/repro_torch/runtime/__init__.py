@@ -17,7 +17,9 @@ from repro_torch.runtime.serve import (BatchingEngine, GreedyLoop,
                                       make_paged_serve_step,
                                       make_prefill_step, make_serve_step,
                                       prefill_program)
-from repro_torch.runtime.train import (TrainOpts, init_train_state,
+from repro_torch.runtime.train import (TrainOpts, TrainProgram,
+                                      dp_train_program, init_train_state,
                                       jit_train_step, make_dp_train_step,
-                                      make_loss_fn,
-                                      make_train_step)
+                                      make_inplace_dp_train_step,
+                                      make_inplace_train_step, make_loss_fn,
+                                      make_train_step, train_program)

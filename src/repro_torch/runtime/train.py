@@ -26,17 +26,30 @@ is placed by ``batch_specs``, and ``make_train_step`` runs on DTensors
 under ``implicit_replication`` (tensors made inside the model count as
 replicated). Eager PyTorch has no buffer donation: the step returns a new
 state and the old one is freed when the caller drops it.
+
+``train_program`` / ``dp_train_program`` are the counterparts of the
+reference's compiled steps (``jax.jit(make_train_step(...))``,
+``make_dp_train_step``'s ``jax.jit(step)``, the mesh step's
+``donate_argnums``): the in-place steps (``make_inplace_train_step``,
+``make_inplace_dp_train_step``: the same gradients, then AdamW and the
+error-feedback residuals written into the state's own tensors), run on the
+card as one CUDA graph a binding of their arguments (``core.graphs``) and
+on the CPU eagerly. ``make_train_step`` and ``make_dp_train_step`` stay
+functional and eager: the mesh step, the dry run and the parity tests use
+them.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.core.graphs import GraphProgram
 from repro_torch.models.api import Model
-from repro_torch.optim.adamw import AdamWConfig, adamw_update, init_opt_state
+from repro_torch.optim.adamw import (AdamWConfig, adamw_update,
+                                     adamw_update_, init_opt_state)
 from repro_torch.optim.compress import compressed_psum, init_residuals
 from repro_torch.runtime.losses import chunked_xent
 from repro_torch.tree import flatten, tree_map, unflatten
@@ -104,6 +117,45 @@ def _apply(opts: TrainOpts, state, grads, loss, metrics, **extra):
     return new_state, {"loss": loss, **metrics, **om}
 
 
+def _apply_(opts: TrainOpts, state, grads, loss, metrics):
+    """``_apply`` in place: AdamW writes the state's parameters and
+    moments, and ``step`` and ``count`` advance by ``add_``. Returns the
+    caller's own state."""
+    om = adamw_update_(opts.opt, grads, state["opt_state"], state["params"])
+    state["step"].add_(1)
+    return state, {"loss": loss, **metrics, **om}
+
+
+def _grads_fn(model: Model, opts: TrainOpts):
+    """``(params, batch) -> (loss, metrics, grads)`` of the global batch:
+    with ``opts.microbatches`` > 1, accumulated over the microbatches as
+    the reference's ``lax.scan`` over ``_split_micro``."""
+    loss_fn = make_loss_fn(model, opts)
+    n = opts.microbatches
+
+    def grads_of(params, batch):
+        if n == 1:
+            return _value_and_grad(loss_fn, params, batch)
+        # (B, ...) -> n slices of B/n rows, accumulated in fp32 from zeros
+        # in order, as the reference's scan
+        gsum = tree_map(lambda p: torch.zeros(
+            p.shape, dtype=torch.float32, device=p.device), params)
+        lsum = torch.zeros((), dtype=torch.float32, device=model.dev)
+        ms = []
+        for i in range(n):
+            mb = {k: v.reshape((n, v.shape[0] // n) + v.shape[1:])[i]
+                  for k, v in batch.items()}
+            l, m, g = _value_and_grad(loss_fn, params, mb)
+            gsum = tree_map(torch.add, gsum, g)
+            lsum = lsum + l
+            ms.append(m)
+        metrics = {k: torch.mean(torch.stack([m[k] for m in ms]))
+                   for k in ms[0]}
+        return lsum / n, metrics, tree_map(lambda g: g / n, gsum)
+
+    return grads_of
+
+
 def make_train_step(model: Model, opts: Optional[TrainOpts] = None,
                     grad_specs=None):
     """One-process train step: ``train_step(state, batch) -> (state,
@@ -113,8 +165,7 @@ def make_train_step(model: Model, opts: Optional[TrainOpts] = None,
     specs) the gradients are constrained to before the update
     (``sharding.constrain``; a no-op on plain tensors)."""
     opts = opts if opts is not None else TrainOpts()
-    loss_fn = make_loss_fn(model, opts)
-    n = opts.microbatches
+    grads_of = _grads_fn(model, opts)
 
     def constrain_grads(grads):
         if grad_specs is None:
@@ -126,31 +177,103 @@ def make_train_step(model: Model, opts: Optional[TrainOpts] = None,
                                 for g, s in zip(flat_g, flat_s)])
 
     def train_step(state, batch):
-        batch = _batch_to(batch, model.dev)
-        params = state["params"]
-        if n > 1:
-            # (B, ...) -> n slices of B/n rows, accumulated in fp32 from
-            # zeros in order, as the reference's scan
-            gsum = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
-            lsum = torch.zeros((), dtype=torch.float32, device=model.dev)
-            ms = []
-            for i in range(n):
-                mb = {k: v.reshape((n, v.shape[0] // n) + v.shape[1:])[i]
-                      for k, v in batch.items()}
-                l, m, g = _value_and_grad(loss_fn, params, mb)
-                gsum = tree_map(torch.add, gsum, g)
-                lsum = lsum + l
-                ms.append(m)
-            grads = tree_map(lambda g: g / n, gsum)
-            loss = lsum / n
-            metrics = {k: torch.mean(torch.stack([m[k] for m in ms]))
-                       for k in ms[0]}
-        else:
-            loss, metrics, grads = _value_and_grad(loss_fn, params, batch)
+        loss, metrics, grads = grads_of(state["params"],
+                                        _batch_to(batch, model.dev))
         return _apply(opts, state, constrain_grads(grads), loss, metrics)
 
     return train_step
+
+
+def make_inplace_train_step(model: Model, opts: Optional[TrainOpts] = None):
+    """``make_train_step`` in place: ``step(state, batch) -> (state,
+    metrics)`` computes the same gradients, writes AdamW's update into the
+    state's tensors and returns the caller's own state (the reference's
+    donated buffers)."""
+    opts = opts if opts is not None else TrainOpts()
+    grads_of = _grads_fn(model, opts)
+
+    def train_step(state, batch):
+        loss, metrics, grads = grads_of(state["params"],
+                                        _batch_to(batch, model.dev))
+        return _apply_(opts, state, grads, loss, metrics)
+
+    return train_step
+
+
+class TrainProgram:
+    """An in-place training step as the reference's compiled step:
+    ``program(state, batch) -> (state, metrics)`` updates ``state`` in
+    place and returns it (the caller's own tensors) with metrics the caller
+    may keep.
+
+    On the card the step runs as a ``GraphProgram``: its first call for a
+    binding of the state's tensors runs the step eagerly, then captures it
+    (the eager run's cached blocks are released first: a training step's
+    activations are a large share of the card), and every later call
+    replays the graph. On the CPU the same step runs eagerly.
+
+    A graph is bound to its arguments' addresses, so the batch is first
+    copied into fixed buffers, one set a batch shape: a host batch (numpy
+    arrays, the data pipeline's) through pinned memory, a batch already on
+    the device (a ``StreamFIFO``'s new blocks) by a copy on the device.
+    ``graphs`` is the ``GraphProgram`` (None on the CPU)."""
+
+    def __init__(self, step, device, name: str):
+        self.step = step
+        self.device = torch.device(device)
+        self.graphs = None
+        if self.device.type == "cuda":
+            self.graphs = GraphProgram(step, self.device, name=name,
+                                       release_cache=True)
+            self.device = self.graphs.device        # with its index
+        self._buffers: Dict[tuple, dict] = {}
+        self._copied = None            # event after the last host copies
+
+    def __call__(self, state, batch):
+        batch = self.into_buffers(batch)
+        if self.graphs is None:
+            return self.step(state, batch)
+        return self.graphs.fresh(state, batch)
+
+    def into_buffers(self, batch) -> dict:
+        """``batch`` copied into the buffers of its shape (made at that
+        shape's first batch); returns the buffers."""
+        on_card = self.device.type == "cuda"
+        host = {k: torch.from_numpy(np.ascontiguousarray(v))
+                if isinstance(v, np.ndarray) else v
+                for k, v in batch.items()}
+        key = tuple((k, tuple(v.shape), v.dtype) for k, v in host.items())
+        bufs = self._buffers.get(key)
+        if bufs is None:
+            bufs = self._buffers[key] = {
+                k: (torch.empty(tuple(v.shape), dtype=v.dtype,
+                                device=self.device),
+                    torch.empty(tuple(v.shape), dtype=v.dtype,
+                                pin_memory=True) if on_card else None)
+                for k, v in host.items()}
+        if self._copied is not None:
+            self._copied.synchronize()  # the last pinned copies have landed
+        for k, v in host.items():
+            buf, pinned = bufs[k]
+            if v.device == self.device or pinned is None:
+                buf.copy_(v)
+            else:
+                pinned.copy_(v)
+                buf.copy_(pinned, non_blocking=True)
+        if on_card:
+            if self._copied is None:
+                self._copied = torch.cuda.Event()
+            self._copied.record(torch.cuda.current_stream(self.device))
+        return {k: b for k, (b, _) in bufs.items()}
+
+
+def train_program(model: Model, opts: Optional[TrainOpts] = None) \
+        -> TrainProgram:
+    """The one-process training program: ``make_inplace_train_step`` as
+    a ``TrainProgram`` on the model's device (the reference's
+    ``jax.jit(make_train_step(model, opts))``)."""
+    return TrainProgram(make_inplace_train_step(model, opts), model.dev,
+                        name="train_step")
 
 
 def jit_train_step(model: Model, mesh, opts: TrainOpts, state_shape,
@@ -199,16 +322,8 @@ def _all_reduce_mean(tensors, group, n: int):
     return out
 
 
-def make_dp_train_step(model: Model, group=None,
-                       opts: Optional[TrainOpts] = None):
-    """Data-parallel step over ``group`` (the default group when None):
-    ``step(state, global_batch) -> (state, metrics)``. Every rank holds
-    the same parameters and optimiser state and takes its rows of the
-    global batch (the reference's ``shard_map`` over the data axis);
-    gradients are averaged through ``compressed_psum`` when
-    ``opts.compress_grads`` (each rank keeps its own residuals), else by
-    an fp32 all-reduce mean; loss and metrics are averaged over the
-    group."""
+def _dp_step(model: Model, group, opts: Optional[TrainOpts],
+             inplace: bool):
     import torch.distributed as dist
     opts = opts if opts is not None else TrainOpts()
     loss_fn = make_loss_fn(model, opts)
@@ -226,8 +341,9 @@ def make_dp_train_step(model: Model, group=None,
                                                local)
         extra = {}
         if opts.compress_grads:
-            grads, extra["residuals"] = compressed_psum(
-                grads, state["residuals"], group)
+            res = state["residuals"] if inplace \
+                else tree_map(torch.clone, state["residuals"])
+            grads, extra["residuals"] = compressed_psum(grads, res, group)
         else:
             flat, spec = flatten(grads)
             grads = unflatten(spec, _all_reduce_mean(flat, group, n))
@@ -235,6 +351,42 @@ def make_dp_train_step(model: Model, group=None,
         means = _all_reduce_mean(
             [torch.stack([loss] + [metrics[k] for k in keys])], group, n)[0]
         loss, metrics = means[0], dict(zip(keys, means[1:]))
+        if inplace:
+            return _apply_(opts, state, grads, loss, metrics)
         return _apply(opts, state, grads, loss, metrics, **extra)
 
     return step
+
+
+def make_dp_train_step(model: Model, group=None,
+                       opts: Optional[TrainOpts] = None):
+    """Data-parallel step over ``group`` (the default group when None):
+    ``step(state, global_batch) -> (state, metrics)``. Every rank holds
+    the same parameters and optimiser state and takes its rows of the
+    global batch (the reference's ``shard_map`` over the data axis);
+    gradients are averaged through ``compressed_psum`` when
+    ``opts.compress_grads`` (each rank keeps its own residuals), else by
+    an fp32 all-reduce mean; loss and metrics are averaged over the
+    group."""
+    return _dp_step(model, group, opts, inplace=False)
+
+
+def make_inplace_dp_train_step(model: Model, group=None,
+                               opts: Optional[TrainOpts] = None):
+    """``make_dp_train_step`` in place: AdamW and the error-feedback
+    residuals are written into the state's tensors, and the caller's own
+    state is returned."""
+    return _dp_step(model, group, opts, inplace=True)
+
+
+def dp_train_program(model: Model, group=None,
+                     opts: Optional[TrainOpts] = None) -> TrainProgram:
+    """The data-parallel training program (the reference's
+    ``make_dp_train_step``, which returns ``jax.jit(step)``):
+    ``make_inplace_dp_train_step`` as a ``TrainProgram``. On NCCL its
+    collectives are captured with the step (the fp32 all-reduce; the int8
+    all-gather with error feedback); the communicator is made by the
+    eager first call, before any capture. On gloo (the CPU) it runs
+    eagerly."""
+    return TrainProgram(make_inplace_dp_train_step(model, group, opts),
+                        model.dev, name="dp_train_step")

@@ -1860,3 +1860,103 @@ def test_mamba2_decode_graph_replays_every_step(cuda):
         pos = pos + 1
     assert torch.equal(torch.stack(got), torch.stack(want))
     loop.close()
+
+
+# ---------------------------------------------------------------------------
+# The training program (runtime.train.train_program): one CUDA graph a
+# binding of (state, batch buffers), the state updated in place
+# ---------------------------------------------------------------------------
+
+def _train_setup(cuda, layers=2, B=2, S=128):
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, DataPipeline
+    from repro_torch.models import get_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import TrainOpts, init_train_state
+    cfg = get_config("smollm-135m").replace(n_layers=layers,
+                                            dtype="float32")
+    model = get_model(cfg, device=cuda)
+    opts = TrainOpts(opt=AdamWConfig(lr=1e-3, warmup_steps=2,
+                                     total_steps=20), loss_chunk=64)
+    state = init_train_state(model,
+                             torch.Generator(device=cuda).manual_seed(0),
+                             opts)
+    data = DataPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                   batch_size=B))
+    return model, opts, state, data
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", [{}, {"remat": True},
+                                     {"microbatches": 2}],
+                         ids=["plain", "remat", "micro2"])
+def test_train_program_replays_the_eager_step(cuda, variant):
+    """3 steps of smollm at full width (2 layers, fp32) through
+    ``train_program`` against 3 eager in-place steps from one state on one
+    batch a step (numpy for the program's first two, a device tensor at a
+    new address for its third): metrics and every state leaf bit-equal,
+    one capture and then replays, the state at its addresses, and the
+    metrics of successive calls distinct tensors that keep their values."""
+    import dataclasses
+    from repro_torch.runtime import make_inplace_train_step, train_program
+    from repro_torch.tree import flatten
+    model, opts, state, data = _train_setup(cuda)
+    opts = dataclasses.replace(opts, **variant)
+    eager, program = make_inplace_train_step(model, opts), \
+        train_program(model, opts)
+    se, sg = _clone_tree(state), _clone_tree(state)
+    ptrs = [t.data_ptr() for t in flatten(sg)[0]]
+    kept, want = [], []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for i in range(3):
+            batch = data.batch_at(i)
+            se, m = eager(se, batch)
+            want.append({k: v.clone() for k, v in m.items()})
+            if i == 2:
+                batch = {k: torch.from_numpy(v).to(cuda)
+                         for k, v in batch.items()}
+            sg, got = program(sg, batch)
+            kept.append(got)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert program.graphs.counts() == dict(graphs=1, captures=1, replays=2,
+                                           evictions=0)
+    assert [t.data_ptr() for t in flatten(sg)[0]] == ptrs
+    assert len({id(m["loss"]) for m in kept}) == 3
+    for got, w in zip(kept, want):
+        for k in w:
+            assert torch.equal(got[k], w[k]), k
+    for i, (a, b) in enumerate(zip(flatten(se)[0], flatten(sg)[0])):
+        assert torch.equal(a, b), f"leaf {i}"
+    program.graphs.close()
+
+
+@pytest.mark.cuda
+def test_train_program_refuses_a_step_that_syncs(cuda):
+    """A training step whose loss is read on the host cannot be captured:
+    its first call runs eagerly, then the capture raises GraphCaptureError
+    naming the line, and every later call is refused (no eager fallback)."""
+    from repro_torch.core.graphs import GraphCaptureError
+    from repro_torch.runtime import TrainProgram, make_inplace_train_step
+    model, opts, state, data = _train_setup(cuda, layers=1, S=64)
+    inner = make_inplace_train_step(model, opts)
+    ran = []
+
+    def syncing_step(state, batch):
+        ran.append(1)
+        state, m = inner(state, batch)
+        if m["loss"].item() > 1e9:
+            raise ValueError("diverged")
+        return state, m
+
+    program = TrainProgram(syncing_step, cuda, name="syncing")
+    with pytest.raises(GraphCaptureError) as err:
+        program(state, data.batch_at(0))
+    assert 'm["loss"].item()' in str(err.value)
+    assert "test_torch_cuda.py" in str(err.value)
+    n = len(ran)
+    with pytest.raises(GraphCaptureError):
+        program(state, data.batch_at(1))
+    assert len(ran) == n
+    torch.cuda.synchronize()             # the card is still usable

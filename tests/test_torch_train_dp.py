@@ -91,7 +91,8 @@ def run(rank: int, world: int, init_file: str, out_dir: str):
             for i, t in enumerate(flatten(mean)[0]):
                 out[f"mean{rnd}_{i}"] = t.numpy()
             for i, t in enumerate(flatten(res)[0]):
-                out[f"res{rnd}_{i}"] = t.numpy()
+                # a copy: compressed_psum writes the residuals in place
+                out[f"res{rnd}_{i}"] = t.numpy().copy()
         np.savez(f"{out_dir}/rank{rank}.npz", **out)
     finally:
         dist.destroy_process_group()

@@ -1,9 +1,9 @@
-"""Two trees' decode steps and prefills against each other on one card,
-each tree in a process of its own: an eager step against its CUDA graph,
-or any host cost a change adds to a step.
+"""Two trees' decode steps, prefills and training steps against each other
+on one card, each tree in a process of its own: an eager step against its
+CUDA graph, or any host cost a change adds to a step.
 
-    python3 tools/decode_host_ab.py [--sections engines,serve_step,prefill]
-        TREE [TREE ...]
+    python3 tools/decode_host_ab.py [--sections engines,serve_step,prefill,
+        train] TREE [TREE ...]
 
 Each TREE is the root of a checkout (its ``src/repro_torch`` is imported and
 its kernels are built from its own sources). The trees run in the order
@@ -37,14 +37,28 @@ bf16, seeded weights:
   through ``GreedyLoop`` where the tree has it, else the step factories
   called eagerly, a warm-up call and then 10 timed.
 
-``--sections`` picks the sections (all three by default). Prints one
-JSON line per process, then the card's name and power limit.
+* ``train``: a training step in fp32 as the tree's launcher takes it (its
+  ``train_program`` where the tree has one, else ``make_train_step``
+  called eagerly; the DP step likewise ``dp_train_program`` or
+  ``make_dp_train_step``): full-width smollm-135m at B 8, S 1024 fed
+  numpy batches of the synthetic pipeline; qwen3-moe-30b-a3b cut to 2
+  layers and mamba2-370m cut to 4 at B 2, S 256 and whisper-tiny in full
+  at B 2, fed one batch on the card; the DP step on an NCCL world of 1,
+  smollm-135m cut to 4 layers at B 8, S 256, uncompressed and
+  compressed. For each: 3 warm-up steps (a program's capture among
+  them), the wall ms of 10 steps, each between two synchronisations,
+  then 3 steps under ``torch.profiler`` for the device's busy ms a step
+  and its ops a step; the idle share is 1 - busy / wall p50.
+
+``--sections`` picks the sections (all but ``train`` by default). Prints
+one JSON line per process, then the card's name and power limit.
 """
 import dataclasses
 import gc
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -223,7 +237,115 @@ def prefill_ssm(get_config, Model, runtime):
     return out
 
 
-SECTIONS = ("engines", "serve_step", "prefill")
+TRAIN_PATHS = (("smollm", "smollm-135m", None, 8, 1024),  # name, arch,
+                ("qwen3moe2", "qwen3-moe-30b-a3b", 2, 2, 256),  # layers,
+                ("mamba2_4", "mamba2-370m", 4, 2, 256),         # B, S
+                ("whisper", "whisper-tiny", None, 2, None))
+TRAIN_DP = dict(layers=4, B=8, S=256)
+
+
+def _profiled(step, state, batch, warm=3, timed=10, traced=3):
+    """Wall ms of ``timed`` steps after ``warm``, then the device's busy
+    ms and ops a step over ``traced`` steps under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warm):
+        state, _ = step(state, batch)
+    ms = []
+    for _ in range(timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(traced):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in dev) / 1e3 / traced
+    p50 = float(np.median(ms))
+    out = dict(wall_ms=ms, p50_ms=p50, p95_ms=float(np.percentile(ms, 95)),
+               busy_ms=busy, idle_share=1.0 - busy / p50,
+               device_ops=sum(e.count for e in dev) / traced)
+    graphs = getattr(step, "graphs", None)
+    if graphs is not None:                      # a training program
+        out["graph"] = graphs.counts()
+        out["capture_ms"] = list(graphs.capture_ms)
+        out["graph_mb"] = [b / 2**20 for b in graphs.graph_bytes]
+        graphs.close()
+    return out
+
+
+def _train_inputs(cfg, B, S, seed, **opts_kw):
+    """(model, opts, state, batch): the launcher's fp32 model and
+    schedule, a seeded state, a numpy batch of the synthetic pipeline
+    (frames seeded on the card for the audio family)."""
+    from repro_torch.data import DataConfig, DataPipeline
+    from repro_torch.models import get_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime.train import TrainOpts, init_train_state
+    cfg = cfg.replace(dtype="float32")
+    model = get_model(cfg, device=DEV)
+    opts = TrainOpts(opt=AdamWConfig(lr=1e-3, warmup_steps=10,
+                                     total_steps=30), loss_chunk=64,
+                     **opts_kw)
+    state = init_train_state(
+        model, torch.Generator(device=DEV).manual_seed(seed), opts)
+    audio = cfg.family == "audio"
+    data = DataPipeline(DataConfig(vocab_size=cfg.vocab_size,
+                                   seq_len=64 if audio else S, batch_size=B))
+    batch = data.batch_at(0)
+    if audio:
+        batch["frames"] = torch.randn(
+            (B, cfg.encoder.max_frames, cfg.d_model), device=DEV,
+            generator=torch.Generator(device=DEV).manual_seed(seed + 1))
+    return model, opts, state, batch
+
+
+def train(get_config, train_mod):
+    import torch.distributed as dist
+    program = getattr(train_mod, "train_program", None)
+    out = {}
+    for name, arch, layers, B, S in TRAIN_PATHS:
+        cfg = get_config(arch)
+        if layers is not None:
+            cfg = cfg.replace(n_layers=layers)
+        model, opts, state, batch = _train_inputs(cfg, B, S, SEED + 70)
+        if name != "smollm":                    # a batch on the card
+            batch = {k: v if isinstance(v, torch.Tensor)
+                     else torch.from_numpy(v).to(DEV)
+                     for k, v in batch.items()}
+        step = program(model, opts) if program is not None \
+            else train_mod.make_train_step(model, opts)
+        out[name] = _profiled(step, state, batch)
+        del model, state, batch, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    dp_program = getattr(train_mod, "dp_train_program", None)
+    rdv = Path(tempfile.mkdtemp()) / "rendezvous"
+    dist.init_process_group("nccl", init_method=f"file://{rdv}",
+                            world_size=1, rank=0)
+    try:
+        cfg = get_config("smollm-135m").replace(n_layers=TRAIN_DP["layers"])
+        for tag, compress in (("dp", False), ("dp_compressed", True)):
+            model, opts, state, batch = _train_inputs(
+                cfg, TRAIN_DP["B"], TRAIN_DP["S"], SEED + 71,
+                compress_grads=compress)
+            step = dp_program(model, None, opts) if dp_program is not None \
+                else train_mod.make_dp_train_step(model, None, opts)
+            out[tag] = _profiled(step, state, batch)
+            del model, state, step
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+SECTIONS = ("engines", "serve_step", "prefill", "train")
+DEFAULT_SECTIONS = SECTIONS[:3]
 
 
 def child(tree, sections):
@@ -237,7 +359,8 @@ def child(tree, sections):
                                      make_serve_step)
     if not Path(repro_torch.__file__).resolve().is_relative_to(tree):
         raise SystemExit(f"imported {repro_torch.__file__}, not from {tree}")
-    _lib.build()
+    if set(sections) - {"train"}:
+        _lib.build()
     rec = dict(tree=str(tree))
     if "engines" in sections:
         rec["engines"] = {
@@ -254,6 +377,9 @@ def child(tree, sections):
             for name, arch, layers, paged, over in PATHS[:3]}
         rec["prefill"]["mamba2_370m"] = prefill_ssm(get_config, Model,
                                                     runtime)
+    if "train" in sections:
+        from repro_torch.runtime import train as train_mod
+        rec["train"] = train(get_config, train_mod)
     print(json.dumps(rec), flush=True)
 
 
@@ -261,7 +387,7 @@ def main(argv):
     if not torch.cuda.is_available():
         print("decode_host_ab: no CUDA device", file=sys.stderr)
         return 1
-    sections = SECTIONS
+    sections = DEFAULT_SECTIONS
     if argv[:1] == ["--sections"]:
         sections = tuple(argv[1].split(","))
         if not set(sections) <= set(SECTIONS):
