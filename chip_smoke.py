@@ -211,8 +211,23 @@ lines.jsonl):
    memory through its own ``StreamFIFO`` and once from blocks resident on
    the card; per-core and aggregate MB/s are input bytes over wall time;
    every block of core 0 is checked against the plain version and the
-   batched kernel must launch exactly cores x cycles times. Then one BAaaS
-   ``invoke_service`` and one RSaaS ``program``/``run`` of a 2-D product.
+   batched kernel must launch exactly cores x cycles times. Every cycle
+   runs through the shell's program: one CUDA graph a block shape (1,562
+   full blocks of 64 and one tail of 32), so each shell captures exactly
+   2 graphs in its first run (replays: cycles - 2) and replays in every
+   later one; each run records its captures, replays, capture ms and
+   graph MB. Then one BAaaS ``invoke_service`` and one RSaaS
+   ``program``/``run`` of a 2-D product.
+7b. ``shell_graph_replay``: a 4-core ``FusedShell`` cycle at the rc3e
+   shapes (cores: the batched matmul, a ucs-reading core, an axpy): a
+   replayed cycle bitwise equal to a direct eager call of the cycle's
+   function on the shell's buffers, full blocks and the tail; a register
+   written between two replays read by the next one as the plain version
+   says (the register uploaded once); a hot swap of slot 2 captures anew
+   and drops the old program's graphs and pool, slot 0's output
+   unchanged, slot 2 computing the new core; a core that calls
+   ``.item()`` refused with ``GraphCaptureError`` naming its line, and
+   the next cycle refused without a launch.
 8. ``ssm_model``: full-width, full-depth (48-layer) mamba2-370m prefill of
    2 x 100 tokens + 4 decode steps in fp32, logits on the kernel path
    against the plain chunked path (``kernel_force="ref"``).
@@ -315,9 +330,11 @@ lines.jsonl):
    ``spatial_shell`` (``SpatialShell()`` over the group: 4 slots whose
    groups are [0], each slot mesh a CUDA DeviceMesh of size 1 whose
    all-reduce returns its input; the paper's stream of 100,000 16x16 and
-   32x32 products for each of 4 cores through the slots' streams, bitwise
-   equal to a ``FusedShell``'s on the same blocks, the batched kernel
-   launched cores x cycles times).
+   32x32 products for each of 4 cores through the slots' streams, each
+   slot one CUDA graph a block shape replayed on its stream, bitwise
+   equal to a ``FusedShell``'s graph cycle on the same blocks, the
+   batched kernel launched cores x cycles times by each, 2 captures per
+   slot and per fused shell a size).
 10e. ``examples``: ``examples/{quickstart,serve_baas,multi_tenant,
    train_smollm}_torch.py`` with ``--device cuda`` through ``main`` in this
    process (what each prints goes to the output directory's examples/):
@@ -1228,6 +1245,23 @@ def _profile_cycles(shell, n, srcs, cycles):
             {e.key[:60]: e.self_cpu_time_total / 1e3 / cycles for e in host})
 
 
+def rc3e_shapes():
+    """Block shapes of one core's stream (full blocks and the tail): the
+    graphs a shell captures."""
+    return len({min(RC3E_BLOCK, RC3E_MATS - j)
+                for j in range(0, RC3E_MATS, RC3E_BLOCK)})
+
+
+def _graph_delta(before, after):
+    """A shell's graph counts (``counts()``) between two readings: captures
+    and replays, and each new capture's ms and graph MB."""
+    n = len(before["capture_ms"])
+    return dict(captures=after["captures"] - before["captures"],
+                replays=after["replays"] - before["replays"],
+                capture_ms=after["capture_ms"][n:],
+                graph_mb=[b / 2**20 for b in after["graph_bytes"][n:]])
+
+
 def rc3e_phase():
     """Table I (cold configure vs PR swap) and Table III (1, 2, 4
     co-resident streaming cores, 100,000 fp32 matrices each, from host
@@ -1297,11 +1331,21 @@ def rc3e_phase():
                               for j in range(0, RC3E_MATS, g))
                         return lambda: next(it)
                 before = _lib.launches["stream_matmul_batched"]
+                graphs0 = shell.counts()
                 wall, outs0 = _stream_run(shell, n, blocks_of, n_cycles)
                 got = _lib.launches["stream_matmul_batched"] - before
                 require(got == n * n_cycles,
                         f"rc3e mm{sz} n={n} {source}: {got} launches != "
                         f"{n * n_cycles}")
+                graph = _graph_delta(graphs0, shell.counts())
+                captures = rc3e_shapes() if source == "host" else 0
+                require(DEV == "cpu" or (
+                    graph["captures"] == captures
+                    and graph["replays"] == n_cycles - captures),
+                        f"rc3e mm{sz} n={n} {source}: {graph['captures']} "
+                        f"captures, {graph['replays']} replays over "
+                        f"{n_cycles} cycles (want {captures} and "
+                        f"{n_cycles - captures})")
                 out0 = torch.cat(outs0)
                 err = float((out0 - ref0).abs().max())
                 require(out0.shape == ref0.shape
@@ -1315,7 +1359,7 @@ def rc3e_phase():
                 rows[source] = dict(
                     wall_s=wall, per_core_MBps=in_bytes / wall / 1e6,
                     aggregate_MBps=n * in_bytes / wall / 1e6,
-                    max_abs_err_core0=err)
+                    max_abs_err_core0=err, graph=graph)
                 if n == 4 and sz == 16:     # where the cycle's time goes
                     p = RC3E_PROFILE_CYCLES
                     if source == "host":
@@ -1376,6 +1420,138 @@ def rc3e_phase():
               launches=launches, log_events=len(hv.log),
               wall_s=time.monotonic() - t_phase))
     return launches
+
+
+def _regs_core(a, b, ucs):
+    """A core that reads its slot's registers."""
+    return ((a + b) * ucs["r1"],)
+
+
+def _axpy_core(a, b):
+    return (a * 2.0 + b,)
+
+
+def _sub_core(a, b):
+    return (a - b,)
+
+
+def _item_core(a, b, ucs):
+    """A core that syncs with the host: it cannot be captured."""
+    return (a * ucs["r0"].item() + b,)
+
+
+def shell_graph_replay_phase():
+    """A 4-core ``FusedShell`` cycle's graph at the rc3e shapes: replays
+    against direct calls, a register write, a hot swap, a refusal (module
+    docstring, 7b)."""
+    from repro_torch.core.graphs import GraphCaptureError
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels import stream_matmul as mm
+    from repro_torch.rc2f import CoreSpec, FusedShell, StreamSpec
+    t_phase = time.monotonic()
+    g, sz = RC3E_BLOCK, 16
+    tail = RC3E_MATS % g or g
+    spec = CoreSpec(f"mm{sz}", (StreamSpec((g, sz, sz)),) * 2,
+                    (StreamSpec((g, sz, sz)),))
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 66)
+    card = DEV == "cuda"
+
+    def blocks(rows):
+        return {i: tuple(torch.randn((rows, sz, sz), generator=gen,
+                                     device=DEV) for _ in range(2))
+                for i in range(4)}
+
+    shell = FusedShell(4, device=DEV)
+    for i, core in enumerate((_stream_core, _regs_core, _axpy_core,
+                              _stream_core)):
+        shell.load(i, core, spec, f"tenant{i}")
+    shell.slots[1].ucs.write("r1", 3)
+    replays = []
+    for rows in (g, tail):
+        for _ in range(3):                  # a capture, then replays
+            inputs = blocks(rows)
+            out = shell.run_cycle(inputs)
+        fn = getattr(shell.program, "fn", shell.program)
+        direct = fn(*shell.bound)           # eager, on the same buffers
+        torch.cuda.synchronize()
+        equal = all(torch.equal(out[i][0], direct[i][0]) for i in range(4))
+        plain = [mm.matmul_batched_ref(*inputs[0]),
+                 (inputs[1][0] + inputs[1][1]) * 3.0,
+                 inputs[2][0] * 2.0 + inputs[2][1],
+                 mm.matmul_batched_ref(*inputs[3])]
+        tol = dict(atol=MM_TOL[torch.float32] * sz ** 0.5,
+                   rtol=MM_TOL[torch.float32])
+        close = all(torch.allclose(out[i][0], plain[i], **tol)
+                    for i in (0, 3)) and all(torch.equal(out[i][0], plain[i])
+                                             for i in (1, 2))
+        require(equal and close, f"shell_graph_replay: rows {rows}: the "
+                f"replay against the direct call {equal}, the plain "
+                f"versions {close}")
+        replays.append(dict(rows=rows, bitwise_equal_direct=equal,
+                            max_abs_err_mm=float(max(
+                                (out[i][0] - plain[i]).abs().max()
+                                for i in (0, 3)))))
+    program = shell.program
+    counts = shell.counts()
+    require(not card or (counts["captures"] == 2
+                         and counts["replays"] == 4),
+            f"shell_graph_replay: counts {counts}")
+    # a register written between two replays
+    uploads = shell.slots[1].regs.uploads
+    shell.slots[1].ucs.write("r1", -5)
+    out_w = shell.run_cycle(inputs)
+    torch.cuda.synchronize()
+    register = dict(uploads=shell.slots[1].regs.uploads - uploads,
+                    equal=torch.equal(out_w[1][0], (inputs[1][0]
+                                                    + inputs[1][1]) * -5.0),
+                    replayed=not card or shell.counts()["replays"] == 5)
+    require(all(register.values()) and register["uploads"] == 1,
+            f"shell_graph_replay: register write {register}")
+    # a hot swap of slot 2
+    reserved = torch.cuda.memory_reserved() if card else 0
+    shell.load(2, _sub_core, spec, "tenant2-v2")
+    out_s = shell.run_cycle(inputs)
+    torch.cuda.synchronize()
+    swap = dict(recaptured=shell.program is not program and (
+                    not card or shell.program.captures == 1),
+                old_dropped=not card or (not program._graphs
+                                         and program._pool.live == 0),
+                slot0_unchanged=torch.equal(out_s[0][0], out_w[0][0]),
+                slot2_new=torch.equal(out_s[2][0],
+                                      inputs[2][0] - inputs[2][1]))
+    require(all(swap.values()), f"shell_graph_replay: hot swap {swap}")
+    del program
+    if card:
+        torch.cuda.empty_cache()
+    swap["reserved_mb_before"] = reserved / 2**20
+    swap["reserved_mb_after"] = (torch.cuda.memory_reserved() if card
+                                 else 0) / 2**20
+    # a core that cannot be captured
+    refusal = dict(named=None, refused_again=False, launches_after=None)
+    if card:
+        shell.load(3, _item_core, spec, "tenant3-sync")
+        try:
+            shell.run_cycle(inputs)
+        except GraphCaptureError as e:
+            refusal["named"] = str(e)
+        before = dict(_lib.launches)
+        try:
+            shell.run_cycle(inputs)
+        except GraphCaptureError:
+            refusal["refused_again"] = True
+        refusal["launches_after"] = {k: _lib.launches[k] - before[k]
+                                     for k in before if _lib.launches[k]
+                                     != before[k]}
+        require(refusal["named"] is not None
+                and "_item_core" in refusal["named"]
+                and ".item()" in refusal["named"]
+                and refusal["refused_again"]
+                and not refusal["launches_after"],
+                f"shell_graph_replay: refusal {refusal}")
+    emit(dict(phase="shell_graph_replay", block=g, tail=tail,
+              replays=replays, register=register, swap=swap,
+              refusal=refusal, counts=shell.counts(),
+              wall_s=time.monotonic() - t_phase))
 
 
 # ---------------------------------------------------------------------------
@@ -4812,7 +4988,8 @@ def spatial_shell_phase():
     resident on the card, blocks of 64) through the 4 slots' streams,
     against a ``FusedShell`` running the same cores on the same blocks:
     outputs bitwise equal, the batched kernel launched cores x cycles
-    times by each. Returns the launches of the spatial runs."""
+    times by each, each slot's program and the fused cycle capturing one
+    graph a block shape. Returns the launches of the spatial runs."""
     import torch.distributed as dist
     from repro_torch.kernels import _lib
     from repro_torch.rc2f import (CoreSpec, FusedShell, SpatialShell,
@@ -4853,6 +5030,7 @@ def spatial_shell_phase():
         runs = {}
         for tag in ("fused", "spatial"):
             before = dict(_lib.launches)
+            graphs0 = (fused if tag == "fused" else shell).counts()
             torch.cuda.synchronize()
             t0 = time.monotonic()
             outs = [[] for _ in range(SHELL_SLOTS)]
@@ -4874,9 +5052,19 @@ def spatial_shell_phase():
                     and sum(n.values()) == n["stream_matmul_batched"],
                     f"spatial_shell mm{sz} {tag}: launches {n} != "
                     f"{SHELL_SLOTS} x {n_cycles}")
+            graph = _graph_delta(graphs0, (fused if tag == "fused"
+                                           else shell).counts())
+            per = 1 if tag == "fused" else SHELL_SLOTS      # programs
+            require(DEV == "cpu" or (
+                graph["captures"] == rc3e_shapes() * per
+                and graph["replays"] == (n_cycles - rc3e_shapes()) * per),
+                    f"spatial_shell mm{sz} {tag}: {graph['captures']} "
+                    f"captures, {graph['replays']} replays for {per} "
+                    f"program(s) over {n_cycles} cycles")
             if tag == "spatial":
                 spatial_path = {k: spatial_path[k] + n[k] for k in n}
-            runs[tag] = dict(outs=[torch.cat(o) for o in outs], wall=wall)
+            runs[tag] = dict(outs=[torch.cat(o) for o in outs], wall=wall,
+                             graph=graph)
         for i in range(SHELL_SLOTS):
             a, b = runs["fused"]["outs"][i], runs["spatial"]["outs"][i]
             require(a.shape == (RC3E_MATS, sz, sz)
@@ -4889,7 +5077,8 @@ def spatial_shell_phase():
                          bitwise_equal=True, **{
                              f"aggregate_MBps_{t}": SHELL_SLOTS * in_bytes
                              / runs[t]["wall"] / 1e6 for t in runs},
-                         **{f"wall_s_{t}": runs[t]["wall"] for t in runs}))
+                         **{f"wall_s_{t}": runs[t]["wall"] for t in runs},
+                         **{f"graph_{t}": runs[t]["graph"] for t in runs}))
         del runs, blocks, dev
     emit(dict(phase="spatial_shell", slots=SHELL_SLOTS, groups=shell._groups,
               mesh_sizes=[shell.slot_mesh(i).size()
@@ -5403,6 +5592,7 @@ def main():
     whisper_engine_path = whisper_engine_phase(get_config)
 
     rc3e_path = rc3e_phase()
+    shell_graph_replay_phase()
 
     scfg = get_config("mamba2-370m")
     sparams = seeded_params(Model(scfg, device=DEV), SEED + 8)

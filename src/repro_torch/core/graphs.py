@@ -459,19 +459,3 @@ def then(program: Callable, post: Callable) -> Callable:
         return post(program(*args))
 
     return step
-
-
-def eager_program(program: Callable) -> Callable:
-    """A configured program as one eager call a use, for callers that hand
-    it new buffers at every call (the RC2F shells' cycles, whose capture is
-    still to be ported): a ``GraphProgram``'s step itself, on arguments
-    already on its device; anything else as it is."""
-    if not isinstance(program, GraphProgram):
-        return program
-    fn = program.fn
-
-    def step(*args):
-        return fn(*args)
-
-    step.__name__ = program.__name__
-    return step

@@ -10,13 +10,20 @@ through the step function* as a dict of int32 tensors on the shell's device
 when a core wants on-device access (e.g. step counters, soft-reset flags) —
 mirroring the paper's "accessible from the host through the API and on the
 FPGA via dedicated control signals".
+
+A shell keeps each slot's registers in a ``RegisterFile``: one fixed int32
+buffer on the device whose views are the dict a core sees, so that a
+captured shell cycle reads them at fixed addresses; the buffer is uploaded
+only when the ucs was written since its last upload.
+``device_registers`` lowers a config space into fresh tensors for callers
+outside the shells.
 """
 from __future__ import annotations
 
 import threading
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import torch
 
@@ -51,6 +58,11 @@ class ConfigSpace:
         with self._lock:
             return dict(self._regs)
 
+    def versioned(self) -> Tuple[int, Dict[str, int]]:
+        """(writes so far, snapshot), read together."""
+        with self._lock:
+            return self.writes, dict(self._regs)
+
 
 def make_gcs() -> ConfigSpace:
     gcs = ConfigSpace(GCS_FIELDS, "gcs")
@@ -76,3 +88,44 @@ def device_registers(gcs: ConfigSpace, device) -> Dict[str, torch.Tensor]:
     if torch.device(device).type == "cuda":
         vals = vals.pin_memory().to(device, non_blocking=True)
     return dict(zip(snap, vals.unbind()))
+
+
+class RegisterFile:
+    """A config space's registers as one fixed int32 buffer on ``device``.
+    ``views`` maps each register to a 0-d view of the buffer: the dict a
+    core sees, at the same addresses every cycle. ``refresh`` uploads the
+    registers on the current stream when the config space was written
+    since the last upload; on the card the copy leaves a pinned host
+    mirror without blocking, and the mirror is rewritten only once its
+    last copy has landed."""
+
+    def __init__(self, cs: ConfigSpace, device):
+        self.cs = cs
+        self.device = torch.device(device)
+        names = list(cs.snapshot())
+        self.buf = torch.zeros(len(names), dtype=torch.int32,
+                               device=self.device)
+        self.views: Dict[str, torch.Tensor] = dict(zip(names,
+                                                       self.buf.unbind()))
+        cuda = self.device.type == "cuda"
+        self._host = torch.zeros(len(names), dtype=torch.int32,
+                                 pin_memory=True) if cuda else self.buf
+        self._copied = torch.cuda.Event() if cuda else None
+        self._version = None
+        self.uploads = 0
+
+    def refresh(self) -> bool:
+        """Upload the registers if the config space changed; whether it
+        did."""
+        version, snap = self.cs.versioned()
+        if version == self._version:
+            return False
+        if self._copied is not None:
+            self._copied.synchronize()      # the last upload has landed
+        self._host.numpy()[:] = list(snap.values())
+        if self._copied is not None:
+            self.buf.copy_(self._host, non_blocking=True)
+            self._copied.record(torch.cuda.current_stream(self.device))
+        self._version = version
+        self.uploads += 1
+        return True

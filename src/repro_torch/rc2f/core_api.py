@@ -4,8 +4,13 @@ A *user core* is the RAaaS tenant's compute kernel: a pure function over
 input streams, declared with its stream shapes. ``compile_core`` is the HLS
 analogue — it takes the user's plain Python/PyTorch function ("C function")
 and produces a shell-compatible core ("RTL") with the standard FIFO
-interface: f(ucs_registers, *stream_blocks) -> stream_blocks. The core runs
-eagerly; the kernels it calls are the port's (``repro_torch.kernels.ops``).
+interface: f(ucs_registers, *stream_blocks) -> stream_blocks. On the card
+the core is a ``GraphProgram`` (``core/graphs.py``), the counterpart of the
+reference's ``jax.jit(core)``: one CUDA graph a binding of its arguments.
+On the CPU it runs eagerly. The kernels it calls are the port's
+(``repro_torch.kernels.ops``). The shells capture their cores themselves:
+a ``FusedShell`` cycle is one graph of every resident core
+(``rc2f/shell.py``).
 
 The CUDA/OpenCL-inspired host API (paper §IV-D2) groups calls into
   (a) device control / status        -> Hypervisor.status / ConfigSpace
@@ -46,16 +51,30 @@ class CoreSpec:
 
 
 def compile_core(user_fn: Callable, spec: CoreSpec,
-                 donate_inputs: bool = False) -> Callable:
+                 donate_inputs: bool = False, *, device="cuda") -> Callable:
     """'HLS synthesis': wrap the user function into the shell calling
     convention. The wrapped core takes (ucs, *blocks) and returns a tuple.
+    On the card (the default; raises where CUDA is absent) it is a
+    ``GraphProgram`` of that core, the reference's ``jax.jit(core)``:
+    tensors on the card are bound by address, host arrays staged through
+    pinned memory. With ``device="cpu"`` it is the eager core.
 
     ``donate_inputs`` mirrors the reference's ``jax.jit(donate_argnums=...)``
-    option, which has no counterpart in eager PyTorch: setting it raises."""
+    option; setting it raises. Donation only lets XLA's callee reuse the
+    donated buffers, and a graph program's staged buffers are its own."""
     if donate_inputs:
         raise ValueError("compile_core: donate_inputs (the reference's "
                          "jax.jit donate_argnums) has no PyTorch counterpart")
+    core = shell_core(user_fn, spec)
+    dev = resolve_device(device)
+    if dev.type != "cuda":
+        return core
+    from repro_torch.core.graphs import GraphProgram
+    return GraphProgram(core, dev, name=core.__name__)
 
+
+def shell_core(user_fn: Callable, spec: CoreSpec) -> Callable:
+    """The user function in the shell calling convention, eager."""
     wants_ucs = _wants_ucs(user_fn)
 
     def core(ucs: Dict[str, torch.Tensor], *blocks):

@@ -4,27 +4,40 @@
 Two co-residency modes:
 
   * ``FusedShell`` — the analogue of N partial-reconfiguration regions inside
-    one bitstream: one shell cycle runs every resident core in slot order on
-    the shell's CUDA stream; they share the device's HBM bandwidth exactly
-    as the paper's cores share the PCIe link. Swapping one core = rebuilding
-    the cycle (the other slots' cores and registers persist).
+    one bitstream: one program runs every resident core each shell cycle,
+    in slot order on the shell's CUDA stream; they share the device's HBM
+    bandwidth exactly as the paper's cores share the PCIe link. On the card
+    the cycle is one ``GraphProgram`` (``core/graphs.py``): one CUDA graph
+    of every resident core a block shape, the reference's compiled fused
+    program. Swapping one core = capturing the cycle anew (the old graphs
+    and their pool are dropped; the other slots' cores, buffers and
+    registers persist).
 
   * ``SpatialShell`` — vSlices as disjoint sub-meshes, as the reference
     carves its device set: the ranks of the ``torch.distributed`` group are
     split into one group a slot, and ``slot_mesh`` gives each slot a
     ``DeviceMesh`` over its group (what a caller shards a slot's work
     over). With fewer ranks than slots the groups overlap, as the
-    reference's do: on one card every slot's group is ``[0]``. A slot's
-    core runs on the caller's device, on the slot's own CUDA stream, so
-    resident cores overlap there.
+    reference's do: on one card every slot's group is ``[0]``. Each slot
+    has its own executable: on the card a ``GraphProgram`` of its core
+    (``compile_core``), replayed on the slot's own CUDA stream, so resident
+    cores overlap there.
+
+A graph binds addresses, so each slot owns fixed block buffers, one set a
+signature of its blocks (tree structure, shapes, dtypes), and its registers
+as one fixed int32 buffer (``control.RegisterFile``, uploaded only when the
+slot's ucs was written). A cycle copies each slot's blocks into its buffers
+on the stream that runs it (a tensor on the card device to device, a host
+array through pinned memory), refreshes the registers, runs the program,
+and returns copies of the outputs, as the reference returns fresh arrays.
+The CPU runs the same binding eagerly. A core that cannot be captured
+raises ``GraphCaptureError`` naming its line at its first cycle, and the
+program refuses every later cycle: nothing runs it eagerly.
 
 Both place array inputs on the shell's device (the card unless the caller
 passes ``device="cpu"``; raises where CUDA is absent). The shell also owns
-the gcs and one ucs per slot; a core that takes ``ucs`` sees its registers
-as int32 tensors on the device (``control.device_registers``). A core
-configured as a CUDA graph program runs eagerly in a shell
-(``core.graphs.eager_program``): a cycle hands it new blocks, and the
-cycle's own capture is still to be ported.
+the gcs and one ucs per slot. A configured ``GraphProgram`` handed to
+``load`` contributes its step function to the shell's program.
 """
 from __future__ import annotations
 
@@ -32,25 +45,38 @@ import contextlib
 import dataclasses
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from repro_torch.core.device_db import MAX_SLOTS
-from repro_torch.core.graphs import eager_program
+from repro_torch.core.graphs import GraphProgram, flatten, rebuild
 from repro_torch.launch.mesh import default_group
-from repro_torch.rc2f.control import (ConfigSpace, device_registers, make_gcs,
+from repro_torch.rc2f.control import (ConfigSpace, RegisterFile, make_gcs,
                                       make_ucs)
 from repro_torch.rc2f.core_api import (CoreSpec, compile_core, is_array,
-                                       resolve_device, tree_leaves, tree_map)
+                                       resolve_device, shell_core,
+                                       torch_dtype, tree_map)
 
 
 @dataclasses.dataclass
 class _Slot:
-    core_fn: Optional[Callable] = None     # uncompiled shell-convention core
+    core_fn: Optional[Callable] = None     # the user function, uncompiled
     spec: Optional[CoreSpec] = None
     ucs: Optional[ConfigSpace] = None
     user: Optional[str] = None
+    regs: Optional[RegisterFile] = None    # made on the slot's stream
+    blocks: Optional["_Blocks"] = None
+
+
+def _loaded(user_fn: Callable, spec: CoreSpec, user: str,
+            device: torch.device) -> _Slot:
+    """A slot holding ``user_fn`` (a configured program's step function)."""
+    if isinstance(user_fn, GraphProgram):
+        user_fn = user_fn.fn
+    return _Slot(core_fn=user_fn, spec=spec, ucs=make_ucs(), user=user,
+                 blocks=_Blocks(device))
 
 
 class FusedShell:
@@ -65,17 +91,17 @@ class FusedShell:
             if self.device.type == "cuda" else None
         self.gcs = make_gcs()
         self.slots: List[_Slot] = [_Slot() for _ in range(n_slots)]
-        self._fused = None           # compiled fused program
+        self.program: Optional[Callable] = None   # the cycle's program
+        self.bound: Optional[tuple] = None        # its last arguments
         self._dirty = True
+        self._counts = _GraphCounts()
 
     # ---------------- slot management (PR regions) ----------------
     def load(self, slot: int, user_fn: Callable, spec: CoreSpec,
              user: str = "anon"):
         """Partial reconfiguration of one region: only the shell cycle is
-        rebuilt; other slots' cores are untouched."""
-        s = self.slots[slot]
-        s.core_fn, s.spec, s.user = eager_program(user_fn), spec, user
-        s.ucs = make_ucs()
+        captured anew; other slots' cores are untouched."""
+        self.slots[slot] = _loaded(user_fn, spec, user, self.device)
         self._dirty = True
         self.gcs.write("active_mask",
                        self.gcs.read("active_mask") | (1 << slot))
@@ -94,8 +120,10 @@ class FusedShell:
 
     # ---------------- shell cycle ----------------
     def _build(self):
+        self._counts.close(self.program)
+        self.program = self.bound = None
         active = self.active_slots()
-        fns = [compile_core(self.slots[i].core_fn, self.slots[i].spec)
+        fns = [shell_core(self.slots[i].core_fn, self.slots[i].spec)
                for i in active]
 
         def fused(reg_trees, all_blocks):
@@ -104,7 +132,11 @@ class FusedShell:
                 outs.append(fn(regs, *blocks))
             return tuple(outs)
 
-        self._fused = fused
+        fused.__name__ = "rc2f_cycle_" + "_".join(
+            f"{i}{self.slots[i].spec.name}" for i in active)
+        if active:
+            self.program = GraphProgram(fused, self.device, fused.__name__) \
+                if self.device.type == "cuda" else fused
         self._dirty = False
 
     def run_cycle(self, inputs: Dict[int, Tuple]) -> Dict[int, Tuple]:
@@ -116,15 +148,25 @@ class FusedShell:
                              f"slots are {active}")
         if self._dirty:
             self._build()
-        with _on_stream(self.stream):
-            regs = []
-            blocks = []
-            for i in active:
-                regs.append(device_registers(self.slots[i].ucs, self.device))
-                blocks.append(_placed(inputs[i], self.device))
-            outs = self._fused(regs, blocks)
+        outs = ()
+        if active:
+            with _ordered(self.stream, self.device) as caller:
+                regs, blocks = [], []
+                for i in active:
+                    s = self.slots[i]
+                    regs.append(_registers(s, self.device).views)
+                    blocks.append(s.blocks.fill(inputs[i], caller))
+                self.bound = (tuple(regs), tuple(blocks))
+                outs = _copies(self.program(*self.bound), caller)
+            if caller is not None:      # the outputs are read there
+                caller.wait_stream(self.stream)
         self.gcs.write("step_counter", self.gcs.read("step_counter") + 1)
         return {slot: out for slot, out in zip(active, outs)}
+
+    def counts(self) -> dict:
+        """Captures, replays, capture ms and graph bytes of every cycle
+        program this shell has run (none on the CPU)."""
+        return self._counts.total(self.program)
 
     # ---------------- accounting ----------------
     def shell_overhead_bytes(self) -> int:
@@ -145,9 +187,9 @@ class SpatialShell:
     n_slots (at least 1), or one rank taken round-robin.
 
     ``run`` enqueues a slot's core on the slot's stream after the work the
-    caller's stream has queued so far (its inputs), and returns at once.
-    ``join`` makes the caller's stream wait for every slot, after which the
-    outputs may be read there."""
+    caller's stream has queued so far (its inputs), and returns at once
+    with copies of its outputs. ``join`` makes the caller's stream wait for
+    every slot, after which the outputs may be read there."""
 
     def __init__(self, devices: Optional[Sequence[int]] = None,
                  n_slots: int = MAX_SLOTS, device="cuda"):
@@ -168,6 +210,7 @@ class SpatialShell:
                          for _ in range(n_slots)]
         self.slots: List[_Slot] = [_Slot() for _ in range(n_slots)]
         self._compiled: Dict[int, Callable] = {}
+        self._counts = _GraphCounts()
 
     def slot_mesh(self, slot: int, axis: str = "slice") -> DeviceMesh:
         """A one-dim ``DeviceMesh`` of the shell's device type over slot
@@ -185,31 +228,19 @@ class SpatialShell:
 
     def load(self, slot: int, user_fn: Callable, spec: CoreSpec,
              user: str = "anon"):
-        s = self.slots[slot]
-        user_fn = eager_program(user_fn)
-        s.core_fn, s.spec, s.user = user_fn, spec, user
-        s.ucs = make_ucs()
-        core = compile_core(user_fn, spec)
-        self._compiled[slot] = core
+        self.slots[slot] = s = _loaded(user_fn, spec, user, self.device)
+        self._counts.close(self._compiled.get(slot))
+        self._compiled[slot] = compile_core(s.core_fn, spec,
+                                            device=self.device)
         self.gcs.write("active_mask",
                        self.gcs.read("active_mask") | (1 << slot))
 
     def run(self, slot: int, *blocks):
         s = self.slots[slot]
-        stream = self._streams[slot]
-        regs = device_registers(s.ucs, self.device)
-        blocks = _placed(blocks, self.device)
-        if stream is None:
-            return self._compiled[slot](regs, *blocks)
-        caller = torch.cuda.current_stream(self.device)
-        stream.wait_stream(caller)
-        with torch.cuda.stream(stream):
-            out = self._compiled[slot](regs, *blocks)
-        for t in _tensors((regs, blocks)):
-            t.record_stream(stream)      # read on the slot's stream
-        for t in _tensors(out):
-            t.record_stream(caller)      # read on the caller's after join
-        return out
+        with _ordered(self._streams[slot], self.device) as caller:
+            bound = s.blocks.fill(blocks, caller)
+            return _copies(self._compiled[slot](
+                _registers(s, self.device).views, *bound), caller)
 
     def join(self):
         """Make the caller's current stream wait for every slot's work."""
@@ -218,17 +249,147 @@ class SpatialShell:
             for stream in self._streams:
                 caller.wait_stream(stream)
 
-
-def _placed(blocks, device):
-    """Array leaves as tensors on ``device`` (no copy if already there)."""
-    return tree_map(lambda x: torch.as_tensor(x, device=device)
-                    if is_array(x) else x, blocks)
-
-
-def _tensors(tree):
-    return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+    def counts(self) -> dict:
+        """Captures, replays, capture ms and graph bytes of every slot's
+        program this shell has run (none on the CPU)."""
+        return self._counts.total(*self._compiled.values())
 
 
-def _on_stream(stream):
-    return torch.cuda.stream(stream) if stream is not None \
-        else contextlib.nullcontext()
+# ---------------------------------------------------------------------------
+# The binding: fixed buffers, copies in and out, stream order
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class _BlockSet:
+    tree: tuple                     # the blocks' tree over the buffers
+    bufs: List[Optional[torch.Tensor]]   # a buffer an array leaf
+    pinned: List[Optional[torch.Tensor]]  # a host leaf's staging mirror
+    copied: Optional[torch.cuda.Event] = None   # after the staged copies
+
+
+class _Blocks:
+    """A slot's fixed block buffers on ``device``, one set a signature of
+    its blocks: the tree's structure, each array leaf's shape and dtype,
+    any other leaf's value."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.sets: Dict[tuple, _BlockSet] = {}
+
+    def fill(self, blocks, caller) -> tuple:
+        """Copy ``blocks`` into their set's buffers on the current stream
+        and return the set's tree. ``caller``: the stream that made the
+        blocks where it is not the current one (each is then kept from
+        reuse until the copy has read it), else None."""
+        leaves, spec = [], []
+        flatten(tuple(blocks), leaves, spec)
+        sig = (tuple(spec), tuple(
+            (tuple(x.shape), torch_dtype(x)) if is_array(x)
+            else ("value", type(x), x) for x in leaves))
+        got = self.sets.get(sig)
+        if got is None:
+            bufs = [torch.empty(tuple(x.shape), dtype=torch_dtype(x),
+                                device=self.device) if is_array(x) else None
+                    for x in leaves]
+            got = self.sets[sig] = _BlockSet(
+                tree=rebuild(tuple(blocks), [b if b is not None else x
+                                             for b, x in zip(bufs, leaves)]),
+                bufs=bufs, pinned=[None] * len(leaves))
+        staged = False
+        for k, (buf, x) in enumerate(zip(got.bufs, leaves)):
+            if buf is None:
+                continue
+            if isinstance(x, torch.Tensor) and x.device.type == "cuda":
+                buf.copy_(x, non_blocking=True)
+                if caller is not None:
+                    x.record_stream(torch.cuda.current_stream(self.device))
+                continue
+            src = torch.from_numpy(np.ascontiguousarray(x)) \
+                if isinstance(x, np.ndarray) else x
+            if self.device.type != "cuda":
+                buf.copy_(src)
+                continue
+            if not staged and got.copied is not None:
+                got.copied.synchronize()    # the last staged copies landed
+            staged = True
+            if got.pinned[k] is None:
+                got.pinned[k] = torch.empty(tuple(x.shape), dtype=buf.dtype,
+                                            pin_memory=True)
+            got.pinned[k].copy_(src)
+            buf.copy_(got.pinned[k], non_blocking=True)
+        if staged:
+            if got.copied is None:
+                got.copied = torch.cuda.Event()
+            got.copied.record(torch.cuda.current_stream(self.device))
+        return got.tree
+
+
+def _registers(s: _Slot, device: torch.device) -> RegisterFile:
+    """The slot's register file, made at its first use (on the stream that
+    runs the slot) and refreshed."""
+    if s.regs is None:
+        s.regs = RegisterFile(s.ucs, device)
+    s.regs.refresh()
+    return s.regs
+
+
+def _copies(outs, caller):
+    """The outputs as tensors the caller keeps (a replay rewrites a graph's
+    outputs; an output may be a block buffer), made on the current stream
+    and kept from reuse until ``caller``'s work on them has run."""
+    def copy(x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        y = x.clone()
+        if caller is not None:
+            y.record_stream(caller)
+        return y
+    return tree_map(copy, outs)
+
+
+@contextlib.contextmanager
+def _ordered(stream, device):
+    """Run on ``stream`` after the work the caller's current stream has
+    queued so far; yields the caller's stream where it differs from
+    ``stream`` (None on the CPU or the same stream). The caller's stream
+    does not wait for ``stream``'s work here."""
+    if stream is None:
+        yield None
+        return
+    caller = torch.cuda.current_stream(device)
+    if caller == stream:
+        yield None
+        return
+    stream.wait_stream(caller)
+    with torch.cuda.stream(stream):
+        yield caller
+
+
+class _GraphCounts:
+    """A shell's graph counts over the programs it has closed and those it
+    holds."""
+
+    def __init__(self):
+        self._closed = dict(captures=0, replays=0, capture_ms=[],
+                            graph_bytes=[])
+
+    def close(self, program) -> None:
+        """Add a program's counts and drop its graphs and their pool."""
+        if isinstance(program, GraphProgram):
+            self._add(self._closed, program)
+            program.close()
+
+    def total(self, *programs) -> dict:
+        out = {k: list(v) if isinstance(v, list) else v
+               for k, v in self._closed.items()}
+        for p in programs:
+            if isinstance(p, GraphProgram):
+                self._add(out, p)
+        return out
+
+    @staticmethod
+    def _add(into: dict, p: GraphProgram) -> None:
+        into["captures"] += p.captures
+        into["replays"] += p.replays
+        into["capture_ms"] += p.capture_ms
+        into["graph_bytes"] += p.graph_bytes

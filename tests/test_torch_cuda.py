@@ -1067,8 +1067,11 @@ def test_stream_fifo_on_card_delivers_host_blocks_in_order(cuda):
 @pytest.mark.cuda
 def test_raas_slice_on_card(cuda):
     """RAaaS deploy -> FIFO -> FusedShell and SpatialShell on the card: the
-    batched kernel runs once per core per cycle; outputs match the plain
-    version on the host blocks."""
+    batched kernel runs once per core per cycle, through the graphs' tally;
+    outputs match the plain version on the host blocks. Full blocks of 64
+    and a tail of 32: the fused cycle captures one graph a block shape and
+    replays it, each slot of the spatial shell likewise, and the slots'
+    outputs are bitwise the fused cycle's."""
     from repro_torch.core import ClusterSpec, Hypervisor, RAaaSSession
     from repro_torch.kernels import ops
     from repro_torch.kernels import stream_matmul as tmm
@@ -1085,25 +1088,112 @@ def test_raas_slice_on_card(cuda):
     entries = [RAaaSSession(hv, f"t{i}").deploy_core(
         core, spec.example_inputs(), "mm16") for i in range(n)]
     rng = np.random.default_rng(5)
-    blocks = [[tuple(torch.from_numpy(rng.standard_normal((g, s, s))
+    rows = [g] * (cycles - 2) + [32, g]        # a tail block, then full
+    blocks = [[tuple(torch.from_numpy(rng.standard_normal((r, s, s))
                                       .astype(np.float32)) for _ in range(2))
-               for _ in range(cycles)] for _ in range(n)]
+               for r in rows] for _ in range(n)]
+    got = {}
     for shell in (FusedShell(4), SpatialShell(n_slots=4)):
         for i, e in enumerate(entries):
             shell.load(i, e.compiled, spec, f"t{i}")
         fifos = [StreamFIFO(2).feed(iter(blocks[i])) for i in range(n)]
         before = launches["stream_matmul_batched"]
+        kept = []
         for c in range(cycles):
             if isinstance(shell, FusedShell):
                 outs = shell.run_cycle({i: fifos[i].get() for i in range(n)})
             else:
                 outs = {i: shell.run(i, *fifos[i].get()) for i in range(n)}
                 shell.join()
+            kept.append([outs[i][0] for i in range(n)])
+        torch.cuda.synchronize()
+        for c in range(cycles):                 # each cycle's own copies
             for i in range(n):
                 ref = tmm.matmul_batched_ref(*blocks[i][c])
-                torch.testing.assert_close(outs[i][0].cpu(), ref, atol=1e-4,
+                torch.testing.assert_close(kept[c][i].cpu(), ref, atol=1e-4,
                                            rtol=1e-4)
         assert launches["stream_matmul_batched"] - before == n * cycles
+        per = 1 if isinstance(shell, FusedShell) else n    # programs
+        counts = shell.counts()
+        assert counts["captures"] == 2 * per
+        assert counts["replays"] == (cycles - 2) * per
+        assert all(ms > 0 for ms in counts["capture_ms"])
+        got[type(shell).__name__] = kept
+    for a, b in zip(got["FusedShell"], got["SpatialShell"]):
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _item_core(a, b, ucs):
+    return a * ucs["r0"].item() + b
+
+
+@pytest.mark.cuda
+def test_shell_cycle_graph_on_card(cuda):
+    """A FusedShell cycle's graph: a replay bitwise equal to a direct call
+    of the cycle's function on the shell's buffers; a register written
+    between replays read by the next one; a hot swap of slot 2 that
+    captures anew and drops the old program's graphs and pool, slot 0's
+    output unchanged; a core that syncs (``.item()``) refused at its first
+    cycle, naming its line, and every later cycle refused."""
+    from repro_torch.core.graphs import GraphCaptureError
+    from repro_torch.rc2f import CoreSpec, FusedShell, StreamSpec
+
+    def mm(a, b):
+        from repro_torch.kernels import ops
+        return (ops.matmul_batched(a, b),)
+
+    def scaled(a, b, ucs):
+        return (a + b) * ucs["r1"]
+
+    def axpy(a, b):
+        return a * 2.0 + b
+
+    g, s = 64, 16
+    spec = CoreSpec("mm16", (StreamSpec((g, s, s)),) * 2,
+                    (StreamSpec((g, s, s)),))
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    a, b = (torch.randn((g, s, s), generator=gen, device=cuda)
+            for _ in range(2))
+    shell = FusedShell(4)
+    shell.load(0, mm, spec)
+    shell.load(2, scaled, spec)
+    shell.slots[2].ucs.write("r1", 3)
+    inputs = {0: (a, b), 2: (a, b)}
+    for _ in range(3):
+        out = shell.run_cycle(inputs)
+    program = shell.program
+    assert program.counts()["captures"] == 1 and program.replays == 2
+    direct = program.fn(*shell.bound)
+    torch.cuda.synchronize()
+    assert torch.equal(out[0][0], direct[0][0])
+    assert torch.equal(out[2][0], direct[1][0])
+    assert torch.equal(out[2][0], (a + b) * 3)
+    shell.slots[2].ucs.write("r1", -5)
+    uploads = shell.slots[2].regs.uploads
+    out2 = shell.run_cycle(inputs)
+    assert shell.slots[2].regs.uploads == uploads + 1
+    assert program.captures == 1 and program.replays == 3
+    torch.cuda.synchronize()
+    assert torch.equal(out2[2][0], (a + b) * -5)
+    assert torch.equal(out[2][0], (a + b) * 3)        # a copy, kept
+    # hot swap of slot 2: the old program's graphs and pool go
+    shell.load(2, axpy, spec)
+    out3 = shell.run_cycle(inputs)
+    assert shell.program is not program
+    assert not program._graphs and program._pool.live == 0
+    assert shell.program.captures == 1
+    torch.cuda.synchronize()
+    assert torch.equal(out3[0][0], out[0][0])
+    assert torch.equal(out3[2][0], a * 2.0 + b)
+    assert shell.counts()["captures"] == 2
+    # a core that syncs with the host: refused, never run eagerly after
+    shell.load(1, _item_core, spec)
+    with pytest.raises(GraphCaptureError, match="_item_core"):
+        shell.run_cycle({0: (a, b), 1: (a, b), 2: (a, b)})
+    before = dict(launches)
+    with pytest.raises(GraphCaptureError, match="cannot be captured"):
+        shell.run_cycle({0: (a, b), 1: (a, b), 2: (a, b)})
+    assert dict(launches) == before
 
 
 # ---------------------------------------------------------------------------

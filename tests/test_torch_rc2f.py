@@ -196,7 +196,8 @@ def test_core_api_meta_avals_and_no_donation():
     (aval,) = spec.example_inputs()
     assert aval.device.type == "meta" and aval.dtype == torch.bfloat16
     assert tuple(aval.shape) == (4, 16, 16)
-    core = trc2f.compile_core(lambda a, ucs: a + ucs["r3"], spec)
+    core = trc2f.compile_core(lambda a, ucs: a + ucs["r3"], spec,
+                              device="cpu")
     ucs = trc2f.make_ucs()
     ucs.write("r3", 5)
     (out,) = core(trc2f.control.device_registers(ucs, "cpu"),

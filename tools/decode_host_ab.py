@@ -1,9 +1,10 @@
-"""Two trees' decode steps, prefills and training steps against each other
-on one card, each tree in a process of its own: an eager step against its
-CUDA graph, or any host cost a change adds to a step.
+"""Two trees' decode steps, prefills, training steps and RC2F shell cycles
+against each other on one card, each tree in a process of its own: an
+eager step against its CUDA graph, or any host cost a change adds to a
+step.
 
     python3 tools/decode_host_ab.py [--sections engines,serve_step,prefill,
-        train] TREE [TREE ...]
+        train,shell] TREE [TREE ...]
 
 Each TREE is the root of a checkout (its ``src/repro_torch`` is imported and
 its kernels are built from its own sources). The trees run in the order
@@ -50,8 +51,23 @@ bf16, seeded weights:
   then 3 steps under ``torch.profiler`` for the device's busy ms a step
   and its ops a step; the idle share is 1 - busy / wall p50.
 
-``--sections`` picks the sections (all but ``train`` by default). Prints
-one JSON line per process, then the card's name and power limit.
+* ``shell``: the RC2F shells as ``chip_smoke.py``'s ``rc3e`` and
+  ``spatial_shell`` phases drive them: 4 RAaaS tenants deploy the
+  streaming core (``ops.matmul_batched``) through a ``Hypervisor``, and a
+  ``FusedShell`` loads the configured programs; each core streams 100,000
+  fp32 16x16 matrices in blocks of 64 (1,562 full blocks and a tail of
+  32), from pinned host memory through ``StreamFIFO`` (depth 4) and from
+  blocks resident on the card; then a ``SpatialShell``'s 4 slot streams
+  on the resident blocks, and both shells again at 32x32, resident. For
+  each run: the wall of every cycle, ms a cycle, aggregate MB/s, the
+  graphs' counts, capture ms and MB where the tree's shells have them;
+  for the 16x16 runs 200 more cycles under ``torch.profiler`` for the
+  device's busy ms a cycle, the idle share (1 - busy / ms a cycle) and
+  the host's top ops a cycle.
+
+``--sections`` picks the sections (all but ``train`` and ``shell`` by
+default). Prints one JSON line per process, then the card's name and
+power limit.
 """
 import dataclasses
 import gc
@@ -344,7 +360,139 @@ def train(get_config, train_mod):
     return out
 
 
-SECTIONS = ("engines", "serve_step", "prefill", "train")
+SHELL = dict(mats=100_000, block=64, cores=4, depth=4, profiled=200)
+
+
+def _shell_cycles(shell, srcs, cycles, spatial):
+    """Run ``cycles`` cycles of ``shell`` on the blocks ``srcs[i]()``
+    gives core i; returns core 0's outputs."""
+    outs0 = []
+    for _ in range(cycles):
+        if spatial:
+            outs0.append(shell.run(0, *srcs[0]())[0])
+            for i in range(1, len(srcs)):
+                shell.run(i, *srcs[i]())
+        else:
+            outs0.append(shell.run_cycle(
+                {i: src() for i, src in enumerate(srcs)})[0][0])
+    if spatial:
+        shell.join()
+    return outs0
+
+
+def _shell_run(shell, make_srcs, spatial, profile):
+    """Wall, MB/s and graph counts of one stream through ``shell``; with
+    ``profile`` the device's busy ms, idle share and top host ops a cycle
+    over ``SHELL["profiled"]`` more cycles."""
+    from torch.profiler import ProfilerActivity, profile as prof_ctx
+    g, n = SHELL["block"], SHELL["cores"]
+    cycles = -(-SHELL["mats"] // g)
+    counts = getattr(shell, "counts", None)
+    c0 = counts() if counts is not None else None
+    srcs = make_srcs(SHELL["mats"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs0 = _shell_cycles(shell, srcs, cycles, spatial)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    sz = outs0[0].shape[-1]
+    out = dict(wall_s=wall, cycle_ms=wall * 1e3 / cycles,
+               aggregate_MBps=n * 2 * SHELL["mats"] * sz * sz * 4
+               / wall / 1e6, outputs=sum(o.shape[0] for o in outs0))
+    del outs0
+    if c0 is not None:
+        c1 = counts()
+        k = len(c0["capture_ms"])
+        out["graph"] = dict(captures=c1["captures"] - c0["captures"],
+                            replays=c1["replays"] - c0["replays"],
+                            capture_ms=c1["capture_ms"][k:],
+                            graph_mb=[b / 2**20
+                                      for b in c1["graph_bytes"][k:]])
+    if profile:
+        p = SHELL["profiled"]
+        srcs = make_srcs(p * g)
+        torch.cuda.synchronize()
+        with prof_ctx(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            _shell_cycles(shell, srcs, p, spatial)
+            torch.cuda.synchronize()
+        ev = prof.key_averages()
+        dev = [e for e in ev
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        host = sorted((e for e in ev
+                       if e.device_type == torch.autograd.DeviceType.CPU),
+                      key=lambda e: -e.self_cpu_time_total)[:6]
+        busy = sum(e.self_device_time_total for e in dev) / 1e3 / p
+        out.update(busy_ms=busy, idle_share=1.0 - busy / out["cycle_ms"],
+                   host_top_ms={e.key[:60]: e.self_cpu_time_total / 1e3 / p
+                                for e in host})
+    return out
+
+
+def shell():
+    from repro_torch.core import ClusterSpec, Hypervisor, RAaaSSession
+    from repro_torch.rc2f import (CoreSpec, FusedShell, SpatialShell,
+                                  StreamFIFO, StreamSpec)
+    g, n = SHELL["block"], SHELL["cores"]
+    hv = Hypervisor(ClusterSpec(n_nodes=2, devices_per_node=2), device=DEV)
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 80)
+    out = {}
+    for sz in (16, 32):
+        spec = CoreSpec(f"mm{sz}", (StreamSpec((g, sz, sz)),) * 2,
+                        (StreamSpec((g, sz, sz)),))
+        sessions = [RAaaSSession(hv, f"tenant{i}") for i in range(n)]
+        entries = [s.deploy_core(_shell_core, spec.example_inputs(),
+                                 f"mm{sz}") for s in sessions]
+        dev = [[torch.randn((SHELL["mats"], sz, sz), generator=gen,
+                            device=DEV) for _ in range(2)] for _ in range(n)]
+
+        def resident(mats):
+            def src(pair):
+                it = ((pair[0][j:j + g], pair[1][j:j + g])
+                      for j in range(0, mats, g))
+                return lambda: next(it)
+            return [src(pair) for pair in dev]
+
+        fused = FusedShell(n, device=DEV)
+        for i, e in enumerate(entries):
+            fused.load(i, e.compiled, spec, f"tenant{i}")
+        runs = {}
+        if sz == 16:
+            host = [[torch.empty(d.shape, pin_memory=True).copy_(d)
+                     for d in pair] for pair in dev]
+
+            def from_host(mats):
+                return [StreamFIFO(depth=SHELL["depth"], device=DEV).feed(
+                    (h[0][j:j + g], h[1][j:j + g])
+                    for j in range(0, mats, g)).get for h in host]
+            runs["fused_host"] = _shell_run(fused, from_host, False, True)
+            del host
+        runs["fused_resident"] = _shell_run(fused, resident, False,
+                                            sz == 16)
+        spatial = SpatialShell(n_slots=n, device=DEV)
+        for i, e in enumerate(entries):
+            spatial.load(i, e.compiled, spec, f"tenant{i}")
+        runs["spatial_resident"] = _shell_run(spatial, resident, True,
+                                              sz == 16)
+        runs["spatial_over_fused"] = (runs["spatial_resident"]
+                                      ["aggregate_MBps"]
+                                      / runs["fused_resident"]
+                                      ["aggregate_MBps"])
+        out[f"mm{sz}"] = runs
+        for s in sessions:
+            s.close()
+        del fused, spatial, dev, entries
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def _shell_core(a, b):
+    from repro_torch.kernels import ops
+    return (ops.matmul_batched(a, b),)
+
+
+SECTIONS = ("engines", "serve_step", "prefill", "train", "shell")
 DEFAULT_SECTIONS = SECTIONS[:3]
 
 
@@ -380,6 +528,8 @@ def child(tree, sections):
     if "train" in sections:
         from repro_torch.runtime import train as train_mod
         rec["train"] = train(get_config, train_mod)
+    if "shell" in sections:
+        rec["shell"] = shell()
     print(json.dumps(rec), flush=True)
 
 
