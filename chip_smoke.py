@@ -319,14 +319,24 @@ lines.jsonl):
    and ``train_dp_nccl`` (``dp_train_program`` on an NCCL world of 1,
    compressed and not, 5 steps, 4 layers, its collectives captured,
    against the eager in-place DP step, bit-equal).
-10d. the mesh slice on a one-rank NCCL mesh (``mesh_phases``):
-   ``mesh_serve`` (smollm-135m bf16 through ``jit_serve_step``, tokens
-   bitwise and 30 x 32 decode launches), ``mesh_train`` (fp32, B 8, S
-   1024, 3 steps, losses and leaves within 1e-6 of ``make_train_step``),
-   ``mesh_ckpt`` (restore by placements, bit-equal), ``dryrun_vs_card``;
-   then ``mesh_train_deepseek`` (deepseek-v2-lite-16b at full width cut
-   from 27 to 2 layers, fp32, its MoE dispatch split over the dp axes,
-   ``dp_shards`` 2: 3 steps held as ``mesh_train`` holds smollm) and
+10d. the mesh slice on a one-rank NCCL mesh (``mesh_phases``), whose
+   steps are graph programs bound to the DTensors' local shards (one
+   capture a binding, then replays; the training state and the caches
+   written in place): ``mesh_serve`` (smollm-135m bf16 through
+   ``jit_serve_step``, tokens bitwise and 30 x 32 decode launches, one
+   capture and 31 replays; replay, direct eager and plain step p50,
+   capture ms, graph MB, busy ms and idle share), ``mesh_train`` (fp32, B
+   8, S 1024, 3 steps, losses and leaves within 1e-6 of
+   ``make_train_step``, the state written at its addresses; the same
+   records), ``mesh_ckpt`` (restore by placements, bit-equal; a capture
+   for each new binding), ``mesh_graph_replay`` (every replay of a serve
+   program and of a 4-layer train program bitwise equal to a direct
+   eager call on clones, under deterministic algorithms; a syncing mesh
+   step refused naming its line), ``dryrun_vs_card`` (flops and peak from
+   the eager calls); then ``mesh_train_deepseek`` (deepseek-v2-lite-16b
+   at full width cut from 27 to 2 layers, fp32, its MoE dispatch split
+   over the dp axes, ``dp_shards`` 2: 3 steps held as ``mesh_train``
+   holds smollm) and
    ``spatial_shell`` (``SpatialShell()`` over the group: 4 slots whose
    groups are [0], each slot mesh a CUDA DeviceMesh of size 1 whose
    all-reduce returns its input; the paper's stream of 100,000 16x16 and
@@ -4150,11 +4160,13 @@ def _diff_leaves(a, b):
 
 
 def _graph_record(phase, program, steps, binds=1):
-    """A training program's graph counts and costs; on the card every call
-    after a binding's first must be a replay (``binds`` bindings, one
-    capture each, ``steps`` calls in all)."""
-    g = program.graphs
+    """A program's graph counts and costs (a training program, a mesh
+    step); on the card every call after a binding's first must be a replay
+    (``binds`` bindings, one capture each, ``steps`` calls in all)."""
+    g = getattr(program, "graphs", None)
     if g is None:                       # DEV = "cpu": the step runs eagerly
+        require(DEV == "cpu", f"{phase}: the step on the card is not a "
+                "graph program")
         return dict(captures=0, replays=0)
     c = g.counts()
     require(c["captures"] == binds and c["replays"] == steps - binds,
@@ -4167,8 +4179,9 @@ def _graph_record(phase, program, steps, binds=1):
 
 
 def _close(program):
-    if program.graphs is not None:
-        program.graphs.close()
+    g = getattr(program, "graphs", None)
+    if g is not None:
+        g.close()
 
 
 def _timed_steps(step, state, batches, kept=None):
@@ -4653,13 +4666,76 @@ def _flops_of(fn):
     return out, float(fc.get_total_flops())
 
 
+def _busy_ms(call, n):
+    """The device's busy ms a call over ``n`` calls of ``call`` under the
+    profiler (None off the card)."""
+    if DEV == "cpu":
+        return None
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(e.self_device_time_total for e in dev) / 1e3 / n
+
+
+def _direct(step):
+    """The eager step a mesh program captures (the program's direct call);
+    off the card the mesh step is that step."""
+    return getattr(step, "step", step)
+
+
+def _timed_mesh_train(step, state, data, steps):
+    """Wall ms of ``steps`` calls of a mesh train step from ``state`` on
+    the pipeline's first batches, each between two synchronisations."""
+    ms = []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        state, _ = step(state, data.batch_at(i))
+        torch.cuda.synchronize()
+        ms.append((time.monotonic() - t0) * 1e3)
+    return ms
+
+
+def _mesh_train_records(step, state, data, mesh_ms, plain_ms):
+    """A mesh train phase's times: the program's replay p50 (its calls
+    after the first), the direct eager call's p50 over 2 calls on a clone
+    of the state, the plain step's p50, and one replay's busy ms under the
+    profiler (the state put back after it) with the idle share against
+    the replay p50."""
+    replay = float(np.percentile(mesh_ms[1:], 50))
+    direct = _timed_mesh_train(_direct(step), _clone_tree(state), data, 2)
+    saved = _clone_tree(state)
+    busy = _busy_ms(lambda: step(state, data.batch_at(0)), 1)
+    with torch.no_grad():
+        for a, b in zip(_leaves(state), _leaves(saved)):
+            a.copy_(b)
+    del saved
+    plain = float(np.percentile(plain_ms[1:], 50))
+    return dict(mesh_step_ms_p50=replay,
+                mesh_direct_ms_p50=float(np.percentile(direct, 50)),
+                plain_step_ms_p50=plain,
+                dtensor_host_ms=float(np.percentile(direct, 50)) - plain,
+                replay_minus_plain_ms=replay - plain,
+                device_busy_ms=busy,
+                idle_share=None if busy is None else 1.0 - busy / replay)
+
+
 def mesh_serve_phase(get_config, mesh, card):
     """Full smollm-135m, bf16: 8 prompts of 64 tokens prefilled through
     ``make_prefill_step``, then 32 decode steps through ``jit_serve_step``
     on the one-rank mesh and through ``make_serve_step`` from a copy of the
     same caches: the tokens bitwise equal, decode_attention launched 30 x
-    32 times by the mesh path (counts zeroed just before it), step p50 of
-    both (the difference is DTensor's host dispatch)."""
+    32 times by the mesh path (counts zeroed just before it), one capture
+    and 31 replays of the mesh program; step p50 of the program's
+    replays, of its direct eager call (8 steps on a copy of the caches)
+    and of the plain step, capture ms, graph MB, and 5 replays' busy ms
+    under the profiler (idle share against the replay p50)."""
     from repro_torch.kernels import _lib
     from repro_torch.models import get_model
     from repro_torch.runtime import (jit_serve_step, make_prefill_step,
@@ -4690,11 +4766,11 @@ def mesh_serve_phase(get_config, mesh, card):
         place(model.make_caches(p["B"], max_len), mesh, specs["caches"])))
     plain = make_serve_step(model)
 
-    def decode(step, prm, cch, mesh_path):
+    def decode(step, prm, cch, mesh_path, n=p["new"]):
         tok, pos = first.clone(), torch.full((p["B"],), p["prompt"],
                                              dtype=torch.int32, device=DEV)
         toks, times = [], []
-        for _ in range(p["new"]):
+        for _ in range(n):
             torch.cuda.synchronize()
             t0 = time.monotonic()
             logits, cch = step(prm, cch, tok, pos)
@@ -4718,31 +4794,43 @@ def mesh_serve_phase(get_config, mesh, card):
     require(launched["decode_attention"] == need,
             f"mesh_serve: decode_attention launched "
             f"{launched['decode_attention']} times, the path needs {need}")
-    # one card step of each kind for the dry run: the flops of the mesh
-    # step on the plain attention (FlopCounterMode cannot see inside a
-    # kernel; the dry run counts the plain version's products), the peak
+    graph = _graph_record("mesh_serve", mstep, p["new"])
+    _, direct_ms = decode(_direct(mstep), mparams, _clone_tree(mcaches),
+                          True, n=8)
+    last = torch.full((p["B"],), max_len - 1, dtype=torch.int32, device=DEV)
+    busy = _busy_ms(lambda: mstep(mparams, mcaches, first, last), 5)
+    replay = float(np.percentile(mesh_ms[1:], 50))
+    direct = float(np.percentile(direct_ms[1:], 50))
+    plain_p50 = float(np.percentile(plain_ms[1:], 50))
+    # one card step of each kind for the dry run, from the direct eager
+    # call: the flops of the mesh step on the plain attention
+    # (FlopCounterMode cannot see inside a kernel nor into a replay; the
+    # dry run counts the plain version's products), the peak
     pcfg = cfg.replace(geometry=dataclasses.replace(cfg.geometry,
                                                     kernel_force="ref"))
     pmodel = get_model(pcfg, device=DEV)
     pstep, _ = jit_serve_step(pmodel, mesh, p["B"], max_len, params, caches)
     pos = torch.full((p["B"],), p["prompt"], dtype=torch.int32, device=DEV)
-    _, flops = _flops_of(lambda: pstep(mparams, mcaches, first, pos))
+    _, flops = _flops_of(lambda: _direct(pstep)(mparams, mcaches, first,
+                                                 pos))
     _mem_reset()
     base = torch.cuda.memory_allocated()
-    mstep(mparams, mcaches, first, pos)
+    _direct(mstep)(mparams, mcaches, first, pos)
     peak = _mem_peak() - base + arg_bytes
     card["decode"] = dict(arguments=arg_bytes, peak=peak, flops=flops,
-                          step_ms=float(np.percentile(mesh_ms[1:], 50)),
-                          max_len=max_len)
+                          step_ms=replay, max_len=max_len,
+                          graph_mb=graph.get("graph_mb"))
     emit(dict(phase="mesh_serve", arch=cfg.name, layers=cfg.n_layers,
               dtype=cfg.dtype, batch=p["B"], prompt=p["prompt"],
               new_tokens=p["new"], mesh="1x1 nccl", tokens_equal=True,
-              launches=launched,
-              mesh_step_ms_p50=float(np.percentile(mesh_ms[1:], 50)),
-              plain_step_ms_p50=float(np.percentile(plain_ms[1:], 50)),
-              dtensor_host_ms=float(np.percentile(mesh_ms[1:], 50)
-                                    - np.percentile(plain_ms[1:], 50)),
+              launches=launched, graph=graph, mesh_step_ms_p50=replay,
+              mesh_direct_ms_p50=direct, plain_step_ms_p50=plain_p50,
+              dtensor_host_ms=direct - plain_p50,
+              replay_minus_plain_ms=replay - plain_p50,
+              device_busy_ms=busy,
+              idle_share=None if busy is None else 1.0 - busy / replay,
               wall_s=time.monotonic() - t_phase))
+    _close(mstep)
     del params, mparams, caches, mcaches
     free_card()
     return launched
@@ -4751,14 +4839,16 @@ def mesh_serve_phase(get_config, mesh, card):
 def _mesh_against_plain(phase, plain, mstep, state, mstate, data, steps):
     """``steps`` steps of the plain train step from ``state`` and of the
     mesh step from ``mstate`` (the same state placed) on the same batches:
-    the losses within 1e-6 relative, every state leaf within 1e-6 x its
-    max, no kernel launched. Returns (runs: losses, step ms and final
+    the mesh state written in place at its addresses, the losses within
+    1e-6 relative, every state leaf within 1e-6 x its max, no kernel
+    launched. Returns (runs: losses, step ms and final
     state by "plain" / "mesh", the launches, the losses' and the leaves'
     largest relative difference)."""
     from repro_torch.kernels import launches
     from repro_torch.tree import flatten
     before = dict(launches)
     runs = {}
+    ptrs = [t.to_local().data_ptr() for t in _leaves(mstate)]
     for tag, step, st in (("plain", plain, state), ("mesh", mstep, mstate)):
         losses, times = [], []
         for i in range(steps):
@@ -4769,6 +4859,11 @@ def _mesh_against_plain(phase, plain, mstep, state, mstate, data, steps):
             times.append((time.monotonic() - t0) * 1e3)
             losses.append(float(m["loss"]))
         runs[tag] = dict(losses=losses, step_ms=times, state=st)
+    require(all(a is b for a, b in zip(_leaves(runs["mesh"]["state"]),
+                                       _leaves(mstate))) and [
+        t.to_local().data_ptr() for t in _leaves(mstate)] == ptrs,
+            f"{phase}: the mesh step did not write the caller's state in "
+            "place")
     got = _no_launch(phase, before)
     lp, lm = runs["plain"]["losses"], runs["mesh"]["losses"]
     rel = max(abs(a - b) / abs(a) for a, b in zip(lp, lm))
@@ -4788,9 +4883,14 @@ def _mesh_against_plain(phase, plain, mstep, state, mstate, data, steps):
 
 def mesh_train_phase(get_config, mesh, card):
     """Full smollm-135m, fp32, B 8, S 1024: three ``jit_train_step`` steps
-    on the one-rank mesh against three ``make_train_step`` steps on the
-    same state and batches; the losses within 1e-6 relative, every state
-    leaf within 1e-6 x its max; step p50 of both; no kernel launched.
+    on the one-rank mesh (its program: the first captures, the others
+    replay, the placed state written in place) against three
+    ``make_train_step`` steps on the same state and batches; the losses
+    within 1e-6 relative, every state leaf within 1e-6 x its max; no
+    kernel launched; step p50 of the replays, of the direct eager call and
+    of the plain step, capture ms, graph MB, a replay's busy ms. Flops and
+    peak for the dry run come from the functional eager mesh step
+    (``step.functional``, the step the dry run models), before the capture.
     Returns (launches, the mesh state, its specs, the step, the data)."""
     from repro_torch.data import DataConfig, DataPipeline
     from repro_torch.runtime.train import jit_train_step, make_train_step
@@ -4810,35 +4910,38 @@ def mesh_train_phase(get_config, mesh, card):
         place(_clone_tree(state), mesh, sspecs),
         place({k: torch.from_numpy(v).to(DEV) for k, v in
                data.batch_at(0).items()}, mesh, bspecs)))
+    # the card step for the dry run: its flops and peak
+    _, flops = _flops_of(lambda: mstep.functional(mstate, data.batch_at(0)))
+    _mem_reset()
+    base = torch.cuda.memory_allocated()
+    mstep.functional(mstate, data.batch_at(0))
+    peak = _mem_peak() - base + arg_bytes
     runs, got, rel, worst = _mesh_against_plain(
         "mesh_train", make_train_step(model, opts), mstep, state, mstate,
         data, p["steps"])
     lp, lm = runs["plain"]["losses"], runs["mesh"]["losses"]
-    # the card step for the dry run: its flops and peak
-    _, flops = _flops_of(lambda: mstep(runs["mesh"]["state"],
-                                       data.batch_at(0)))
-    _mem_reset()
-    base = torch.cuda.memory_allocated()
-    mstep(runs["mesh"]["state"], data.batch_at(0))
-    peak = _mem_peak() - base + arg_bytes
-    p50 = {t: float(np.percentile(runs[t]["step_ms"][1:], 50))
-           for t in runs}
+    graph = _graph_record("mesh_train", mstep, p["steps"])
+    times = _mesh_train_records(mstep, runs["mesh"]["state"], data,
+                                runs["mesh"]["step_ms"],
+                                runs["plain"]["step_ms"])
     card["train"] = dict(arguments=arg_bytes, peak=peak, flops=flops,
-                         step_ms=p50["mesh"], opts=opts)
+                         step_ms=times["mesh_step_ms_p50"], opts=opts,
+                         graph_mb=graph.get("graph_mb"))
     emit(dict(phase="mesh_train", arch=cfg.name, layers=cfg.n_layers,
               dtype="float32", batch=p["B"], seq=p["S"], steps=p["steps"],
               mesh="1x1 nccl", losses=lm, plain_losses=lp,
-              loss_max_rel_diff=rel, state_max_rel_diff=worst,
-              mesh_step_ms_p50=p50["mesh"], plain_step_ms_p50=p50["plain"],
-              dtensor_host_ms=p50["mesh"] - p50["plain"], launches=got,
-              wall_s=time.monotonic() - t_phase))
+              loss_max_rel_diff=rel, state_max_rel_diff=worst, graph=graph,
+              **times, launches=got, wall_s=time.monotonic() - t_phase))
     return got, runs["mesh"]["state"], sspecs, mstep, data
 
 
 def mesh_ckpt_phase(mesh, state, sspecs, step, data):
     """``save`` after mesh_train, ``restore(shardings=named(mesh,
     state_specs))``, one more step: bit-equal to the step taken from the
-    state in memory (deterministic algorithms for both)."""
+    state in memory (deterministic algorithms for both). Each of the two
+    steps is a first call of its binding in mesh_train's program (the
+    flag is in the key; the restored state is new DTensors): it runs
+    eagerly, then captures."""
     from repro_torch.ckpt import restore, save
     from repro_torch.kernels import launches
     from repro_torch.runtime.sharding import named
@@ -4847,6 +4950,8 @@ def mesh_ckpt_phase(mesh, state, sspecs, step, data):
     ckpt = OUT / "mesh_ckpt"
     shutil.rmtree(ckpt, ignore_errors=True)
     before = dict(launches)
+    g = getattr(step, "graphs", None)
+    n0 = (g.captures, g.replays, len(g.capture_ms)) if g else None
     at = MESH_TRAIN["steps"]
     torch.use_deterministic_algorithms(True)
     try:
@@ -4867,9 +4972,16 @@ def mesh_ckpt_phase(mesh, state, sspecs, step, data):
     require(got_at == at, f"mesh_ckpt: restored step {got_at}, saved {at}")
     require(placed, "mesh_ckpt: a restored leaf lost its placements")
     require(not diff, f"mesh_ckpt: leaves {diff} differ after the restart")
+    graph = {}
+    if g is not None:
+        graph = dict(captures=g.captures - n0[0], replays=g.replays - n0[1],
+                     capture_ms=g.capture_ms[n0[2]:],
+                     graph_mb=[b / 2**20 for b in g.graph_bytes[n0[2]:]])
+        require(graph["captures"] == 2 and graph["replays"] == 0,
+                f"mesh_ckpt: {graph} (a capture for each new binding)")
     emit(dict(phase="mesh_ckpt", restored_at=got_at,
               leaves=len(flatten(sa)[0]), bitexact=True, launches=got,
-              wall_s=time.monotonic() - t_phase))
+              graph=graph, wall_s=time.monotonic() - t_phase))
     return got
 
 
@@ -4935,6 +5047,155 @@ def dryrun_vs_card_phase(get_config, card):
               wall_s=time.monotonic() - t_phase))
 
 
+MESH_REPLAY = dict(serve_calls=8, train_layers=4, B=8, S=1024,
+                   train_steps=3)
+
+
+class _SyncingModel:
+    """A model whose decode reads its positions on the host (a step that
+    cannot be captured)."""
+
+    def __init__(self, model):
+        self.model, self.cfg, self.dev = model, model.cfg, model.dev
+        self.calls = 0
+
+    def decode(self, params, caches, tokens, pos):
+        self.calls += 1
+        if int(pos.to_local().max()) < 0:
+            raise ValueError("negative position")
+        return self.model.decode(params, caches, tokens, pos)
+
+
+def _dt_equal(a, b):
+    return tuple(a.placements) == tuple(b.placements) and torch.equal(
+        a.to_local(), b.to_local())
+
+
+def mesh_graph_replay_phase(get_config, mesh):
+    """The mesh programs against their direct eager calls, on the one-rank
+    mesh, under deterministic algorithms. Serve: full smollm-135m bf16, 8
+    prompts of 64, a new ``jit_serve_step`` program called 8 times, each
+    call after a direct eager call of its step on a clone of the same
+    caches with the same tokens and positions: logits and caches bitwise
+    equal, the caches returned as the caller's own, one capture and 7
+    replays. Train: smollm-135m at full width cut to 4 layers, fp32, B 8,
+    S 1024, 3 program steps each after a direct eager in-place step on a
+    clone of the same state and batch: metrics and every leaf bitwise
+    equal, the caller's state returned, every local shard at its address,
+    one capture and 2 replays, no launch. Refusal: ``jit_serve_step`` of a
+    model whose decode reads its positions on the host: its first call
+    raises ``GraphCaptureError`` naming the line, the next is refused
+    without running the step. Off the card (a rehearsal) the steps run
+    eagerly and the refusal is skipped."""
+    from repro_torch.core.graphs import GraphCaptureError
+    from repro_torch.data import DataConfig, DataPipeline
+    from repro_torch.kernels import launches
+    from repro_torch.models import get_model
+    from repro_torch.runtime import (jit_serve_step, jit_train_step,
+                                     make_prefill_step)
+    from repro_torch.runtime.sharding import place
+    t_phase = time.monotonic()
+    p, B, prompt = MESH_REPLAY, MESH_SERVE["B"], MESH_SERVE["prompt"]
+    cfg = get_config("smollm-135m")
+    model = get_model(cfg, device=DEV)
+    params = model.init(torch.Generator(device=DEV).manual_seed(SEED + 66))
+    prompts = torch.randint(
+        0, cfg.vocab_size, (B, prompt), device=DEV, dtype=torch.int32,
+        generator=torch.Generator(device=DEV).manual_seed(SEED + 67))
+    max_len = prompt + p["serve_calls"]
+    h, caches = make_prefill_step(model, max_len)(params,
+                                                  {"tokens": prompts})
+    tok0 = model.logits(params, h[:, -1:]).argmax(-1).to(torch.int32)
+    step, specs = jit_serve_step(model, mesh, B, max_len, params, caches)
+    mparams = place(params, mesh, specs["params"])
+    mcaches = place(caches, mesh, specs["caches"])
+    leaves = _leaves(mcaches)
+    tok = tok0
+    pos = torch.full((B,), prompt, dtype=torch.int32, device=DEV)
+    bad = []
+    torch.use_deterministic_algorithms(True)
+    try:
+        for i in range(p["serve_calls"]):
+            want, direct = _direct(step)(mparams, _clone_tree(mcaches), tok,
+                                         pos)
+            logits, got = step(mparams, mcaches, tok, pos)
+            if not (_dt_equal(logits, want) and all(
+                    a is b and _dt_equal(a, c) for a, b, c in zip(
+                        _leaves(got), leaves, _leaves(direct)))):
+                bad.append(i)
+            tok = logits.to_local()[:, -1:].argmax(-1).to(torch.int32)
+            pos = pos + 1
+    finally:
+        torch.use_deterministic_algorithms(False)
+    require(not bad, f"mesh_graph_replay: serve calls {bad} differ from "
+            "the direct eager call")
+    out = dict(serve=dict(calls=p["serve_calls"], bitwise_equal=True,
+                          graph=_graph_record("mesh_graph_replay serve", step,
+                                             p["serve_calls"])))
+    _close(step)
+    if DEV != "cpu":
+        syncing = _SyncingModel(model)
+        sstep, _ = jit_serve_step(syncing, mesh, B, max_len, params, caches)
+        pos = torch.full((B,), prompt, dtype=torch.int32, device=DEV)
+        msgs, runs = [], []
+        for _ in range(2):
+            try:
+                sstep(mparams, mcaches, tok0, pos)
+                msgs.append("")
+            except GraphCaptureError as e:
+                msgs.append(str(e))
+            runs.append(syncing.calls)
+        torch.cuda.synchronize()            # the card is still usable
+        require(msgs[0].startswith("mesh_serve_step") and "chip_smoke.py"
+                in msgs[0] and "pos.to_local().max()" in msgs[0]
+                and msgs[1] == msgs[0] and runs == [2, 2],
+                f"mesh_graph_replay: a syncing mesh step gave {msgs} after "
+                f"{runs} runs (refused, naming its line, and not run again)")
+        out["refusal"] = dict(message=msgs[0][:400], step_runs=runs)
+    del params, mparams, caches, mcaches, h
+    free_card()
+
+    tcfg = cfg.replace(n_layers=p["train_layers"])
+    tmodel, opts, state, _ = _train_setup(tcfg, p["B"], p["S"], SEED + 68)
+    data = DataPipeline(DataConfig(vocab_size=cfg.vocab_size, seq_len=p["S"],
+                                   batch_size=p["B"], seed=SEED + 68))
+    tstep, sspecs, _ = jit_train_step(tmodel, mesh, opts, state,
+                                      data.batch_at(0))
+    mstate = place(state, mesh, sspecs)
+    ptrs = [t.to_local().data_ptr() for t in _leaves(mstate)]
+    before = dict(launches)
+    bad = []
+    torch.use_deterministic_algorithms(True)
+    try:
+        for i in range(p["train_steps"]):
+            direct, want = _direct(tstep)(_clone_tree(mstate),
+                                          data.batch_at(i))
+            got_state, got = tstep(mstate, data.batch_at(i))
+            if any(a is not b for a, b in zip(_leaves(got_state),
+                                              _leaves(mstate))) or any(
+                    not torch.equal(got[k], want[k]) for k in want) or any(
+                    not _dt_equal(a, b) for a, b in zip(
+                        _leaves(mstate), _leaves(direct))):
+                bad.append(i)
+            del direct
+    finally:
+        torch.use_deterministic_algorithms(False)
+    kept = [t.to_local().data_ptr() for t in _leaves(mstate)] == ptrs
+    require(not bad and kept, f"mesh_graph_replay: train steps {bad} "
+            f"differ from the direct eager step (addresses kept: {kept})")
+    got = _no_launch("mesh_graph_replay", before)
+    out["train"] = dict(layers=p["train_layers"], batch=p["B"], seq=p["S"],
+                        steps=p["train_steps"], bitwise_equal=True,
+                        addresses_kept=True,
+                        graph=_graph_record("mesh_graph_replay train", tstep,
+                                           p["train_steps"]))
+    _close(tstep)
+    del state, mstate
+    free_card()
+    emit(dict(phase="mesh_graph_replay", **out, launches=got,
+              wall_s=time.monotonic() - t_phase))
+
+
 MESH_DEEPSEEK = dict(layers=2, B=2, S=256, steps=3)   # train_families' cut
 
 
@@ -4944,7 +5205,8 @@ def mesh_train_deepseek_phase(get_config, mesh):
     fp32, its MoE dispatch split over the dp axes (``dp_shards`` 2): three
     ``jit_train_step`` steps on the one-rank mesh against three
     ``make_train_step`` steps on the same state and batches, held as
-    mesh_train holds smollm (losses and leaves within 1e-6, no launch)."""
+    mesh_train holds smollm (losses and leaves within 1e-6, no launch, one
+    capture then replays), with its records."""
     from repro_torch.data import DataConfig, DataPipeline
     from repro_torch.runtime.sharding import place
     from repro_torch.runtime.train import jit_train_step, make_train_step
@@ -4961,17 +5223,19 @@ def mesh_train_deepseek_phase(get_config, mesh):
     runs, got, rel, worst = _mesh_against_plain(
         "mesh_train_deepseek", make_train_step(model, opts), mstep, state,
         mstate, data, p["steps"])
-    p50 = {t: float(np.percentile(runs[t]["step_ms"][1:], 50))
-           for t in runs}
+    graph = _graph_record("mesh_train_deepseek", mstep, p["steps"])
+    times = _mesh_train_records(mstep, runs["mesh"]["state"], data,
+                                runs["mesh"]["step_ms"],
+                                runs["plain"]["step_ms"])
     emit(dict(phase="mesh_train_deepseek", arch=cfg.name,
               layers=cfg.n_layers, cut=f"n_layers 27 -> {p['layers']}",
               dtype="float32", dp_shards=2, batch=p["B"], seq=p["S"],
               steps=p["steps"], mesh="1x1 nccl",
               losses=runs["mesh"]["losses"],
               plain_losses=runs["plain"]["losses"],
-              loss_max_rel_diff=rel, state_max_rel_diff=worst,
-              mesh_step_ms_p50=p50["mesh"], plain_step_ms_p50=p50["plain"],
-              launches=got, wall_s=time.monotonic() - t_phase))
+              loss_max_rel_diff=rel, state_max_rel_diff=worst, graph=graph,
+              **times, launches=got, wall_s=time.monotonic() - t_phase))
+    _close(mstep)
     del runs, state, mstate
     free_card()
     return got
@@ -5107,8 +5371,10 @@ def mesh_phases(get_config):
         got, state, sspecs, step, data = mesh_train_phase(get_config, mesh,
                                                           card)
         got2 = mesh_ckpt_phase(mesh, state, sspecs, step, data)
-        del state
+        _close(step)
+        del state, step
         free_card()
+        mesh_graph_replay_phase(get_config, mesh)
         got3 = mesh_train_deepseek_phase(get_config, mesh)
         # the counts zeroed just before the shell's path, read just after
         _lib.launches.reset()

@@ -10,10 +10,16 @@ keeps one graph for each binding of its arguments:
   an engine's step buffers); the caller updates its contents in place;
 * a host array (a numpy array, or a tensor on another device) is staged:
   copied, through pinned host memory, into a buffer the program owns;
+* a DTensor (a mesh step's parameters, caches or state) is bound by its
+  local shard, the tensor that holds its storage on this rank: the key
+  has the shard's address, shape, strides and dtype, and the DTensor's
+  mesh, placements and global shape and stride (``Placed``);
 * any other leaf (a number, a string, None) is part of the key by value.
 
 The key is the arguments' tree structure, the shape, strides and dtype of
-every array, and the address of every bound tensor. A call with a key not
+every array, the address of every bound tensor, and whether deterministic
+algorithms are on (a graph captured with them off would replay its
+kernels unchanged after they were switched on). A call with a key not
 seen yet runs the step eagerly (the call's real execution, and the warm-up
 of whatever it loads), then captures it on the same buffers; capture
 executes nothing, so no data moves twice. Later calls with that key copy
@@ -26,8 +32,13 @@ a capture past the cap drops the least recently called one (counted in
 
 A replay rewrites the graph's outputs in place: what a call returns stays
 valid until the program's next replay (``fresh`` returns copies). An
-output that is one of the call's own tensors (a cache written in place)
-is returned as the caller's tensor.
+output that is one of the call's own tensors (a cache written in place,
+a training state's leaf), or a DTensor whose local shard is one of theirs,
+is returned as the caller's tensor. Any other DTensor output is kept as
+its local shard, in the graph's pool, and rebuilt as a DTensor of its
+placements after each replay (``Placed.wrap``): a replay runs no Python,
+so no DTensor dispatch, sharding propagation or collective is paid on
+the host after the capture.
 
 A step must be capturable: no host sync (``.item()``, ``.cpu()``,
 ``torch.cuda.synchronize()``) and no upload from pageable memory
@@ -58,6 +69,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.kernels import _lib
 
@@ -97,12 +109,52 @@ class _Arg:
     index: int
 
 
+@dataclasses.dataclass(frozen=True)
+class Placed:
+    """What makes a DTensor of a local shard: its mesh, placements and
+    global shape and stride."""
+    mesh: Any
+    placements: tuple
+    shape: tuple
+    stride: tuple
+
+    @classmethod
+    def of(cls, x: DTensor) -> "Placed":
+        return cls(x.device_mesh, tuple(x.placements), tuple(x.shape),
+                   tuple(x.stride()))
+
+    def wrap(self, local: torch.Tensor) -> DTensor:
+        """``local`` as a DTensor of these placements. Nothing is checked
+        across the ranks (``run_check=True`` would issue a collective) and
+        the global shape is given, so no shard sizes are exchanged."""
+        return DTensor.from_local(local, self.mesh, self.placements,
+                                  run_check=False, shape=self.shape,
+                                  stride=self.stride)
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class _Shard:
+    """A DTensor output of the graph: its local shard and placements."""
+    local: torch.Tensor
+    placed: Placed
+
+
+def local_shard(x):
+    """The tensor that a leaf binds: a DTensor's local shard (the tensor
+    the DTensor holds, which lives as long as it does), else the leaf."""
+    return x._local_tensor if isinstance(x, DTensor) else x
+
+
+def _view(t: torch.Tensor) -> tuple:
+    return (t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
+
+
 @dataclasses.dataclass
 class _Graph:
     graph: Any                       # torch.cuda.CUDAGraph
     staged: List[Tuple[torch.Tensor, torch.Tensor]]  # (device, pinned host)
-    outputs: Any                     # tensors the graph writes, or _Arg
-    aliased: bool                    # whether ``outputs`` holds an _Arg
+    outputs: Any                     # tensors the graph writes, _Arg, _Shard
+    rebuilt: bool                    # whether ``outputs`` holds either
     tally: Dict[str, int]            # kernel launches a replay makes
     refs: list                       # weakrefs to the bound tensors
     capture_ms: float
@@ -142,8 +194,18 @@ def _rebuild(tree, it):
 
 def leaf_key(x, device: torch.device) -> tuple:
     """How a leaf binds: ``("bound", address, shape, strides, dtype)`` for a
-    tensor on ``device``, ``("staged", shape, dtype)`` for a host array,
-    ``("value", type, value)`` for anything else."""
+    tensor on ``device``, that and its ``Placed`` for a DTensor (of its
+    local shard, which must be on ``device``), ``("staged", shape,
+    dtype)`` for a host array, ``("value", type, value)`` for anything
+    else."""
+    if isinstance(x, DTensor):
+        local = x._local_tensor
+        if local.device != device:
+            raise ValueError(f"a DTensor whose local shard is on "
+                             f"{local.device} cannot bind to a program on "
+                             f"{device}")
+        return ("bound", local.data_ptr(), local.shape, local.stride(),
+                local.dtype, Placed.of(x))
     if isinstance(x, torch.Tensor):
         if x.device == device:
             return ("bound", x.data_ptr(), x.shape, x.stride(), x.dtype)
@@ -157,7 +219,8 @@ def binding(args: tuple, device: torch.device):
     """(leaves, key) of a call's arguments on ``device``."""
     leaves, spec = [], []
     flatten(args, leaves, spec)
-    return leaves, (tuple(spec), tuple(leaf_key(x, device) for x in leaves))
+    return leaves, (tuple(spec), tuple(leaf_key(x, device) for x in leaves),
+                    torch.are_deterministic_algorithms_enabled())
 
 
 def capture_stream(device: torch.device):
@@ -255,19 +318,12 @@ class GraphProgram:
         self.graph_bytes: List[int] = []
 
     def __call__(self, *args):
-        out, _ = self._call(args)
-        return out
+        return self._call(args, copy=False)
 
     def fresh(self, *args):
         """A call whose tensors are the caller's to keep: the graph's
         outputs of a replay are copied (a later replay rewrites them)."""
-        out, g = self._call(args)
-        if g is None:
-            return out                  # the eager run's own tensors
-        static = {id(x) for x in _leaves(g.outputs)
-                  if isinstance(x, torch.Tensor)}
-        return rebuild(out, [x.clone() if id(x) in static else x
-                             for x in _leaves(out)])
+        return self._call(args, copy=True)
 
     def then(self, post: Callable) -> "GraphProgram":
         """This program followed by ``post`` on its outputs, one graph a
@@ -312,15 +368,15 @@ class GraphProgram:
                 self._pool.dropped()
 
     # ------------------------------------------------------------------
-    def _call(self, args: tuple):
+    def _call(self, args: tuple, copy: bool):
         if self._refused is not None:
             raise GraphCaptureError(self._refused)
         if self._dead:
             self.purge()
         leaves, key = binding(args, self.device)
         g = self._graphs.get(key)
-        if g is None:
-            return self._first_call(args, leaves, key), None
+        if g is None:       # the eager run's own tensors are the caller's
+            return self._first_call(args, leaves, key)
         if self.max_graphs is not None:
             self._graphs[key] = self._graphs.pop(key)   # most recently used
         if g.staged:
@@ -329,10 +385,10 @@ class GraphProgram:
         g.graph.replay()
         _lib.launches.replayed(g.tally)
         self.replays += 1
-        if not g.aliased:
-            return g.outputs, g
-        return rebuild(g.outputs, [leaves[x.index] if isinstance(x, _Arg)
-                                   else x for x in _leaves(g.outputs)]), g
+        if not (g.rebuilt or copy):
+            return g.outputs
+        return rebuild(g.outputs, [_output(x, leaves, copy)
+                                   for x in _leaves(g.outputs)])
 
     def _stage(self, g: _Graph, hosts: list) -> None:
         """Copy a call's host arrays into the graph's staging buffers."""
@@ -364,7 +420,7 @@ class GraphProgram:
                                  pin_memory=True)
             staged.append((buf, pinned))
             placed.append(buf)
-        g = _Graph(graph=None, staged=staged, outputs=None, aliased=False,
+        g = _Graph(graph=None, staged=staged, outputs=None, rebuilt=False,
                    tally={}, refs=[], capture_ms=0.0, reserved_bytes=0)
         if staged:
             self._stage(g, [x for x, k in zip(leaves, kinds)
@@ -375,7 +431,8 @@ class GraphProgram:
             torch.cuda.empty_cache()
         self._capture(g, call_args, placed, kinds)
         dead = self._dead
-        g.refs = [weakref.ref(x, lambda _, key=key: dead.append(key))
+        g.refs = [weakref.ref(local_shard(x),
+                              lambda _, key=key: dead.append(key))
                   for x, k in zip(leaves, kinds) if k[0] == "bound"]
         self._graphs[key] = g
         while self.max_graphs is not None \
@@ -431,11 +488,8 @@ class GraphProgram:
         g.tally = dict(tally)
         g.capture_ms = (time.perf_counter() - t0) * 1e3
         g.reserved_bytes = torch.cuda.memory_reserved(self.device) - reserved
-        index = {id(x): i for i, (x, k) in enumerate(zip(placed, kinds))
-                 if k[0] == "bound"}
-        outs = [_Arg(index[id(x)]) if id(x) in index else x
-                for x in _leaves(out)]
-        g.aliased = any(isinstance(x, _Arg) for x in outs)
+        outs = _graph_outputs(out, placed, kinds)
+        g.rebuilt = any(isinstance(x, (_Arg, _Shard)) for x in outs)
         g.outputs = rebuild(out, outs)
         self._pool.live += 1
         self.captures += 1
@@ -447,6 +501,87 @@ def _leaves(tree) -> list:
     leaves: list = []
     flatten(tree, leaves, [])
     return leaves
+
+
+def _graph_outputs(out, placed: list, kinds: tuple) -> list:
+    """The leaves of a captured call's output as the graph keeps them: an
+    ``_Arg`` for a bound argument, or for a DTensor of a bound DTensor's
+    local shard and placements (a cache or state leaf written in place);
+    a ``_Shard`` for any other DTensor; the tensor itself otherwise."""
+    index, shards = {}, {}
+    for i, (x, k) in enumerate(zip(placed, kinds)):
+        if k[0] == "bound":
+            index[id(x)] = i
+            if isinstance(x, DTensor):
+                shards[(_view(x._local_tensor), Placed.of(x))] = i
+    outs = []
+    for x in _leaves(out):
+        if id(x) in index:
+            outs.append(_Arg(index[id(x)]))
+        elif isinstance(x, DTensor):
+            placed_x = Placed.of(x)
+            i = shards.get((_view(x._local_tensor), placed_x))
+            outs.append(_Arg(i) if i is not None
+                        else _Shard(x._local_tensor, placed_x))
+        else:
+            outs.append(x)
+    return outs
+
+
+def _output(x, leaves: list, copy: bool):
+    """A graph's output leaf after a replay: the caller's own argument for
+    an ``_Arg``, a DTensor rebuilt on its local shard for a ``_Shard``; a
+    tensor of the graph's pool is copied with ``copy``."""
+    if isinstance(x, _Arg):
+        return leaves[x.index]
+    if isinstance(x, _Shard):
+        return x.placed.wrap(x.local.clone() if copy else x.local)
+    return x.clone() if copy and isinstance(x, torch.Tensor) else x
+
+
+class InputBuffers:
+    """Fixed buffers on ``device`` that a program binds in place of
+    inputs that arrive at new addresses on every call (a batch, a decode
+    step's tokens): one set a signature of names, shapes and dtypes, made
+    at its first call. A host input (numpy, or a tensor elsewhere) is
+    copied through pinned memory on a CUDA device, a tensor on the device
+    by a copy on the device."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self._sets: Dict[tuple, dict] = {}
+        self._copied = None            # event after the last host copies
+
+    def into(self, inputs: dict) -> dict:
+        """``inputs`` copied into the buffers of their signature; returns
+        the buffers."""
+        on_card = self.device.type == "cuda"
+        host = {k: torch.from_numpy(np.ascontiguousarray(v))
+                if isinstance(v, np.ndarray) else v
+                for k, v in inputs.items()}
+        key = tuple((k, tuple(v.shape), v.dtype) for k, v in host.items())
+        bufs = self._sets.get(key)
+        if bufs is None:
+            bufs = self._sets[key] = {
+                k: (torch.empty(tuple(v.shape), dtype=v.dtype,
+                                device=self.device),
+                    torch.empty(tuple(v.shape), dtype=v.dtype,
+                                pin_memory=True) if on_card else None)
+                for k, v in host.items()}
+        if self._copied is not None:
+            self._copied.synchronize()  # the last pinned copies have landed
+        for k, v in host.items():
+            buf, pinned = bufs[k]
+            if v.device == self.device or pinned is None:
+                buf.copy_(v)
+            else:
+                pinned.copy_(v)
+                buf.copy_(pinned, non_blocking=True)
+        if on_card:
+            if self._copied is None:
+                self._copied = torch.cuda.Event()
+            self._copied.record(torch.cuda.current_stream(self.device))
+        return {k: b for k, (b, _) in bufs.items()}
 
 
 def then(program: Callable, post: Callable) -> Callable:

@@ -9,7 +9,10 @@ SSM models (mamba2) are served by ``jit_serve_step`` (or
 refuses them, as the reference's does, because slot recycling relies on
 position-masked KV caches. ``jit_serve_step`` binds the decode step to a
 ``DeviceMesh``: parameters and caches are DTensors placed by the sharding
-rules, and the caches are updated in place shard by shard.
+rules, and the caches are updated in place shard by shard (the
+reference's donation). On a CUDA mesh the step is one CUDA graph a
+binding of the params' and caches' local shards (``MeshServeStep``): the
+host pays DTensor's dispatch once, at the capture.
 
 Greedy decoding (argmax on the device). On the card the engine's decode
 step is a ``GraphProgram`` (``core/graphs.py``), the counterpart of the
@@ -45,8 +48,10 @@ import numpy as np
 import torch
 
 from repro_torch.analysis.lifecycle import sanitizer
-from repro_torch.core.graphs import GraphProgram, _leaves, rebuild, then
+from repro_torch.core.graphs import (GraphProgram, InputBuffers, _leaves,
+                                     rebuild, then)
 from repro_torch.models.api import Model
+from repro_torch.placement import _full
 from repro_torch.runtime.paged import PagePoolManager, default_pool_pages
 
 
@@ -78,9 +83,16 @@ def jit_serve_step(model: Model, mesh, batch: int, cache_len: int,
     in for batch=1 long-context. Returns (step, {"params": pspecs,
     "caches": cspecs}) as the reference. ``step(params, caches, tokens,
     pos) -> (logits, caches)`` takes params and caches placed by those
-    specs (``sharding.place``), tokens (B, 1) and pos (B,) as tensors or
-    DTensors, and returns the logits as a DTensor; the caches are updated
-    in place (eager PyTorch has no buffer donation)."""
+    specs (``sharding.place``), tokens (B, 1) and pos (B,) as host arrays,
+    tensors or DTensors, and returns the logits as a DTensor; the caches
+    are written in place and returned as the caller's own (the
+    reference's ``donate_argnums=(1,)``).
+
+    On a CUDA mesh ``step`` is a ``MeshServeStep``: one CUDA graph a
+    binding of the params' and caches' local shards, with tokens and pos
+    copied into its own buffers and placed inside the graph; the logits
+    it returns hold until its next call. On any other mesh (gloo, or the
+    dry run's meta tensors) the same step runs eagerly."""
     from torch.distributed.tensor import DTensor
     from torch.distributed.tensor.experimental import implicit_replication
 
@@ -97,15 +109,39 @@ def jit_serve_step(model: Model, mesh, batch: int, cache_len: int,
     pos_spec = P(dp) if batch % dp_total == 0 else P(None)
     inner = make_serve_step(model)
 
-    def step(params, caches, tokens, pos):
+    def mesh_serve_step(params, caches, tokens, pos):
         if not isinstance(tokens, DTensor):
-            tokens = place(tokens.to(model.dev), mesh, tok_spec)
+            tokens = place(torch.as_tensor(tokens, device=model.dev), mesh,
+                           tok_spec)
         if not isinstance(pos, DTensor):
-            pos = place(pos.to(model.dev), mesh, pos_spec)
+            pos = place(torch.as_tensor(pos, device=model.dev), mesh,
+                        pos_spec)
         with implicit_replication():
             return inner(params, caches, tokens, pos)
 
-    return step, {"params": pspecs, "caches": cspecs}
+    specs = {"params": pspecs, "caches": cspecs}
+    if getattr(mesh, "device_type", None) != "cuda":   # or a MeshShape
+        return mesh_serve_step, specs
+    return MeshServeStep(mesh_serve_step), specs
+
+
+class MeshServeStep:
+    """``jit_serve_step``'s step on a CUDA mesh, as the reference's
+    compiled step: ``step(params, caches, tokens, pos)`` copies tokens and
+    pos into fixed buffers on the card (one set a shape) and calls
+    ``graphs``, a ``GraphProgram`` of the eager step ``step.step``, bound
+    to the params' and caches' local shards and to those buffers; the
+    step places the buffers by their specs inside the graph (each rank
+    cuts its own shard: nothing is sent)."""
+
+    def __init__(self, step: Callable):
+        self.step = step
+        self.graphs = GraphProgram(step, "cuda", name="mesh_serve_step")
+        self._inputs = InputBuffers(self.graphs.device)
+
+    def __call__(self, params, caches, tokens, pos):
+        got = self._inputs.into({"tokens": _full(tokens), "pos": _full(pos)})
+        return self.graphs(params, caches, got["tokens"], got["pos"])
 
 
 def make_prefill_step(model: Model, max_len: int, clamp_window: bool = True):

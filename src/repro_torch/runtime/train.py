@@ -22,31 +22,33 @@ loss use).
 
 ``jit_train_step`` binds the step to a ``DeviceMesh``: the state is placed
 as DTensors by the sharding rules (``runtime.sharding``), the global batch
-is placed by ``batch_specs``, and ``make_train_step`` runs on DTensors
-under ``implicit_replication`` (tensors made inside the model count as
-replicated). Eager PyTorch has no buffer donation: the step returns a new
-state and the old one is freed when the caller drops it.
+is placed by ``batch_specs``, and the step runs on DTensors under
+``implicit_replication`` (tensors made inside the model count as
+replicated). Its gradients take the parameters' placements and AdamW is
+written into the state's own DTensors (the reference's donated state).
 
-``train_program`` / ``dp_train_program`` are the counterparts of the
-reference's compiled steps (``jax.jit(make_train_step(...))``,
-``make_dp_train_step``'s ``jax.jit(step)``, the mesh step's
-``donate_argnums``): the in-place steps (``make_inplace_train_step``,
-``make_inplace_dp_train_step``: the same gradients, then AdamW and the
-error-feedback residuals written into the state's own tensors), run on the
-card as one CUDA graph a binding of their arguments (``core.graphs``) and
-on the CPU eagerly. ``make_train_step`` and ``make_dp_train_step`` stay
-functional and eager: the mesh step, the dry run and the parity tests use
-them.
+``train_program`` / ``dp_train_program`` / ``jit_train_step`` are the
+counterparts of the reference's compiled steps
+(``jax.jit(make_train_step(...))``, ``make_dp_train_step``'s
+``jax.jit(step)``, the mesh step's ``jax.jit(..., donate_argnums=(0,))``):
+the in-place steps (``make_inplace_train_step``,
+``make_inplace_dp_train_step``, the mesh step: the same gradients, then
+AdamW and the error-feedback residuals written into the state's own
+tensors), run on the card as one CUDA graph a binding of their arguments
+(``core.graphs``; a mesh state binds by its local shards) and on the CPU
+eagerly. ``make_train_step`` and ``make_dp_train_step`` stay functional
+and eager: the dry run and the parity tests use them, and the mesh
+program keeps its functional step as ``functional``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Optional
 
 import numpy as np
 import torch
 
-from repro_torch.core.graphs import GraphProgram
+from repro_torch.core.graphs import GraphProgram, InputBuffers
 from repro_torch.models.api import Model
 from repro_torch.optim.adamw import (AdamWConfig, adamw_update,
                                      adamw_update_, init_opt_state)
@@ -156,6 +158,17 @@ def _grads_fn(model: Model, opts: TrainOpts):
     return grads_of
 
 
+def _constrained(grads, grad_specs):
+    """``grads`` constrained to the spec tree ``grad_specs``
+    (``sharding.constrain``; None, or plain tensors: unchanged)."""
+    if grad_specs is None:
+        return grads
+    from repro_torch.runtime.sharding import constrain, is_spec
+    flat_s = flatten(grad_specs, is_spec)[0]
+    flat_g, spec = flatten(grads)
+    return unflatten(spec, [constrain(g, s) for g, s in zip(flat_g, flat_s)])
+
+
 def make_train_step(model: Model, opts: Optional[TrainOpts] = None,
                     grad_specs=None):
     """One-process train step: ``train_step(state, batch) -> (state,
@@ -167,19 +180,11 @@ def make_train_step(model: Model, opts: Optional[TrainOpts] = None,
     opts = opts if opts is not None else TrainOpts()
     grads_of = _grads_fn(model, opts)
 
-    def constrain_grads(grads):
-        if grad_specs is None:
-            return grads
-        from repro_torch.runtime.sharding import constrain, is_spec
-        flat_s = flatten(grad_specs, is_spec)[0]
-        flat_g, spec = flatten(grads)
-        return unflatten(spec, [constrain(g, s)
-                                for g, s in zip(flat_g, flat_s)])
-
     def train_step(state, batch):
         loss, metrics, grads = grads_of(state["params"],
                                         _batch_to(batch, model.dev))
-        return _apply(opts, state, constrain_grads(grads), loss, metrics)
+        return _apply(opts, state, _constrained(grads, grad_specs), loss,
+                      metrics)
 
     return train_step
 
@@ -226,8 +231,7 @@ class TrainProgram:
             self.graphs = GraphProgram(step, self.device, name=name,
                                        release_cache=True)
             self.device = self.graphs.device        # with its index
-        self._buffers: Dict[tuple, dict] = {}
-        self._copied = None            # event after the last host copies
+        self._inputs = InputBuffers(self.device)
 
     def __call__(self, state, batch):
         batch = self.into_buffers(batch)
@@ -238,33 +242,7 @@ class TrainProgram:
     def into_buffers(self, batch) -> dict:
         """``batch`` copied into the buffers of its shape (made at that
         shape's first batch); returns the buffers."""
-        on_card = self.device.type == "cuda"
-        host = {k: torch.from_numpy(np.ascontiguousarray(v))
-                if isinstance(v, np.ndarray) else v
-                for k, v in batch.items()}
-        key = tuple((k, tuple(v.shape), v.dtype) for k, v in host.items())
-        bufs = self._buffers.get(key)
-        if bufs is None:
-            bufs = self._buffers[key] = {
-                k: (torch.empty(tuple(v.shape), dtype=v.dtype,
-                                device=self.device),
-                    torch.empty(tuple(v.shape), dtype=v.dtype,
-                                pin_memory=True) if on_card else None)
-                for k, v in host.items()}
-        if self._copied is not None:
-            self._copied.synchronize()  # the last pinned copies have landed
-        for k, v in host.items():
-            buf, pinned = bufs[k]
-            if v.device == self.device or pinned is None:
-                buf.copy_(v)
-            else:
-                pinned.copy_(v)
-                buf.copy_(pinned, non_blocking=True)
-        if on_card:
-            if self._copied is None:
-                self._copied = torch.cuda.Event()
-            self._copied.record(torch.cuda.current_stream(self.device))
-        return {k: b for k, (b, _) in bufs.items()}
+        return self._inputs.into(batch)
 
 
 def train_program(model: Model, opts: Optional[TrainOpts] = None) \
@@ -281,9 +259,20 @@ def jit_train_step(model: Model, mesh, opts: TrainOpts, state_shape,
     """The train step over ``mesh`` (a ``DeviceMesh``): returns (step,
     state_specs, bspecs) as the reference. ``step(state, batch)`` takes a
     state placed by ``state_specs`` (``sharding.place``) and a global
-    batch (numpy arrays or tensors), places the batch by ``bspecs`` and
-    returns (the new state with the same placements, metrics as plain 0-d
-    tensors)."""
+    batch (numpy arrays or tensors), places the batch by ``bspecs``,
+    writes AdamW's update into the state's own DTensors (their placements
+    unchanged: the reference's ``donate_argnums=(0,)``) and returns the
+    caller's state with metrics as plain 0-d tensors. The caller does not
+    read a state after passing it, as the donation forbids.
+
+    ``step`` is a ``TrainProgram``: on a CUDA mesh one CUDA graph a
+    binding, bound to the state's local shards and to the batch buffers
+    (the batch is copied in and placed inside the graph), and on any
+    other mesh the same in-place step, eagerly. ``step.step`` is that
+    in-place step called directly (eagerly, on any mesh), and
+    ``step.functional`` the functional mesh step, which returns a new
+    state and leaves its input as it was (``make_train_step`` on the
+    DTensors); both take the same arguments."""
     from torch.distributed.tensor.experimental import implicit_replication
 
     from repro_torch.runtime.sharding import (P, _full, batch_specs,
@@ -295,9 +284,13 @@ def jit_train_step(model: Model, mesh, opts: TrainOpts, state_shape,
     if "residuals" in state_shape:
         state_specs["residuals"] = pspecs
     bspecs = batch_specs(model.cfg, batch_shape, mesh)
-    inner = make_train_step(model, opts)
+    # the gradients take their parameters' placements before the update,
+    # so that AdamW writes each leaf where it lies
+    inner = make_train_step(model, opts, grad_specs=pspecs)
+    opts = opts if opts is not None else TrainOpts()
+    grads_of = _grads_fn(model, opts)
 
-    def step(state, batch):
+    def functional(state, batch):
         batch = place(_batch_to(batch, model.dev), mesh, bspecs)
         with implicit_replication():
             new_state, metrics = inner(state, batch)
@@ -305,7 +298,20 @@ def jit_train_step(model: Model, mesh, opts: TrainOpts, state_shape,
                              state_specs, is_leaf=is_spec)
         return new_state, {k: _full(v) for k, v in metrics.items()}
 
-    return step, state_specs, bspecs
+    def mesh_train_step(state, batch):
+        batch = place(_batch_to(batch, model.dev), mesh, bspecs)
+        with implicit_replication():
+            loss, metrics, grads = grads_of(state["params"], batch)
+            state, metrics = _apply_(opts, state,
+                                     _constrained(grads, pspecs), loss,
+                                     metrics)
+        return state, {k: _full(v) for k, v in metrics.items()}
+
+    program = TrainProgram(mesh_train_step,
+                           getattr(mesh, "device_type", "cpu"),
+                           name="mesh_train_step")
+    program.functional = functional
+    return program, state_specs, bspecs
 
 
 # ---------------------------------------------------------------------------

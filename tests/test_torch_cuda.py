@@ -1439,6 +1439,10 @@ def _mesh_on_card(out_file: str):
                 pos = pos + 1
             runs[tag] = dict(tokens=toks,
                              launches=_lib.launches["decode_attention"])
+        runs["serve_graph"] = _mesh_serve_graph(model, mesh, params, caches,
+                                                tok0)
+        runs["train_graph"] = _mesh_train_graph(mesh)
+        runs["refusal"] = _mesh_refusal(model, mesh, params, caches, tok0)
         q = DTensor.from_local(torch.zeros(2, 4, 32, device="cuda"), mesh,
                                [Replicate(), Replicate()])
         try:
@@ -1452,6 +1456,122 @@ def _mesh_on_card(out_file: str):
             json.dump(runs, f)
     finally:
         dist.destroy_process_group()
+
+
+def _dt_equal(a, b):
+    return a.placements == b.placements and torch.equal(a.to_local(),
+                                                        b.to_local())
+
+
+def _mesh_serve_graph(model, mesh, params, caches, tok0):
+    """8 calls of a new jit_serve_step program from placed caches, each
+    after a direct eager call of its step on a clone of the same caches:
+    logits and caches bitwise equal, the caches returned as the caller's
+    own DTensors, one capture and 7 replays, the decode kernel launched
+    by the program once a layer a call (counted through the capture)."""
+    from repro_torch.kernels import _lib
+    from repro_torch.runtime import jit_serve_step
+    from repro_torch.runtime.sharding import place
+    from repro_torch.tree import flatten, tree_map
+    mstep, specs = jit_serve_step(model, mesh, 4, 32, params, caches)
+    mparams = place(params, mesh, specs["params"])
+    mcaches = place(tree_map(torch.clone, caches), mesh, specs["caches"])
+    leaves = flatten(mcaches)[0]
+    tok = tok0.clone()
+    pos = torch.full((4,), 16, dtype=torch.int32, device="cuda")
+    bad, launched = [], 0
+    for i in range(8):
+        direct = tree_map(torch.clone, mcaches)
+        want, direct = mstep.step(mparams, direct, tok, pos)
+        before = _lib.launches["decode_attention"]
+        logits, got = mstep(mparams, mcaches, tok, pos.cpu().numpy())
+        launched += _lib.launches["decode_attention"] - before
+        if not (_dt_equal(logits, want) and all(
+                a is b and _dt_equal(a, c) for a, b, c in zip(
+                    flatten(got)[0], leaves, flatten(direct)[0]))):
+            bad.append(i)
+        tok = logits.to_local()[:, -1:].argmax(-1).to(torch.int32)
+        pos = pos + 1
+    counts = mstep.graphs.counts()
+    mstep.graphs.close()
+    return dict(bad=bad, counts=counts, launches=launched)
+
+
+def _mesh_train_graph(mesh):
+    """3 steps of jit_train_step's program (smollm at full width, 2
+    layers, fp32) on the placed state, each after a direct eager call of
+    its in-place step on a clone of the same state, under deterministic
+    algorithms: metrics and every leaf bitwise equal, the caller's state
+    leaves returned, every local shard at its address, one capture then
+    replays."""
+    from repro_torch.runtime import jit_train_step
+    from repro_torch.runtime.sharding import place
+    from repro_torch.tree import flatten, tree_map
+    model, opts, state, data = _train_setup(torch.device("cuda"))
+    step, sspecs, _ = jit_train_step(model, mesh, opts, state,
+                                     data.batch_at(0))
+    mstate = place(state, mesh, sspecs)
+    ptrs = [t.to_local().data_ptr() for t in flatten(mstate)[0]]
+    bad = []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        for i in range(3):
+            direct, want = step.step(tree_map(torch.clone, mstate),
+                                     data.batch_at(i))
+            got_state, got = step(mstate, data.batch_at(i))
+            if any(a is not b for a, b in zip(flatten(got_state)[0],
+                                              flatten(mstate)[0])):
+                bad.append(f"step {i}: not the caller's state")
+            bad += [f"step {i}: metric {k}" for k in want
+                    if not torch.equal(got[k], want[k])]
+            bad += [f"step {i}: leaf {j}" for j, (a, b) in enumerate(zip(
+                flatten(mstate)[0], flatten(direct)[0]))
+                if not _dt_equal(a, b)]
+    finally:
+        torch.use_deterministic_algorithms(False)
+    kept = [t.to_local().data_ptr() for t in flatten(mstate)[0]] == ptrs
+    counts = step.graphs.counts()
+    step.graphs.close()
+    return dict(bad=bad, counts=counts, addresses_kept=kept)
+
+
+class _SyncingModel:
+    """A model whose decode reads its positions on the host."""
+
+    def __init__(self, model):
+        self.model, self.cfg, self.dev = model, model.cfg, model.dev
+        self.calls = 0
+
+    def decode(self, params, caches, tokens, pos):
+        self.calls += 1
+        if int(pos.to_local().max()) < 0:
+            raise ValueError("negative position")
+        return self.model.decode(params, caches, tokens, pos)
+
+
+def _mesh_refusal(model, mesh, params, caches, tok0):
+    """jit_serve_step of a syncing model: its first call raises
+    GraphCaptureError naming the line, and the next call is refused
+    without running the step."""
+    from repro_torch.core.graphs import GraphCaptureError
+    from repro_torch.runtime import jit_serve_step
+    from repro_torch.runtime.sharding import place
+    from repro_torch.tree import tree_map
+    syncing = _SyncingModel(model)
+    step, specs = jit_serve_step(syncing, mesh, 4, 32, params, caches)
+    mparams = place(params, mesh, specs["params"])
+    mcaches = place(tree_map(torch.clone, caches), mesh, specs["caches"])
+    pos = torch.full((4,), 16, dtype=torch.int32, device="cuda")
+    msgs = []
+    for _ in range(2):
+        try:
+            step(mparams, mcaches, tok0, pos)
+            msgs.append("")
+        except GraphCaptureError as e:
+            msgs.append(str(e))
+        msgs.append(syncing.calls)
+    torch.cuda.synchronize()             # the card is still usable
+    return msgs
 
 
 @pytest.fixture(scope="module")
@@ -1485,6 +1605,39 @@ def test_jit_serve_step_on_one_rank_nccl_mesh(mesh_card_run):
 @pytest.mark.cuda
 def test_kernel_wrapper_refuses_a_dtensor(mesh_card_run):
     assert mesh_card_run["refused"]
+
+
+@pytest.mark.cuda
+def test_jit_serve_step_replays_the_direct_call(mesh_card_run):
+    """jit_serve_step's program on the one-rank NCCL mesh: one capture and
+    replays, each call bitwise equal to a direct eager call on cloned
+    caches (tokens as device tensors, positions as numpy), the caches the
+    caller's own, the decode kernel once a layer a call."""
+    r = mesh_card_run["serve_graph"]
+    assert r["bad"] == []
+    assert r["counts"] == dict(graphs=1, captures=1, replays=7, evictions=0)
+    assert r["launches"] == mesh_card_run["layers"] * 8
+
+
+@pytest.mark.cuda
+def test_jit_train_step_replays_the_direct_call(mesh_card_run):
+    """jit_train_step's program on the one-rank NCCL mesh: the DTensor
+    state updated in place at its addresses, one capture then replays,
+    each step bitwise equal to the direct eager in-place step."""
+    r = mesh_card_run["train_graph"]
+    assert r["bad"] == [] and r["addresses_kept"]
+    assert r["counts"] == dict(graphs=1, captures=1, replays=2, evictions=0)
+
+
+@pytest.mark.cuda
+def test_mesh_step_that_syncs_is_refused(mesh_card_run):
+    """A mesh serve step that reads its positions on the host: its first
+    call runs eagerly, then the capture raises GraphCaptureError naming
+    the line; the next call is refused without running the step."""
+    first, calls, second, calls_after = mesh_card_run["refusal"]
+    assert first.startswith("mesh_serve_step")
+    assert "test_torch_cuda.py" in first and "pos.to_local().max()" in first
+    assert second == first and calls_after == calls == 2
 
 
 # ---------------------------------------------------------------------------

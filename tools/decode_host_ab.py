@@ -4,7 +4,7 @@ eager step against its CUDA graph, or any host cost a change adds to a
 step.
 
     python3 tools/decode_host_ab.py [--sections engines,serve_step,prefill,
-        train,shell] TREE [TREE ...]
+        train,shell,mesh] TREE [TREE ...]
 
 Each TREE is the root of a checkout (its ``src/repro_torch`` is imported and
 its kernels are built from its own sources). The trees run in the order
@@ -65,9 +65,18 @@ bf16, seeded weights:
   device's busy ms a cycle, the idle share (1 - busy / ms a cycle) and
   the host's top ops a cycle.
 
-``--sections`` picks the sections (all but ``train`` and ``shell`` by
-default). Prints one JSON line per process, then the card's name and
-power limit.
+* ``mesh``: the mesh steps on a one-rank NCCL mesh, as the tree has them
+  (its eager DTensor steps, or its programs): ``jit_serve_step`` on
+  full-width smollm-135m bf16 (8 prompts of 64 tokens prefilled plainly,
+  then the decode step on the placed params and caches at one position:
+  3 warm-up calls, the wall ms of 20, 10 under the profiler) and
+  ``jit_train_step`` at fp32, B 8, S 1024 on a numpy batch of the
+  pipeline (as ``train``); with each program's captures, replays,
+  capture ms and graph MB.
+
+``--sections`` picks the sections (all but ``train``, ``shell`` and
+``mesh`` by default). Prints one JSON line per process, then the card's
+name and power limit.
 """
 import dataclasses
 import gc
@@ -260,23 +269,25 @@ TRAIN_PATHS = (("smollm", "smollm-135m", None, 8, 1024),  # name, arch,
 TRAIN_DP = dict(layers=4, B=8, S=256)
 
 
-def _profiled(step, state, batch, warm=3, timed=10, traced=3):
-    """Wall ms of ``timed`` steps after ``warm``, then the device's busy
-    ms and ops a step over ``traced`` steps under the profiler."""
+def _measured(call, graphs, warm, timed, traced):
+    """Wall ms of ``timed`` calls of ``call`` after ``warm``, each between
+    two synchronisations, then the device's busy ms and ops a call over
+    ``traced`` calls under the profiler; the graph program ``graphs``'s
+    counts, capture ms and MB where the tree has one (it is closed)."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warm):
-        state, _ = step(state, batch)
+        call()
     ms = []
     for _ in range(timed):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, _ = step(state, batch)
+        call()
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t0) * 1e3)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(traced):
-            state, _ = step(state, batch)
+            call()
         torch.cuda.synchronize()
     dev = [e for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -285,13 +296,22 @@ def _profiled(step, state, batch, warm=3, timed=10, traced=3):
     out = dict(wall_ms=ms, p50_ms=p50, p95_ms=float(np.percentile(ms, 95)),
                busy_ms=busy, idle_share=1.0 - busy / p50,
                device_ops=sum(e.count for e in dev) / traced)
-    graphs = getattr(step, "graphs", None)
-    if graphs is not None:                      # a training program
+    if graphs is not None:
         out["graph"] = graphs.counts()
         out["capture_ms"] = list(graphs.capture_ms)
         out["graph_mb"] = [b / 2**20 for b in graphs.graph_bytes]
         graphs.close()
     return out
+
+
+def _profiled(step, state, batch, warm=3, timed=10, traced=3):
+    """``_measured`` of a training step threading its state."""
+    box = [state]
+
+    def call():
+        box[0], _ = step(box[0], batch)
+    return _measured(call, getattr(step, "graphs", None), warm, timed,
+                     traced)
 
 
 def _train_inputs(cfg, B, S, seed, **opts_kw):
@@ -355,6 +375,58 @@ def train(get_config, train_mod):
             del model, state, step
             gc.collect()
             torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+MESH_SERVE = dict(B=8, prompt=64)
+MESH_TRAIN = dict(B=8, S=1024)
+
+
+def mesh(get_config, runtime):
+    """The mesh steps as the tree has them on a one-rank NCCL mesh:
+    ``jit_serve_step`` (full smollm-135m bf16, 8 prompts of 64 prefilled
+    plainly, the decode step called on the placed params and caches at
+    one position, 3 warm-up calls, 20 timed, 10 profiled) and
+    ``jit_train_step`` (fp32, B 8, S 1024, a numpy batch of the pipeline,
+    as ``train``)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import get_model
+    from repro_torch.runtime.sharding import place
+    out = {}
+    mesh_ = make_host_mesh(1, 1, device=DEV)
+    try:
+        cfg = get_config("smollm-135m")
+        model = get_model(cfg, device=DEV)
+        params = model.init(torch.Generator(device=DEV).manual_seed(SEED + 73))
+        B, prompt = MESH_SERVE["B"], MESH_SERVE["prompt"]
+        toks = torch.randint(0, cfg.vocab_size, (B, prompt), device=DEV,
+                             dtype=torch.int32, generator=torch.Generator(
+                                 device=DEV).manual_seed(SEED + 74))
+        h, caches = runtime.make_prefill_step(model, prompt + 32)(
+            params, {"tokens": toks})
+        tok = model.logits(params, h[:, -1:]).argmax(-1).to(torch.int32)
+        step, specs = runtime.jit_serve_step(model, mesh_, B, prompt + 32,
+                                             params, caches)
+        mparams = place(params, mesh_, specs["params"])
+        mcaches = place(caches, mesh_, specs["caches"])
+        pos = torch.full((B,), prompt, dtype=torch.int32, device=DEV)
+        out["serve"] = _measured(
+            lambda: step(mparams, mcaches, tok, pos),
+            getattr(step, "graphs", None), warm=3, timed=20, traced=10)
+        del step, mparams, mcaches, caches, params, h
+        gc.collect()
+        torch.cuda.empty_cache()
+        model, opts, state, batch = _train_inputs(
+            cfg, MESH_TRAIN["B"], MESH_TRAIN["S"], SEED + 75)
+        step, sspecs, _ = runtime.jit_train_step(model, mesh_, opts, state,
+                                                 batch)
+        out["train"] = _profiled(step, place(state, mesh_, sspecs), batch)
+        del model, state, step
+        gc.collect()
+        torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
     return out
@@ -492,7 +564,7 @@ def _shell_core(a, b):
     return (ops.matmul_batched(a, b),)
 
 
-SECTIONS = ("engines", "serve_step", "prefill", "train", "shell")
+SECTIONS = ("engines", "serve_step", "prefill", "train", "shell", "mesh")
 DEFAULT_SECTIONS = SECTIONS[:3]
 
 
@@ -530,6 +602,8 @@ def child(tree, sections):
         rec["train"] = train(get_config, train_mod)
     if "shell" in sections:
         rec["shell"] = shell()
+    if "mesh" in sections:
+        rec["mesh"] = mesh(get_config, runtime)
     print(json.dumps(rec), flush=True)
 
 

@@ -14,10 +14,16 @@ On CUDA each rank takes one card (NCCL), so ``--ranks`` cards are needed;
 configuration small enough for a CPU. fp32 weights from a seed; 8 prompts
 of 64 tokens through a prefill on the mesh, then 32 greedy decode steps.
 
+On CUDA the mesh decode is ``jit_serve_step``'s program: one CUDA graph
+of the step, captured at its first call (the ranks' ``all_gather``s of
+the log-sum-exp merge with it) and replayed by the other 31; on the CPU
+the step runs eagerly.
+
 Each rank checks: the k/v caches' length entry is "model"; the decode
 kernel's wrapper launched (on CPU: was called) n_layers x 32 times during
-the decode; the first decode step's logits within 1e-3 of the one-device
-step's. Rank 0 also reports the share of greedy tokens equal to the
+the decode (a replay counts through the capture's tally); on CUDA one
+capture and 31 replays; the first decode step's logits within 1e-3 of the
+one-device step's. Rank 0 also reports the share of greedy tokens equal to the
 one-device run's and both steps' p50 wall ms. Prints one JSON line, then
 (on CUDA) the card's name and power limit; exits 1 if a check failed.
 """
@@ -131,6 +137,12 @@ def rank_main(rank: int, world: int, dev: str, reduced_cfg: bool,
         step, _ = jit_serve_step(model, mesh, B, max_len, mparams, mcaches)
         got, got_first, mesh_ms, launched = _decode(
             step, mparams, mcaches, mtok, pos, dev, True, count)
+        graphs = getattr(step, "graphs", None)      # the program on CUDA
+        graph = graphs.counts() if graphs is not None else None
+        if graphs is not None:
+            graph.update(capture_ms=list(graphs.capture_ms),
+                         graph_mb=[b / 2**20 for b in graphs.graph_bytes])
+            graphs.close()
         need = cfg.n_layers * NEW
         rec = dict(rank=rank, world=world, device=dev, arch=cfg.name,
                    layers=cfg.n_layers, kv_heads=cfg.n_kv_heads,
@@ -142,9 +154,12 @@ def rank_main(rank: int, world: int, dev: str, reduced_cfg: bool,
                                                        tok.cpu())),
                    token_agreement=float((got == want).float().mean()),
                    plain_step_ms_p50=float(np.median(plain_ms[1:])),
-                   mesh_step_ms_p50=float(np.median(mesh_ms[1:])))
+                   mesh_step_ms_p50=float(np.median(mesh_ms[1:])),
+                   graph=graph)
         rec["ok"] = (length == "model" and launched == need
-                     and rec["first_step_logits_max_abs_err"] <= TOL)
+                     and rec["first_step_logits_max_abs_err"] <= TOL
+                     and (dev == "cpu" or (graph["captures"] == 1
+                                           and graph["replays"] == NEW - 1)))
         Path(out, f"rank{rank}.json").write_text(json.dumps(rec))
     finally:
         dist.destroy_process_group()
