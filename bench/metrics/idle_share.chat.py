@@ -1,0 +1,2 @@
+"""idle_share.chat: percent of the traced window with no device operation running."""
+from bench.readers import idle_share as read  # noqa: F401
