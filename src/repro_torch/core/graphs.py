@@ -55,6 +55,12 @@ buffers get one graph of it, in the program's pool.
 The kernel wrappers' launch counts stay counts of executions: a capture
 keeps the tally of the launches it recorded (``_lib.capture_tally``), and
 each replay adds it (``_lib.launches.replayed``).
+
+With the span recorder on (``core/spans.py``) a call records the spans
+``<span>.bind`` (its arguments flattened and keyed), ``<span>.stage``
+(host arrays copied in), ``<span>.replay`` (with a pair of timing events
+around the replay) or ``<span>.capture`` (a first call's eager run and
+capture); ``span`` is the program's name unless given.
 """
 from __future__ import annotations
 
@@ -71,6 +77,7 @@ import numpy as np
 import torch
 from torch.distributed.tensor import DTensor
 
+from repro_torch.core.spans import recorder
 from repro_torch.kernels import _lib
 
 _TORCH_DIR = os.path.dirname(torch.__file__)
@@ -285,7 +292,8 @@ class GraphProgram:
     """``fn`` run as CUDA graphs on ``device``, one a binding of its
     arguments (module docstring), at most ``max_graphs`` of them (None: no
     cap). ``captures``, ``replays``, ``evictions``, ``capture_ms`` and
-    ``graph_bytes`` count and measure the captures. With
+    ``graph_bytes`` count and measure the captures. ``span`` names the
+    program's spans (module docstring; default: ``name``). With
     ``release_cache`` the allocator's cached blocks are released between
     a first call's eager run and its capture (a training step): a capture
     cannot free them to retry an allocation, so without it the eager
@@ -293,7 +301,7 @@ class GraphProgram:
 
     def __init__(self, fn: Callable, device, name: str = "",
                  max_graphs: Optional[int] = None,
-                 release_cache: bool = False):
+                 release_cache: bool = False, span: str = ""):
         self.fn = fn
         self.release_cache = release_cache
         self.device = torch.device(device)
@@ -303,6 +311,7 @@ class GraphProgram:
         if self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.__name__ = name or getattr(fn, "__name__", "program")
+        self.set_span(span or self.__name__)
         self._graphs: Dict[tuple, _Graph] = {}
         self._dead: List[tuple] = []
         self._pool = _Pool()
@@ -325,10 +334,18 @@ class GraphProgram:
         outputs of a replay are copied (a later replay rewrites them)."""
         return self._call(args, copy=True)
 
-    def then(self, post: Callable) -> "GraphProgram":
+    def set_span(self, span: str) -> None:
+        """Name this program's spans ``<span>.bind``, ``.stage``,
+        ``.replay`` and ``.capture``."""
+        self.span = span
+        self._span_names = tuple(f"{span}.{k}" for k in
+                                 ("bind", "stage", "replay", "capture"))
+
+    def then(self, post: Callable, span: str = "") -> "GraphProgram":
         """This program followed by ``post`` on its outputs, one graph a
         binding, in this program's memory pool; one chained program a
-        ``post``, so that every caller of this program shares it."""
+        ``post``, so that every caller of this program shares it. Its
+        spans are named ``span`` where given, else after this program's."""
         got = self._chained.get(post)
         if got is None:
             fn = self.fn
@@ -337,9 +354,12 @@ class GraphProgram:
                 return post(fn(*args))
 
             got = GraphProgram(step, self.device, name=f"{self.__name__}"
-                               f"+{getattr(post, '__name__', 'post')}")
+                               f"+{getattr(post, '__name__', 'post')}",
+                               span=span or self.span)
             got._pool = self._pool
             self._chained[post] = got
+        elif span:
+            got.set_span(span)
         return got
 
     def counts(self) -> Dict[str, int]:
@@ -373,16 +393,36 @@ class GraphProgram:
             raise GraphCaptureError(self._refused)
         if self._dead:
             self.purge()
+        on = recorder.on
+        if on:
+            bind, stage, replay, capture = self._span_names
+            sp = recorder.begin(bind)
         leaves, key = binding(args, self.device)
         g = self._graphs.get(key)
+        if on:
+            recorder.end(sp)
         if g is None:       # the eager run's own tensors are the caller's
-            return self._first_call(args, leaves, key)
+            if on:
+                sp = recorder.begin(capture)
+            out = self._first_call(args, leaves, key)
+            if on:
+                recorder.end(sp)
+            return out
         if self.max_graphs is not None:
             self._graphs[key] = self._graphs.pop(key)   # most recently used
         if g.staged:
+            if on:
+                sp = recorder.begin(stage)
             self._stage(g, [x for x, k in zip(leaves, key[1])
                             if k[0] == "staged"])
-        g.graph.replay()
+            if on:
+                recorder.end(sp)
+        if on:
+            sp = recorder.begin(replay, device=self.device)
+            g.graph.replay()
+            recorder.end(sp)
+        else:
+            g.graph.replay()
         _lib.launches.replayed(g.tally)
         self.replays += 1
         if not (g.rebuilt or copy):
@@ -584,11 +624,12 @@ class InputBuffers:
         return {k: b for k, (b, _) in bufs.items()}
 
 
-def then(program: Callable, post: Callable) -> Callable:
+def then(program: Callable, post: Callable, span: str = "") -> Callable:
     """``program`` followed by ``post`` on its outputs: a graph program's
-    chained program (``GraphProgram.then``), or the two calls in a row."""
+    chained program (``GraphProgram.then``, its spans named ``span``), or
+    the two calls in a row."""
     if isinstance(program, GraphProgram):
-        return program.then(post)
+        return program.then(post, span)
 
     def step(*args):
         return post(program(*args))

@@ -45,6 +45,7 @@ from repro_torch.analysis.lifecycle import sanitizer
 from repro_torch.core.device_db import DeviceState, SliceState
 from repro_torch.core.elastic import ElasticController
 from repro_torch.core.hypervisor import Hypervisor
+from repro_torch.core.spans import now
 from repro_torch.models.api import Model
 from repro_torch.runtime.faults import FaultInjector
 from repro_torch.runtime.gateway import (TenantSession, check_program_device,
@@ -62,7 +63,7 @@ def _mark_cancelled(req: Request) -> None:
     between engines, or torn down with an evicted session)."""
     _req_event(req, "cancel")
     req.finish_reason = "cancelled"
-    req.finished_at = time.monotonic()
+    req.finished_at = now()
     req.done.set()
 
 

@@ -31,12 +31,12 @@ engine's buffers get a graph of their own at its first step.
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Dict, List, Optional, Tuple
 
 import torch
 
 from repro_torch.core.hypervisor import Hypervisor
+from repro_torch.core.spans import now, recorder
 from repro_torch.models import lm
 from repro_torch.models.api import Model
 from repro_torch.rc2f.admission import AdmissionError
@@ -81,7 +81,7 @@ def settle_finished_request(hv: Hypervisor,
         return
     sess.served += 1
     sess.tokens_out += len(req.out_tokens)
-    latency_ms = ((req.finished_at or time.monotonic())
+    latency_ms = ((req.finished_at or now())
                   - req.submitted_at) * 1e3
     hv.record_served_request(sess.slice_id, req.tenant, req.request_id,
                              len(req.prompt), len(req.out_tokens),
@@ -282,18 +282,12 @@ class ServingGateway:
 
     def step(self) -> int:
         """One shared decode step across all tenants; periodically sweeps
-        for straggling (hot) tenants and rebinds migrated sessions."""
+        for straggling (hot) tenants and rebinds migrated sessions. With
+        the span recorder on, the step is the root span ``gateway.step``
+        (``core/spans.py``)."""
+        root = recorder.root() if recorder.on else -1
         n = self.engine.step()
-        if self.paged:
-            self.hv.monitor.record_pages(self._device_key,
-                                         self.engine.pool.used_pages,
-                                         self.engine.pool.total_pages)
-            self.hv.monitor.record_scrub(self._device_key,
-                                         self.engine.pool.pages_scrubbed,
-                                         self.engine.scrub_ms)
-        if self.migrate_every and self.engine.steps \
-                and self.engine.steps % self.migrate_every == 0:
-            self.rebalance()
+        self._telemetry(root)
         return n
 
     def step_async(self, prefill_chunk: int = 4) -> int:
@@ -301,7 +295,16 @@ class ServingGateway:
         behind the same telemetry/rebalance plumbing as ``step`` — newly
         admitted prompts spend a few steps PREFILLING while the resident
         slots keep decoding, instead of stalling the whole batch."""
+        root = recorder.root() if recorder.on else -1
         n = self.engine.step_async(prefill_chunk)
+        self._telemetry(root)
+        return n
+
+    def _telemetry(self, root: int) -> None:
+        """After an engine step: page occupancy and scrub time to the
+        monitor, and the periodic straggler sweep (the span
+        ``gateway.monitor``); then closes the step's ``root`` span."""
+        sp = recorder.begin("gateway.monitor") if root >= 0 else -1
         if self.paged:
             self.hv.monitor.record_pages(self._device_key,
                                          self.engine.pool.used_pages,
@@ -312,7 +315,9 @@ class ServingGateway:
         if self.migrate_every and self.engine.steps \
                 and self.engine.steps % self.migrate_every == 0:
             self.rebalance()
-        return n
+        if root >= 0:
+            recorder.end(sp)
+            recorder.end(root)
 
     def run_until_idle(self, max_steps: int = 10000) -> bool:
         """Returns True when fully drained; False on a stall (max_steps

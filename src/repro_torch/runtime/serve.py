@@ -41,7 +41,6 @@ import collections
 import dataclasses
 import itertools
 import threading
-import time
 from typing import Any, Callable, Deque, Dict, Iterator, List, Optional
 
 import numpy as np
@@ -50,6 +49,7 @@ import torch
 from repro_torch.analysis.lifecycle import sanitizer
 from repro_torch.core.graphs import (GraphProgram, InputBuffers, _leaves,
                                      rebuild, then)
+from repro_torch.core.spans import now, recorder
 from repro_torch.models.api import Model
 from repro_torch.placement import _full
 from repro_torch.runtime.paged import PagePoolManager, default_pool_pages
@@ -198,7 +198,7 @@ class PrefillProgram:
         self._program = GraphProgram(
             self._prefill_into, model.dev, max_graphs=PREFILL_GRAPHS,
             name=f"prefill[{model.cfg.name}/{max_len}"
-                 f"{'/full' if full_len else ''}]") \
+                 f"{'/full' if full_len else ''}]", span="prefill") \
             if model.dev.type == "cuda" else None
 
     def _prefill_into(self, params, toks):
@@ -214,7 +214,11 @@ class PrefillProgram:
                 1, self.max_len, clamp_window=not self.full_len)
         if self._program is not None:
             return self._program(params, toks)
-        return self._prefill_into(params, torch.from_numpy(toks))
+        sp = recorder.begin("prefill.run") if recorder.on else -1
+        out = self._prefill_into(params, torch.from_numpy(toks))
+        if sp >= 0:
+            recorder.end(sp)
+        return out
 
     def counts(self) -> Dict[str, int]:
         """Graphs held, captures, replays and evictions (zeros on the CPU),
@@ -433,7 +437,8 @@ class Request:
     tenant: str = "default"
     out_tokens: List[int] = dataclasses.field(default_factory=list)
     done: threading.Event = dataclasses.field(default_factory=threading.Event)
-    submitted_at: float = dataclasses.field(default_factory=time.monotonic)
+    # stamps on the port's span clock (``core/spans.now``)
+    submitted_at: float = dataclasses.field(default_factory=now)
     first_token_at: Optional[float] = None
     finished_at: Optional[float] = None
     finish_reason: Optional[str] = None   # "eos" | "length" | "cancelled"
@@ -525,7 +530,12 @@ class BatchingEngine:
         self._prefilling: Dict[int, _PendingPrefill] = {}
         self.steps = 0
         self.preemptions = 0
-        self.scrub_ms = 0.0        # cumulative zero-on-free dispatch cost
+        # the zero-on-free scrubs' time, ms: on the card each flush's
+        # device time from a pair of timing events, added once the pair
+        # has completed (``_scrub_done``); on the CPU the host's time
+        self.scrub_ms = 0.0
+        self._scrub_pairs: Deque[tuple] = collections.deque()  # pending
+        self._scrub_free: List[tuple] = []
         self._scope = sanitizer.scope()      # slot-machine key namespace
         # the pool's version the device block tables were copied at
         self._bt_version = -1
@@ -579,6 +589,7 @@ class BatchingEngine:
         self._copied = torch.cuda.Event() if on_card else None
         self._copy_pending = False
         self._step_ids = None                # the last step's (n_slots,) ids
+        self._step_t0: Optional[float] = None  # _decode_once's clock read
         # the model's decode step for this layout, and its prefill
         step = make_paged_serve_step(model) if paged \
             else make_serve_step(model)
@@ -599,18 +610,22 @@ class BatchingEngine:
         program cache (and PR swaps bind it to each tenant's vSlice).
         The engine runs it followed by ``greedy_tail`` (``then``): on the
         card one graph of the program's, captured on this engine's buffers
-        at its first step. The program must write the caches it is given
-        in place, on the engine's own device (the gateway and the fleet
-        refuse a model that is not on the hypervisor's device)."""
+        at its first step, its spans named ``decode.*``. The program must
+        write the caches it is given in place, on the engine's own device
+        (the gateway and the fleet refuse a model that is not on the
+        hypervisor's device)."""
         self._decode_fn = compiled
-        self._greedy = then(compiled, greedy_tail)
+        self._greedy = then(compiled, greedy_tail, span="decode")
 
     def _stage(self, name: str, dev: torch.Tensor, x: np.ndarray) -> None:
         """Copy a host array into one of the step's device buffers, in
         place, through its pinned host side."""
         host = self._host[name]
         if self._copy_pending:
+            sp = recorder.begin("engine.stage_wait") if recorder.on else -1
             self._copied.synchronize()   # the last copies have landed
+            if sp >= 0:
+                recorder.end(sp)
             self._copy_pending = False
         # the pinned buffer's own memory: no device sync
         host.numpy()[...] = x                    # rc3e: allow-host-sync
@@ -620,14 +635,19 @@ class BatchingEngine:
         """One decode step over all slots; the caches update in place.
         The step's inputs are copied into its buffers: (n_slots, 1) tokens,
         (n_slots,) positions and, when the pool's version moved, the block
-        tables. Returns the logits (valid until the next step); the
-        step's greedy ids wait in ``_step_ids``."""
+        tables (the span ``engine.stage``, from ``_step_t0`` where
+        ``_decode_once`` read the clock). Returns the logits (valid until
+        the next step); the step's greedy ids wait in ``_step_ids``."""
+        t0, self._step_t0 = self._step_t0, None
+        sp = recorder.begin("engine.stage", t=t0) if recorder.on else -1
         self._stage("tok", self._tok, tokens)
         self._stage("pos", self._posd, pos)
         extra = (self._block_tables_dev(),) if self.paged else ()
         if self._copied is not None:
             self._copied.record(torch.cuda.current_stream(self.device))
             self._copy_pending = True
+        if sp >= 0:
+            recorder.end(sp)
         logits, self._step_ids = self._greedy(self.params, self.caches,
                                               self._tok, self._posd, *extra)
         return logits
@@ -644,9 +664,30 @@ class BatchingEngine:
     def _prefill(self, toks: np.ndarray):
         """Batch-1 prefill of a padded (1, S) host context -> its caches
         (full length, no ring, on a paged engine): the prefill program's
-        own, valid until its next call."""
+        own, valid until its next call. Counts ``prefill_positions``."""
         _, caches = self._prefill_fn(self.params, toks)
+        if recorder.on:
+            recorder.count("prefill_positions", toks.shape[1])
         return caches
+
+    def _splice(self, buf, slot: int, plan, ctx_len: int,
+                request: int) -> None:
+        """Write a prefill's caches into the engine's: the pages from
+        ``plan.write_start`` on (paged) or the slot's row (dense). Counts
+        ``prefill_written``: the context positions written, from the first
+        written block to the context's end (``ctx_len``)."""
+        sp = recorder.begin("engine.splice", request=request,
+                            device=self.device) if recorder.on else -1
+        if self.paged:
+            _splice_pages(self.caches, buf, self._pages_dev(plan.write_pages),
+                          start=plan.write_start)
+            written = ctx_len - plan.write_start * self.page_size
+        else:
+            _splice_slot(self.caches, buf, slot)
+            written = ctx_len
+        if sp >= 0:
+            recorder.end(sp)
+            recorder.count("prefill_written", max(0, written), request)
 
     def set_tenant_share(self, tenant: str, max_slots: Optional[int]) -> None:
         """Cap a tenant's concurrent engine slots (None removes the cap)."""
@@ -725,7 +766,7 @@ class BatchingEngine:
         for r in dropped:
             _req_event(r, "cancel")
             r.finish_reason = "cancelled"
-            r.finished_at = time.monotonic()
+            r.finished_at = now()
             r.done.set()
         return dropped
 
@@ -756,7 +797,7 @@ class BatchingEngine:
     def _finish(self, req: Request, reason: str):
         _req_event(req, "cancel" if reason == "cancelled" else "finish")
         req.finish_reason = reason
-        req.finished_at = time.monotonic()
+        req.finished_at = now()
         req.done.set()
         if self.on_finish is not None:
             self.on_finish(req)
@@ -831,14 +872,41 @@ class BatchingEngine:
 
     def _flush_scrub(self) -> int:
         """Drain the pool's zero-on-free queue with ONE batched zeroing.
-        Called at the top of every step and before any page allocation."""
+        Called at the top of every step and before any page allocation.
+        Its time goes to ``scrub_ms``: on the card a pair of timing events
+        around the zeroing, read once it has completed (at a later flush
+        or in ``page_stats``; nothing waits for it), on the CPU the host's
+        time."""
         if not self.paged or not self.pool.scrub_pending:
             return 0
         pids = self.pool.take_scrub()
-        t0 = time.monotonic()
-        _scrub_pool_pages(self.caches, self._pages_dev(sorted(pids)))
-        self.scrub_ms += (time.monotonic() - t0) * 1e3
+        sp = recorder.begin("engine.scrub", device=self.device) \
+            if recorder.on else -1
+        if self.device.type != "cuda":
+            t0 = now()
+            _scrub_pool_pages(self.caches, self._pages_dev(sorted(pids)))
+            self.scrub_ms += (now() - t0) * 1e3
+        else:
+            self._scrub_done()
+            pair = self._scrub_free.pop() if self._scrub_free else tuple(
+                torch.cuda.Event(enable_timing=True) for _ in range(2))
+            stream = torch.cuda.current_stream(self.device)
+            pair[0].record(stream)
+            _scrub_pool_pages(self.caches, self._pages_dev(sorted(pids)))
+            pair[1].record(stream)
+            self._scrub_pairs.append(pair)
+        if sp >= 0:
+            recorder.end(sp)
         return len(pids)
+
+    def _scrub_done(self) -> None:
+        """Add the device time of the scrubs whose end event has completed
+        to ``scrub_ms`` (in order: they ran on one stream)."""
+        pairs = self._scrub_pairs
+        while pairs and pairs[0][1].query():
+            start, end = pairs.popleft()
+            self.scrub_ms += start.elapsed_time(end)
+            self._scrub_free.append((start, end))
 
     def _page_budget_ok(self, tenant: str, extra: int) -> bool:
         budget = self._tenant_pages.get(tenant)
@@ -908,26 +976,34 @@ class BatchingEngine:
             req = self._pop_next_request()
             if req is None:
                 return
-            self._slots[slot] = req
-            sanitizer.emit("slot", (self._scope, slot), "occupy")
-            _req_event(req, "admit")
-            if async_chunk is not None:
-                self._start_prefill_async(slot, req, async_chunk)
-                continue
-            toks = self._ctx_tokens(req)
-            if self.paged:
-                self._admit_paged(slot, req, toks)
+            sp = recorder.begin("engine.admit", request=req.request_id) \
+                if recorder.on else -1
+            self._admit_one(slot, req, async_chunk)
+            if sp >= 0:
+                recorder.end(sp)
+
+    def _admit_one(self, slot: int, req: Request,
+                   async_chunk: Optional[int]) -> None:
+        self._slots[slot] = req
+        sanitizer.emit("slot", (self._scope, slot), "occupy")
+        _req_event(req, "admit")
+        if async_chunk is not None:
+            self._start_prefill_async(slot, req, async_chunk)
+            return
+        toks = self._ctx_tokens(req)
+        if self.paged:
+            self._admit_paged(slot, req, toks)
+        else:
+            ctx = toks[:-1]
+            if len(ctx) >= self.PREFILL_MIN_TOKENS \
+                    and self.prefill_mode == "batched":
+                self._prefill_slot(slot, ctx, None, req)
             else:
-                ctx = toks[:-1]
-                if len(ctx) >= self.PREFILL_MIN_TOKENS \
-                        and self.prefill_mode == "batched":
-                    self._prefill_slot(slot, ctx)
-                else:
-                    for i, t in enumerate(ctx):
-                        self._step_single(slot, int(t), i)
-                self._pos[slot] = len(toks) - 1
-            req._next_input = int(toks[-1])
-            _req_event(req, "ready")   # lockstep: prefill completed inline
+                for i, t in enumerate(ctx):
+                    self._step_single(slot, int(t), i)
+            self._pos[slot] = len(toks) - 1
+        req._next_input = int(toks[-1])
+        _req_event(req, "ready")   # lockstep: prefill completed inline
 
     def _start_prefill_async(self, slot: int, req: Request, chunk: int):
         """Admit ``req`` into ``slot`` without blocking the engine event:
@@ -970,13 +1046,8 @@ class BatchingEngine:
         """Splice the buffered prefill and open the slot for decode."""
         req = self._slots[slot]
         if pending.buf is not None:
-            if self.paged:
-                plan = pending.plan
-                _splice_pages(self.caches, pending.buf,
-                              self._pages_dev(plan.write_pages),
-                              start=plan.write_start)
-            else:
-                _splice_slot(self.caches, pending.buf, slot)
+            self._splice(pending.buf, slot, pending.plan,
+                         pending.ctx_len - 1, req.request_id)
         self._pos[slot] = pending.ctx_len - 1
         req._next_input = pending.last_token
         _req_event(req, "ready")
@@ -992,27 +1063,22 @@ class BatchingEngine:
         if not plan.skip_prefill:
             if len(ctx) >= self.PREFILL_MIN_TOKENS \
                     and self.prefill_mode == "batched":
-                self._prefill_slot_paged(slot, ctx, plan)
+                self._prefill_slot(slot, ctx, plan, req)
             else:
                 self._invalidate_pages(plan.write_pages)
                 for i, t in enumerate(ctx):
                     self._step_single(slot, int(t), i)
         self._pos[slot] = len(toks) - 1
 
-    def _prefill_slot(self, slot: int, ctx: np.ndarray):
+    def _prefill_slot(self, slot: int, ctx: np.ndarray, plan,
+                      req: Request):
         """Prefill a slot's context with ONE batched call (lengths padded
         to power-of-two buckets; padded positions sit past the context and
         are causally masked until generation overwrites them), spliced
-        before anything else can run the prefill program."""
-        _splice_slot(self.caches, self._prefill(self._pad_ctx(ctx)), slot)
-
-    def _prefill_slot_paged(self, slot: int, ctx: np.ndarray, plan):
-        """Prefill, then scatter ONLY the unshared suffix blocks into this
-        slot's pool pages."""
-        buf = self._prefill(self._pad_ctx(ctx))
-        _splice_pages(self.caches, buf,
-                      self._pages_dev(plan.write_pages),
-                      start=plan.write_start)
+        before anything else can run the prefill program: paged, ONLY the
+        unshared suffix blocks of ``plan`` into the slot's pool pages."""
+        self._splice(self._prefill(self._pad_ctx(ctx)), slot, plan,
+                     len(ctx), req.request_id)
 
     def _pad_ctx(self, ctx: np.ndarray) -> np.ndarray:
         """The (1, pad) host prompt of a context: the reference's padding
@@ -1073,7 +1139,11 @@ class BatchingEngine:
                         self._page_budget_ok(req.tenant, 1):
                     self._flush_scrub()
                     src, dst = self.pool.cow(i, block, req.tenant)
+                    sp = recorder.begin("engine.page_copy") \
+                        if recorder.on else -1
                     _copy_page(self.caches, src, dst)
+                    if sp >= 0:
+                        recorder.end(sp)
                 else:
                     self._preempt(i)
                 continue
@@ -1112,9 +1182,16 @@ class BatchingEngine:
 
     def _decode_once(self) -> int:
         """One decode step over every ready slot. Returns the number of
-        slots decoded."""
+        slots decoded. ``step_ms`` (for ``on_step``) runs from the staging
+        of the step's inputs to the ids' download; with the recorder on,
+        its two clock reads bound the spans ``engine.stage`` and
+        ``engine.download``."""
+        on = recorder.on
         if self.paged:
+            sp = recorder.begin("engine.prepare_writes") if on else -1
             self._prepare_writes()
+            if on:
+                recorder.end(sp)
         active = [i for i, r in enumerate(self._slots)
                   if r is not None and i not in self._prefilling]
         if not active:
@@ -1122,11 +1199,16 @@ class BatchingEngine:
         tokens = np.zeros((self.n_slots, 1), np.int32)
         for i in active:
             tokens[i, 0] = self._slots[i]._next_input
-        t0 = time.monotonic()
+        t0 = self._step_t0 = now()
         self._decode(tokens, self._pos)
+        sp = recorder.begin("engine.download") if on else -1
         # argmax on device: download (n_slots,) int32 ids, not the logits
         next_ids = self._download_ids()
-        step_ms = (time.monotonic() - t0) * 1e3
+        t1 = now()
+        if on:
+            recorder.end(sp, t1)
+            sp = recorder.begin("engine.post", t=t1)
+        step_ms = (t1 - t0) * 1e3
         self.steps += 1
         if self.on_step is not None:
             self.on_step(self.active_by_tenant(), step_ms)
@@ -1134,7 +1216,7 @@ class BatchingEngine:
             req = self._slots[i]
             nxt = int(next_ids[i])
             if req.first_token_at is None:
-                req.first_token_at = time.monotonic()
+                req.first_token_at = t1
             req.out_tokens.append(nxt)
             req._next_input = nxt
             self._pos[i] += 1
@@ -1143,6 +1225,8 @@ class BatchingEngine:
                     or self._pos[i] >= self.max_len - 1:
                 self._release_slot(i)
                 self._finish(req, "eos" if eos else "length")
+        if on:
+            recorder.end(sp)
         return len(active)
 
     def idle(self) -> bool:
@@ -1163,9 +1247,13 @@ class BatchingEngine:
 
     # ---------------- paged introspection / hand-off ----------------
     def page_stats(self) -> dict:
-        """Pool occupancy for the monitor (empty dict in dense mode)."""
+        """Pool occupancy for the monitor (empty dict in dense mode), with
+        ``preemptions`` and ``scrub_ms``: the zero-on-free scrubs' device
+        time in ms (host time on the CPU), of the scrubs that have
+        completed by now."""
         if not self.paged:
             return {}
+        self._scrub_done()
         s = self.pool.stats()
         s["preemptions"] = self.preemptions
         s["scrub_ms"] = round(self.scrub_ms, 3)
