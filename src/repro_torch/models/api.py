@@ -11,12 +11,23 @@ entry points run under ``torch.no_grad``.
 ``input_specs(cfg, shape_cell)`` returns ``meta``-device tensors of the
 shapes and dtypes of every input of the corresponding step (no
 allocation): the reference's ``ShapeDtypeStruct`` stand-ins.
+
+``Model.serving_params(params)`` is the tree a server binds in place of
+the fp32 masters: every weight that the serving steps read only through
+``.to(<activation dtype>)`` cast once (``_CAST_ONCE``), the rest the
+masters themselves. The cast is the one each use would make, so the served
+values are bit for bit the same; a copy is made once a master leaf and
+shared by every tree made from it while one holds it.
 """
 from __future__ import annotations
 
 import dataclasses
+import threading
+import weakref
+from typing import Any
 
 import torch
+from torch.utils.weak import WeakIdKeyDictionary
 
 from repro_torch.configs.base import ModelConfig, ShapeCell
 from repro_torch.models import encdec, lm
@@ -124,6 +135,74 @@ class Model:
         if self.audio:
             raise ValueError("paged caches support decoder-only LMs")
         return lm.make_paged_caches(self.cfg, n_pages, page_size, self.dev)
+
+    def serving_params(self, params) -> "ServedParams":
+        """The tree the serving steps bind for the masters ``params``
+        (module docstring): each ``_CAST_ONCE`` leaf not already in the
+        activation dtype replaced by its copy in that dtype (the live copy
+        of that master leaf where a served tree holds one, else a new
+        one), every other leaf the master itself. The masters are not
+        modified."""
+        dtype = getattr(torch, self.cfg.dtype)
+        copies = []
+
+        def cast(leaf):
+            if leaf.dtype == dtype:
+                return leaf
+            with _copies_lock:
+                refs = _copies.setdefault(leaf, {})
+                out = refs[dtype]() if dtype in refs else None
+                if out is None:
+                    out = leaf.detach().to(dtype)
+                    refs[dtype] = weakref.ref(out)
+            copies.append(out)
+            return out
+
+        def walk(node, name):
+            if isinstance(node, dict):
+                names = _CAST_ONCE.get(name, ())
+                return {k: cast(v) if k in names
+                        and isinstance(v, torch.Tensor) else walk(v, k)
+                        for k, v in node.items()}
+            if isinstance(node, (tuple, list)):
+                return type(node)(walk(v, name) for v in node)
+            return node
+
+        tree = walk(params, "")
+        return ServedParams(tree, sum(t.numel() * t.element_size()
+                                      for t in copies), len(copies))
+
+
+# The weights that the serving steps read only through ``.to(<activation
+# dtype>)``, by the key of the dict that holds them ("" the root):
+# attention's and MLA's projections, the dense MLP's and the experts' (a
+# MoE layer's shared experts under "shared"), the untied head. Every other
+# leaf is read as it is or in fp32: norms, the router (``route`` reads it
+# ``.float()``), the embedding table (scaled before its cast) and with it
+# a tied head. The training step casts at each use: gradients flow to the
+# masters.
+_CAST_ONCE = {
+    "": ("head",),
+    "attn": ("wq", "wk", "wv", "wo", "w_dkv", "w_uk", "w_uv"),
+    "self_attn": ("wq", "wk", "wv", "wo"),
+    "cross_attn": ("wq", "wk", "wv", "wo"),
+    "mlp": ("wg", "wu", "wd"),
+    "moe": ("wg", "wu", "wd"),
+    "shared": ("wg", "wu", "wd"),
+}
+
+# master leaf -> {dtype: weak reference to its copy}: every engine over one
+# master tree binds one copy, freed with the last tree that holds it
+_copies = WeakIdKeyDictionary()
+_copies_lock = threading.Lock()
+
+
+@dataclasses.dataclass(frozen=True)
+class ServedParams:
+    """A served tree, and the bytes and number of its cast copies."""
+    tree: Any
+    cast_bytes: int
+    cast_leaves: int
 
 
 class _MetaDraws(torch.Generator):

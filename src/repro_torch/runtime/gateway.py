@@ -117,11 +117,14 @@ def serve_example(model: Model, params, n_slots: int, max_len: int,
     duplicate KV-cache set (the reference keeps abstract values for the
     same reason).
     (params, caches, tokens (n_slots, 1), pos (n_slots,)) plus the
-    (n_slots, max_len // page_size) block tables on a paged engine."""
+    (n_slots, max_len // page_size) block tables on a paged engine. The
+    params are those an engine serves (``Model.serving_params`` of the
+    masters ``params``), so configure's warm-up runs on zeros of the
+    served dtypes."""
     meta = torch.device("meta")
     caches = lm.make_paged_caches(model.cfg, cache_pages, page_size, meta) \
         if paged else lm.make_decode_caches(model.cfg, n_slots, max_len, meta)
-    example = [meta_inputs(params), caches,
+    example = [model.serving_params(meta_inputs(params)).tree, caches,
                torch.empty((n_slots, 1), dtype=torch.int32, device=meta),
                torch.empty((n_slots,), dtype=torch.int32, device=meta)]
     if paged:
@@ -179,7 +182,8 @@ class ServingGateway:
         self.program_fingerprint = entry.fingerprint
         hv._log("gateway_up", model=model.cfg.name, n_slots=n_slots,
                 fingerprint=entry.fingerprint, compile_s=dt, cache_hit=hit,
-                paged=paged)
+                paged=paged, cast_once_bytes=self.engine.cast_once_bytes,
+                cast_once_leaves=self.engine.cast_once_leaves)
 
     # ------------------------------------------------------------------
     # Tenant sessions

@@ -487,6 +487,12 @@ class BatchingEngine:
     over buffers it keeps for its whole life: the caches, tokens
     (n_slots, 1), positions (n_slots,) and, paged, the block tables
     (n_slots, max_blocks).
+
+    ``params`` are the masters; the engine serves ``Model.serving_params``
+    of them (``self.params``): its matmul weights cast once to the compute
+    dtype, shared with every other engine over the same masters, whose
+    bytes and number are ``cast_once_bytes`` and ``cast_once_leaves`` (0
+    where every weight is in the compute dtype already).
     """
 
     # contexts shorter than this prefill through the decode step; longer
@@ -511,7 +517,11 @@ class BatchingEngine:
             raise ValueError(f"unknown prefill_mode {prefill_mode!r}")
         self.model = model
         self.device = model.dev
-        self.params = params
+        # bound into the decode and prefill graphs in place of the masters
+        served = model.serving_params(params)
+        self.params = served.tree
+        self.cast_once_bytes = served.cast_bytes
+        self.cast_once_leaves = served.cast_leaves
         self.n_slots = n_slots
         self.max_len = max_len
         self.eos_id = eos_id

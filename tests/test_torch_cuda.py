@@ -836,7 +836,8 @@ def test_gateway_configure_frees_its_warm_up(cuda, paged):
     the example's shapes: a zero copy of every weight and of the whole KV
     cache, for a moment, and the capture of a graph on them, dropped with
     them. Once the gateway stands, the card holds only the engine's own
-    weights and caches, plus a little slack (the warm-up's logits and the
+    weights (the masters, and its bf16 copies of the matmul weights) and
+    caches, plus a little slack (the warm-up's logits and the
     allocator's rounding; cuBLAS's workspaces, which the allocator keeps,
     one for each stream, are taken before the baseline: the current
     stream's and the capture stream's)."""
@@ -863,9 +864,9 @@ def test_gateway_configure_frees_its_warm_up(cuda, paged):
                       for st in gw.engine.caches
                       for f in ((st,) if isinstance(st, dict) else st)
                       for t in f.values())
+    held = cache_bytes + gw.engine.cast_once_bytes
     grown = torch.cuda.memory_allocated() - base
-    assert cache_bytes <= grown <= cache_bytes + (16 << 20), \
-        (grown, cache_bytes)
+    assert held <= grown <= held + (16 << 20), (grown, held)
     gw.close()
 
 
@@ -1818,6 +1819,36 @@ def test_engine_replay_matches_a_direct_call(cuda, paged, dtype, kv_quant):
     counts = eng._greedy.counts()
     assert counts == dict(graphs=1, captures=1, replays=len(got) - 1,
                           evictions=0)
+
+
+@pytest.mark.cuda
+def test_engine_serves_the_cast_once_weights(cuda):
+    """A paged bf16 engine over fp32 masters binds bf16 copies of its
+    matmul weights into its graphs; every replayed step's ids equal an
+    eager ``decode_paged`` on the masters (cast at each use), and its
+    token logs equal those of an engine bound to the masters."""
+    from repro_torch.runtime import BatchingEngine
+    cfg, model, params = _graph_model(cuda)
+    assert params["final_norm"].dtype == torch.float32
+    kw = dict(n_slots=4, max_len=128, paged=True, page_size=16)
+    eng = BatchingEngine(model, params, **kw)
+    # wq, wk, wv, wo, wg, wu, wd, each stacked over the layers (tied: no
+    # head)
+    assert eng.cast_once_leaves == 7
+    wq = eng.params["stages"][0]["attn"]["wq"]
+    assert wq.dtype == torch.bfloat16
+    assert torch.equal(wq, params["stages"][0]["attn"]["wq"].to(wq.dtype))
+    assert eng.params["final_norm"] is params["final_norm"]
+    prompts = _graph_prompts(cfg.vocab_size)
+    reqs = [eng.submit(p, max_new_tokens=12) for p in prompts]
+    got = _replay_against_direct(eng, params, cuda)
+    assert eng.run_until_idle()
+    assert got and all(same for same, _ in got)
+    masters = BatchingEngine(model, params, **kw)
+    masters.params = params
+    want = [masters.submit(p, max_new_tokens=12) for p in prompts]
+    assert masters.run_until_idle()
+    assert [r.out_tokens for r in reqs] == [r.out_tokens for r in want]
 
 
 @pytest.mark.cuda
